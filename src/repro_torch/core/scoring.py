@@ -1,0 +1,193 @@
+"""Pool-scoring engine (``repro.core.scoring``) — MCAL's per-iteration
+scoring pass.
+
+The pool is padded into ``(n_microbatches, microbatch, ...)`` with the
+reference's pow2 bucketing (:func:`pack_shape`) and swept microbatch by
+microbatch: model forward, then the head fused into :class:`ScoreStats`
+(margin / entropy / max-logprob / top1).  On a CUDA device the head goes
+through the hand-written ``margin_head`` kernel; on the CPU it follows the
+reference's rule (dense logits when V <= 4096, else vocab chunks).  The
+same sweep emits the pooled last-hidden features that k-center consumes,
+left on the device.
+
+:func:`score_pool_reference` keeps the host loop the reference validates
+its engine against.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ScoreStats
+
+
+def next_pow2(n: int) -> int:
+    """The pow2 bucketing primitive shared by the scoring engine and
+    ``selection_device.k_center_greedy_device``."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def pack_shape(n: int, microbatch: int) -> Tuple[int, int]:
+    """The pow2 microbatch bucketing for an ``n``-row pool: ``(n_mb, mb)``
+    with ``n_mb * mb >= n``."""
+    if n >= microbatch:
+        mb = microbatch
+        n_mb = next_pow2(math.ceil(n / mb))
+    else:
+        mb = max(next_pow2(n), 8)
+        n_mb = 1
+    return n_mb, mb
+
+
+def uncertainty_from_stats(stats: ScoreStats, metric: str) -> torch.Tensor:
+    """Higher = more uncertain, on the stats' device (the twin of
+    ``selection.uncertainty_scores``)."""
+    if metric == "margin":
+        return -stats.margin
+    if metric == "entropy":
+        return stats.entropy
+    if metric == "least_confidence":
+        return 1.0 - torch.exp(stats.max_logprob)
+    raise ValueError(f"unknown uncertainty metric {metric!r}")
+
+
+def head_stats(hidden: torch.Tensor, w_head: torch.Tensor, *,
+               mode: str = "auto", vocab_chunk: int = 8192) -> ScoreStats:
+    """Vocab projection + ScoreStats for last-token hidden states.
+
+    ``hidden``: (T, D); ``w_head``: (D, V).  ``mode``:
+      dense    materialize (T, V) logits (exact reference; small V),
+      chunked  online top-2/logsumexp over vocab chunks,
+      kernel   the ``margin_head`` kernel (its plain version on the CPU),
+      auto     the kernel on a CUDA device; on the CPU dense when V fits
+               comfortably, else chunked.
+    """
+    V = w_head.shape[-1]
+    if mode == "auto":
+        if hidden.device.type != "cpu":
+            mode = "kernel"
+        else:
+            mode = "dense" if V <= 4096 else "chunked"
+    if mode == "dense":
+        return L.score_stats_from_logits(hidden @ w_head)
+    if mode == "chunked":
+        return L.chunked_score_stats(hidden, w_head, chunk=vocab_chunk)
+    if mode == "kernel":
+        return ops.score_head(hidden, w_head)
+    raise ValueError(f"unknown head mode {mode!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoringConfig:
+    microbatch: int = 1024
+    head_mode: str = "auto"        # auto | dense | chunked | kernel
+    vocab_chunk: int = 8192
+
+
+class PoolScoringEngine:
+    """Microbatched pool scorer for one model (feature classifiers:
+    ``(N, input_dim)`` float pools)."""
+
+    def __init__(self, model, cfg: ScoringConfig = ScoringConfig(),
+                 device="cuda"):
+        if model.cfg.family != "mlp":
+            raise NotImplementedError("only feature classifiers are ported")
+        self.model = model
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    def _microbatch_stats(self, params, x) -> Tuple[ScoreStats, torch.Tensor]:
+        hidden = self.model.forward(params, {"features": x})
+        h = hidden[:, -1, :].float()
+        w = params["cls_head"].float()
+        stats = head_stats(h, w, mode=self.cfg.head_mode,
+                           vocab_chunk=self.cfg.vocab_chunk)
+        return stats, h
+
+    def _pack(self, pool_x) -> Tuple[torch.Tensor, int]:
+        """Pad the pool to a power-of-two microbatch count and fold it into
+        (n_mb, mb, ...)."""
+        x = torch.as_tensor(pool_x, dtype=torch.float32, device=self.device)
+        n = x.shape[0]
+        n_mb, mb = pack_shape(n, self.cfg.microbatch)
+        pad = n_mb * mb - n
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        return x.reshape((n_mb, mb) + tuple(x.shape[1:])), n
+
+    @torch.no_grad()
+    def score_pages(self, params, xs) -> Tuple[ScoreStats, torch.Tensor]:
+        """Score a packed ``(n_mb, mb, ...)`` pool: PACKED statistics and
+        features (padding rows included)."""
+        stats, feats = [], []
+        for x in xs:
+            s, h = self._microbatch_stats(params, x)
+            stats.append(s)
+            feats.append(h)
+        return (ScoreStats(*(torch.cat(f) for f in zip(*stats))),
+                torch.cat(feats))
+
+    def score(self, params, pool_x) -> Tuple[ScoreStats, torch.Tensor]:
+        """Score the whole pool: ScoreStats and (N, D) last-hidden features
+        on the device, trimmed to the true pool size."""
+        xs, n = self._pack(pool_x)
+        stats, feats = self.score_pages(params, xs)
+        return L.map_stats(lambda a: a[:n], stats), feats[:n]
+
+    def pool_features(self, params, pool_x) -> torch.Tensor:
+        """(N, D) pooled last-hidden features on the device, from the same
+        sweep as :meth:`score` — k-center consumes them there."""
+        return self.score(params, pool_x)[1]
+
+    def score_host(self, params, pool_x) -> Tuple[ScoreStats, np.ndarray]:
+        """:meth:`score` fetched to host numpy (the task-facade boundary)."""
+        stats, feats = self.score(params, pool_x)
+        return (L.map_stats(lambda a: a.cpu().numpy(), stats),
+                feats.cpu().numpy())
+
+    def top_k(self, params, pool_x, k: int,
+              metric: str = "margin") -> np.ndarray:
+        """Indices (into ``pool_x`` rows) of the k most uncertain samples,
+        most-uncertain-first; among equal scores the lower index first
+        (the rule ``lax.top_k`` follows — a stable sort keeps it)."""
+        xs, n = self._pack(pool_x)
+        k = min(k, n)
+        if k <= 0:
+            return np.zeros((0,), np.int64)
+        stats, _ = self.score_pages(params, xs)
+        scores = uncertainty_from_stats(stats, metric)
+        valid = torch.arange(scores.shape[0], device=scores.device) < n
+        scores = torch.where(valid, scores, -torch.inf)
+        order = torch.sort(scores, descending=True, stable=True).indices
+        return order[:k].cpu().numpy().astype(np.int64)
+
+    def rank_confident(self, params, pool_x,
+                       metric: str = "margin") -> np.ndarray:
+        """Full pool ordering most-confident-first (L(.)); scores from the
+        device sweep, the stable argsort on the host."""
+        stats, _ = self.score(params, pool_x)
+        scores = uncertainty_from_stats(stats, metric).cpu().numpy()
+        return np.argsort(scores, kind="stable")
+
+
+def score_pool_reference(model, params, pool_x, chunk: int = 2048,
+                         device="cuda") -> Tuple[ScoreStats, np.ndarray]:
+    """The seed host loop: chunked forward, logits to the host per chunk,
+    statistics at the end.  Exact; the engine's oracle."""
+    w = params["cls_head"].float()
+    outs, feats = [], []
+    pool = np.asarray(pool_x)
+    with torch.no_grad():
+        for lo in range(0, pool.shape[0], chunk):
+            x = torch.as_tensor(pool[lo:lo + chunk], device=device)
+            hidden = model.forward(params, {"features": x})
+            outs.append((hidden.float() @ w)[:, -1].cpu().numpy())
+            feats.append(hidden[:, -1].float().cpu().numpy())
+    stats = L.score_stats_from_logits(torch.as_tensor(np.concatenate(outs)))
+    return (L.map_stats(lambda a: a.numpy(), stats), np.concatenate(feats))

@@ -1,0 +1,1 @@
+from repro_torch.data.synth import make_classification  # noqa: F401

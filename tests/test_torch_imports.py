@@ -1,0 +1,54 @@
+"""The PyTorch port imports neither JAX nor anything of the JAX package,
+and switches TF32 off (checked in one fresh interpreter)."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import torch
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({
+    "modules": names,
+    "foreign": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "repro")),
+    "tf32": [torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32]}))
+"""
+
+
+@pytest.fixture(scope="module")
+def probe():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_no_reference(probe):
+    assert probe["foreign"] == []
+
+
+def test_every_ported_module_was_imported(probe):
+    want = {"repro_torch.core.mcal", "repro_torch.core.task",
+            "repro_torch.core.scoring", "repro_torch.core.selection_device",
+            "repro_torch.kernels.ops", "repro_torch.kernels.margin_head",
+            "repro_torch.kernels.pairwise_dist", "repro_torch.kernels.build",
+            "repro_torch.training.fit_device", "repro_torch.models.convert",
+            "repro_torch.data.synth"}
+    assert want <= set(probe["modules"])
+
+
+def test_tf32_is_off_after_import(probe):
+    assert probe["tf32"] == [False, False]
