@@ -45,6 +45,15 @@ def pack_shape(n: int, microbatch: int) -> Tuple[int, int]:
     return n_mb, mb
 
 
+def resolve_head_weight(cfg, params) -> torch.Tensor:
+    """The (D, V) scoring-head matrix for any model family: the explicit
+    classifier head when present, otherwise the (possibly tied) LM head."""
+    if "cls_head" in params:
+        return params["cls_head"]
+    from repro_torch.models.transformer import lm_head_weight
+    return lm_head_weight(cfg, params)
+
+
 def uncertainty_from_stats(stats: ScoreStats, metric: str) -> torch.Tensor:
     """Higher = more uncertain, on the stats' device (the twin of
     ``selection.uncertainty_scores``)."""

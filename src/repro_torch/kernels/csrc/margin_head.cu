@@ -9,19 +9,27 @@
 // What bounds it: it reads T*D + D*V inputs and writes 4*T outputs, and
 // does 2*T*D*V flops.  On the main path (T = 2048, D = 64, V = 10) that is
 // well under a microsecond of either bytes or operations on an H100, so
-// the launch itself is the cost.  For a large V the product makes it
-// compute-bound.
+// the launch itself is the cost.  On the LM scoring path (T = 8 requests,
+// D = 2560, V = 32000, fp32) the bound is reading W, 328 MB, about 0.1 ms;
+// but 8 rows make one block, so one SM streams all of W and the kernel runs
+// far above its bound.  Splitting V across blocks is left to a later
+// change.
 //
 // Design.  The TPU grid carries the online state across a sequential V
-// axis; here one warp owns one row and walks V inside the block.  The
-// block stages its ROWS rows of `hidden` and a (D, BV) tile of W in shared
-// memory (fp32, converted on load from bf16 when the inputs are bf16).
-// Each lane takes the columns lane, lane + 32, ... of each tile in
-// increasing order, computes the logit with fp32 FMAs in a fixed order
-// (d = 0 .. D-1; no tensor cores, so no TF32), and folds it into its own
-// online state (m, s, u, v1, v2, i1) with a strict `>`, which keeps the
-// first index.  Warp shuffles then merge the 32 lane states; on equal v1
-// the smaller index wins, the first-occurrence rule of the TPU kernel.
+// axis; here one warp owns one row and walks V inside the block, one tile
+// of BV columns at a time.  Any D is taken: within a tile the block walks D
+// in chunks of DC, staging the (ROWS, DC) slice of `hidden` and the (DC, BV)
+// slice of W in shared memory (fp32, converted on load from bf16 when the
+// inputs are bf16), so shared memory stays at (ROWS + BV) * DC floats
+// whatever D is.  Each lane owns the columns lane and lane + 32 of a tile
+// and keeps their partial logits in registers across the D chunks, adding
+// with fp32 FMAs in a fixed order (d = 0 .. D-1; no tensor cores, so no
+// TF32).  At the end of the tile it folds them, in increasing column
+// order, into its own online state (m, s, u, v1, v2, i1) with a strict `>`,
+// which keeps the first index.  Warp shuffles then merge the 32 lane
+// states; on equal v1 the smaller index wins, the first-occurrence rule of
+// the TPU kernel.  `hidden` is read again for every tile; it is small
+// (ROWS * D per block) and stays in L2.
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,7 +37,8 @@
 namespace {
 
 constexpr int ROWS = 8;            // warps per block, one row each
-constexpr int BV = 64;             // W columns staged per tile
+constexpr int BV = 64;             // W columns per tile, two per lane
+constexpr int DC = 128;            // D values staged per chunk
 constexpr int THREADS = ROWS * 32;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -85,32 +94,38 @@ margin_head_kernel(const T* __restrict__ h, const T* __restrict__ w,
                    float* __restrict__ margin, float* __restrict__ entropy,
                    float* __restrict__ max_logprob, int* __restrict__ top1,
                    int n_rows, int D, int V) {
-  extern __shared__ float smem[];
-  float* hs = smem;              // (ROWS, D)
-  float* ws = smem + ROWS * D;   // (D, BV)
+  __shared__ float hs[ROWS * DC];   // (ROWS, DC) slice of hidden
+  __shared__ float ws[DC * BV];     // (DC, BV) slice of W
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.x * ROWS;
   const int row = row0 + warp;
-
-  for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
-    const int r = row0 + i / D;
-    hs[i] = r < n_rows ? to_f32(h[(size_t)r * D + i % D]) : 0.0f;
-  }
   State st{NEG_INF, 0.0f, 0.0f, NEG_INF, NEG_INF, INT_MAX};
-  const float* hrow = hs + warp * D;
+  const float* hrow = hs + warp * DC;
 
   for (int v0 = 0; v0 < V; v0 += BV) {
-    __syncthreads();  // hs staged / the previous W tile consumed
-    for (int i = threadIdx.x; i < D * BV; i += THREADS) {
-      const int d = i / BV, col = v0 + i % BV;
-      ws[i] = col < V ? to_f32(w[(size_t)d * V + col]) : 0.0f;
+    float acc0 = 0.0f, acc1 = 0.0f;  // logits of columns v0 + lane, + 32
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      const int dc = min(DC, D - d0);
+      __syncthreads();  // the previous chunk consumed
+      for (int i = threadIdx.x; i < ROWS * DC; i += THREADS) {
+        const int r = row0 + i / DC, d = i % DC;
+        hs[i] = (r < n_rows && d < dc)
+                    ? to_f32(h[(size_t)r * D + d0 + d]) : 0.0f;
+      }
+      for (int i = threadIdx.x; i < DC * BV; i += THREADS) {
+        const int d = i / BV, col = v0 + i % BV;
+        ws[i] = (d < dc && col < V) ? to_f32(w[(size_t)(d0 + d) * V + col])
+                                    : 0.0f;
+      }
+      __syncthreads();
+      for (int d = 0; d < dc; ++d) {
+        const float x = hrow[d];
+        acc0 = fmaf(x, ws[d * BV + lane], acc0);
+        acc1 = fmaf(x, ws[d * BV + lane + 32], acc1);
+      }
     }
-    __syncthreads();
-    for (int j = lane; j < BV && v0 + j < V; j += 32) {
-      float x = 0.0f;
-      for (int d = 0; d < D; ++d) x = fmaf(hrow[d], ws[d * BV + j], x);
-      push(st, x, v0 + j);
-    }
+    if (v0 + lane < V) push(st, acc0, v0 + lane);
+    if (v0 + lane + 32 < V) push(st, acc1, v0 + lane + 32);
   }
 
   for (int off = 16; off > 0; off >>= 1) {
@@ -137,15 +152,8 @@ template <typename T>
 int launch(const void* h, const void* w, void* margin, void* entropy,
            void* max_logprob, void* top1, int n_rows, int D, int V,
            void* stream) {
-  const size_t smem = sizeof(float) * (size_t)(ROWS + BV) * D;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        margin_head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int blocks = (n_rows + ROWS - 1) / ROWS;
-  margin_head_kernel<T><<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  margin_head_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)h, (const T*)w, (float*)margin, (float*)entropy,
       (float*)max_logprob, (int*)top1, n_rows, D, V);
   return (int)cudaGetLastError();
@@ -165,10 +173,4 @@ extern "C" int margin_head_bf16(const void* h, const void* w, void* margin,
                                 int n_rows, int D, int V, void* stream) {
   return launch<__nv_bfloat16>(h, w, margin, entropy, max_logprob, top1,
                                n_rows, D, V, stream);
-}
-
-// The largest D the kernel takes: (ROWS + BV) * D fp32 values of shared
-// memory must fit the 227 KB a block can use.
-extern "C" int margin_head_max_d() {
-  return (227 * 1024) / (int)(sizeof(float) * (ROWS + BV));
 }

@@ -17,22 +17,17 @@ from repro_torch.kernels import build
 launches = 0
 
 _SYMBOLS = {torch.float32: "margin_head_f32", torch.bfloat16: "margin_head_bf16"}
-
-
 _fns = {}
 
 
 def _fn(dtype: torch.dtype):
-    """(the C entry point for ``dtype``, the largest D it takes)."""
+    """The C entry point for ``dtype``, typed on first use."""
     if dtype not in _fns:
-        lib = build.load("margin_head")
-        fn = getattr(lib, _SYMBOLS[dtype])
+        fn = getattr(build.load("margin_head"), _SYMBOLS[dtype])
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.margin_head_max_d.argtypes = []
-        lib.margin_head_max_d.restype = ctypes.c_int
-        _fns[dtype] = (fn, int(lib.margin_head_max_d()))
+        _fns[dtype] = fn
     return _fns[dtype]
 
 
@@ -56,9 +51,9 @@ def margin_head(hidden: torch.Tensor, w_vocab: torch.Tensor
         raise ValueError("margin_head takes contiguous inputs")
     T, D = hidden.shape
     V = w_vocab.shape[1]
-    fn, max_d = _fn(hidden.dtype)
-    if D > max_d:
-        raise ValueError(f"margin_head takes D <= {max_d}, got {D}")
+    if max(T, D, V) >= 2**31:
+        raise ValueError(f"margin_head: ({T}, {D}, {V}) is too large")
+    fn = _fn(hidden.dtype)
     dev = hidden.device
     outs = (torch.empty(T, dtype=torch.float32, device=dev),
             torch.empty(T, dtype=torch.float32, device=dev),

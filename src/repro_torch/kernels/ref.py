@@ -6,11 +6,12 @@ on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import score_stats_from_logits
+from repro_torch.models.layers import online_attention, score_stats_from_logits
+from repro_torch.models import mamba2
 
 
 def margin_head_ref(hidden: torch.Tensor, w_vocab: torch.Tensor
@@ -31,3 +32,37 @@ def pairwise_sqdist_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     c2 = torch.sum(c * c, dim=-1)
     g = x @ c.T
     return torch.clamp(x2[:, None] - 2.0 * g + c2[None, :], min=0.0)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None,
+                        kv_chunk: Optional[int] = None) -> torch.Tensor:
+    """Head-major q (B, H, Tq, hd), k/v (B, Hk, Tk, hd) -> (B, H, Tq, hd).
+
+    The online softmax over kv chunks of ``kv_chunk`` keys (default
+    min(1024, Tk), as the reference's ``ref.flash_attention_ref``), with the
+    TPU kernel's masks: ``window`` applies with or without ``causal``.  (The
+    reference's jnp oracle, ``layers.blockwise_attention``, applies it only
+    under ``causal``; no model calls a window without ``causal``.)"""
+    Tk = k.shape[2]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+
+    def visible(q_pos, k_pos):
+        ok = (k_pos < Tk)[None, :].expand(q_pos.shape[0], -1)
+        if causal:
+            ok = ok & (q_pos[:, None] >= k_pos[None, :])
+        if window > 0:
+            ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
+        return ok
+
+    out = online_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale,
+        kv_chunk=kv_chunk or min(1024, Tk), q_offset=0, visible=visible)
+    return out.transpose(1, 2)
+
+
+def ssd_scan_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
+    """The chunked SSD scan: ``mamba2.ssd_chunked`` (the kernel's oracle in
+    the reference)."""
+    return mamba2.ssd_chunked(xh, dt, A, Bm, Cm, chunk)

@@ -1,0 +1,79 @@
+"""Mamba2 SSD chunked scan: the CUDA kernel ``csrc/ssd_scan.cu`` (the port
+of ``repro.kernels.ssd_scan``).
+
+``ssd_scan(xh, dt, A, Bm, Cm, chunk=...)`` launches the kernel on CUDA
+tensors and raises on anything it does not take;
+:func:`repro_torch.kernels.ref.ssd_scan_ref` is its plain version.
+``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0
+
+_SYMBOLS = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
+_fns = {}
+
+
+def _fn(dtype: torch.dtype):
+    """The C entry point for ``dtype``, typed on first use."""
+    if dtype not in _fns:
+        fn = getattr(build.load("ssd_scan"), _SYMBOLS[dtype])
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[dtype] = fn
+    return _fns[dtype]
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xh: (B, T, H, hd) fp32 or bf16; dt: (B, T, H), A: (H,), Bm/Cm:
+    (B, T, N), fp32; all contiguous on one CUDA device.  Returns
+    (y (B, T, H, hd) in xh's dtype, h_final (B, H, hd, N) fp32), with chunks
+    of min(chunk, T) steps (T padded with dt = 0 inside the kernel)."""
+    global launches
+    ins = (xh, dt, A, Bm, Cm)
+    if not (xh.is_cuda and all(t.device == xh.device for t in ins)):
+        raise ValueError("ssd_scan: all inputs must be on one CUDA device, "
+                         f"got {[str(t.device) for t in ins]}")
+    if xh.dtype not in _SYMBOLS or any(t.dtype != torch.float32
+                                       for t in ins[1:]):
+        raise TypeError("ssd_scan takes xh in fp32 or bf16 and dt, A, Bm, "
+                        f"Cm in fp32, got {[t.dtype for t in ins]}")
+    if xh.ndim != 4:
+        raise ValueError(f"ssd_scan: bad xh shape {tuple(xh.shape)}")
+    B, T, H, hd = xh.shape
+    N = Bm.shape[-1] if Bm.ndim == 3 else -1
+    if dt.shape != (B, T, H) or A.shape != (H,) or \
+            Bm.shape != (B, T, N) or Cm.shape != (B, T, N) or chunk < 1:
+        raise ValueError(f"ssd_scan: bad shapes {[tuple(t.shape) for t in ins]}"
+                         f" or chunk {chunk}")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("ssd_scan takes contiguous inputs")
+    if B * H >= 2**31 or B * T * H * hd >= 2**62:
+        raise ValueError(f"ssd_scan: {tuple(xh.shape)} is too large")
+    y = torch.empty_like(xh)
+    hfin = torch.empty((B, H, hd, N), dtype=torch.float32, device=xh.device)
+    if B * H * T == 0:
+        return y, hfin.zero_()
+    C = min(chunk, T)
+    fn = _fn(xh.dtype)
+    with torch.cuda.device(xh.device):
+        stream = torch.cuda.current_stream(xh.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in ins), y.data_ptr(), hfin.data_ptr(),
+                 B, T, H, hd, N, C, stream)
+    if err != 0:
+        # error 1 (invalid value) includes a chunk too large for shared
+        # memory: see csrc/ssd_scan.cu for the bytes a launch needs
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
+                           f"(chunk {C}, N {N}, hd {hd})")
+    launches += 1
+    return y, hfin

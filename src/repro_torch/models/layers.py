@@ -1,15 +1,23 @@
-"""Shared layers (``repro.models.layers``): norms, the scoring statistics
-behind MCAL's M(.)/L(.), and the classification loss.
+"""Shared layers (``repro.models.layers``): norms, rotary embeddings,
+attention, MLPs, the scoring statistics behind MCAL's M(.)/L(.), and the
+classification loss.
 
 Tie rule: ``top1`` is ``torch.argmax``, which returns the first maximal
 index — the rule ``lax.top_k`` follows.  ``torch.topk`` promises no order
 among ties, so it is used for the top-2 VALUES only.
+
+Matrix products whose reference asks for fp32 results
+(``preferred_element_type=jnp.float32``) upcast their operands and multiply
+in fp32 (TF32 is off); a bf16 x bf16 product is exact in fp32, so this is
+the reference's arithmetic.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import ParamSpec
@@ -49,14 +57,189 @@ def apply_norm(cfg: ModelConfig, params: Dict, x: torch.Tensor
     return rmsnorm(x, params["scale"])
 
 
-def norm_specs(cfg: ModelConfig) -> Dict:
+def norm_specs(cfg: ModelConfig, stacked: int = 0) -> Dict:
     # rmsnorm multiplies by (1 + scale), so its scale starts at zero
-    spec = {"scale": ParamSpec((cfg.d_model,),
+    lead = (stacked,) if stacked else ()
+    spec = {"scale": ParamSpec(lead + (cfg.d_model,),
                                init="zeros" if cfg.norm == "rmsnorm"
-                               else "ones")}
+                               else "ones", dtype=torch.float32)}
     if cfg.norm == "layernorm":
-        spec["bias"] = ParamSpec((cfg.d_model,), init="zeros")
+        spec["bias"] = ParamSpec(lead + (cfg.d_model,), init="zeros",
+                                 dtype=torch.float32)
     return spec
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., T, H, hd); positions: broadcastable to (..., T).  Rotates
+    the two halves of hd (not interleaved pairs), as the reference does."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
+    angles = positions[..., :, None].float() * freqs           # (..., T, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# blockwise (flash-style) attention — plain torch, a loop over kv chunks
+# ---------------------------------------------------------------------------
+
+
+def pick_kv_chunk(batch: int, t_q: int, heads: int,
+                  budget_bytes: float = 2e9, dp: int = 16) -> int:
+    """KV-chunk length keeping the per-chunk f32 score tensor
+    (B/dp, Tq, H, ckv) under ``budget_bytes`` (the reference's rule, kept
+    so that the port chunks as the reference does)."""
+    per_col = max(batch / dp, 1) * t_q * heads * 4
+    ck = budget_bytes / max(per_col, 1)
+    ck = 2 ** int(max(math.log2(max(ck, 128)), 7))
+    return int(min(ck, 1024, max(t_q, 128)))
+
+
+MaskFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     scale: float, kv_chunk: int, q_offset: int,
+                     visible: MaskFn) -> torch.Tensor:
+    """Online-softmax attention over kv chunks of ``kv_chunk`` keys, in the
+    model layout: q (B, Tq, H, hd), k/v (B, Tk, Hk, hd), H % Hk == 0 (GQA
+    reads kv head h // G).  ``visible(q_pos, k_pos)`` -> (Tq, ck) bool.
+
+    The reference's arithmetic: q scaled in its own dtype, scores and the
+    (m, l, o) state in fp32, a masked score is -1e30 (not -inf), p is cast
+    to v's dtype before the PV product, and l is clamped at 1e-30.  The
+    last chunk is padded with zero keys, as the reference pads it, so even
+    a row that sees no key comes out as the reference's does."""
+    B, Tq, H, hd = q.shape
+    Tk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    qg = (q * scale).reshape(B, Tq, Hk, G, hd).float()
+    q_pos = q_offset + torch.arange(Tq, device=q.device)
+    o = torch.zeros((B, Tq, Hk, G, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, Tq, Hk, G), NEG_INF, device=q.device)
+    l = torch.zeros((B, Tq, Hk, G), device=q.device)
+    for base in range(0, max(Tk, 1), kv_chunk):
+        kc = k[:, base:base + kv_chunk].float()
+        vc = v[:, base:base + kv_chunk]
+        if kc.shape[1] < kv_chunk:   # zero keys past Tk, as the reference
+            pad = (0, 0, 0, 0, 0, kv_chunk - kc.shape[1])
+            kc, vc = F.pad(kc, pad), F.pad(vc, pad)
+        k_pos = base + torch.arange(kv_chunk, device=q.device)
+        s = torch.einsum("btkgh,bskh->btkgs", qg, kc)
+        ok = visible(q_pos, k_pos)
+        s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("btkgs,bskh->btkgh", p.to(v.dtype).float(),
+                          vc.float())
+        o = o * corr[..., None] + pv
+        m = m_new
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Tq, H, hd).to(q.dtype)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, kv_chunk: int = 1024,
+                        scale: Optional[float] = None,
+                        kv_start: int = 0) -> torch.Tensor:
+    """Flash-style attention, O(Tq * kv_chunk) memory.
+
+    q: (B, Tq, H, hd); k, v: (B, Tk, Hk, hd) with H % Hk == 0.
+    ``q_offset`` is the absolute position of q[0]; keys at positions <
+    ``kv_start`` are masked.  As in the reference, ``window`` applies only
+    when ``causal`` is set (the TPU kernel applies it either way; see
+    ``kernels.ref.flash_attention_ref``).
+    """
+    Tk = k.shape[1]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+
+    def visible(q_pos, k_pos):
+        ok = ((k_pos < Tk) & (k_pos >= kv_start))[None, :].expand(
+            q_pos.shape[0], -1)
+        if causal:
+            ok = ok & (q_pos[:, None] >= k_pos[None, :])
+            if window > 0:
+                ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
+        return ok
+
+    return online_attention(q, k, v, scale=scale, kv_chunk=kv_chunk,
+                            q_offset=q_offset, visible=visible)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_len: Union[torch.Tensor, int], window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention over a KV cache: q (B, 1, H, hd); k/v
+    (B, S, Hk, hd); keys at positions >= ``kv_len`` are masked."""
+    B, _, H, hd = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = scale if scale is not None else hd ** -0.5
+    qg = (q * scale).reshape(B, Hk, G, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k.float())
+    pos = torch.arange(S, device=q.device)
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int64,
+                             device=q.device).broadcast_to((B,))
+    valid = pos[None, :] < kv_len[:, None]
+    if window > 0:
+        valid = valid & (pos[None, :] >= (kv_len - window)[:, None])
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(cfg: ModelConfig, stacked: int = 0,
+              d_ff: Optional[int] = None) -> Dict:
+    d_ff = d_ff or cfg.d_ff
+    lead = (stacked,) if stacked else ()
+    bf16 = torch.bfloat16
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16),
+            "w_up": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16),
+            "w_down": ParamSpec(lead + (d_ff, cfg.d_model), dtype=bf16),
+        }
+    return {
+        "w_up": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16),
+        "b_up": ParamSpec(lead + (d_ff,), init="zeros", dtype=bf16),
+        "w_down": ParamSpec(lead + (d_ff, cfg.d_model), dtype=bf16),
+        "b_down": ParamSpec(lead + (cfg.d_model,), init="zeros", dtype=bf16),
+    }
+
+
+def apply_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        h = F.silu(g.float()).to(x.dtype) * u
+        return h @ p["w_down"]
+    h = x @ p["w_up"] + p["b_up"]
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ p["w_down"] + p["b_down"]
 
 
 # ---------------------------------------------------------------------------

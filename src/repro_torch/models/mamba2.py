@@ -1,0 +1,197 @@
+"""Mamba2 (SSD — state-space duality) blocks (``repro.models.mamba2``).
+
+``ssd_chunked`` is the chunked SSD algorithm in plain torch: the oracle of
+the ``ssd_scan`` kernel and its CPU path.  The blocks call
+``kernels.ops.ssd``, which runs the kernel on a CUDA tensor.  As in the
+reference, the short causal conv is applied to the x stream only and
+n_groups == 1.  Inference only: no gradients, no remat.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.param import ParamSpec
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.
+
+    xh: (B, T, H, hd)   inputs per head
+    dt: (B, T, H)       positive step sizes
+    A:  (H,)            positive decay rates (a_t = exp(-dt * A))
+    Bm: (B, T, N)       input projections (shared across heads)
+    Cm: (B, T, N)       output projections
+    h0: (B, H, hd, N)   optional initial state
+    Returns (y (B, T, H, hd) in xh's dtype, h_final (B, H, hd, N) fp32).
+    """
+    Bsz, T, H, hd = xh.shape
+    N = Bm.shape[-1]
+    chunk = min(chunk, T)
+    T0 = T
+    pad = (-T) % chunk
+    if pad:  # exact: dt = 0 padding gives unit decay and no state update
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        T = T + pad
+    nc = T // chunk
+
+    la = (-(dt * A)).reshape(Bsz, nc, chunk, H)              # log a_t
+    cum = torch.cumsum(la, dim=2)                            # l_t (inclusive)
+    xd = (xh * dt[..., None]).reshape(Bsz, nc, chunk, H, hd)
+    Bc = Bm.reshape(Bsz, nc, chunk, N).float()
+    Cc = Cm.reshape(Bsz, nc, chunk, N).float()
+
+    # intra-chunk: Y[t] = sum_{s<=t} (C_t.B_s) exp(l_t - l_s) x_s, the
+    # upper triangle masked before the exp
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,t,s,H)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))
+    Lmat = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                 -torch.inf))
+    scores = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    W = scores[..., None] * Lmat                             # (B,nc,t,s,H)
+    y_intra = torch.einsum("bctsh,bcshd->bcthd", W.to(xd.dtype).float(),
+                           xd.float())
+
+    # chunk summaries: S_c = sum_s exp(l_last - l_s) x_s (x) B_s
+    decay_end = torch.exp(cum[:, :, -1:, :] - cum)           # (B,nc,chunk,H)
+    S = torch.einsum("bcsh,bcshd,bcsn->bchdn",
+                     decay_end.to(xd.dtype).float(), xd.float(),
+                     Bc.to(xd.dtype).float())
+    gamma = torch.exp(cum[:, :, -1, :])                      # (B,nc,H)
+
+    # inter-chunk recurrence over the nc chunks; h_prev[c] = H_{c-1}
+    h = torch.zeros((Bsz, H, hd, N), dtype=torch.float32, device=xh.device) \
+        if h0 is None else h0.float()
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = gamma[:, c, :, None, None] * h + S[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                      # (B,nc,H,hd,N)
+
+    y_inter = torch.einsum("bctn,bchdn->bcthd", Cc, h_prev)
+    y_inter = y_inter * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, T, H, hd)
+    if pad:
+        y = y[:, :T0]
+    return y.to(xh.dtype), h
+
+
+def ssd_decode(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               Bm: torch.Tensor, Cm: torch.Tensor, h: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD update.  xh: (B, H, hd); dt: (B, H); Bm/Cm: (B, N);
+    h: (B, H, hd, N)."""
+    a = torch.exp(-(dt * A)).float()                         # (B, H)
+    upd = torch.einsum("bhd,bn->bhdn", (xh * dt[..., None]).float(),
+                       Bm.float())
+    h_new = a[..., None, None] * h.float() + upd
+    y = torch.einsum("bhdn,bn->bhd", h_new, Cm.float())
+    return y.to(xh.dtype), h_new
+
+
+# ---------------------------------------------------------------------------
+# mamba2 block
+# ---------------------------------------------------------------------------
+
+
+def block_specs(cfg: ModelConfig, nl: int) -> Dict:
+    D, di = cfg.d_model, cfg.ssm_d_inner
+    H, N, K = cfg.ssm_num_heads, cfg.ssm_state, cfg.ssm_conv_kernel
+    bf16, f32 = torch.bfloat16, torch.float32
+    return {
+        "norm": L.norm_specs(cfg, stacked=nl),
+        "w_z": ParamSpec((nl, D, di), dtype=bf16),
+        "w_x": ParamSpec((nl, D, di), dtype=bf16),
+        "w_B": ParamSpec((nl, D, N), dtype=bf16),
+        "w_C": ParamSpec((nl, D, N), dtype=bf16),
+        "w_dt": ParamSpec((nl, D, H), dtype=bf16),
+        "conv_w": ParamSpec((nl, K, di), dtype=bf16, scale=0.5),
+        "A_log": ParamSpec((nl, H), init="zeros", dtype=f32),
+        "dt_bias": ParamSpec((nl, H), init="zeros", dtype=f32),
+        "D_skip": ParamSpec((nl, H), init="ones", dtype=f32),
+        "gate_norm": ParamSpec((nl, di), init="zeros", dtype=f32),
+        "w_out": ParamSpec((nl, di, D), dtype=bf16),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv.  x: (B, T, C); w: (K, C)."""
+    K = w.shape[0]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        out = out + xp[:, i:i + x.shape[1], :].float() * w[i].float()
+    return out.to(x.dtype)
+
+
+def _split_heads(cfg: ModelConfig, xc: torch.Tensor) -> torch.Tensor:
+    B, T, _ = xc.shape
+    return xc.reshape(B, T, cfg.ssm_num_heads, cfg.ssm_head_dim)
+
+
+def _in_proj(p: Dict, xn: torch.Tensor):
+    """z, x, B, C (fp32) and dt (fp32, softplus) from the normed input."""
+    Bm = (xn @ p["w_B"]).float()
+    Cm = (xn @ p["w_C"]).float()
+    dt = F.softplus((xn @ p["w_dt"]).float() + p["dt_bias"])
+    return xn @ p["w_z"], xn @ p["w_x"], Bm, Cm, dt
+
+
+def mamba_block_with_state(cfg: ModelConfig, p: Dict, x: torch.Tensor
+                           ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence mamba2 block: x (B, T, D) -> (out (B, T, D),
+    {"ssm": final state (B, H, hd, N) fp32, "conv": last K-1 inputs})."""
+    xn = L.apply_norm(cfg, p["norm"], x)
+    z, xs, Bm, Cm, dt = _in_proj(p, xn)
+    xc = F.silu(_causal_conv(xs, p["conv_w"]).float()).to(x.dtype)
+    xh = _split_heads(cfg, xc)
+    A = torch.exp(p["A_log"])
+    y, h_fin = ops.ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    y = y + xh * p["D_skip"][None, None, :, None].to(x.dtype)
+    y = y.reshape(x.shape[0], x.shape[1], cfg.ssm_d_inner)
+    y = L.rmsnorm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"])
+    out = x + y @ p["w_out"]
+    K = cfg.ssm_conv_kernel
+    return out, {"ssm": h_fin.float(), "conv": xs[:, -(K - 1):, :]}
+
+
+def mamba_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence mamba2 block: x (B, T, D) -> (B, T, D)."""
+    return mamba_block_with_state(cfg, p, x)[0]
+
+
+def mamba_block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                       state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Single-token mamba2 block.  x: (B, 1, D);
+    state = {"ssm": (B, H, hd, N), "conv": (B, K-1, di)}."""
+    xn = L.apply_norm(cfg, p["norm"], x)[:, 0]               # (B, D)
+    z, xs, Bm, Cm, dt = _in_proj(p, xn)
+    # conv over the K-1 cached inputs + the new one
+    hist = torch.cat([state["conv"], xs[:, None, :]], dim=1)  # (B, K, di)
+    xc = torch.einsum("bkc,kc->bc", hist.float(), p["conv_w"].float())
+    xc = F.silu(xc).to(x.dtype)
+    xh = xc.reshape(-1, cfg.ssm_num_heads, cfg.ssm_head_dim)
+    A = torch.exp(p["A_log"])
+    y, h_new = ssd_decode(xh, dt, A, Bm, Cm, state["ssm"])
+    y = y + xh * p["D_skip"][None, :, None].to(x.dtype)
+    y = y.reshape(x.shape[0], cfg.ssm_d_inner)
+    y = L.rmsnorm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"])
+    out = x + (y @ p["w_out"])[:, None, :]
+    return out, {"ssm": h_new, "conv": hist[:, 1:, :]}

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,11 +22,14 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"        # normal (stddev 1/sqrt(fan_in)) | zeros | ones
+    init: str = "normal"        # normal | zeros | ones
     dtype: Any = torch.float32
+    scale: Optional[float] = None  # stddev; None -> 1/sqrt(fan_in)
 
 
 def _stddev(spec: ParamSpec) -> float:
+    if spec.scale is not None:
+        return spec.scale
     # fan_in is every dim but the last, as in the reference (a stacked
     # (L, d, d) leaf counts L * d)
     fan_in = int(np.prod(spec.shape[:-1])) if len(spec.shape) > 1 \
@@ -74,3 +77,23 @@ def init_params(specs: Dict, seed: int,
                    * _stddev(spec)).to(spec.dtype)
         out[path] = arr.to(device)
     return out
+
+
+def nest(flat: Dict[str, Any]) -> Dict:
+    """Flat ``{"a.b": v}`` -> nested ``{"a": {"b": v}}`` (the same values,
+    no copies): the tree the model functions index as the reference does."""
+    tree: Dict = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, name = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = value
+    return tree
+
+
+def tree_map(fn, tree):
+    """``fn`` over every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)

@@ -46,7 +46,12 @@ def test_every_ported_module_was_imported(probe):
             "repro_torch.kernels.ops", "repro_torch.kernels.margin_head",
             "repro_torch.kernels.pairwise_dist", "repro_torch.kernels.build",
             "repro_torch.training.fit_device", "repro_torch.models.convert",
-            "repro_torch.data.synth"}
+            "repro_torch.data.synth", "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssd_scan", "repro_torch.models.layers",
+            "repro_torch.models.mamba2", "repro_torch.models.transformer",
+            "repro_torch.models.hybrid", "repro_torch.models.registry",
+            "repro_torch.configs.zamba2_2p7b",
+            "repro_torch.serving.engine", "repro_torch.launch.serve"}
     assert want <= set(probe["modules"])
 
 

@@ -10,10 +10,12 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels.margin_head import margin_head as jmargin_head
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import margin_head as mh
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_dist as pd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd
 
 MH_GRID = [(128, 64, 512, 64, 256), (200, 48, 1000, 64, 128),
            (65, 32, 257, 32, 128), (256, 128, 4096, 128, 512)]
@@ -73,12 +75,20 @@ def test_pairwise_plain_exact_on_integer_grid():
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
-    """No hidden fallback: the kernel wrappers take CUDA tensors only, and
+    """No hidden fallback: every kernel wrapper takes CUDA tensors only, and
     a refused call counts no launch."""
     h, w = torch.zeros(4, 8), torch.zeros(8, 3)
-    before = (mh.launches, pd.launches)
+    q = torch.zeros(1, 2, 8, 16)
+    mods = (mh, pd, fa, ssd)
+    before = [m.launches for m in mods]
     with pytest.raises(ValueError, match="CUDA"):
         mh.margin_head(h, w)
     with pytest.raises(ValueError, match="CUDA"):
         pd.pairwise_sqdist(h, torch.zeros(5, 8))
-    assert (mh.launches, pd.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan(torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2),
+                     torch.zeros(2), torch.zeros(1, 8, 3),
+                     torch.zeros(1, 8, 3))
+    assert [m.launches for m in mods] == before

@@ -8,13 +8,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import margin_head as mh
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_dist as pd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd
 
 MH_GRID = [(2048, 64, 10), (128, 64, 512), (200, 48, 1000), (65, 32, 257),
-           (256, 128, 4096)]
+           (256, 128, 4096), (8, 2560, 32000), (64, 2560, 32000)]
 PD_GRID = [(65536, 512, 64), (5, 3, 4), (64, 16, 8), (130, 9, 33),
            (257, 128, 16)]
 
@@ -64,3 +66,79 @@ def test_pairwise_kernel_matches_plain_on_card(N, M, D):
     xi, ci = (torch.round(3 * t) for t in (x, c))
     assert torch.equal(ops.pairwise_sqdist(xi, ci),
                        ref.pairwise_sqdist_ref(xi, ci))
+
+
+# the JAX package's grids (tests/test_kernels.py), then zamba2-2.7b's
+# serving shapes at batch 1 (the kernel's work per (b, h) does not change
+# with the batch)
+FA_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
+           (2, 8, 2, 64, 64, 32, True, 24), (1, 2, 1, 50, 130, 16, False, 0),
+           (1, 6, 3, 33, 77, 8, True, 0), (1, 2, 1, 70, 70, 16, False, 24),
+           (1, 32, 32, 2048, 2048, 80, True, 0)]
+SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
+            (2, 64, 8, 32, 64, 64), (1, 256, 4, 64, 128, 128),
+            (1, 2048, 80, 64, 64, 128), (2, 50, 3, 16, 8, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window", FA_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_on_card(B, H, Hk, Tq, Tk, hd,
+                                                       causal, window, dtype):
+    _need_card()
+    rng = np.random.default_rng(Tq + Tk)
+    td = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                               device="cuda").to(td)
+               for s in ((B, H, Tq, hd), (B, Hk, Tk, hd), (B, Hk, Tk, hd)))
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    # the JAX package's tolerances: fp32 5e-4, bf16 3e-2
+    tol = 5e-4 if dtype == "float32" else 3e-2
+    assert got.shape == want.shape and got.dtype == td
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,N,C", SSD_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_matches_plain_on_card(B, T, H, hd, N, C, dtype):
+    _need_card()
+    rng = np.random.default_rng(T + H)
+    dev = "cuda"
+    xh = torch.as_tensor(rng.normal(size=(B, T, H, hd)).astype(np.float32),
+                         device=dev).to(getattr(torch, dtype))
+    dt = torch.as_tensor((np.abs(rng.normal(size=(B, T, H))) * 0.5 + 0.01)
+                         .astype(np.float32), device=dev)
+    A = torch.as_tensor((np.abs(rng.normal(size=(H,))) * 0.5 + 0.1)
+                        .astype(np.float32), device=dev)
+    Bm, Cm = (torch.as_tensor(rng.normal(size=(B, T, N)).astype(np.float32),
+                              device=dev) for _ in range(2))
+    before = ssd.launches
+    y, h = ops.ssd(xh, dt, A, Bm, Cm, chunk=C)
+    assert ssd.launches == before + 1
+    yr, hr = ref.ssd_scan_ref(xh, dt, A, Bm, Cm, chunk=C)
+    # fp32: the JAX package's 2e-3.  bf16 xh: both round y from fp32 to
+    # bf16, and fp32 sums in another order can round it one bf16 step
+    # apart (at most 2^-7 relative), so y is held at rtol 2e-3 + 2^-7; the
+    # state stays fp32 and keeps 2e-3
+    assert y.dtype == xh.dtype and h.dtype == torch.float32
+    rtol = 2e-3 if dtype == "float32" else 2e-3 + 2 ** -7
+    torch.testing.assert_close(y.float(), yr.float(), atol=2e-3, rtol=rtol)
+    torch.testing.assert_close(h, hr, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_they_do_not_take_on_card():
+    _need_card()
+    q = torch.zeros(1, 2, 8, 24, device="cuda")
+    with pytest.raises(ValueError, match="hd"):
+        fa.flash_attention(q, q, q)
+    x = torch.zeros(1, 8, 2, 8, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, torch.zeros(1, 8, 2, device="cuda"),
+                     torch.zeros(2, device="cuda"),
+                     torch.zeros(1, 8, 4, device="cuda"),
+                     torch.zeros(1, 8, 4, device="cuda"))
