@@ -6,10 +6,14 @@
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (one
-   nvcc per source, all started together).
+   nvcc per source, all started together), and counts the tensor-core
+   (HMMA) instructions of ``flash_attention`` and ``ssd_scan`` in their
+   SASS: none fails the run.
 3. Holds each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and the JAX package's test grids, and after the main
-   paths again at every shape they gave it.
+   main paths' shapes, the JAX package's test grids and the tile edges of
+   the kernels, and after the main paths again at every shape they gave
+   it; and the per-chunk states ``ssd_scan`` leaves in its scratch against
+   the plain three-pass split (``ref.ssd_scan_passes_ref``).
 4. Runs two MCAL campaigns through the port's entry points
    (``run_mcal(LiveTask(...))``), one with the margin M(.) and one with
    k-center, on ``make_classification(50_000, 10 classes, dim 32)`` — the
@@ -29,7 +33,10 @@
    version and (where one PyTorch call computes the same function) that
    call, with CUDA events: the median of 30 single-call timings after a
    warm-up, host launch gaps included.  The profiler's CUDA trace gives the
-   device time alone (``device_ms``, ``plain_device_ms``).  The bound is
+   device time alone (``device_ms``, ``plain_device_ms``,
+   ``library_device_ms``), summed over every launch whose name carries the
+   kernel's prefix, and each launch's own (``ssd_scan``'s three passes,
+   ``device_ms_by_launch``).  The bound is
    the larger of the bytes the function must move over 3.35 TB/s and its
    flops over the peak for the inputs' type: 67 TFLOP/s for fp32 (no
    tensor cores), 989 TFLOP/s for bf16 (tensor cores), H100 SXM
@@ -85,11 +92,13 @@ def median_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel: str, reps: int = 20):
+def device_ms(torch, fn, kernel: str, reps: int = 20, by_name=None):
     """Device time per call from the profiler's CUDA trace: the kernel's
-    own time (names containing ``kernel``) and all device time (what the
+    own time (names containing ``kernel``, which every launch of a
+    multi-launch kernel shares as a prefix) and all device time (what the
     call's launches take on the card, host gaps excluded).  None where the
-    trace holds no device events."""
+    trace holds no device events.  ``by_name``, a dict, collects the time
+    per call of each of the kernel's launches by name."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -105,9 +114,22 @@ def device_ms(torch, fn, kernel: str, reps: int = 20):
         total += t
         if kernel in e.key:
             own += t
+            if by_name is not None:
+                by_name[e.key] = t / reps / 1e3
     if total == 0.0:
         return None, None
     return own / reps / 1e3, total / reps / 1e3
+
+
+def tensor_core_instructions(nvcc: str, lib: Path) -> int:
+    """How many HMMA (tensor-core) instructions the library's SASS holds,
+    from the toolkit's cuobjdump beside nvcc; -1 where it is missing."""
+    tool = Path(nvcc).with_name("cuobjdump")
+    if not tool.exists():
+        return -1
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S):
@@ -199,13 +221,22 @@ def check_pairwise(torch, np, pd, ref, cases, int_cases=()):
 
 
 # the JAX package's grid (tests/test_kernels.py:40-46), a window without
-# causal, and zamba2-2.7b's serving shape: (B, H, Hk, Tq, Tk, hd, causal,
-# window)
+# causal, zamba2-2.7b's serving shape, and the tile edges of the kernel: Tq
+# and Tk off its 128-row query and 64-key tiles, GQA group 4, windows that
+# cross a tile border, hd 8 padded to the mma's k = 16: (B, H, Hk, Tq, Tk,
+# hd, causal, window)
 FLASH_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
               (2, 8, 2, 64, 64, 32, True, 24),
               (1, 2, 1, 50, 130, 16, False, 0), (1, 6, 3, 33, 77, 8, True, 0),
               (1, 2, 1, 70, 70, 16, False, 24),
-              (8, 32, 32, 2048, 2048, 80, True, 0)]
+              (8, 32, 32, 2048, 2048, 80, True, 0),
+              (1, 4, 1, 129, 129, 80, True, 0),
+              (2, 8, 2, 200, 333, 16, True, 0),
+              (2, 8, 2, 200, 333, 16, False, 0),
+              (1, 8, 2, 256, 256, 80, True, 0),
+              (1, 4, 2, 300, 300, 32, True, 100),
+              (1, 2, 1, 190, 190, 80, False, 70),
+              (2, 4, 2, 150, 150, 8, True, 0)]
 
 
 def flash_inputs(torch, np, case, dtype, seed=3):
@@ -243,11 +274,13 @@ def check_flash(torch, np, fa, ref, cases):
     return worst
 
 
-# the JAX package's grid (tests/test_kernels.py:61-66) and zamba2-2.7b's
-# serving shape: (B, T, H, hd, N, chunk)
+# the JAX package's grid (tests/test_kernels.py:61-66), zamba2-2.7b's
+# serving shape, and the edges of the kernel's split: T off the chunk, one
+# chunk (C = T = 100), H off its group of 8 heads: (B, T, H, hd, N, chunk)
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
             (2, 64, 8, 32, 64, 64), (1, 256, 4, 64, 128, 128),
-            (8, 2048, 80, 64, 64, 128)]
+            (8, 2048, 80, 64, 64, 128), (2, 300, 4, 32, 64, 128),
+            (2, 100, 5, 16, 32, 128), (1, 256, 12, 64, 64, 64)]
 
 
 def ssd_inputs(torch, np, case, dtype, seed=4):
@@ -291,6 +324,23 @@ def check_ssd(torch, np, ssd, ref, cases):
                   f" state {herr:.3g} ok", flush=True)
             del ins, y, h, yr, hr
     return worst
+
+
+def check_ssd_states(torch, np, ssd, ref, case):
+    """The state each chunk starts from, which the kernel's inter-chunk
+    pass leaves in its scratch, against the plain three-pass split
+    (``ref.ssd_scan_passes_ref``) at the state's tolerance, 2e-3."""
+    ins = ssd_inputs(torch, np, case, torch.bfloat16)
+    _, _, h_in = ssd.ssd_scan_with_states(*ins, chunk=case[5])
+    _, _, h_in_r = ref.ssd_scan_passes_ref(*ins, chunk=case[5])
+    torch.cuda.synchronize()
+    err = float((h_in - h_in_r).abs().max())
+    if h_in.shape != h_in_r.shape or \
+            not bool(((h_in - h_in_r).abs() <= 2e-3 + 2e-3 * h_in_r.abs())
+                     .all()):
+        fail(f"ssd_scan chunk states at {case}: err {err}")
+    print(f"ssd_scan chunk states {case} {tuple(h_in.shape)}: max abs err "
+          f"{err:.3g} ok", flush=True)
 
 
 def record_shapes(mod, name: str, seen: set, key):
@@ -541,17 +591,25 @@ def profile_pass(torch, label: str, fn, top: int = 10):
 def timing_row(torch, name, shape, kern, plain, library, nbytes, flops,
                peak, own):
     b_ms, b_by = bound(nbytes, flops, peak)
+    passes = {}
     row = {"name": name, "shape": list(shape),
            "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
            "library_ms": None if library is None
            else median_ms(torch, library),
            "bound_ms": b_ms, "bound_by": b_by,
-           "device_ms": device_ms(torch, kern, own)[0],
-           "plain_device_ms": device_ms(torch, plain, own)[1]}
+           "device_ms": device_ms(torch, kern, own, by_name=passes)[0],
+           "plain_device_ms": device_ms(torch, plain, own)[1],
+           "library_device_ms": None if library is None
+           else device_ms(torch, library, own)[1]}
     print(f"time {name} {row['shape']}: kernel {row['ms']:.4f} ms "
           f"(device {row['device_ms']}), plain {row['plain_ms']:.4f} ms "
           f"(device {row['plain_device_ms']}), library {row['library_ms']} "
-          f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"ms (device {row['library_device_ms']}), bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    row["device_ms_by_launch"] = passes
+    for key, ms in passes.items():
+        print(f"time {name} {row['shape']} device ms by launch: {ms:.6f} "
+              f"{key[:100]}", flush=True)
     return row
 
 
@@ -608,7 +666,7 @@ def time_kernels(torch, np, mods, ref, shapes):
             q, k, v, is_causal=True)) if causal and not window and H == Hk
         else None,
         2 * (2 * B * H * Tq * hd + 2 * B * Hk * Tk * hd), 4 * hd * pairs,
-        BF16_FLOPS_PER_S, "flash_attention_kernel"))
+        BF16_FLOPS_PER_S, "flash_attention_"))
     del q, k, v
     case = shapes["ssd_scan"]
     B, T, H, hd, N, C = case
@@ -626,7 +684,7 @@ def time_kernels(torch, np, mods, ref, shapes):
     rows.append(timing_row(
         torch, "ssd_scan", case, lambda: ssd.ssd_scan(*ins, chunk=C),
         lambda: ref.ssd_scan_ref(*ins, chunk=C), None, nbytes, flops,
-        BF16_FLOPS_PER_S, "ssd_scan_kernel"))
+        BF16_FLOPS_PER_S, "ssd_scan_"))
     return rows
 
 
@@ -675,12 +733,21 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    # the redesigned kernels run on tensor cores: their SASS holds HMMA
+    for name in ("flash_attention", "ssd_scan"):
+        n = tensor_core_instructions(build.nvcc(), libs[name])
+        print(f"sass {name}: {n} HMMA instructions"
+              + (" (cuobjdump not found: not measured)" if n < 0 else ""),
+              flush=True)
+        if n == 0:
+            fail(f"{name} compiled to no tensor-core instruction")
 
     check_margin_head(torch, np, mh, ref, MARGIN_GRID[:5])
     check_margin_head(torch, np, mh, ref, MARGIN_GRID[5:], bf16=False)
     check_pairwise(torch, np, pd, ref, PAIRWISE_GRID, PAIRWISE_INT_GRID)
     check_flash(torch, np, fa, ref, FLASH_GRID)
     check_ssd(torch, np, ssd, ref, SSD_GRID)
+    check_ssd_states(torch, np, ssd, ref, SSD_GRID[4])
 
     # the shapes each main path gave each kernel
     seen_by = {p: {k: set() for k in mods} for p in ("campaigns", "serving")}
@@ -741,7 +808,10 @@ def main() -> None:
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
-            "plain_device_ms": r["plain_device_ms"], "shape": r["shape"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "device_ms_by_launch": r["device_ms_by_launch"],
+            "shape": r["shape"],
             "other_shapes": [{k: o[k] for k in ("shape", "ms", "device_ms",
                                                 "plain_ms", "bound_ms",
                                                 "bound_by")}

@@ -3,7 +3,8 @@ kernel ``csrc/flash_attention.cu`` (the port of
 ``repro.kernels.flash_attention``).
 
 ``flash_attention(q, k, v)`` launches the kernel on CUDA tensors and raises
-on anything it does not take;
+on anything it does not take: bf16 inputs go to the tensor-core kernel,
+fp32 inputs to the exact fp32-FMA kernel (the dtype selects);
 :func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version.
 ``launches`` counts kernel launches.
 """
@@ -71,6 +72,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "head dim")
     if B * H > 65535 or max(Tq, Tk) >= 2**31:
         raise ValueError(f"flash_attention: {tuple(q.shape)} is too large")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel copies 16-byte pieces of each row
+        q, k, v = (t if t.data_ptr() % 16 == 0
+                   and all(s % 8 == 0 for s in t.stride()[:3])
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     out = torch.empty((B, Tq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if B * H * Tq == 0:

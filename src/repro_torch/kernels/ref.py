@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers import online_attention, score_stats_from_logits
 from repro_torch.models import mamba2
@@ -66,3 +67,48 @@ def ssd_scan_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
     """The chunked SSD scan: ``mamba2.ssd_chunked`` (the kernel's oracle in
     the reference)."""
     return mamba2.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+
+
+def ssd_scan_passes_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
+    """The chunked SSD scan split as the CUDA kernel splits it: (a) each
+    chunk's summary S_c = sum_s exp(l_last - l_s) xd_s (x) B_s and its total
+    log decay l_last, (b) the walk h_c = exp(l_last,c) h_{c-1} + S_c over
+    the chunks, (c) each chunk's output from its incoming state,
+    y_t = sum_{s<=t} (C_t . B_s) exp(l_t - l_s) xd_s + exp(l_t) C_t . h_{c-1}.
+
+    Returns (y (B, T, H, hd) in xh's dtype, h_final (B, H, hd, N) fp32,
+    h_in (B, nc, H, hd, N) fp32, each chunk's incoming state)."""
+    Bsz, T, H, hd = xh.shape
+    N = Bm.shape[-1]
+    C = min(chunk, T)
+    nc = -(-T // C)
+    pad = nc * C - T   # exact: dt = 0 gives unit decay and no update
+    x = F.pad(xh.float(), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, C, H, hd)
+    dtc = F.pad(dt.float(), (0, 0, 0, pad)).reshape(Bsz, nc, C, H)
+    Bc, Cc = (F.pad(m.float(), (0, 0, 0, pad)).reshape(Bsz, nc, C, N)
+              for m in (Bm, Cm))
+    cum = torch.cumsum(-(dtc * A.float()), dim=2)            # l_t (B,nc,C,H)
+    xd = x * dtc[..., None]
+
+    # (a) chunk summaries
+    last = cum[:, :, -1]                                     # (B, nc, H)
+    dec = torch.exp(last[:, :, None] - cum)
+    S = torch.einsum("bcsh,bcshd,bcsn->bchdn", dec, xd, Bc)
+    # (b) the inter-chunk walk
+    h = torch.zeros((Bsz, H, hd, N), dtype=torch.float32, device=xh.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(last[:, c])[..., None, None] * h + S[:, c]
+    h_in = torch.stack(h_in, dim=1)
+    # (c) output: the intra-chunk term, masked before the exp, and the
+    # incoming state's
+    G = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    tril = torch.tril(torch.ones((C, C), dtype=torch.bool, device=xh.device))
+    W = G[..., None] * torch.exp(torch.where(
+        tril[None, None, :, :, None],
+        cum[:, :, :, None, :] - cum[:, :, None, :, :], -torch.inf))
+    y = torch.einsum("bctsh,bcshd->bcthd", W, xd) + torch.einsum(
+        "bcth,bctn,bchdn->bcthd", torch.exp(cum), Cc, h_in)
+    y = y.reshape(Bsz, nc * C, H, hd)[:, :T]
+    return y.to(xh.dtype), h, h_in

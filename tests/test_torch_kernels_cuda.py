@@ -70,14 +70,24 @@ def test_pairwise_kernel_matches_plain_on_card(N, M, D):
 
 # the JAX package's grids (tests/test_kernels.py), then zamba2-2.7b's
 # serving shapes at batch 1 (the kernel's work per (b, h) does not change
-# with the batch)
+# with the batch), then the tile edges of the kernels: Tq and Tk off the
+# 128-row query and 64-key tiles, GQA group 4, windows that cross a tile
+# border (with and without causal), hd 8 padded to the mma's k = 16
 FA_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
            (2, 8, 2, 64, 64, 32, True, 24), (1, 2, 1, 50, 130, 16, False, 0),
            (1, 6, 3, 33, 77, 8, True, 0), (1, 2, 1, 70, 70, 16, False, 24),
-           (1, 32, 32, 2048, 2048, 80, True, 0)]
+           (1, 32, 32, 2048, 2048, 80, True, 0),
+           (1, 4, 1, 129, 129, 80, True, 0), (2, 8, 2, 200, 333, 16, True, 0),
+           (2, 8, 2, 200, 333, 16, False, 0), (1, 8, 2, 256, 256, 80, True, 0),
+           (1, 4, 2, 300, 300, 32, True, 100),
+           (1, 2, 1, 190, 190, 80, False, 70), (2, 4, 2, 150, 150, 8, True, 0)]
+# likewise, then T off the chunk, one chunk (C = T = 100), H off the
+# kernel's group of 8 heads
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
             (2, 64, 8, 32, 64, 64), (1, 256, 4, 64, 128, 128),
-            (1, 2048, 80, 64, 64, 128), (2, 50, 3, 16, 8, 16)]
+            (1, 2048, 80, 64, 64, 128), (2, 50, 3, 16, 8, 16),
+            (2, 300, 4, 32, 64, 128), (2, 100, 5, 16, 32, 128),
+            (1, 256, 12, 64, 64, 64)]
 
 
 @pytest.mark.cuda
@@ -131,14 +141,43 @@ def test_ssd_scan_kernel_matches_plain_on_card(B, T, H, hd, N, C, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,N,C", [(2, 300, 12, 32, 64, 128),
+                                          (1, 2048, 80, 64, 64, 128)])
+def test_ssd_scan_chunk_states_match_plain_passes_on_card(B, T, H, hd, N, C):
+    """Each chunk's incoming state, which the kernel's inter-chunk pass
+    leaves in its scratch, against the plain three-pass split."""
+    _need_card()
+    rng = np.random.default_rng(T + H)
+    dev = "cuda"
+    xh = torch.as_tensor(rng.normal(size=(B, T, H, hd)).astype(np.float32),
+                         device=dev).bfloat16()
+    dt = torch.as_tensor((np.abs(rng.normal(size=(B, T, H))) * 0.5 + 0.01)
+                         .astype(np.float32), device=dev)
+    A = torch.as_tensor((np.abs(rng.normal(size=(H,))) * 0.5 + 0.1)
+                        .astype(np.float32), device=dev)
+    Bm, Cm = (torch.as_tensor(rng.normal(size=(B, T, N)).astype(np.float32),
+                              device=dev) for _ in range(2))
+    y, h, h_in = ssd.ssd_scan_with_states(xh, dt, A, Bm, Cm, chunk=C)
+    yr, hr, h_in_r = ref.ssd_scan_passes_ref(xh, dt, A, Bm, Cm, chunk=C)
+    assert h_in.shape == h_in_r.shape == (B, -(-T // C), H, hd, N)
+    torch.testing.assert_close(h_in, h_in_r, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(h, hr, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(y.float(), yr.float(), atol=2e-3,
+                               rtol=2e-3 + 2 ** -7)
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_they_do_not_take_on_card():
     _need_card()
     q = torch.zeros(1, 2, 8, 24, device="cuda")
     with pytest.raises(ValueError, match="hd"):
         fa.flash_attention(q, q, q)
     x = torch.zeros(1, 8, 2, 8, device="cuda", dtype=torch.float16)
+    rest = (torch.zeros(1, 8, 2, device="cuda"), torch.zeros(2, device="cuda"),
+            torch.zeros(1, 8, 4, device="cuda"),
+            torch.zeros(1, 8, 4, device="cuda"))
     with pytest.raises(TypeError):
-        ssd.ssd_scan(x, torch.zeros(1, 8, 2, device="cuda"),
-                     torch.zeros(2, device="cuda"),
-                     torch.zeros(1, 8, 4, device="cuda"),
-                     torch.zeros(1, 8, 4, device="cuda"))
+        ssd.ssd_scan(x, *rest)
+    # the kernel copies 16-byte pieces of each row of x
+    with pytest.raises(ValueError, match="hd"):
+        ssd.ssd_scan(torch.zeros(1, 8, 2, 12, device="cuda"), *rest)

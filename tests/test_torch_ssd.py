@@ -48,6 +48,34 @@ def test_plain_ssd_matches_pallas_and_oracle(B, T, H, hd, N, C):
                                    rtol=TOL)
 
 
+@pytest.mark.parametrize("B,T,H,hd,N,C", SSD_GRID)
+def test_passes_ref_matches_pallas_and_oracle(B, T, H, hd, N, C):
+    """The plain three-pass split (what the CUDA kernel computes: chunk
+    summaries, the inter-chunk walk, the output from each chunk's incoming
+    state) against the Pallas kernel and the port's one-pass plain scan;
+    each chunk's incoming state is the final state of the scan over the
+    steps before it."""
+    ins = _inputs(B, T, H, hd, N, T + N)
+    jins = [jnp.asarray(a) for a in ins]
+    yk, hk = jssd_scan(*jins, chunk=C, interpret=True)
+    tins = [torch.as_tensor(a) for a in ins]
+    y, h, h_in = ref.ssd_scan_passes_ref(*tins, chunk=C)
+    yr, hr = ref.ssd_scan_ref(*tins, chunk=C)
+    nc = -(-T // C)
+    assert h_in.shape == (B, nc, H, hd, N) and not h_in[:, 0].any()
+    for want_y, want_h in ((np.asarray(yk), np.asarray(hk)),
+                           (yr.numpy(), hr.numpy())):
+        np.testing.assert_allclose(y.numpy(), want_y, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(h.numpy(), want_h, atol=TOL, rtol=TOL)
+    if nc > 1:
+        T_last = (nc - 1) * C
+        _, h_prefix = jssd_scan(*(a[:, :T_last] for a in jins[:2]), jins[2],
+                                *(a[:, :T_last] for a in jins[3:]), chunk=C,
+                                interpret=True)
+        np.testing.assert_allclose(h_in[:, -1].numpy(), np.asarray(h_prefix),
+                                   atol=TOL, rtol=TOL)
+
+
 def test_ssd_with_initial_state_and_bf16_inputs_matches_jax():
     ins = _inputs(2, 40, 3, 8, 16, 7)
     h0 = np.random.default_rng(8).normal(size=(2, 3, 8, 16)).astype(
