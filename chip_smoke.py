@@ -7,13 +7,15 @@
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (one
    nvcc per source, all started together), and counts the tensor-core
-   (HMMA) instructions of ``flash_attention`` and ``ssd_scan`` in their
-   SASS: none fails the run.
+   (HMMA) instructions of ``flash_attention``, ``ssd_scan`` and
+   ``pairwise_dist`` in their SASS: none fails the run.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, the JAX package's test grids and the tile edges of
    the kernels, and after the main paths again at every shape they gave
-   it; and the per-chunk states ``ssd_scan`` leaves in its scratch against
-   the plain three-pass split (``ref.ssd_scan_passes_ref``).
+   it; the per-chunk states ``ssd_scan`` leaves in its scratch against
+   the plain three-pass split (``ref.ssd_scan_passes_ref``); and
+   ``margin_head`` on a maximal column copied into another slice (top1
+   the first copy, margin exactly 0).
 4. Runs two MCAL campaigns through the port's entry points
    (``run_mcal(LiveTask(...))``), one with the margin M(.) and one with
    k-center, on ``make_classification(50_000, 10 classes, dim 32)`` — the
@@ -25,7 +27,9 @@
    2,048 random tokens are scored (``score``, the fp32 LM head through
    ``margin_head``), and 32 tokens are generated greedily; the first equals
    the argmax of the forward pass's last logits.  Prints init seconds,
-   prefill tokens/s, decode tokens/s, score rows/s and peak device memory.
+   prefill tokens/s, decode tokens/s, score rows/s and peak device memory;
+   profiles one score pass, one forward pass and one decode step, and
+   times the score pass's cast of the bf16 LM head to fp32.
 6. The kernels' launch counts are zeroed just before each main-path pass
    (each campaign; each serving pass) and read just after it; a kernel of
    a path that was never launched there fails the run.
@@ -36,11 +40,12 @@
    device time alone (``device_ms``, ``plain_device_ms``,
    ``library_device_ms``), summed over every launch whose name carries the
    kernel's prefix, and each launch's own (``ssd_scan``'s three passes,
-   ``device_ms_by_launch``).  The bound is
-   the larger of the bytes the function must move over 3.35 TB/s and its
-   flops over the peak for the inputs' type: 67 TFLOP/s for fp32 (no
-   tensor cores), 989 TFLOP/s for bf16 (tensor cores), H100 SXM
-   data-sheet peaks.
+   ``margin_head``'s slice and merge passes, ``device_ms_by_launch``).
+   The bound is the larger of the bytes the function must move over 3.35
+   TB/s and its flops over the peak for the work's type: 67 TFLOP/s for
+   fp32 on the CUDA cores, 989 TFLOP/s for bf16 on the tensor cores
+   (``flash_attention``, ``ssd_scan``, and ``pairwise_sqdist``'s three
+   bf16 products), H100 SXM data-sheet peaks.
 8. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
@@ -138,20 +143,24 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# the campaigns' shape, the JAX package's test grid, and the zamba2-2.7b
-# LM head at 8 and 64 requests
+# the campaigns' shape, the JAX package's test grid, the zamba2-2.7b LM
+# head at 8 and 64 requests, and the kernel's slice edges: V = 32000 +- 1
+# (off the 128-column slices and the 4-column vector loads), one request
 MARGIN_GRID = [(2048, 64, 10), (128, 64, 512), (200, 48, 1000),
                (65, 32, 257), (256, 128, 4096), (8, 2560, 32000),
-               (64, 2560, 32000)]
+               (64, 2560, 32000), (8, 2560, 31999), (8, 2560, 32001),
+               (1, 2560, 32000)]
+# (T, D, V, first, copy): each row's maximal column copied into a later
+# slice, far off and across one slice edge
+MARGIN_DUP_GRID = [(8, 2560, 32000, 7, 20000), (8, 2560, 32000, 127, 128)]
 
 
-def check_margin_head(torch, np, mh, ref, cases, bf16=True):
-    """Kernel vs plain at each (T, D, V), fp32 (and bf16); returns the max
+def check_margin_head(torch, np, mh, ref, cases):
+    """Kernel vs plain at each (T, D, V), fp32 and bf16; returns the max
     abs error in fp32."""
     rng = np.random.default_rng(0)
     worst = 0.0
-    dtypes = [(torch.float32, 5e-5)] + ([(torch.bfloat16, 5e-2)] if bf16
-                                        else [])
+    dtypes = [(torch.float32, 5e-5), (torch.bfloat16, 5e-2)]
     for T, D, V in cases:
         h32 = rng.normal(size=(T, D)).astype(np.float32)
         w32 = (rng.normal(size=(D, V)) * 0.1).astype(np.float32)
@@ -180,11 +189,45 @@ def check_margin_head(torch, np, mh, ref, cases, bf16=True):
     return worst
 
 
+def check_margin_ties(torch, np, mh, ref, cases):
+    """A maximal column and its copy in another slice: the kernel sums
+    every column in one order, so they tie exactly, top1 is the first and
+    the margin 0 (normal inputs); on integer inputs every logit is exact
+    and the plain version ties the same way."""
+    for T, D, V, first, copy in cases:
+        rng = np.random.default_rng(V + first)
+        for kind in ("normal", "integer"):
+            if kind == "integer":
+                h = rng.integers(1, 4, size=(T, D)).astype(np.float32)
+                w = rng.integers(-2, 3, size=(D, V)).astype(np.float32)
+                w[:, first] = w[:, copy] = 3.0
+            else:
+                h = np.abs(rng.normal(size=(T, D))).astype(np.float32)
+                w = (rng.normal(size=(D, V)) * 0.1).astype(np.float32)
+                w[:, first] = w[:, copy] = 1.0
+            h, w = (torch.as_tensor(a, device="cuda") for a in (h, w))
+            got, want = mh.margin_head(h, w), ref.margin_head_ref(h, w)
+            torch.cuda.synchronize()
+            if not (bool((got[3] == first).all())
+                    and bool((got[0] == 0).all())):
+                fail(f"margin_head tie at {(T, D, V, first, copy)} {kind}: "
+                     f"top1 {got[3].tolist()} margin {got[0].tolist()}")
+            if kind == "integer" and not torch.equal(got[3], want[3]):
+                fail(f"margin_head tie at {(T, D, V, first, copy)}: top1 "
+                     f"differs from the plain version's {want[3].tolist()}")
+            print(f"margin_head tie {(T, D, V, first, copy)} {kind}: top1 "
+                  f"{first}, margin 0 ok", flush=True)
+
+
 # N = the padded k-center pool of a 50,000-row campaign; M = pow2(|B|)
 # for |B| up to 4,096 anchors
+# then N and M off the kernel's 128 x 128 tiles, D off its 16-deep k steps,
+# and D over its 64-wide chunks (130: also off its 16-byte pieces)
 PAIRWISE_GRID = [(65536, m, 64) for m in (512, 1024, 2048, 4096)] + [
-    (130, 9, 33)]
-PAIRWISE_INT_GRID = [(1025, 17, 32), (300, 8, 2), (4099, 513, 64)]
+    (130, 9, 33), (65537, 2049, 64), (300, 130, 33), (300, 1100, 100),
+    (257, 140, 130)]
+PAIRWISE_INT_GRID = [(1025, 17, 32), (300, 8, 2), (4099, 513, 64),
+                     (513, 1100, 100)]
 
 
 def check_pairwise(torch, np, pd, ref, cases, int_cases=()):
@@ -449,6 +492,7 @@ def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
     """zamba2-2.7b, full config, bf16, through ServeEngine; returns the
     serving path's launch counts.  ``seen`` collects kernel shapes."""
     from repro_torch.configs import get_config
+    from repro_torch.core.scoring import resolve_head_weight
     from repro_torch.models.registry import get_model
     from repro_torch.serving.engine import ServeEngine
 
@@ -513,6 +557,15 @@ def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
         fail(f"serve score: bad stats {stats}")
     print(f"serve score margin {stats.margin.tolist()} top1 "
           f"{stats.top1.tolist()}", flush=True)
+    # the head's operand cast (the reference's w.astype(float32)): the
+    # bf16 lm_head read and an fp32 copy written, every score pass
+    w_head = resolve_head_weight(cfg, params)
+    cast_dev = device_ms(torch, lambda: w_head.float(), "")[1]
+    print(f"serve score head cast {tuple(w_head.shape)} {w_head.dtype} -> "
+          f"fp32: {median_ms(torch, lambda: w_head.float()):.4f} ms events, "
+          f"device {cast_dev} ms, bound "
+          f"{6 * w_head.numel() / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)",
+          flush=True)
 
     (_, cache, _), secs = counted(
         "prefill", lambda: engine.prefill({"tokens": tokens}),
@@ -548,9 +601,10 @@ def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
           f"{out[:, 0].tolist()} equal the forward argmax", flush=True)
     for r in restore:
         r()
-    # where the time goes: one forward pass and one decode step, profiled
-    # outside the counted passes
+    # where the time goes: one score pass, one forward pass and one decode
+    # step, profiled outside the counted passes
     batch_t = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    profile_pass(torch, "score", lambda: engine.score({"tokens": tokens}))
     profile_pass(torch, "forward", lambda: model.forward(params, batch_t))
     logits, cache, pos = engine.prefill({"tokens": tokens})
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
@@ -630,19 +684,20 @@ def time_kernels(torch, np, mods, ref, shapes):
             torch, "margin_head", (T, D, V), lambda: mh.margin_head(h, w),
             lambda: ref.margin_head_ref(h, w), None,
             4 * (T * D + D * V) + 16 * T, 2 * T * D * V + 6 * T * V,
-            FP32_FLOPS_PER_S, "margin_head_kernel"))
+            FP32_FLOPS_PER_S, "margin_head_"))
         del h, w
     N, M, D = shapes["pairwise_sqdist"]
     x = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
                         device="cuda")
     c = torch.as_tensor(rng.normal(size=(M, D)).astype(np.float32),
                         device="cuda")
+    # the bound's operations: x.c as three bf16 products on the tensor
+    # cores (the norms and the epilogue, O(N M + (N + M) D), are noise)
     rows.append(timing_row(
         torch, "pairwise_sqdist", (N, M, D), lambda: pd.pairwise_sqdist(x, c),
         lambda: ref.pairwise_sqdist_ref(x, c),
         lambda: torch.cdist(x, c).square(),
-        4 * (N * D + M * D + N * M),
-        2 * N * M * D + 2 * (N + M) * D + 3 * N * M, FP32_FLOPS_PER_S,
+        4 * (N * D + M * D + N * M), 3 * 2 * N * M * D, BF16_FLOPS_PER_S,
         "pairwise_sqdist_kernel"))
     del x, c
     case = shapes["flash_attention"]
@@ -734,7 +789,7 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     # the redesigned kernels run on tensor cores: their SASS holds HMMA
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "ssd_scan", "pairwise_dist"):
         n = tensor_core_instructions(build.nvcc(), libs[name])
         print(f"sass {name}: {n} HMMA instructions"
               + (" (cuobjdump not found: not measured)" if n < 0 else ""),
@@ -742,8 +797,8 @@ def main() -> None:
         if n == 0:
             fail(f"{name} compiled to no tensor-core instruction")
 
-    check_margin_head(torch, np, mh, ref, MARGIN_GRID[:5])
-    check_margin_head(torch, np, mh, ref, MARGIN_GRID[5:], bf16=False)
+    check_margin_head(torch, np, mh, ref, MARGIN_GRID)
+    check_margin_ties(torch, np, mh, ref, MARGIN_DUP_GRID)
     check_pairwise(torch, np, pd, ref, PAIRWISE_GRID, PAIRWISE_INT_GRID)
     check_flash(torch, np, fa, ref, FLASH_GRID)
     check_ssd(torch, np, ssd, ref, SSD_GRID)

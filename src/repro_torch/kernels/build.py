@@ -6,7 +6,8 @@ library with a plain C interface, loaded with ``ctypes``.  Builds go to
 the sources and flags, so a changed source rebuilds and an unchanged one is
 loaded as built.  All sources build at the first use of any kernel, one
 ``nvcc`` each, started together.  A failed build raises with nvcc's
-output; there is no fallback.
+output; there is no fallback.  :func:`call` runs an entry point on
+PyTorch's current stream of a tensor's device.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -84,3 +87,20 @@ def load(name: str) -> ctypes.CDLL:
         for n, path in build_all().items():
             _libs.setdefault(n, ctypes.CDLL(str(path)))
     return _libs[name]
+
+
+def stream(index: int) -> int:
+    """The raw handle of PyTorch's current CUDA stream on device ``index``,
+    read without building a Stream object (what Triton's launcher reads)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def call(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on PyTorch's current stream of the CUDA
+    ``device``, made the current device only where it is not already;
+    returns ``fn``'s CUDA error code (0 for success)."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, stream(index))

@@ -452,13 +452,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int Hk, int Tq, int Tk, float scale, int causal, int window,
                 cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<HD>();
-  static bool sized = false;  // the attribute is per kernel, set once
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_mma_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the attribute is per kernel and per device: set once on each device
+  static bool sized[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_mma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return (int)err;
-    sized = true;
+    sized[dev] = true;
   }
   const dim3 grid(B * H, (Tq + MBQ - 1) / MBQ);
   flash_attention_mma_kernel<HD><<<grid, 32 * WARPS, smem, stream>>>(

@@ -85,12 +85,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     scale = hd ** -0.5 if scale is None else float(scale)
-    fn = _fn(q.dtype)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 ctypes.addressof(strides), B, H, Hk, Tq, Tk, hd, scale,
-                 int(causal), int(window), stream)
+    err = build.call(_fn(q.dtype), q.device, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
+                     B, H, Hk, Tq, Tk, hd, scale, int(causal), int(window))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1

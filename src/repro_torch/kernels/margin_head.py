@@ -3,7 +3,10 @@ kernel ``csrc/margin_head.cu`` (the port of ``repro.kernels.margin_head``).
 
 ``margin_head(hidden, w)`` launches the kernel on CUDA tensors and raises
 on anything it does not take; :func:`repro_torch.kernels.ref.margin_head_ref`
-is its plain version.  ``launches`` counts kernel launches.
+is its plain version, and :func:`repro_torch.kernels.ref.margin_head_split_ref`
+the same function split over column slices as the kernel splits it.
+``launches`` counts wrapper calls that launched the kernel (one per call,
+also where V spans several slices and a merge launch follows).
 """
 from __future__ import annotations
 
@@ -16,26 +19,31 @@ from repro_torch.kernels import build
 
 launches = 0
 
+_MAX_SLICES = 65535     # the grid's slice dimension
 _SYMBOLS = {torch.float32: "margin_head_f32", torch.bfloat16: "margin_head_bf16"}
 _fns = {}
 
 
 def _fn(dtype: torch.dtype):
-    """The C entry point for ``dtype``, typed on first use."""
-    if dtype not in _fns:
-        fn = getattr(build.load("margin_head"), _SYMBOLS[dtype])
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    """The C entry point for ``dtype``, typed on first use, and the
+    kernel's slice width (W columns per block of its slice pass; V over
+    one slice adds the merge pass and its scratch)."""
+    got = _fns.get(dtype)
+    if got is None:
+        lib = build.load("margin_head")
+        fn = getattr(lib, _SYMBOLS[dtype])
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fns[dtype] = fn
-    return _fns[dtype]
+        got = _fns[dtype] = (fn, lib.margin_head_slice_cols())
+    return got
 
 
 def margin_head(hidden: torch.Tensor, w_vocab: torch.Tensor
                 ) -> Tuple[torch.Tensor, ...]:
     """hidden: (T, D); w_vocab: (D, V), both fp32 or both bf16, contiguous,
     on one CUDA device -> (margin, entropy, max_logprob) fp32 and top1
-    int32, each (T,)."""
+    int32, each (T,): views of one buffer."""
     global launches
     if not (hidden.is_cuda and w_vocab.device == hidden.device):
         raise ValueError("margin_head: both inputs must be on one CUDA "
@@ -51,20 +59,19 @@ def margin_head(hidden: torch.Tensor, w_vocab: torch.Tensor
         raise ValueError("margin_head takes contiguous inputs")
     T, D = hidden.shape
     V = w_vocab.shape[1]
-    if max(T, D, V) >= 2**31:
+    fn, slice_cols = _fn(hidden.dtype)
+    ns = -(-V // slice_cols)
+    if max(T, D) >= 2**31 or ns > _MAX_SLICES:
         raise ValueError(f"margin_head: ({T}, {D}, {V}) is too large")
-    fn = _fn(hidden.dtype)
-    dev = hidden.device
-    outs = (torch.empty(T, dtype=torch.float32, device=dev),
-            torch.empty(T, dtype=torch.float32, device=dev),
-            torch.empty(T, dtype=torch.float32, device=dev),
-            torch.empty(T, dtype=torch.int32, device=dev))
+    # the four outputs, then the per-slice states the merge pass folds
+    buf = torch.empty(4 * T + (6 * T * ns if ns > 1 else 0),
+                      dtype=torch.float32, device=hidden.device)
+    outs = (buf[:T], buf[T:2 * T], buf[2 * T:3 * T],
+            buf[3 * T:4 * T].view(torch.int32))
     if T == 0:
         return outs
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(hidden.data_ptr(), w_vocab.data_ptr(),
-                 *(o.data_ptr() for o in outs), T, D, V, stream)
+    err = build.call(fn, hidden.device, hidden.data_ptr(),
+                     w_vocab.data_ptr(), buf.data_ptr(), T, D, V)
     if err != 0:
         raise RuntimeError(f"margin_head launch failed: CUDA error {err}")
     launches += 1

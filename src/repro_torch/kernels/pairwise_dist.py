@@ -1,9 +1,11 @@
-"""Tiled pairwise squared-euclidean distances: the CUDA kernel
-``csrc/pairwise_dist.cu`` (the port of ``repro.kernels.pairwise_dist``).
+"""Tiled pairwise squared-euclidean distances on tensor cores: the CUDA
+kernel ``csrc/pairwise_dist.cu`` (the port of ``repro.kernels.pairwise_dist``).
 
 ``pairwise_sqdist(x, c)`` launches the kernel on CUDA tensors and raises on
 anything it does not take; :func:`repro_torch.kernels.ref.pairwise_sqdist_ref`
-is its plain version.  ``launches`` counts kernel launches.
+is its plain version, and :func:`repro_torch.kernels.ref.pairwise_sqdist_split_ref`
+the same function with x.c taken as the kernel takes it (bf16 hi + lo).
+``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -15,9 +17,7 @@ from repro_torch.kernels import build
 
 launches = 0
 
-_MAX_M = 65535 * 64    # the grid's column-tile dimension
-
-
+_MAX_N = 65535 * 128   # the grid's row-tile dimension
 _fns = []
 
 
@@ -49,15 +49,13 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise ValueError("pairwise_sqdist takes contiguous inputs")
     N, D = x.shape
     M = c.shape[0]
-    if M > _MAX_M or N >= 2**31:
+    if N > _MAX_N or M >= 2**31:
         raise ValueError(f"pairwise_sqdist: ({N}, {M}) is too large")
     out = torch.empty((N, M), dtype=torch.float32, device=x.device)
     if N == 0 or M == 0:
         return out
-    fn = _fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), c.data_ptr(), out.data_ptr(), N, M, D, stream)
+    err = build.call(_fn(), x.device, x.data_ptr(), c.data_ptr(),
+                     out.data_ptr(), N, M, D)
     if err != 0:
         raise RuntimeError(f"pairwise_sqdist launch failed: CUDA error {err}")
     launches += 1

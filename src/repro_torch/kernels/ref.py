@@ -11,7 +11,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import online_attention, score_stats_from_logits
+from repro_torch.models.layers import (NEG_INF, online_attention,
+                                       score_stats_from_logits)
 from repro_torch.models import mamba2
 
 
@@ -20,6 +21,61 @@ def margin_head_ref(hidden: torch.Tensor, w_vocab: torch.Tensor
     """(T, D) x (D, V) -> (margin, entropy, max_logprob, top1)."""
     stats = score_stats_from_logits(hidden.float() @ w_vocab.float())
     return (stats.margin, stats.entropy, stats.max_logprob, stats.top1)
+
+
+def _merge_states(a, b):
+    """The CUDA kernel's merge of two online states (m, s, u, v1, v2, i1):
+    symmetric, equal v1 going to the smaller index."""
+    am, as_, au, av1, av2, ai1 = a
+    bm, bs, bu, bv1, bv2, bi1 = b
+    m = torch.maximum(am, bm)
+    ca, cb = torch.exp(am - m), torch.exp(bm - m)
+    take_b = (bv1 > av1) | ((bv1 == av1) & (bi1 < ai1))
+    return (m, as_ * ca + bs * cb, au * ca + bu * cb,
+            torch.maximum(av1, bv1),
+            torch.maximum(torch.minimum(av1, bv1), torch.maximum(av2, bv2)),
+            torch.where(take_b, bi1, ai1))
+
+
+def margin_head_split_ref(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                          slice_cols: int) -> Tuple[torch.Tensor, ...]:
+    """``margin_head_ref`` split as the CUDA kernel splits it: the online
+    state (max m, sum of e^(x-m) s, sum of x e^(x-m) u, top-2 v1 >= v2,
+    first argmax i1) of each slice of ``slice_cols`` (>= 2) columns (the
+    kernel's slices are 128), then the slices folded in the merge pass's
+    order: 32 lanes each fold a contiguous run of slices in increasing
+    order, and the lanes are merged pairwise (lane ^ 16, ^ 8, ..., ^ 1).
+    The main path never calls it."""
+    x = hidden.float() @ w_vocab.float()
+    T, V = x.shape
+    ns = -(-V // slice_cols)
+    pad = ns * slice_cols - V
+    xs = F.pad(x, (0, pad), value=NEG_INF).reshape(T, ns, slice_cols)
+    valid = (torch.arange(ns * slice_cols, device=x.device) < V).reshape(
+        ns, slice_cols)
+    m = xs.max(dim=-1).values
+    e = torch.where(valid, torch.exp(xs - m[..., None]), 0.0)
+    top = torch.topk(xs, 2, dim=-1).values
+    i1 = torch.argmax(xs, dim=-1) + torch.arange(
+        ns, device=x.device) * slice_cols
+    states = (m, e.sum(-1), (torch.where(valid, xs, 0.0) * e).sum(-1),
+              top[..., 0], top[..., 1], i1)
+    # the merge pass: runs of `per` slices a lane, empty states past ns
+    per = -(-ns // 32)
+    empty = (NEG_INF, 0.0, 0.0, NEG_INF, NEG_INF, torch.iinfo(torch.int32).max)
+    lanes = tuple(F.pad(t, (0, 32 * per - ns), value=fill).reshape(T, 32, per)
+                  for t, fill in zip(states, empty))
+    acc = tuple(torch.full_like(t[..., 0], fill)
+                for t, fill in zip(lanes, empty))
+    for k in range(per):
+        acc = _merge_states(acc, tuple(t[..., k] for t in lanes))
+    idx = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = _merge_states(acc, tuple(t[:, idx ^ off] for t in acc))
+    m, s, u, v1, v2, i1 = (t[:, 0] for t in acc)
+    s = torch.clamp(s, min=1e-30)
+    lse = m + torch.log(s)
+    return v1 - v2, lse - u / s, v1 - lse, i1.to(torch.int32)
 
 
 def pairwise_sqdist_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -32,6 +88,29 @@ def pairwise_sqdist_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     x2 = torch.sum(x * x, dim=-1)
     c2 = torch.sum(c * c, dim=-1)
     g = x @ c.T
+    return torch.clamp(x2[:, None] - 2.0 * g + c2[None, :], min=0.0)
+
+
+def _bf16_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t = hi + lo + a remainder: hi rounded to bf16, lo the rounded
+    remainder, about 17 significant bits together (both returned in fp32)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def pairwise_sqdist_split_ref(x: torch.Tensor, c: torch.Tensor
+                              ) -> torch.Tensor:
+    """``pairwise_sqdist_ref`` with x.c taken as the CUDA kernel takes it on
+    the tensor cores: each fp32 element split once into bf16 hi + lo, and
+    x.c = hi.hi + hi.lo + lo.hi summed in fp32; the norms stay fp32.  Exact
+    on integers up to 256 (lo = 0); otherwise about 2^-16 relative per
+    product.  The main path never calls it."""
+    x = x.float()
+    c = c.float()
+    x2 = torch.sum(x * x, dim=-1)
+    c2 = torch.sum(c * c, dim=-1)
+    (xh, xl), (ch, cl) = _bf16_split(x), _bf16_split(c)
+    g = xh @ ch.T + xh @ cl.T + xl @ ch.T
     return torch.clamp(x2[:, None] - 2.0 * g + c2[None, :], min=0.0)
 
 

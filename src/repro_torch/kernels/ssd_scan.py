@@ -89,12 +89,10 @@ def ssd_scan_with_states(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if B * H * T == 0:
         return y, hfin.zero_(), states
     last = torch.empty((B, nc, H), dtype=torch.float32, device=xh.device)
-    fn = _fn(xh.dtype)
-    with torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream(xh.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in ins), y.data_ptr(), hfin.data_ptr(),
-                 states.data_ptr(), last.data_ptr(), B, T, H, hd, N, C,
-                 stream)
+    err = build.call(_fn(xh.dtype), xh.device,
+                     *(t.data_ptr() for t in ins), y.data_ptr(),
+                     hfin.data_ptr(), states.data_ptr(), last.data_ptr(), B,
+                     T, H, hd, N, C)
     if err != 0:
         # error 1 (invalid value) includes a chunk too large for shared
         # memory: see csrc/ssd_scan.cu for the bytes a launch needs

@@ -15,10 +15,17 @@ from repro_torch.kernels import pairwise_dist as pd
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd
 
+# the campaigns' shape, the JAX package's grid, the LM head at 8 and 64
+# requests, then the kernel's slice edges (V = 32000 +- 1, off the
+# 128-column slices and the 4-column vector loads) and one request
 MH_GRID = [(2048, 64, 10), (128, 64, 512), (200, 48, 1000), (65, 32, 257),
-           (256, 128, 4096), (8, 2560, 32000), (64, 2560, 32000)]
+           (256, 128, 4096), (8, 2560, 32000), (64, 2560, 32000),
+           (8, 2560, 31999), (8, 2560, 32001), (1, 2560, 32000)]
+# then N and M off the kernel's 128 x 128 tiles, D off its 16-deep k steps,
+# and D over its 64-wide chunks (130: also off its 16-byte pieces)
 PD_GRID = [(65536, 512, 64), (5, 3, 4), (64, 16, 8), (130, 9, 33),
-           (257, 128, 16)]
+           (257, 128, 16), (65537, 2049, 64), (300, 130, 33),
+           (300, 1100, 100), (257, 140, 130)]
 
 
 def _need_card():
@@ -46,6 +53,43 @@ def test_margin_head_kernel_matches_plain_on_card(T, D, V, dtype):
         torch.testing.assert_close(g, r, atol=t, rtol=t)
     if dtype == "float32":
         assert torch.equal(got.top1, want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,V,first,copy", [(8, 2560, 32000, 7, 20000),
+                                              (8, 2560, 32000, 127, 128),
+                                              (3, 64, 300, 0, 299)])
+@pytest.mark.parametrize("kind", ["integer", "normal"])
+def test_margin_head_kernel_keeps_first_of_equal_maxima_on_card(
+        T, D, V, first, copy, kind):
+    """Each row's maximal column copied into another slice: the kernel sums
+    every column in one order, so the copies tie exactly, top1 is the
+    first and the margin 0.  On integer inputs every logit is exact, and
+    the plain version ties the same way.  The logits stay in the tens: the
+    plain version's entropy, lse - sum(p x), loses about |x| times lse's
+    rounding, so logits in the thousands would test its rounding instead
+    of the kernel."""
+    _need_card()
+    rng = np.random.default_rng(V + first)
+    if kind == "integer":
+        # 4 nonzero hidden values (1-3) a row: logits exact, |x| <= 36
+        h = np.zeros((T, D), np.float32)
+        for row in h:
+            row[rng.choice(D, 4, replace=False)] = rng.integers(1, 4, 4)
+        w = rng.integers(-2, 3, size=(D, V)).astype(np.float32)
+        w[:, first] = w[:, copy] = 3.0   # 3 sum(h) > 2 sum(h) >= any other
+    else:
+        h = (np.abs(rng.normal(size=(T, D))) * 0.01).astype(np.float32)
+        w = (rng.normal(size=(D, V)) * 0.1).astype(np.float32)
+        w[:, first] = w[:, copy] = 1.0
+    h, w = (torch.as_tensor(a, device="cuda") for a in (h, w))
+    got = mh.margin_head(h, w)
+    want = ref.margin_head_ref(h, w)
+    assert bool((got[3] == first).all()) and bool((got[0] == 0).all())
+    for g, r, t in zip(got[:3], want[:3], (5e-5, 5e-4, 5e-5)):
+        torch.testing.assert_close(g, r, atol=t, rtol=t)
+    if kind == "integer":
+        assert torch.equal(got[3], want[3]) and bool((want[0] == 0).all())
 
 
 @pytest.mark.cuda
