@@ -19,20 +19,34 @@
 4. Runs two MCAL campaigns through the port's entry points
    (``run_mcal(LiveTask(...))``), one with the margin M(.) and one with
    k-center, on ``make_classification(50_000, 10 classes, dim 32)`` — the
-   data ``python -m repro.launch.label --live --pool 50000`` builds.  Each
-   of the task's passes is timed up to a device synchronize, which gives
-   the campaign's seconds by phase.
-5. Serves zamba2-2.7b (full config: 54 layers, d_model 2560, bf16 weights
+   data ``python -m repro.launch.label --live --pool 50000`` builds — on
+   the default route: pool passes through the paged sweep runtime, each
+   retrain a replayed CUDA graph.  Each is run again with the eager retrain
+   loop and must end the same way.  Each of the task's passes is timed up
+   to a device synchronize, which gives the campaign's seconds by phase.
+5. Runs the margin campaign once more through
+   ``repro_torch.launch.label.run_campaign`` with ``sweep_async``,
+   ``fit_async``, ``fit_resident`` and a trace, preempted every two
+   iterations and resumed from its state file: its trace must diff clean
+   against the first margin campaign's and its result equal it.  Holds one
+   retrain per bucket the campaigns used through the CUDA graph against
+   the eager loop (params and losses bit-equal; capture, replay and eager
+   seconds), and the paged rank, feature and top-k sinks against the
+   engine's unpaged pass, exactly.
+6. Serves zamba2-2.7b (full config: 54 layers, d_model 2560, bf16 weights
    from ``Model.init(seed 0)``) through ``ServeEngine``: 8 requests of
    2,048 random tokens are scored (``score``, the fp32 LM head through
-   ``margin_head``), and 32 tokens are generated greedily; the first equals
-   the argmax of the forward pass's last logits.  Prints init seconds,
-   prefill tokens/s, decode tokens/s, score rows/s and peak device memory;
-   profiles one score pass, one forward pass and one decode step, and
-   times the score pass's cast of the bf16 LM head to fp32.
-6. The kernels' launch counts are zeroed just before each main-path pass
-   (each campaign; each serving pass) and read just after it; a kernel of
-   a path that was never launched there fails the run.
+   ``margin_head``), 32 rows are scored by ``score_pool`` in pages of 8
+   (each page's stats equal ``score`` on its batch), and 32 tokens are
+   generated greedily; the first equals the argmax of the forward pass's
+   last logits.  Prints init seconds, prefill tokens/s, decode tokens/s,
+   score and score_pool rows/s and peak device memory; profiles one score
+   pass, one forward pass and one decode step, and times the score pass's
+   cast of the bf16 LM head to fp32.
+   The kernels' launch counts are zeroed just before each main-path pass
+   (each campaign, the launcher campaign, each serving pass) and read just
+   after it; a kernel of a path that was never launched there fails the
+   run.
 7. Times each kernel at the largest shape the main paths gave it, its plain
    version and (where one PyTorch call computes the same function) that
    call, with CUDA events: the median of 30 single-call timings after a
@@ -59,6 +73,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -419,14 +434,21 @@ def ssd_key(xh, dt, A, Bm, Cm, *, chunk=128):
 
 PHASES = ("train", "score", "eval_correct", "topk_candidates",
           "kcenter_candidates", "anchor_features", "machine_label_sweep")
+# the margin campaign's decisions as the earlier runs of this script on the
+# card recorded them, before the sweep runtime and the graph retrain
+RECORDED_MARGIN = {"decision": "hybrid", "B": 2000, "S": 43225, "cost": "271.50",
+               "error": "0.04146", "iterations": 4}
 
 
-def time_phases(torch, task):
+def time_phases(torch, task, sizes=None):
     """Wrap the task's passes so each call's wall time, up to a device
-    synchronize, adds to its phase: the campaign's breakdown."""
+    synchronize, adds to its phase: the campaign's breakdown.  ``sizes``
+    collects each retrain's row count."""
     spent = dict.fromkeys(PHASES, 0.0)
     for name in PHASES:
         def timed(*args, _fn=getattr(task, name), _name=name, **kw):
+            if _name == "train" and sizes is not None:
+                sizes.append(len(args[0]))
             t0 = time.perf_counter()
             out = _fn(*args, **kw)
             torch.cuda.synchronize()
@@ -436,55 +458,212 @@ def time_phases(torch, task):
     return spent
 
 
-def run_campaigns(torch, np, mh, pd, pool: int, max_iters: int,
-                  seen: dict):
-    """Both campaigns; ``seen`` collects the shapes each kernel was given."""
+def summary(res) -> dict:
+    return {"decision": res.decision, "B": res.B_size, "S": res.S_size,
+            "cost": f"{res.total_cost:.2f}",
+            "error": f"{res.measured_error:.5f}",
+            "iterations": len(res.history)}
+
+
+def run_campaigns(torch, np, mh, pd, pool: int, max_iters: int, seen: dict,
+                  trace_dir: Path):
+    """Both campaigns on the default route (the paged sweep runtime, the
+    retrain as a replayed CUDA graph), each followed by its sibling on the
+    eager retrain loop (the earlier route for the retrain), which must end the
+    same way.  ``seen`` collects the shapes each kernel was given; returns
+    the launch counts, the retrain sizes, the trained margin task and the
+    default-route margin campaign's trace and result."""
     from repro_torch.core import AMAZON, LiveTask, MCALConfig, run_mcal
     from repro_torch.data.synth import make_classification
+    from repro_torch.trace import TraceStore
 
     x, y = make_classification(pool, num_classes=10, dim=32,
                                difficulty=0.3, seed=0)
     eps = 0.05
     launches = {"margin_head": 0, "pairwise_sqdist": 0}
+    sizes: list = []
     restore = [record_shapes(mh, "margin_head", seen["margin_head"],
                              margin_key),
                record_shapes(pd, "pairwise_sqdist", seen["pairwise_sqdist"],
                              pairwise_key)]
+    out = {}
     for metric in ("margin", "kcenter"):
-        task = LiveTask(features=x, groundtruth=y, num_classes=10)
-        spent = time_phases(torch, task)
-        cfg = MCALConfig(eps_target=eps, seed=0, metric=metric,
-                         max_iters=max_iters)
-        torch.cuda.synchronize()
-        mh.launches = 0
-        pd.launches = 0
-        t0 = time.perf_counter()
-        res = run_mcal(task, AMAZON, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {"margin_head": mh.launches, "pairwise_sqdist": pd.launches}
-        for k, v in got.items():
-            launches[k] += v
-        print(f"campaign metric={metric} pool={pool} max_iters={max_iters}: "
-              f"decision {res.decision}, |B| {res.B_size}, |S| {res.S_size}, "
-              f"cost {res.total_cost:.2f}, measured error "
-              f"{res.measured_error:.5f}, iterations {len(res.history)}, "
-              f"wall {wall:.2f} s, launches {got}", flush=True)
-        print(f"campaign metric={metric} seconds by phase: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in spent.items() if v)
-              + f", rest {wall - sum(spent.values()):.3f}", flush=True)
-        if res.labels.shape != (pool,) or (res.labels < 0).any():
-            fail(f"{metric} campaign left rows unlabeled")
-        if not res.measured_error <= eps + 0.01:
-            fail(f"{metric} campaign error {res.measured_error} > "
-                 f"{eps + 0.01}")
-        if got["margin_head"] == 0:
-            fail(f"margin_head never launched in the {metric} campaign")
-        if metric == "kcenter" and got["pairwise_sqdist"] == 0:
-            fail("pairwise_sqdist never launched in the k-center campaign")
+        ends = {}
+        for route in ("graph", "eager"):
+            task = LiveTask(features=x, groundtruth=y, num_classes=10)
+            if route == "eager":
+                task._fit.fit = task._fit.fit_eager
+            spent = time_phases(torch, task,
+                                sizes if route == "graph" else None)
+            cfg = MCALConfig(eps_target=eps, seed=0, metric=metric,
+                             max_iters=max_iters)
+            trace = None
+            if metric == "margin" and route == "graph":
+                trace = TraceStore(str(trace_dir / "sync.jsonl"), "live-s0")
+            torch.cuda.synchronize()
+            mh.launches = 0
+            pd.launches = 0
+            t0 = time.perf_counter()
+            res = run_mcal(task, AMAZON, cfg, trace=trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {"margin_head": mh.launches, "pairwise_sqdist": pd.launches}
+            if trace is not None:
+                trace.close()
+                out["sync"] = (trace_dir / "sync.jsonl", res)
+            task.close()
+            for k, v in got.items():
+                launches[k] += v
+            ends[route] = summary(res)
+            print(f"campaign metric={metric} route={route} pool={pool} "
+                  f"max_iters={max_iters}: decision {res.decision}, |B| "
+                  f"{res.B_size}, |S| {res.S_size}, cost "
+                  f"{res.total_cost:.2f}, measured error "
+                  f"{res.measured_error:.5f}, iterations "
+                  f"{len(res.history)}, wall {wall:.2f} s, launches {got}",
+                  flush=True)
+            print(f"campaign metric={metric} route={route} seconds by phase: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in spent.items() if v)
+                  + f", rest {wall - sum(spent.values()):.3f}", flush=True)
+            if res.labels.shape != (pool,) or (res.labels < 0).any():
+                fail(f"{metric} campaign left rows unlabeled")
+            if not res.measured_error <= eps + 0.01:
+                fail(f"{metric} campaign error {res.measured_error} > "
+                     f"{eps + 0.01}")
+            if got["margin_head"] == 0:
+                fail(f"margin_head never launched in the {metric} campaign")
+            if metric == "kcenter" and got["pairwise_sqdist"] == 0:
+                fail("pairwise_sqdist never launched in the k-center "
+                     "campaign")
+            if metric == "margin" and route == "graph":
+                out["task"] = task
+        if ends["graph"] != ends["eager"]:
+            fail(f"{metric} campaign: the graph retrain ended {ends['graph']}"
+                 f", the eager loop {ends['eager']}")
+        if metric == "margin" and pool == 50_000:
+            print(f"campaign metric=margin against the recorded decisions "
+                  f"{RECORDED_MARGIN}: "
+                  f"{'same' if ends['graph'] == RECORDED_MARGIN else 'moved'}",
+                  flush=True)
     for r in restore:
         r()
+    out.update(launches=launches, sizes=sizes, data=(x, y))
+    return out
+
+
+def run_launcher_campaign(torch, mh, x, y, sync, trace_dir: Path,
+                          max_iters: int):
+    """The margin campaign through ``repro_torch.launch.label.run_campaign``
+    with ``sweep_async``, ``fit_async``, ``fit_resident`` and a trace,
+    preempted every two iterations and resumed from its state file; its
+    trace must diff clean against the synchronous campaign's and its result
+    equal it.  Returns margin_head's launches over all its runs."""
+    from repro_torch.core import AMAZON, LiveTask, MCALConfig
+    from repro_torch.launch.label import run_campaign
+    from repro_torch.trace import diff
+
+    sync_path, sync_res = sync
+    state, path = trace_dir / "state.json", trace_dir / "async.jsonl"
+    cfg = MCALConfig(eps_target=0.05, seed=0, metric="margin",
+                     max_iters=max_iters, sweep_async=True, fit_async=True)
+    torch.cuda.synchronize()
+    mh.launches = 0
+    t0 = time.perf_counter()
+    res, hops = None, 0
+    while res is None:
+        task = LiveTask(features=x, groundtruth=y, num_classes=10,
+                        fit_resident=True)
+        res, camp = run_campaign(task, AMAZON, cfg, state_path=str(state),
+                                 iters_per_run=2, trace_path=str(path),
+                                 campaign_id="live-mlp-s0")
+        hops += 1
+        if hops > 20:
+            fail("the launcher campaign never finished")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mh.launches
+    d = diff(str(sync_path), str(path))
+    print(f"launcher campaign (sweep_async, fit_async, fit_resident, "
+          f"iters_per_run 2): {hops} runs, {summary(res)}, wall {wall:.2f} s "
+          f"over all runs, margin_head launches {launches}, trace diff "
+          f"against the synchronous campaign: "
+          f"{'clean' if d is None else d.describe()}", flush=True)
+    if hops < 2:
+        fail("the launcher campaign was never preempted")
+    if d is not None:
+        fail(f"launcher campaign trace: {d.describe()}")
+    if summary(res) != summary(sync_res) or \
+            not (res.labels == sync_res.labels).all():
+        fail(f"launcher campaign ended {summary(res)}, the synchronous one "
+             f"{summary(sync_res)}")
+    if launches == 0:
+        fail("margin_head never launched in the launcher campaign")
     return launches
+
+
+def check_retrain_graphs(torch, task, x, y, sizes):
+    """One retrain per bucket the campaigns used, through a fresh engine's
+    CUDA graph and through the eager loop: params and losses bit-equal.
+    Prints the graph's capture, its replay and the eager loop's time."""
+    from repro_torch.training.fit_device import FitEngine, fit_plan
+
+    by_key = {}
+    for n in sizes:
+        by_key.setdefault(fit_plan(n, task.batch_size), n)
+    for key, n in sorted(by_key.items()):
+        eng = FitEngine(task.model, task.tc, task._fit.cfg, device="cuda")
+
+        def timed(fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        _, capture = timed(eng.warm, [key])
+        (pg, lg), graph_s = timed(eng.fit, 0, x[:n], y[:n])
+        (pe, le), eager_s = timed(eng.fit_eager, 0, x[:n], y[:n])
+        same = torch.equal(lg, le) and all(torch.equal(pg[k], pe[k])
+                                            for k in pe)
+        print(f"retrain bucket {key} (n {n}, {lg.numel()} steps): capture "
+              f"{capture:.3f} s, graph replay {graph_s:.3f} s, eager loop "
+              f"{eager_s:.3f} s, params and losses "
+              f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            worst = max(float((pg[k] - pe[k]).abs().max()) for k in pe)
+            fail(f"retrain bucket {key}: the graph's params differ from the "
+                 f"eager loop's by up to {worst}, losses by "
+                 f"{float((lg - le).abs().max())}")
+
+
+def check_paged_sinks(torch, np, task, x):
+    """The paged RankTop1Sink, FeatureSink and TopKSink against the
+    engine's unpaged pass, exactly, on the trained margin classifier: the
+    whole pool, a remaining pool whose last page holds more than a
+    microbatch, and one whose last page holds less."""
+    from repro_torch.serving.sweep import FeatureSink, RankTop1Sink, TopKSink
+    engine, runner, params = task._engine, task._sweep, task._params
+    P, mb = runner.cfg.page_rows, engine.cfg.microbatch
+    for n in (len(x), 47_500, 5 * P + mb // 2):
+        rows = x[:n]
+        stats, feats = engine.score(params, rows)
+        t0 = time.perf_counter()
+        order, top1 = runner.run(params, rows, RankTop1Sink("margin"))
+        torch.cuda.synchronize()
+        rank_s = time.perf_counter() - t0
+        want = np.argsort(-stats.margin.double().cpu().numpy(),
+                          kind="stable")
+        paged = runner.run(params, rows, FeatureSink())
+        ok = (np.array_equal(order, want)
+              and np.array_equal(top1, stats.top1.cpu().numpy())
+              and torch.equal(paged, feats)
+              and np.array_equal(runner.run(params, rows, TopKSink(500)),
+                                 engine.top_k(params, rows, 500)))
+        print(f"paged sinks n {n} (pages of {P}, last page "
+              f"{n - (runner.n_pages(n) - 1) * P} rows): rank, features and "
+              f"top-k {'equal' if ok else 'DIFFER FROM'} the unpaged pass; "
+              f"rank sweep {rank_s:.4f} s", flush=True)
+        if not ok:
+            fail(f"paged sinks differ from the unpaged pass at n {n}")
 
 
 def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
@@ -557,6 +736,26 @@ def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
         fail(f"serve score: bad stats {stats}")
     print(f"serve score margin {stats.margin.tolist()} top1 "
           f"{stats.top1.tolist()}", flush=True)
+    # the pool pass: 4 batches of requests streamed by score_pool in pages
+    # of one batch, each page the score step's own batch shape
+    pages = 4
+    pool = {"tokens": rng.integers(0, cfg.vocab_size,
+                                   (pages * batch, prompt_len))}
+    pooled, secs = counted(
+        "score_pool", lambda: engine.score_pool(pool, page_rows=batch),
+        {k: v * pages for k, v in dict(per_pass, margin_head=1).items()})
+    print(f"serve score_pool rows/s: {pages * batch / secs:.3f} ({pages} "
+          f"pages of {batch} rows of {prompt_len} tokens; launches per page "
+          f"{dict(per_pass, margin_head=1)})", flush=True)
+    for lo in range(0, pages * batch, batch):
+        want = engine.score({"tokens": pool["tokens"][lo:lo + batch]})
+        if not all(torch.equal(p[lo:lo + batch], w)
+                   for p, w in zip(pooled, want)):
+            fail(f"serve score_pool rows {lo}-{lo + batch} differ from "
+                 f"score on that batch")
+    print(f"serve score_pool: each page's stats equal score on its batch",
+          flush=True)
+    engine.close()
     # the head's operand cast (the reference's w.astype(float32)): the
     # bf16 lm_head read and an fp32 copy written, every score pass
     w_head = resolve_head_weight(cfg, params)
@@ -806,12 +1005,25 @@ def main() -> None:
 
     # the shapes each main path gave each kernel
     seen_by = {p: {k: set() for k in mods} for p in ("campaigns", "serving")}
-    launches = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
-                             seen_by["campaigns"])
+    with tempfile.TemporaryDirectory() as tmp:
+        camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
+                              seen_by["campaigns"], Path(tmp))
+        x, y = camps["data"]
+        restore = record_shapes(mh, "margin_head",
+                                seen_by["campaigns"]["margin_head"],
+                                margin_key)
+        launcher = run_launcher_campaign(torch, mh, x, y, camps["sync"],
+                                         Path(tmp), args.max_iters)
+        restore()
+    check_retrain_graphs(torch, camps["task"], x, y, camps["sizes"])
+    check_paged_sinks(torch, np, camps["task"], x)
+    launches = camps["launches"]
+    del camps
     served = run_serving(torch, np, mods, args.serve_batch, args.prompt_len,
                          args.gen, seen_by["serving"])
-    by_path = {k: {"campaigns": launches.get(k, 0), "serving": served[k]}
-               for k in mods}
+    by_path = {k: {"campaigns": launches.get(k, 0),
+                   "launcher_campaign": launcher if k == "margin_head" else 0,
+                   "serving": served[k]} for k in mods}
     seen = {k: seen_by["campaigns"][k] | seen_by["serving"][k] for k in mods}
     # every shape the main paths gave a kernel, held against the plain
     # version again; max_abs_err is the worst of these

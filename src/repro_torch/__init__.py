@@ -7,10 +7,7 @@ It imports ``torch`` and ``numpy`` only — never ``jax`` and nothing of
 ``device="cpu"``, where every kernel wrapper takes its plain PyTorch
 version.
 
-The reference contracts (exact fp32 ``top1``, exact k-center picks) need
-IEEE fp32 products, so TF32 is switched off here, at import.
+Importing the package itself loads no torch, so that a launcher's
+``--help`` stays cheap; ``repro_torch.models``, which every module that
+computes imports, switches TF32 off.
 """
-import torch
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False

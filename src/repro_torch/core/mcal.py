@@ -1,5 +1,4 @@
-"""The MCAL campaign loop (paper Alg. 1), synchronous subset of
-``repro.core.mcal``.
+"""The MCAL campaign loop (paper Alg. 1), ``repro.core.mcal``.
 
 One campaign = one (task, labeling service, MCALConfig).  The loop:
 
@@ -18,15 +17,28 @@ One campaign = one (task, labeling service, MCALConfig).  The loop:
               prefix the *measured* test-set error curve admits within
               eps_target, human-label the residual.
 
-Every decision is the reference's, for perfect human labels.  Left out
-for later slices: the trace, metrics, fault and health wiring, the
-noisy-annotation economics (``label_quality``), the async sweep/fit
-paths, ``state_dict`` resume and ``select_architecture`` (with the forced
-acquisitions and frozen delta it drives).
+Every decision is the reference's, for perfect human labels.  With
+``sweep_async`` the M(.) sweep overlaps the host-side fits and search; with
+``fit_async`` each retrain and its measurement run on the fit engine's
+worker and fold at the next consumer (:meth:`MCALCampaign._sync_fit`).
+Both are record-identical to the synchronous campaign.  A campaign with a
+trace attached emits the reference's decision events (``campaign_begin``,
+``bootstrap``, ``charge``, ``measure``, ``powerlaw_fit``, ``search``,
+``iteration``, ``acquisition``, ``done``, ``commit``) and its
+observability events (``state_save``, ``resume``, the runtimes' sweep and
+fit events), and ``state_dict``/``load_state_dict`` persist the loop at the
+reference's schema (``STATE_VERSION``), so a state file written by either
+package resumes in the other.
+
+Left out for later slices: the metrics, fault and health wiring, the
+noisy-annotation economics (``label_quality``) and
+``select_architecture`` (with the forced acquisitions and frozen delta it
+drives).
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,8 +48,13 @@ from repro_torch.core.cost import CostLedger, LabelingService, TrainCostModel
 from repro_torch.core.powerlaw import PowerLaw, fit_power_law
 from repro_torch.core.search import (SearchResult, adapt_delta, budget_search,
                                      joint_search)
+from repro_torch.trace.store import sanitize as _trace_sanitize
 
 DEFAULT_THETAS = tuple(round(0.05 * i, 2) for i in range(1, 21))
+
+# campaign state_dict schema version (the reference's): v2 carries
+# "version" and the "trace" append cursor
+STATE_VERSION = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +74,10 @@ class MCALConfig:
     min_fit_points: int = 3
     seed: int = 0
     budget: Optional[float] = None  # set -> budget-constrained variant
+    sweep_async: bool = False       # overlap the M(.) sweep with the
+                                    # host-side fits + joint search
+    fit_async: bool = False         # defer each retrain + its measurement
+                                    # onto the fit-engine worker
 
 
 @dataclasses.dataclass
@@ -72,6 +93,32 @@ class IterationRecord:
     stable: bool
     human_spent: float
     training_spent: float
+
+    def to_dict(self) -> Dict:
+        """JSON form — the ``iteration`` trace event and the state file's
+        history entry."""
+        return {
+            "i": int(self.i), "B_size": int(self.B_size),
+            "delta": int(self.delta),
+            "eps_theta": {str(t): float(e)
+                          for t, e in self.eps_theta.items()},
+            "cstar": float(self.cstar), "B_opt": int(self.B_opt),
+            "theta_opt": float(self.theta_opt),
+            "feasible": bool(self.feasible), "stable": bool(self.stable),
+            "human_spent": float(self.human_spent),
+            "training_spent": float(self.training_spent)}
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "IterationRecord":
+        return cls(
+            i=int(d["i"]), B_size=int(d["B_size"]), delta=int(d["delta"]),
+            eps_theta={float(t): float(e)
+                       for t, e in d["eps_theta"].items()},
+            cstar=float(d["cstar"]), B_opt=int(d["B_opt"]),
+            theta_opt=float(d["theta_opt"]), feasible=bool(d["feasible"]),
+            stable=bool(d["stable"]),
+            human_spent=float(d["human_spent"]),
+            training_spent=float(d["training_spent"]))
 
 
 @dataclasses.dataclass
@@ -90,6 +137,53 @@ class MCALResult:
     @property
     def total_cost(self) -> float:
         return self.ledger["total"]
+
+    def to_dict(self, with_history: bool = True) -> Dict:
+        """JSON form — the ``commit`` trace event.  The label arrays stay
+        out; ``pool_size`` keeps their shape for :meth:`from_dict`."""
+        d = {
+            "decision": str(self.decision), "B_size": int(self.B_size),
+            "S_size": int(self.S_size),
+            "theta_final": float(self.theta_final),
+            "measured_error": float(self.measured_error),
+            "arch_name": str(self.arch_name),
+            "pool_size": int(len(self.labels)),
+            "ledger": {k: (int(v) if isinstance(v, (int, np.integer))
+                           else float(v))
+                       for k, v in self.ledger.items()},
+        }
+        if with_history:
+            d["history"] = [r.to_dict() for r in self.history]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "MCALResult":
+        n = int(d.get("pool_size", 0))
+        return cls(
+            labels=np.full(n, -1, np.int64),
+            machine_mask=np.zeros(n, bool), ledger=dict(d["ledger"]),
+            history=[IterationRecord.from_dict(r)
+                     for r in d.get("history", [])],
+            decision=str(d["decision"]), B_size=int(d["B_size"]),
+            S_size=int(d["S_size"]),
+            theta_final=float(d["theta_final"]),
+            measured_error=float(d["measured_error"]),
+            arch_name=str(d.get("arch_name", "")))
+
+
+def _fitted_payload(laws: Dict[float, PowerLaw],
+                    cm: TrainCostModel) -> Dict:
+    """The persistable form of one round of power-law/cost fits — shared
+    by ``state_dict`` and the ``powerlaw_fit`` trace event."""
+    return {
+        # np.inf (plain power law) is not strict JSON -> None
+        "laws": {str(t): {
+            "alpha": law.alpha, "gamma": law.gamma,
+            "k": None if not np.isfinite(law.k) else law.k,
+            "resid_std": law.resid_std, "n_points": law.n_points}
+            for t, law in laws.items()},
+        "cost_model": {"c_u": cm.c_u, "exponent": cm.exponent},
+    }
 
 
 class SharedPool:
@@ -141,16 +235,50 @@ class MCALCampaign:
         self.B_opt = 0
         self.theta_opt = 0.0
         # k-center anchor cache: features of B under the CURRENT classifier
-        # (invalidated every retrain)
+        # (invalidated every retrain, rebuilt from B_idx on demand/resume)
         self._anchor_feats: Optional[np.ndarray] = None
+        # in-flight async M(.) sweep: (submitted k, SweepFuture)
+        self._pending: Optional[Tuple[int, object]] = None
+        # in-flight async retrain + measurement: (|B| at submit, FitFuture)
+        self._fit_pending: Optional[Tuple[int, object]] = None
         # memoized power-law/cost fits: (history key, laws, cost model)
         self._fit_models_cache: Optional[Tuple] = None
+        # commit-sweep cursor wiring (set by the launcher: process-local
+        # restart plumbing, not campaign policy)
+        self.sweep_checkpoint_every = 0          # pages between cursor cuts
+        self.on_sweep_checkpoint = None          # callback(SweepCheckpoint)
+        self.resume_sweep_checkpoint = None      # cursor to resume from
         self._iter = 0
+        # campaign event bus (attach_trace): None = tracing off
+        self.trace = None
+
+    def attach_trace(self, trace) -> None:
+        """Wire the event bus through this campaign's decision sites, the
+        ledger's charging sites and the task's sweep/fit runtimes.  Call
+        before ``bootstrap``/``load_state_dict``."""
+        self.trace = trace
+        self.pool.ledger.trace = trace
+        self.pool.ledger.trace_name = "campaign"
+        if hasattr(self.task, "attach_trace"):
+            self.task.attach_trace(trace)
+
+    def _emit(self, kind: str, **payload) -> None:
+        if self.trace is not None:
+            self.trace.emit(kind, **_trace_sanitize(payload))
 
     # -- bootstrap ----------------------------------------------------------
     def bootstrap(self):
         X = self.task.pool_size
         p = self.pool
+        if self.trace is not None:
+            # config = campaign policy (decisions must match across
+            # siblings); runtime = execution mode (normalized out by diff)
+            cfgd = dataclasses.asdict(self.cfg)
+            runtime = {"sweep_async": cfgd.pop("sweep_async"),
+                       "fit_async": cfgd.pop("fit_async")}
+            self._emit("campaign_begin", config=cfgd, runtime=runtime,
+                       pool_size=int(X),
+                       arch=getattr(self.task, "arch_name", ""))
         T_size = max(int(round(self.cfg.test_frac * X)), 16)
         p.T_idx = self.rng.choice(X, T_size, replace=False)
         p.is_test[p.T_idx] = True
@@ -161,6 +289,8 @@ class MCALCampaign:
         p.B_idx = b0
         p.buy_labels(self.task, b0, self.service)
         self.delta = len(p.B_idx)
+        self._emit("bootstrap", T_size=int(len(p.T_idx)),
+                   B_size=int(len(p.B_idx)), adopt=False)
         self._train_and_measure()
 
     # -- internals ----------------------------------------------------------
@@ -168,6 +298,25 @@ class MCALCampaign:
         p = self.pool
         self._anchor_feats = None   # the representation moves every retrain
         nB = len(p.B_idx)
+        if self.cfg.fit_async and hasattr(self.task, "submit_train"):
+            # the retrain and its measurement run on the fit worker; the
+            # cost is paid up front (it must be known without training —
+            # a measured-cost task takes the synchronous path), and
+            # _sync_fit() folds the measurement at the next consumer, so
+            # the records equal the synchronous campaign's
+            c = (self.task.train_cost(nB)
+                 if hasattr(self.task, "train_cost") else None)
+            if c is not None:
+                self._pay_training(nB, c)
+                T_idx, labels_T = p.T_idx, p.labels[p.T_idx]
+
+                def measure():
+                    stats_T, _ = self.task.score(T_idx)
+                    return stats_T, self.task.eval_correct(T_idx, labels_T)
+
+                self._fit_pending = (nB, self.task.submit_train(
+                    p.B_idx, p.labels[p.B_idx], then=measure))
+                return
         c = self.task.train(p.B_idx, p.labels[p.B_idx])
         self._pay_training(nB, c)
         stats_T, _ = self.task.score(p.T_idx)
@@ -186,10 +335,27 @@ class MCALCampaign:
             stats_T, correct, self.cfg.thetas, self.cfg.l_metric)
         for t, e in zip(self.cfg.thetas, curve):
             self.eps_hist[t].append((nB, float(e)))
+        # emitted at fold time on the main thread, so the decision stream
+        # is position-identical to the synchronous campaign's
+        self._emit("measure", B=int(nB),
+                   eps={str(t): float(e)
+                        for t, e in zip(self.cfg.thetas, curve)})
+
+    def _sync_fit(self):
+        """Fold an in-flight async retrain: record its measurement exactly
+        as the synchronous path would have (its cost was paid at
+        submit)."""
+        if self._fit_pending is None:
+            return
+        nB, fut = self._fit_pending
+        self._fit_pending = None
+        _c, (stats_T, correct) = fut.result()
+        self._record_measurement(nB, stats_T, correct)
 
     def _fit_models(self) -> Tuple[Dict[float, PowerLaw], TrainCostModel]:
         """Fit the per-theta truncated power laws + the training-cost
-        model, memoized on the measurement-history key."""
+        model, memoized on the measurement-history key (a resumed campaign
+        restores the persisted fits into this cache)."""
         key = (len(self.train_sizes),
                sum(len(v) for v in self.eps_hist.values()))
         if self._fit_models_cache is not None \
@@ -204,9 +370,12 @@ class MCALCampaign:
         cm = TrainCostModel(exponent=self.cfg.cost_exponent).fit(
             self.train_sizes, self.train_costs)
         self._fit_models_cache = (key, laws, cm)
+        self._emit("powerlaw_fit", train_points=int(key[0]),
+                   **_fitted_payload(laws, cm))
         return laws, cm
 
     def search(self) -> SearchResult:
+        self._sync_fit()
         laws, cm = self._fit_models()
         p = self.pool
         kw = dict(pool_size=self.task.pool_size, test_size=len(p.T_idx),
@@ -214,14 +383,36 @@ class MCALCampaign:
                   laws=laws, cost_model=cm, delta=self.delta,
                   service=self.service)
         if self.cfg.budget is not None:
-            return budget_search(budget=self.cfg.budget, **kw)
-        return joint_search(eps_target=self.cfg.eps_target, **kw)
+            res = budget_search(budget=self.cfg.budget, **kw)
+        else:
+            res = joint_search(eps_target=self.cfg.eps_target, **kw)
+        self._emit("search", cost=res.cost, B_opt=int(res.B_opt),
+                   theta_opt=float(res.theta_opt),
+                   machine_labeled=int(res.machine_labeled),
+                   feasible=bool(res.feasible),
+                   human_all_cost=res.human_all_cost)
+        return res
 
     # -- one loop body --------------------------------------------------------
     def iteration(self):
         assert not self.done
+        self._sync_fit()   # fold last iteration's async retrain first
         p = self.pool
         X = self.task.pool_size
+        # async overlap: launch this iteration's M(.) sweep before the
+        # host-side fits + search; acquire() folds it.  Submitted at the
+        # current delta: the rankings are prefix-stable, so acquire() trims
+        # to a smaller take, and a larger adapted delta re-ranks.
+        self._pending = None
+        if (self.cfg.sweep_async and self.cfg.metric != "random"
+                and hasattr(self.task, "submit_candidates")):
+            cand = p.unlabeled_candidates()
+            k = min(self.delta, len(cand))
+            if k > 0:
+                anchors = (self._anchor_features()
+                           if self.cfg.metric == "kcenter" else None)
+                self._pending = (k, self.task.submit_candidates(
+                    self.cfg.metric, k, cand, anchors=anchors))
         res = self.search()
         self.B_opt, self.theta_opt = res.B_opt, res.theta_opt
 
@@ -240,6 +431,7 @@ class MCALCampaign:
             feasible=res.feasible, stable=self.stable,
             human_spent=p.ledger.human, training_spent=p.ledger.training)
         self.history.append(rec)
+        self._emit("iteration", **rec.to_dict())
         self._iter += 1
 
         if self.cfg.budget is not None:
@@ -291,16 +483,37 @@ class MCALCampaign:
         return rec
 
     def acquire(self):
-        """Buy delta labels ranked by M(.), retrain, re-measure."""
+        """Buy delta labels ranked by M(.), retrain, re-measure.  An async
+        ranking sweep launched by ``iteration`` is folded here and its
+        prefix trimmed to the final take."""
         p = self.pool
         cand = p.unlabeled_candidates()
+        pending, self._pending = self._pending, None
         if len(cand) == 0:
+            if pending is not None:
+                pending[1].cancel()
             self._finish("pool_exhausted")
             return
         take = min(self.delta, len(cand))
         if self.stable and self.B_opt > len(p.B_idx):
             take = min(take, self.B_opt - len(p.B_idx))
-        pick = self._rank_candidates(take, cand)
+        pick = None
+        if pending is not None:
+            if take <= pending[0]:
+                out = pending[1].result()
+                full = out[0] if isinstance(out, tuple) else out
+                pick = np.asarray(full[:take], np.int64)
+            else:   # the adapted delta outgrew the submitted sweep
+                pending[1].cancel()
+        if pick is None:
+            pick = self._rank_candidates(take, cand)
+        if self.trace is not None:
+            # a CRC over the ordered picks pins the acquisition bit-exactly
+            # across sibling runs without the index set in the trace
+            pick_arr = np.ascontiguousarray(np.asarray(pick, np.int64))
+            self._emit("acquisition", n=int(len(pick_arr)),
+                       digest=int(zlib.crc32(pick_arr.tobytes())),
+                       forced=False)
         p.buy_labels(self.task, pick, self.service)
         p.in_B[pick] = True
         p.B_idx = np.concatenate([p.B_idx, pick])
@@ -308,13 +521,22 @@ class MCALCampaign:
 
     def _finish(self, reason: str):
         """End the loop, recording WHY (budget | bailout | converged |
-        max_iters | pool_exhausted)."""
+        max_iters | pool_exhausted); an in-flight async sweep is dropped."""
         self.done = True
         self.done_reason = reason
+        self._emit("done", reason=reason)
+        self._drop_pending()
+
+    def _drop_pending(self):
+        """Cancel (best-effort) and forget an in-flight async M(.) sweep."""
+        if self._pending is not None:
+            self._pending[1].cancel()
+            self._pending = None
 
     def _anchor_features(self) -> Optional[np.ndarray]:
         """k-center anchor set: features of the human-labeled set B under
-        the CURRENT classifier, cached per training round."""
+        the CURRENT classifier, cached per training round and rebuilt from
+        ``B_idx`` alone (one feature sweep on resume)."""
         p = self.pool
         if len(p.B_idx) == 0:
             return None
@@ -323,7 +545,7 @@ class MCALCampaign:
         return self._anchor_feats
 
     def _rank_candidates(self, k: int, cand: np.ndarray) -> np.ndarray:
-        """M(.): pick ``k`` of ``cand`` — the task's device top-k for the
+        """M(.): pick ``k`` of ``cand`` — the task's paged top-k for the
         uncertainty metrics, its device k-center, or (``random``) the host
         reference path."""
         if k <= 0:
@@ -338,13 +560,24 @@ class MCALCampaign:
                                        rng=self.rng)
 
     def _machine_label(self, idx: np.ndarray):
-        """L(.): one scoring pass over ``idx`` -> (rows most-confident-
-        first, machine labels row-aligned with ``idx``)."""
-        order, pred = self.task.machine_label_sweep(idx, self.cfg.l_metric)
+        """L(.): one paged sweep over ``idx`` -> (rows most-confident-
+        first, machine labels row-aligned with ``idx``), cutting a
+        resumable cursor every ``sweep_checkpoint_every`` pages (and
+        resuming one) where the launcher asks for it."""
+        kw = {}
+        if self.sweep_checkpoint_every or \
+                self.resume_sweep_checkpoint is not None:
+            kw = dict(checkpoint=self.resume_sweep_checkpoint,
+                      checkpoint_every=self.sweep_checkpoint_every,
+                      on_checkpoint=self.on_sweep_checkpoint)
+            self.resume_sweep_checkpoint = None   # consumed
+        order, pred = self.task.machine_label_sweep(idx, self.cfg.l_metric,
+                                                    **kw)
         return np.asarray(order, np.int64), np.asarray(pred, np.int64)
 
     # -- commit ----------------------------------------------------------------
     def commit(self) -> MCALResult:
+        self._sync_fit()
         p = self.pool
         X = self.task.pool_size
         remaining = p.unlabeled_candidates()
@@ -365,13 +598,13 @@ class MCALCampaign:
                 machine_mask[S_idx] = True
             p.buy_labels(self.task, residual, self.service)
             gt = self.task.oracle_labels(np.arange(X))
-            return MCALResult(
+            return self._emit_commit(MCALResult(
                 labels=p.labels.copy(), machine_mask=machine_mask,
                 ledger=p.ledger.snapshot(), history=self.history,
                 decision="budget", B_size=len(p.B_idx), S_size=int(m),
                 theta_final=m / max(len(remaining), 1),
                 measured_error=float(np.mean(p.labels != gt)),
-                arch_name=self.task.arch_name)
+                arch_name=self.task.arch_name))
 
         if self.decision == "human_all" or self.theta_opt <= 0.0 \
                 or len(remaining) == 0:
@@ -404,12 +637,19 @@ class MCALCampaign:
 
         gt = self.task.oracle_labels(np.arange(X))
         measured_error = float(np.mean(p.labels != gt))
-        return MCALResult(
+        return self._emit_commit(MCALResult(
             labels=p.labels.copy(), machine_mask=machine_mask,
             ledger=p.ledger.snapshot(), history=self.history,
             decision=self.decision, B_size=len(p.B_idx), S_size=S_size,
             theta_final=theta_final, measured_error=measured_error,
-            arch_name=self.task.arch_name)
+            arch_name=self.task.arch_name))
+
+    def _emit_commit(self, res: MCALResult) -> MCALResult:
+        """The terminal decision event, flushed at once."""
+        if self.trace is not None:
+            self._emit("commit", **res.to_dict(with_history=False))
+            self.trace.flush()
+        return res
 
     def run(self) -> MCALResult:
         self.bootstrap()
@@ -417,7 +657,146 @@ class MCALCampaign:
             self.iteration()
         return self.commit()
 
+    def close(self) -> None:
+        """Cancel any in-flight async sweep or retrain and join the task's
+        worker threads (idempotent; the results stay)."""
+        self._drop_pending()
+        if self._fit_pending is not None:
+            self._fit_pending[1].cancel()
+            self._fit_pending = None
+        if hasattr(self.task, "close"):
+            self.task.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- preemption ---------------------------------------------------------
+    def state_dict(self) -> Dict:
+        """JSON-serializable loop state at the reference's schema: a
+        preempted campaign resumes mid-loop from it (the classifier is
+        retrained from the persisted label set)."""
+        self._sync_fit()
+        p = self.pool
+        fitted = None
+        if self.train_sizes:
+            fitted = _fitted_payload(*self._fit_models())
+        state = {
+            "version": STATE_VERSION,
+            "fitted": fitted,
+            "pack_keys": (self.task.pack_cache_keys()
+                          if hasattr(self.task, "pack_cache_keys")
+                          else None),
+            "history": [r.to_dict() for r in self.history],
+            "rng": self.rng.bit_generator.state,
+            "annotation": None,       # perfect labels: no service state
+            "labels": p.labels.tolist(),
+            "is_test": np.nonzero(p.is_test)[0].tolist(),
+            "B_idx": p.B_idx.tolist(),
+            "ledger": p.ledger.as_dict(),
+            "eps_hist": {str(t): v for t, v in self.eps_hist.items()},
+            "train_sizes": self.train_sizes,
+            "train_costs": self.train_costs,
+            "delta": self.delta,
+            "cstar_old": self.cstar_old,
+            "stable": self.stable,
+            "own_training": self.own_training,
+            "iter": self._iter,
+            "done": bool(self.done),
+            "decision": self.decision,
+            "B_opt": int(self.B_opt),
+            "theta_opt": float(self.theta_opt),
+            "freeze_delta": False,    # no architecture selection here
+        }
+        # the trace append cursor: flush first, so the persisted cursor
+        # points inside the file
+        if self.trace is not None:
+            self._emit("state_save", iter=self._iter,
+                       B_size=int(len(p.B_idx)))
+            self.trace.flush()
+            state["trace"] = {"next_seq": int(self.trace.next_seq)}
+        else:
+            state["trace"] = None
+        return state
+
+    def load_state_dict(self, s: Dict):
+        v = int(s.get("version", 1))
+        if v > STATE_VERSION:
+            raise ValueError(
+                f"campaign state has schema version {v}, but this build "
+                f"understands at most version {STATE_VERSION}")
+        if s.get("annotation") is not None or s.get("freeze_delta"):
+            raise NotImplementedError(
+                "this state file comes from a noisy-annotation or "
+                "architecture-selection campaign, which is not ported yet")
+        # fold an in-flight async retrain first: it would race the resume
+        # retrain below on the same engine buffers
+        self._sync_fit()
+        p = self.pool
+        p.labels = np.asarray(s["labels"], np.int64)
+        p.is_test[:] = False
+        p.is_test[np.asarray(s["is_test"], np.int64)] = True
+        p.T_idx = np.asarray(s["is_test"], np.int64)
+        p.B_idx = np.asarray(s["B_idx"], np.int64)
+        p.in_B[:] = False
+        p.in_B[p.B_idx] = True
+        p.ledger = CostLedger.from_dict(s["ledger"])
+        if self.trace is not None:
+            p.ledger.trace = self.trace
+            p.ledger.trace_name = "campaign"
+        self.eps_hist = {float(t): [tuple(x) for x in v]
+                         for t, v in s["eps_hist"].items()}
+        self.train_sizes = list(s["train_sizes"])
+        self.train_costs = list(s["train_costs"])
+        self.delta = int(s["delta"])
+        self.cstar_old = s["cstar_old"]
+        self.stable = bool(s["stable"])
+        self.own_training = float(s["own_training"])
+        self._iter = int(s["iter"])
+        self.done = bool(s.get("done", False))
+        self.decision = str(s.get("decision", "hybrid"))
+        self.B_opt = int(s.get("B_opt", 0))
+        self.theta_opt = float(s.get("theta_opt", 0.0))
+        self.history = [IterationRecord.from_dict(r)
+                        for r in s.get("history", [])]
+        if "rng" in s:
+            self.rng = np.random.default_rng()
+            self.rng.bit_generator.state = s["rng"]
+        self._pending = None
+        self._fit_pending = None
+        # the persisted fits go into the memo, so the first search() after
+        # resume refits nothing
+        self._fit_models_cache = None
+        fitted = s.get("fitted")
+        if fitted:
+            laws = {float(t): PowerLaw(
+                alpha=f["alpha"], gamma=f["gamma"],
+                k=np.inf if f["k"] is None else f["k"],
+                resid_std=f["resid_std"], n_points=int(f["n_points"]))
+                for t, f in fitted["laws"].items()}
+            cm = TrainCostModel(c_u=fitted["cost_model"]["c_u"],
+                                exponent=int(fitted["cost_model"]["exponent"]))
+            key = (len(self.train_sizes),
+                   sum(len(v) for v in self.eps_hist.values()))
+            self._fit_models_cache = (key, laws, cm)
+        # retrain the classifier on the persisted label set (its cost was
+        # paid before the checkpoint), then warm the engines' buckets
+        self._anchor_feats = None
+        self.task.train(p.B_idx, p.labels[p.B_idx])
+        if hasattr(self.task, "prewarm_caches"):
+            self.task.prewarm_caches(s.get("pack_keys"))
+        if self.cfg.metric == "kcenter":
+            self._anchor_features()
+        # observability only: replay and diff skip it
+        self._emit("resume", iter=self._iter, B_size=int(len(p.B_idx)))
+
 
 def run_mcal(task, service: LabelingService,
-             cfg: MCALConfig = MCALConfig()) -> MCALResult:
-    return MCALCampaign(task, service, cfg).run()
+             cfg: MCALConfig = MCALConfig(),
+             trace: Optional[object] = None) -> MCALResult:
+    camp = MCALCampaign(task, service, cfg)
+    if trace is not None:
+        camp.attach_trace(trace)
+    return camp.run()

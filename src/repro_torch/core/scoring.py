@@ -8,7 +8,11 @@ microbatch: model forward, then the head fused into :class:`ScoreStats`
 through the hand-written ``margin_head`` kernel; on the CPU it follows the
 reference's rule (dense logits when V <= 4096, else vocab chunks).  The
 same sweep emits the pooled last-hidden features that k-center consumes,
-left on the device.
+left on the device.  The ``(n_mb, mb)`` pack buckets swept so far are the
+engine's :meth:`~PoolScoringEngine.cache_keys` (the keys the reference's
+compile cache holds, persisted in campaign state files); :meth:`warm`
+runs one page of each, so the kernels are built and cuBLAS has chosen its
+algorithms before a campaign's loop.
 
 :func:`score_pool_reference` keeps the host loop the reference validates
 its engine against.
@@ -110,6 +114,11 @@ class PoolScoringEngine:
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
+        # (n_mb, mb) pack buckets swept or warmed so far
+        self.pack_keys: set = set()
+
+    def _note_pack(self, key: Tuple[int, int]) -> None:
+        self.pack_keys.add((int(key[0]), int(key[1])))
 
     def _microbatch_stats(self, params, x) -> Tuple[ScoreStats, torch.Tensor]:
         hidden = self.model.forward(params, {"features": x})
@@ -128,12 +137,15 @@ class PoolScoringEngine:
         pad = n_mb * mb - n
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        self._note_pack((n_mb, mb))
         return x.reshape((n_mb, mb) + tuple(x.shape[1:])), n
 
     @torch.no_grad()
     def score_pages(self, params, xs) -> Tuple[ScoreStats, torch.Tensor]:
         """Score a packed ``(n_mb, mb, ...)`` pool: PACKED statistics and
-        features (padding rows included)."""
+        features (padding rows included) — the sweep runtime's page step
+        (``serving.sweep.EngineSweepAdapter``)."""
+        self._note_pack(tuple(xs.shape[:2]))
         stats, feats = [], []
         for x in xs:
             s, h = self._microbatch_stats(params, x)
@@ -141,6 +153,25 @@ class PoolScoringEngine:
             feats.append(h)
         return (ScoreStats(*(torch.cat(f) for f in zip(*stats))),
                 torch.cat(feats))
+
+    def cache_keys(self):
+        """Sorted (n_mb, mb) pack buckets this engine has swept."""
+        return sorted(self.pack_keys)
+
+    def warm(self, params, keys) -> int:
+        """Score one zero page of each (n_mb, mb) bucket in ``keys`` (e.g.
+        restored from a campaign state file) not swept yet, so the kernels
+        are built and cuBLAS has chosen its algorithms before the loop;
+        returns how many buckets were warmed."""
+        count = 0
+        for n_mb, mb in keys:
+            key = (int(n_mb), int(mb))
+            if key in self.pack_keys:
+                continue
+            self.score_pages(params, torch.zeros(
+                key + (self.model.cfg.input_dim,), device=self.device))
+            count += 1
+        return count
 
     def score(self, params, pool_x) -> Tuple[ScoreStats, torch.Tensor]:
         """Score the whole pool: ScoreStats and (N, D) last-hidden features

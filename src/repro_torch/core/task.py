@@ -1,22 +1,26 @@
 """Labeling-task abstraction consumed by the MCAL campaign loop
-(``repro.core.task``), synchronous subset.
+(``repro.core.task``).
 
 :class:`LiveTask` is the real path: an MLP classifier retrained with the
-port's fit engine, pool passes through the scoring engine (the
-``margin_head`` kernel on a CUDA device) and k-center through the device
-greedy engine (the ``pairwise_dist`` kernel for its anchor distances).
-The pool's features are uploaded to the device once; every pass gathers
-its rows there.
+port's fit engine (one CUDA graph per retrain bucket on a card), pool-scale
+passes — top-k M(.), k-center features, anchors, the L(.)/commit rank —
+streamed through the paged sweep runtime (``serving.sweep``) over the
+scoring engine (the ``margin_head`` kernel on a CUDA device), k-center
+through the device greedy engine (the ``pairwise_dist`` kernel for its
+anchor distances).  The pool stays on the host: each pass gathers its rows
+there and pages them to the device.  Scoring the test set stays on the
+engine's direct path.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.selection import uncertainty_scores
+from repro_torch.core.selection import UNCERTAINTY_METRICS
 
 
 @dataclasses.dataclass
@@ -37,9 +41,16 @@ class LiveTask:
     epochs: int = 40
     batch_size: int = 256
     learning_rate: float = 1e-2
+    price_per_hour: float = 3.6      # the paper's 4xK80 VM price
     seed: int = 0
-    c_u_nominal: float = 1e-4        # $/sample-iteration: cost = c_u * |B|
+    measured_cost: bool = False      # False -> cost = c_u_nominal * |B|
+    c_u_nominal: float = 1e-4        # $/sample-iteration when not measuring
     score_microbatch: int = 2048     # pool-scoring engine microbatch
+    sweep_page: int = 8192           # pool-sweep runtime page rows
+    fit_fused: bool = True           # the fit engine's retrain (False ->
+                                     # the per-step host-loop oracle)
+    fit_resident: bool = False       # keep the labeled set on the device,
+                                     # upload only newly bought labels
     device: str = "cuda"
     fit_source: Optional[Callable[[int], Tuple[Dict, np.ndarray]]] = None
                                      # n -> (init params, epoch orders) for
@@ -50,6 +61,8 @@ class LiveTask:
         from repro_torch.configs.base import ModelConfig, TrainConfig
         from repro_torch.core.scoring import PoolScoringEngine, ScoringConfig
         from repro_torch.models.registry import get_model
+        from repro_torch.serving.sweep import (EngineSweepAdapter,
+                                               PoolSweepRunner, SweepConfig)
         from repro_torch.training.fit_device import FitConfig, FitEngine
         self.pool_size = len(self.features)
         self.cfg = ModelConfig(
@@ -62,15 +75,28 @@ class LiveTask:
                               schedule="constant",
                               weight_decay=1e-4, grad_clip=1.0)
         self._params = None
-        self._x = torch.as_tensor(np.asarray(self.features, np.float32),
-                                  device=self.device)
         self._engine = PoolScoringEngine(
             self.model, ScoringConfig(microbatch=self.score_microbatch),
             device=self.device)
+        self._sweep = PoolSweepRunner(
+            EngineSweepAdapter(self._engine),
+            SweepConfig(page_rows=self.sweep_page))
         self._fit = FitEngine(self.model, self.tc,
                               FitConfig(epochs=self.epochs,
                                         batch_size=self.batch_size),
                               device=self.device)
+        self._res_idx = np.zeros((0,), np.int64)  # resident-set row ledger
+
+    def attach_trace(self, trace) -> None:
+        """Wire the campaign event bus into the sweep runner (page cursors,
+        sink finalizations) and the fit engine (async submit/fold)."""
+        self._sweep.trace = trace
+        self._fit.trace = trace
+
+    def close(self) -> None:
+        """Join both engines' worker threads (idempotent)."""
+        self._sweep.close()
+        self._fit.close()
 
     # -- annotation ------------------------------------------------------
     def human_label(self, idx: np.ndarray) -> np.ndarray:
@@ -84,50 +110,93 @@ class LiveTask:
     # -- training ----------------------------------------------------------
     def train(self, idx: np.ndarray, labels: np.ndarray) -> float:
         """Re-train from scratch on (idx, labels) for ``epochs`` epochs
-        (fixed epochs => per-iteration cost proportional to |B|, Eqn. 4).
-        The retrain runs on asynchronously; the next pass waits for it."""
+        (fixed epochs => per-iteration cost proportional to |B|, Eqn. 4):
+        the fit engine's retrain (a replayed CUDA graph on a card), the
+        per-step host loop with ``fit_fused=False``, and with
+        ``fit_resident`` over the device-resident labeled set, extended by
+        the newly bought rows only."""
         idx = np.asarray(idx, np.int64)
+        labels = np.asarray(labels, np.int64)
         n = len(idx)
-        init_params = orders = None
+        kw = {}
         if self.fit_source is not None:
-            init_params, orders = self.fit_source(n)
-        self._params, _ = self._fit.fit(
-            self.seed, self._rows(idx), np.asarray(labels, np.int64),
-            init_params=init_params, orders=orders)
-        return self.train_cost(n)
-
-    def train_cost(self, n: int) -> float:
-        """The $ cost :meth:`train` charges for an ``n``-row retrain."""
+            kw["init_params"], kw["orders"] = self.fit_source(n)
+        t0 = time.perf_counter()
+        if not self.fit_fused:
+            params, losses = self._fit.fit_reference(
+                self.seed, self.features[idx].astype(np.float32), labels,
+                **kw)
+        elif self.fit_resident:
+            prev = len(self._res_idx)
+            if n < prev or not np.array_equal(idx[:prev], self._res_idx):
+                # not an append-only extension of the resident set
+                self._fit.reset_resident()
+                prev = 0
+            if n > prev:
+                self._fit.extend_resident(
+                    self.features[idx[prev:]].astype(np.float32),
+                    labels[prev:])
+            self._res_idx = idx.copy()
+            params, losses = self._fit.fit_resident(self.seed, **kw)
+        else:
+            params, losses = self._fit.fit(
+                self.seed, self.features[idx].astype(np.float32), labels,
+                **kw)
+        self._params = params
+        if self.measured_cost:
+            if losses.is_cuda:
+                torch.cuda.synchronize(losses.device)
+            return (time.perf_counter() - t0) / 3600.0 * self.price_per_hour
         return self.c_u_nominal * n
 
-    # -- scoring -------------------------------------------------------------
-    def _rows(self, idx: np.ndarray) -> torch.Tensor:
-        """The pool's rows ``idx``, gathered on the device."""
-        return self._x[torch.as_tensor(np.asarray(idx, np.int64),
-                                       device=self.device)]
+    def train_cost(self, n: int) -> Optional[float]:
+        """The $ cost :meth:`train` charges for an ``n``-row retrain when it
+        is known without training — None under ``measured_cost``.  The
+        campaign's async-fit path pays it at submit."""
+        return None if self.measured_cost else self.c_u_nominal * n
 
-    def _pool(self, idx: np.ndarray) -> torch.Tensor:
+    def submit_train(self, idx: np.ndarray, labels: np.ndarray,
+                     then: Optional[Callable] = None):
+        """Async retrain on the fit engine's worker: a ``FitFuture`` of
+        :meth:`train`'s cost, or of ``(cost, then())`` — the campaign
+        chains its measurement there, so it reads the fresh params on the
+        same worker."""
+        idx = np.asarray(idx, np.int64).copy()
+        labels = np.asarray(labels).copy()
+
+        def job():
+            c = self.train(idx, labels)
+            return (c, then()) if then is not None else c
+
+        return self._fit.submit_call(job)
+
+    # -- scoring -------------------------------------------------------------
+    def _pool(self, idx: np.ndarray) -> np.ndarray:
+        """The pool's rows ``idx``, gathered on the host."""
         assert self._params is not None, "train() before score()"
-        return self._rows(idx)
+        return self.features[np.asarray(idx, np.int64)].astype(np.float32)
 
     def score(self, idx: np.ndarray):
         return self._engine.score_host(self._params, self._pool(idx))
 
     def topk_candidates(self, metric: str, k: int,
                         candidates: np.ndarray) -> np.ndarray:
-        """M(.) for the uncertainty metrics: the engine's device top-k —
-        only the k chosen rows reach the host."""
-        rows = self._engine.top_k(self._params, self._pool(candidates), k,
-                                  metric)
+        """M(.) for the uncertainty metrics: a paged sweep folding a device
+        top-k reservoir — only the k chosen rows reach the host."""
+        from repro_torch.serving.sweep import TopKSink
+        rows = self._sweep.run(self._params, self._pool(candidates),
+                               TopKSink(k, metric))
         return np.asarray(candidates, np.int64)[rows]
 
     def kcenter_candidates(self, k: int, candidates: np.ndarray,
                            anchors: Optional[np.ndarray] = None):
-        """M(.) k-center: features stay on the device, and so does the
-        greedy loop; only the k chosen rows and their features return."""
+        """M(.) k-center: the paged sweep leaves the features on the
+        device, and so does the greedy loop; only the k chosen rows and
+        their features return."""
         from repro_torch.core.selection_device import k_center_greedy_device
-        feats = self._engine.pool_features(self._params,
-                                           self._pool(candidates))
+        from repro_torch.serving.sweep import FeatureSink
+        feats = self._sweep.run(self._params, self._pool(candidates),
+                                FeatureSink())
         rows = k_center_greedy_device(feats, k, anchors=anchors,
                                       device=self.device)
         picked = np.asarray(candidates, np.int64)[rows]
@@ -136,18 +205,41 @@ class LiveTask:
 
     def anchor_features(self, idx: np.ndarray) -> np.ndarray:
         """(len(idx), D) pooled features of ``idx`` under the CURRENT
-        classifier — the campaign's k-center anchor set."""
-        return self._engine.pool_features(self._params,
-                                          self._pool(idx)).cpu().numpy()
+        classifier (one paged feature sweep) — the campaign's k-center
+        anchor set."""
+        from repro_torch.serving.sweep import FeatureSink
+        return self._sweep.run(self._params, self._pool(idx),
+                               FeatureSink()).cpu().numpy()
 
-    def machine_label_sweep(self, idx: np.ndarray, metric: str = "margin"):
-        """L(.)/commit: one scoring pass over ``idx`` -> (rows
+    def machine_label_sweep(self, idx: np.ndarray, metric: str = "margin",
+                            *, checkpoint=None, checkpoint_every: int = 0,
+                            on_checkpoint=None):
+        """L(.)/commit: one paged sweep over ``idx`` -> (rows
         most-confident-first, machine labels row-aligned with ``idx``).
-        The rank is the stable host argsort over the metric's fp64 score,
-        as the reference's rank sink computes it."""
-        stats, _ = self._engine.score_host(self._params, self._pool(idx))
-        order = np.argsort(uncertainty_scores(metric, stats), kind="stable")
-        return order, np.asarray(stats.top1, np.int64)
+        ``checkpoint`` resumes a cut cursor; ``checkpoint_every`` /
+        ``on_checkpoint`` cut one every N pages for the launcher's state
+        file."""
+        from repro_torch.serving.sweep import RankTop1Sink
+        return self._sweep.run(self._params, self._pool(idx),
+                               RankTop1Sink(metric), checkpoint=checkpoint,
+                               checkpoint_every=checkpoint_every,
+                               on_checkpoint=on_checkpoint)
+
+    def submit_candidates(self, metric: str, k: int, candidates: np.ndarray,
+                          anchors: Optional[np.ndarray] = None):
+        """Async M(.) on the sweep worker: a ``SweepFuture`` of the picked
+        pool indices (uncertainty metrics) or of k-center's ``(picked,
+        features)``."""
+        from repro_torch.serving.sweep import TopKSink
+        cand = np.asarray(candidates, np.int64)
+        if metric in UNCERTAINTY_METRICS:
+            return self._sweep.submit(
+                self._params, self._pool(cand), TopKSink(k, metric),
+                map_result=lambda rows: cand[rows])
+        if metric == "kcenter":
+            return self._sweep.submit_call(self.kcenter_candidates, k, cand,
+                                           anchors)
+        raise ValueError(f"no async sweep for metric {metric!r}")
 
     def predict(self, idx: np.ndarray) -> np.ndarray:
         stats, _ = self._engine.score_host(self._params, self._pool(idx))
@@ -155,3 +247,19 @@ class LiveTask:
 
     def eval_correct(self, idx: np.ndarray, labels: np.ndarray) -> np.ndarray:
         return self.predict(idx) == np.asarray(labels)
+
+    # -- engine buckets in state files ---------------------------------------
+    def pack_cache_keys(self) -> Dict:
+        """The pow2 buckets both engines have run (scoring pages, retrain
+        graphs), in the reference's JSON form for campaign state files."""
+        return {"scoring": [list(k) for k in self._engine.cache_keys()],
+                "fit": [list(k) for k in self._fit.cache_keys()]}
+
+    def prewarm_caches(self, keys: Optional[Dict]) -> None:
+        """Warm both engines from persisted bucket keys (the scoring side
+        needs a trained model)."""
+        if not keys:
+            return
+        self._fit.warm(keys.get("fit", ()))
+        if self._params is not None:
+            self._engine.warm(self._params, keys.get("scoring", ()))

@@ -1,0 +1,275 @@
+"""MCAL labeling-campaign launcher (``repro.launch.label``), live mode: a
+campaign over a live classifier trained on this host's device (a CUDA
+device unless ``--device cpu``).
+
+    PYTHONPATH=src python -m repro_torch.launch.label --live --pool 50000 \\
+        --sweep-async --fit-async
+    PYTHONPATH=src python -m repro_torch.launch.label --live --device cpu \\
+        --pool 2000
+
+Campaign state (ledger, pool bitmap, per-theta history, fitted power laws,
+the engines' bucket keys) is saved to ``--state`` after every iteration,
+so a preempted campaign resumes mid-loop; during the commit sweep a
+resumable ``SweepCheckpoint`` cursor is embedded every
+``--sweep-ckpt-pages`` pages.  ``--iters-per-run`` bounds how many
+iterations one invocation runs: a campaign not done by then saves its
+state and exits with a resumable report.  The state file's schema is the
+reference's, so a campaign saved by ``repro.launch.label`` resumes here
+and the other way round.  ``--trace`` writes the campaign's event log
+(appended to at the checkpointed cursor on resume);
+``--trace-replay`` and ``--trace-diff`` read traces of either package.
+
+The reference's replay mode (``--dataset``, emulated learning curves) and
+its annotation, fault, metrics and mesh flags are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+# the reference's literal (the launcher must not import torch until
+# parsing succeeds: --help never pays for it)
+METRIC_CHOICES = ("margin", "entropy", "least_confidence", "kcenter",
+                  "random")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--live", action="store_true",
+                    help="live mode: train a classifier on this host's "
+                         "device (the only mode ported)")
+    ap.add_argument("--pool", type=int, default=4000)
+    ap.add_argument("--classes", type=int, default=10)
+    ap.add_argument("--difficulty", type=float, default=0.3)
+    ap.add_argument("--eps", type=float, default=0.05)
+    ap.add_argument("--budget", type=float, default=None)
+    ap.add_argument("--metric", default="margin", choices=METRIC_CHOICES)
+    ap.add_argument("--service", default="amazon",
+                    choices=("amazon", "satyam"))
+    ap.add_argument("--sweep-page", type=int, default=8192,
+                    help="pool-sweep runtime page rows (the paged, "
+                         "double-buffered L(.)/M(.) pool passes)")
+    ap.add_argument("--sweep-async", action="store_true",
+                    help="overlap each iteration's M(.) sweep with the "
+                         "host-side power-law fits + joint search")
+    ap.add_argument("--fit-fused", dest="fit_fused", action="store_true",
+                    default=True,
+                    help="the fit engine's retrain: one CUDA graph per "
+                         "retrain bucket on a card (default)")
+    ap.add_argument("--no-fit-fused", dest="fit_fused", action="store_false",
+                    help="per-step host training loop (the exact-agreement "
+                         "oracle path)")
+    ap.add_argument("--fit-async", action="store_true",
+                    help="defer each retrain + its measurement onto the "
+                         "fit-engine worker thread (iteration records are "
+                         "identical to the synchronous campaign)")
+    ap.add_argument("--fit-resident", action="store_true",
+                    help="keep the labeled set device-resident across "
+                         "iterations; only newly bought labels upload")
+    ap.add_argument("--state", default="",
+                    help="campaign state file: saved every iteration (and "
+                         "every --sweep-ckpt-pages pages of the commit "
+                         "sweep); an existing file is resumed")
+    ap.add_argument("--sweep-ckpt-pages", type=int, default=0,
+                    help="cut a resumable commit-sweep cursor into --state "
+                         "every N pages (0 disables)")
+    ap.add_argument("--iters-per-run", type=int, default=0,
+                    help="run at most N iterations this invocation, then "
+                         "save --state and exit resumable (0 = run to "
+                         "completion)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--trace", default="",
+                    help="append-only campaign trace (JSONL): every "
+                         "decision/charge/measurement event; a campaign "
+                         "resumed via --state appends to it at the "
+                         "checkpointed cursor")
+    ap.add_argument("--trace-replay", default="", metavar="TRACE",
+                    help="reconstruct a campaign report from its trace "
+                         "alone (no engines, zero recompute) and exit")
+    ap.add_argument("--trace-diff", nargs=2, default=None,
+                    metavar=("TRACE_A", "TRACE_B"),
+                    help="first-divergence analysis between two sibling "
+                         "campaign traces, then exit")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def _save_state(path: str, campaign=None, cursor=None, campaign_blob=None):
+    """State write by rename: the campaign loop state + an optional
+    mid-sweep cursor.  ``campaign_blob`` reuses a serialized campaign dict
+    (the loop state is frozen for the whole commit sweep)."""
+    blob = {"campaign": campaign_blob if campaign_blob is not None
+            else campaign.state_dict()}
+    if cursor is not None:
+        blob["sweep_cursor"] = cursor.to_json()
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(blob, f)
+    os.replace(tmp, path)
+
+
+def run_campaign(task, service, cfg, *, state_path: str = "",
+                 sweep_ckpt_pages: int = 0, iters_per_run: int = 0,
+                 trace_path: str = "", campaign_id: str = "campaign"):
+    """Drive one campaign with optional ``--state`` preemption and an
+    optional ``--trace`` event log.  Returns (MCALResult | None,
+    campaign): None when ``iters_per_run`` stopped the loop first.  A
+    campaign resumed from a state file whose trace cursor is set appends
+    to its trace (no gaps, no duplicate sequence numbers)."""
+    from repro_torch.core import MCALCampaign
+    from repro_torch.serving.sweep import SweepCheckpoint
+    from repro_torch.trace import TraceStore
+
+    camp = MCALCampaign(task, service, cfg)
+    blob = None
+    if state_path and os.path.exists(state_path):
+        with open(state_path) as f:
+            blob = json.load(f)
+
+    trace = None
+    if trace_path:
+        cursor = blob["campaign"].get("trace") if blob is not None else None
+        if cursor and os.path.exists(trace_path):
+            trace = TraceStore.resume(trace_path, cursor["next_seq"])
+        else:
+            trace = TraceStore(trace_path, campaign_id)
+        # before bootstrap/load: the trace opens with the campaign's first
+        # event (campaign_begin or the resume marker)
+        camp.attach_trace(trace)
+
+    try:
+        if blob is not None:
+            camp.load_state_dict(blob["campaign"])
+            if "sweep_cursor" in blob:
+                camp.resume_sweep_checkpoint = SweepCheckpoint.from_json(
+                    blob["sweep_cursor"])
+        else:
+            camp.bootstrap()
+            if state_path:
+                _save_state(state_path, camp)
+
+        if state_path and sweep_ckpt_pages:
+            camp.sweep_checkpoint_every = sweep_ckpt_pages
+            frozen = {}   # campaign blob serialized once, at the first cut
+
+            def save_cursor(ck):
+                if "blob" not in frozen:
+                    frozen["blob"] = camp.state_dict()
+                _save_state(state_path, cursor=ck,
+                            campaign_blob=frozen["blob"])
+
+            camp.on_sweep_checkpoint = save_cursor
+
+        ran = 0
+        while not camp.done:
+            camp.iteration()
+            ran += 1
+            if state_path:
+                _save_state(state_path, camp)
+            if iters_per_run and ran >= iters_per_run and not camp.done:
+                return None, camp
+        res = camp.commit()
+        if state_path and os.path.exists(state_path):
+            os.remove(state_path)   # campaign complete: the state is spent
+        return res, camp
+    finally:
+        # join the workers first (nothing emits afterwards), then the store
+        camp.close()
+        if trace is not None:
+            trace.close()
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    # trace analysis modes read event files, not devices
+    if args.trace_diff is not None:
+        from repro_torch.trace import diff
+        d = diff(*args.trace_diff)
+        if d is None:
+            print(json.dumps({"identical": True}))
+        else:
+            print(json.dumps({"identical": False,
+                              "divergence": d.describe(),
+                              "index": d.index, "kind_a": d.kind_a,
+                              "kind_b": d.kind_b, "fields": d.fields},
+                             indent=2))
+        return
+    if args.trace_replay:
+        from repro_torch.trace import replay
+        rp = replay(args.trace_replay)
+        report = {
+            "campaign": rp.campaign, "replayed_from": args.trace_replay,
+            "decision": rp.decision, "done_reason": rp.done_reason,
+            "iterations": len(rp.history), "cost": rp.total_cost,
+            "ledger": rp.ledger, "votes": rp.votes,
+            "config": rp.config, "runtime": rp.runtime,
+        }
+        if rp.result is not None:
+            report.update(theta_final=rp.result.theta_final,
+                          measured_error=rp.result.measured_error,
+                          B_size=rp.result.B_size,
+                          S_size=rp.result.S_size)
+        print(json.dumps(report, indent=2))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f)
+        return
+    if not args.live:
+        raise SystemExit(
+            "repro_torch.launch.label: the replay mode (emulated learning "
+            "curves, --dataset) is not yet ported; pass --live")
+
+    from repro_torch.core import SERVICES, LiveTask, MCALConfig
+    from repro_torch.data.synth import make_classification
+
+    service = SERVICES[args.service]
+    cfg = MCALConfig(eps_target=args.eps, metric=args.metric,
+                     budget=args.budget, seed=args.seed,
+                     sweep_async=args.sweep_async, fit_async=args.fit_async)
+    x, y = make_classification(args.pool, num_classes=args.classes,
+                               difficulty=args.difficulty, seed=args.seed)
+    task = LiveTask(features=x, groundtruth=y, num_classes=args.classes,
+                    seed=args.seed, sweep_page=args.sweep_page,
+                    fit_fused=args.fit_fused, fit_resident=args.fit_resident,
+                    device=args.device)
+    res, camp = run_campaign(task, service, cfg, state_path=args.state,
+                             sweep_ckpt_pages=args.sweep_ckpt_pages,
+                             iters_per_run=args.iters_per_run,
+                             trace_path=args.trace,
+                             campaign_id=f"live-mlp-s{args.seed}")
+    if res is None:
+        report = {"resumable": True, "state": args.state,
+                  "iterations": len(camp.history),
+                  "B_size": len(camp.pool.B_idx)}
+        if args.trace:
+            report["trace"] = args.trace
+        print(json.dumps(report, indent=2))
+        return
+    X = task.pool_size
+    human_all = X * service.price_per_label
+    report = {
+        "decision": res.decision,
+        "B_frac": res.B_size / X,
+        "S_frac": res.S_size / X,
+        "theta_final": res.theta_final,
+        "measured_error": res.measured_error,
+        "cost": res.total_cost,
+        "human_all_cost": human_all,
+        "savings": 1.0 - res.total_cost / human_all,
+        "ledger": res.ledger,
+        "iterations": len(res.history),
+        "device": args.device,
+    }
+    if args.trace:
+        report["trace"] = args.trace
+    print(json.dumps(report, indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,13 @@ port's ServeEngine, on a CUDA device unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --batch 8 --prompt-len 2048 --gen 32
 
-``--smoke`` takes the reduced config.  ``--score-pool`` needs the paged
-sweep runtime, which is not ported yet.
+Pool-sweep mode (MCAL's machine-labeling pass through the serving
+runtime):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --smoke --device cpu --score-pool 32 --sweep-page 8 --sweep-async
+
+``--smoke`` takes the reduced config.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sweep-page", type=int, default=0,
                     help="sweep page rows (default: --batch)")
     ap.add_argument("--sweep-async", action="store_true",
-                    help="run the pool sweep through the async handle")
+                    help="run the pool sweep through the async handle "
+                         "(SweepFuture) instead of blocking")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -34,11 +40,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.score_pool:
-        raise NotImplementedError(
-            "--score-pool needs the paged sweep runtime, not ported yet "
-            "(ROADMAP A.1)")
-
     import numpy as np
     import torch
     from repro_torch.configs import get_config, get_smoke
@@ -60,6 +61,31 @@ def main(argv=None):
     def sync():
         if engine.device.type == "cuda":
             torch.cuda.synchronize(engine.device)
+
+    if args.score_pool:
+        # stream an N-row prompt pool through the scoring step as paged,
+        # double-buffered sweep work
+        pool = {"tokens": rng.integers(
+            0, cfg.vocab_size,
+            (args.score_pool, args.prompt_len)).astype(np.int32)}
+        page = args.sweep_page or args.batch
+        engine.score_pool({k: v[:page] for k, v in pool.items()},
+                          page_rows=page)          # warm the page step
+        sync()
+        t0 = time.perf_counter()
+        if args.sweep_async:
+            stats = engine.score_pool_async(pool, page_rows=page).result()
+        else:
+            stats = engine.score_pool(pool, page_rows=page)
+        sync()
+        dt = time.perf_counter() - t0
+        engine.close()
+        mode = "async" if args.sweep_async else "sync"
+        print(f"[serve] pool sweep ({mode}) scored {args.score_pool} rows "
+              f"in {dt:.2f}s ({args.score_pool / dt:.1f} rows/s, "
+              f"page={page})")
+        print("mean margin:", float(stats.margin.float().mean()))
+        return stats
 
     t0 = time.perf_counter()
     out = engine.generate(batch, args.gen)

@@ -3,6 +3,7 @@
 ported."""
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict
 
@@ -36,6 +37,9 @@ class Model:
         self.specs = self.mod.specs(cfg)
         self.net = mlp.MLP(cfg, device="meta") if cfg.family == "mlp" \
             else None
+        # functional_call swaps the module's parameters for the call's:
+        # one call at a time (the fit and sweep workers share the model)
+        self._net_lock = threading.Lock()
         self.init_seconds = None
 
     def init(self, seed: int, device="cuda") -> Dict[str, torch.Tensor]:
@@ -48,8 +52,10 @@ class Model:
 
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         if self.cfg.family == "mlp":
-            return functional_call(self.net, params, (batch["features"],),
-                                   tie_weights=False)
+            with self._net_lock:
+                return functional_call(self.net, params,
+                                       (batch["features"],),
+                                       tie_weights=False)
         return self.mod.forward(self.cfg, params, batch["tokens"])
 
     def prefill(self, params: Dict, batch: Dict):

@@ -4,12 +4,13 @@ greedy decode over a fixed-size cache, on one device.
 MCAL's machine-labeling pass is an inference job over the remaining pool;
 :meth:`ServeEngine.score` is its per-batch step (the forward pass and the
 vocab head fused into last-position :class:`ScoreStats`; on a CUDA device
-the head is the ``margin_head`` kernel).  The pool-scale sweep
-(``score_pool``) waits for the port of the paged sweep runtime.
+the head is the ``margin_head`` kernel).  :meth:`ServeEngine.score_pool`
+streams a token pool of any size through that step as paged,
+double-buffered sweep work (``serving.sweep``, ``ServeSweepAdapter``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +34,7 @@ class ServeEngine:
         self.max_seq = max_seq
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self._sweep_runners: Dict[int, Any] = {}
 
     def _batch(self, batch: Dict) -> Dict:
         return {k: torch.as_tensor(v, device=self.device)
@@ -49,14 +51,18 @@ class ServeEngine:
                                      self.device)
         return logits, _load_cache(self.model.cfg, full, cache), T
 
-    @torch.no_grad()
     def score(self, batch: Dict) -> ScoreStats:
-        """Last-position ScoreStats for one batch, the head in fp32 (the
-        reference's ``make_scoring_step``)."""
-        batch = self._batch(batch)
-        hidden = self.model.forward(self.params, batch)
+        """Last-position ScoreStats for one batch (the pass
+        :meth:`score_pool` sweeps over the remaining pool)."""
+        return self._score(self.params, self._batch(batch))
+
+    @torch.no_grad()
+    def _score(self, params: Dict, batch: Dict) -> ScoreStats:
+        """The scoring step over a batch on the device, the head in fp32
+        (the reference's ``make_scoring_step``)."""
+        hidden = self.model.forward(params, batch)
         h = hidden[:, -1, :].float()
-        w = resolve_head_weight(self.model.cfg, self.params)
+        w = resolve_head_weight(self.model.cfg, params)
         return head_stats(h, w.float())
 
     @torch.no_grad()
@@ -65,15 +71,45 @@ class ServeEngine:
         """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache)."""
         return self.model.decode_step(self.params, cache, tokens, cache_len)
 
-    def score_pool(self, *args, **kwargs):
-        raise NotImplementedError(
-            "score_pool needs the paged sweep runtime, not ported yet "
-            "(ROADMAP A.1)")
+    def _sweep_runner(self, page_rows: int):
+        from repro_torch.serving.sweep import (PoolSweepRunner,
+                                               ServeSweepAdapter, SweepConfig)
+        runner = self._sweep_runners.get(page_rows)
+        if runner is None:
+            runner = PoolSweepRunner(
+                ServeSweepAdapter(self._score, self.device),
+                SweepConfig(page_rows=page_rows))
+            self._sweep_runners[page_rows] = runner
+        return runner
 
-    def score_pool_async(self, *args, **kwargs):
-        raise NotImplementedError(
-            "score_pool_async needs the paged sweep runtime, not ported yet "
-            "(ROADMAP A.1)")
+    def score_pool(self, pool_batch: Dict, *, page_rows: Optional[int] = None,
+                   sink=None, checkpoint=None):
+        """MCAL's machine-labeling pass at pool scale: stream a row-aligned
+        token pool (``{"tokens": (N, T)}`` on the host) through the scoring
+        step in pages of ``page_rows`` (default: the batch size).  The
+        default deliverable is the packed last-position ScoreStats on the
+        device; a sweep sink (``TopKSink``, ``RankTop1Sink``) folds the pool
+        without pool-wide stats, and a ``SweepCheckpoint`` resumes a
+        preempted sweep mid-pool."""
+        from repro_torch.serving.sweep import StatsSink
+        runner = self._sweep_runner(page_rows or self.batch_size)
+        return runner.run(self.params, pool_batch, sink or StatsSink(),
+                          checkpoint=checkpoint)
+
+    def score_pool_async(self, pool_batch: Dict, *,
+                         page_rows: Optional[int] = None, sink=None,
+                         checkpoint=None):
+        """:meth:`score_pool` as a ``SweepFuture`` on the runner's worker
+        thread; ``result()`` is the synchronization point."""
+        from repro_torch.serving.sweep import StatsSink
+        runner = self._sweep_runner(page_rows or self.batch_size)
+        return runner.submit(self.params, pool_batch, sink or StatsSink(),
+                             checkpoint=checkpoint)
+
+    def close(self) -> None:
+        """Join the sweep runners' worker threads (idempotent)."""
+        for runner in self._sweep_runners.values():
+            runner.close()
 
     @torch.no_grad()
     def generate(self, batch: Dict, steps: int,

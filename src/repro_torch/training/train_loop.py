@@ -3,7 +3,9 @@ classification head the live labeling campaigns train.
 
 State is ``{"params": {path: tensor}, "opt": [slots], "step": int}``; the
 step count lives on the host, so the schedule and bias corrections need
-no device round trip.  Gradients come from ``torch.autograd``.
+no device round trip.  Gradients come from ``torch.autograd``.  A step
+given ``consts`` (``lr`` and the bias corrections' reciprocals as 0-dim
+device tensors) reads no host step count: the form a CUDA graph captures.
 """
 from __future__ import annotations
 
@@ -37,11 +39,11 @@ def init_train_state(model, tc: TrainConfig, params: Dict) -> Dict:
 
 def make_train_step(model, tc: TrainConfig
                     ) -> Callable[[Dict, Dict], Tuple[Dict, Dict]]:
-    """``(state, batch) -> (state, metrics)``: loss and gradients, global
-    norm clip, AdamW."""
+    """``(state, batch, consts=None) -> (state, metrics)``: loss and
+    gradients, global norm clip, AdamW."""
     sched = make_schedule(tc)
 
-    def step(state, batch):
+    def step(state, batch, consts=None):
         params = {k: p.detach().requires_grad_(True)
                   for k, p in state["params"].items()}
         with torch.enable_grad():
@@ -50,11 +52,14 @@ def make_train_step(model, tc: TrainConfig
             gs = torch.autograd.grad(loss, [params[k] for k in names])
         grads = dict(zip(names, gs))
         grads, gnorm = opt.clip_by_global_norm(grads, tc.grad_clip)
-        lr = sched(state["step"])
+        if consts is None:
+            lr, inv_bc = sched(state["step"]), None
+        else:
+            lr, inv_bc = consts["lr"], (consts["inv_bc1"], consts["inv_bc2"])
         with torch.no_grad():
             new_params, new_slots = opt.adamw_update(
                 {k: p.detach() for k, p in params.items()}, grads,
-                state["opt"], state["step"], lr, tc)
+                state["opt"], state["step"], lr, tc, inv_bc)
         new_state = {"params": new_params, "opt": new_slots,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss.detach().float(), "grad_norm": gnorm,

@@ -1,0 +1,101 @@
+"""The port's labeling launcher (``repro_torch.launch.label``): the flags it
+shares with the JAX package's launcher have the same defaults and choices,
+``--help`` loads no torch, and ``--state``/``--iters-per-run`` preempt and
+resume a campaign to the uninterrupted result."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro.launch import label as jlabel
+from repro_torch.launch import label
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _actions(parser):
+    return {a.dest: a for a in parser._actions if a.dest != "help"}
+
+
+def test_shared_flags_have_the_reference_defaults_and_choices():
+    mine, ref = _actions(label.build_parser()), \
+        _actions(jlabel.build_parser())
+    shared = set(mine) & set(ref)
+    assert set(mine) - shared == {"device"}
+    assert {"live", "pool", "classes", "difficulty", "eps", "budget",
+            "metric", "service", "sweep_page", "sweep_async", "fit_fused",
+            "fit_async", "fit_resident", "state", "sweep_ckpt_pages",
+            "iters_per_run", "seed", "out", "trace", "trace_replay",
+            "trace_diff"} == shared
+    for dest in shared:
+        assert mine[dest].default == ref[dest].default, dest
+        assert mine[dest].choices == ref[dest].choices, dest
+        assert mine[dest].option_strings == ref[dest].option_strings, dest
+    assert label.build_parser().parse_args([]).device == "cuda"
+    assert label.METRIC_CHOICES == jlabel.METRIC_CHOICES
+
+
+@pytest.mark.parametrize("argv", [["--help"], ["--live", "--help"]])
+def test_help_loads_no_torch(argv):
+    probe = ("import runpy, sys\n"
+             f"sys.argv = ['label'] + {argv!r}\n"
+             "try:\n"
+             "    runpy.run_module('repro_torch.launch.label',"
+             " run_name='__main__')\n"
+             "except SystemExit:\n"
+             "    pass\n"
+             "print(sorted(m for m in sys.modules"
+             " if m.split('.')[0] in ('torch', 'jax', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert "--sweep-async" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_replay_mode_is_not_ported():
+    with pytest.raises(SystemExit, match="not yet ported"):
+        label.main(["--device", "cpu"])
+
+
+def test_state_file_preempt_and_resume(tmp_path, capsys):
+    """Preempted every two iterations and resumed from ``--state`` (with
+    the commit cursor cut every page), the campaign ends where the
+    uninterrupted one does; its trace diffs clean against it and replays
+    to its report."""
+    base = ["--live", "--device", "cpu", "--pool", "1500", "--seed", "3",
+            "--sweep-page", "512"]
+    plain = str(tmp_path / "plain.json")
+    ptrace = str(tmp_path / "plain.jsonl")
+    label.main(base + ["--out", plain, "--trace", ptrace])
+    capsys.readouterr()
+    state, out = str(tmp_path / "state.json"), str(tmp_path / "res.json")
+    trace = str(tmp_path / "prem.jsonl")
+    hops = 0
+    while True:
+        label.main(base + ["--state", state, "--iters-per-run", "2",
+                           "--sweep-ckpt-pages", "1", "--trace", trace,
+                           "--out", out, "--fit-async", "--sweep-async"])
+        hops += 1
+        assert hops < 20
+        if not os.path.exists(state):
+            break
+        assert json.loads(capsys.readouterr().out)["resumable"]
+    assert hops > 1
+    got, want = json.load(open(out)), json.load(open(plain))
+    for k in ("decision", "cost", "measured_error", "iterations", "S_frac",
+              "B_frac"):
+        assert got[k] == want[k], k
+    capsys.readouterr()
+    label.main(["--trace-diff", ptrace, trace])
+    assert json.loads(capsys.readouterr().out) == {"identical": True}
+    label.main(["--trace-replay", trace])
+    rp = json.loads(capsys.readouterr().out)
+    assert rp["cost"] == want["cost"] and rp["decision"] == want["decision"]
+    assert rp["runtime"] == {"sweep_async": True, "fit_async": True}
+    assert np.isclose(rp["S_size"] / 1500, want["S_frac"])
