@@ -15,7 +15,10 @@
    it; the per-chunk states ``ssd_scan`` leaves in its scratch against
    the plain three-pass split (``ref.ssd_scan_passes_ref``); and
    ``margin_head`` on a maximal column copied into another slice (top1
-   the first copy, margin exactly 0).
+   the first copy, margin exactly 0).  ``pairwise_sqdist`` is held at the
+   JAX package's atol 1e-5 on that package's grid, and elsewhere against
+   a float64 computation of the same distances: its error at most twice
+   the plain fp32 version's.
 4. Runs two MCAL campaigns through the port's entry points
    (``run_mcal(LiveTask(...))``), one with the margin M(.) and one with
    k-center, on ``make_classification(50_000, 10 classes, dim 32)`` — the
@@ -33,7 +36,21 @@
    the eager loop (params and losses bit-equal; capture, replay and eager
    seconds), and the paged rank, feature and top-k sinks against the
    engine's unpaged pass, exactly.
-6. Serves zamba2-2.7b (full config: 54 layers, d_model 2560, bf16 weights
+6. Runs the k-center campaign again with the distances on their plain
+   version (both routes' iterations, |S| and distance calls are printed);
+   the paper-scale replay campaigns through ``make_emulated_task``
+   (cifar10/resnet18 at 50,000 rows with margin and with k-center, which
+   must launch ``pairwise_sqdist``, and the imagenet bail-out at
+   1,200,000 rows), each ending as the reference's; the live margin
+   campaign buying its labels from a noisy annotation service (5
+   workers, noise 0.2, 3 votes, Dawid-Skene on the card) through the
+   launcher, uninterrupted and preempted every two iterations (the
+   traces diff clean, the results are equal, ``margin_head`` launches);
+   and the vote aggregator at (50,000 items, 5 workers, 100 classes, 3
+   votes) against the float64 host oracles: majority exact, Dawid-Skene
+   within the JAX package's atol 1e-4 with identical labels, seconds per
+   aggregation.
+7. Serves zamba2-2.7b (full config: 54 layers, d_model 2560, bf16 weights
    from ``Model.init(seed 0)``) through ``ServeEngine``: 8 requests of
    2,048 random tokens are scored (``score``, the fp32 LM head through
    ``margin_head``), 32 rows are scored by ``score_pool`` in pages of 8
@@ -44,10 +61,10 @@
    pass, one forward pass and one decode step, and times the score pass's
    cast of the bf16 LM head to fp32.
    The kernels' launch counts are zeroed just before each main-path pass
-   (each campaign, the launcher campaign, each serving pass) and read just
-   after it; a kernel of a path that was never launched there fails the
-   run.
-7. Times each kernel at the largest shape the main paths gave it, its plain
+   (each campaign, the launcher campaign, the replay and noisy campaigns,
+   each serving pass) and read just after it; a kernel of a path that was
+   never launched there fails the run.
+8. Times each kernel at the largest shape the main paths gave it, its plain
    version and (where one PyTorch call computes the same function) that
    call, with CUDA events: the median of 30 single-call timings after a
    warm-up, host launch gaps included.  The profiler's CUDA trace gives the
@@ -58,9 +75,9 @@
    The bound is the larger of the bytes the function must move over 3.35
    TB/s and its flops over the peak for the work's type: 67 TFLOP/s for
    fp32 on the CUDA cores, 989 TFLOP/s for bf16 on the tensor cores
-   (``flash_attention``, ``ssd_scan``, and ``pairwise_sqdist``'s three
+   (``flash_attention``, ``ssd_scan``, and ``pairwise_sqdist``'s six
    bf16 products), H100 SXM data-sheet peaks.
-8. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
+9. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
 
@@ -234,37 +251,65 @@ def check_margin_ties(torch, np, mh, ref, cases):
                   f"{first}, margin 0 ok", flush=True)
 
 
+# the JAX package's grid for its kernel (tests/test_selection_device.py),
+# held at its tolerance, atol 1e-5
+PAIRWISE_REF_GRID = [(5, 3, 4), (64, 16, 8), (130, 9, 33), (257, 128, 16)]
 # N = the padded k-center pool of a 50,000-row campaign; M = pow2(|B|)
-# for |B| up to 4,096 anchors
-# then N and M off the kernel's 128 x 128 tiles, D off its 16-deep k steps,
-# and D over its 64-wide chunks (130: also off its 16-byte pieces)
+# for |B| up to 4,096 anchors, then the emulated campaign's (conf, u)
+# features (D = 2), then N and M off the kernel's 128 x 128 tiles, D off
+# its 16-deep k steps, and D over its 64-wide chunks (130: also off its
+# 16-byte pieces)
 PAIRWISE_GRID = [(65536, m, 64) for m in (512, 1024, 2048, 4096)] + [
-    (130, 9, 33), (65537, 2049, 64), (300, 130, 33), (300, 1100, 100),
-    (257, 140, 130)]
+    (65536, 4096, 2), (65536, 8192, 2), (130, 9, 33), (65537, 2049, 64),
+    (300, 130, 33), (300, 1100, 100), (257, 140, 130)]
 PAIRWISE_INT_GRID = [(1025, 17, 32), (300, 8, 2), (4099, 513, 64),
                      (513, 1100, 100)]
 
 
-def check_pairwise(torch, np, pd, ref, cases, int_cases=()):
-    """Kernel vs plain at each (N, M, D) on normal inputs (atol 1e-4 *
-    max(d)), and exactly on integer-valued inputs; returns the max abs
-    error on the normal inputs."""
+def check_pairwise(torch, np, pd, ref, cases, int_cases=(),
+                   ref_cases=()):
+    """Kernel vs plain on normal inputs: at ``ref_cases`` within the JAX
+    package's atol 1e-5 (and assert_allclose's default rtol 1e-7); at
+    ``cases``, where 1e-5 is below the plain fp32 version's own rounding at
+    D = 64, both against a float64 computation of the same distances: the
+    kernel's max abs error at most twice the plain version's.  Exactly on
+    integer-valued inputs.  Returns the max abs difference from the plain
+    version on the normal inputs."""
     rng = np.random.default_rng(1)
     worst = 0.0
-    for N, M, D in cases:
+    for N, M, D in [*ref_cases, *cases]:
         x = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
                             device="cuda")
         c = torch.as_tensor(rng.normal(size=(M, D)).astype(np.float32),
                             device="cuda")
         got, want = pd.pairwise_sqdist(x, c), ref.pairwise_sqdist_ref(x, c)
         err = float((got - want).abs().max())
-        lim = 1e-4 * float(want.max())
-        if got.shape != (N, M) or not err <= lim or bool((got < 0).any()):
-            fail(f"pairwise_sqdist at {(N, M, D)}: err {err} > {lim}")
+        if got.shape != (N, M) or bool((got < 0).any()):
+            fail(f"pairwise_sqdist at {(N, M, D)}: bad output")
+        if (N, M, D) in ref_cases:
+            if not bool(((got - want).abs() <= 1e-5 + 1e-7 * want.abs())
+                        .all()):
+                fail(f"pairwise_sqdist at {(N, M, D)}: err {err} beyond "
+                     f"atol 1e-5")
+            note = "within atol 1e-5"
+        else:
+            x64, c64 = x.double(), c.double()
+            exact = torch.clamp((x64 * x64).sum(-1)[:, None]
+                                - 2.0 * (x64 @ c64.T)
+                                + (c64 * c64).sum(-1)[None, :], min=0.0)
+            e_kern = float((got.double() - exact).abs().max())
+            e_plain = float((want.double() - exact).abs().max())
+            del x64, c64, exact
+            if not e_kern <= 2.0 * e_plain:
+                fail(f"pairwise_sqdist at {(N, M, D)}: error against fp64 "
+                     f"{e_kern} > twice the plain version's {e_plain}")
+            note = (f"against fp64: kernel {e_kern:.3g}, plain "
+                    f"{e_plain:.3g} (limit {2 * e_plain:.3g})")
         worst = max(worst, err)
         del got, want
-        print(f"pairwise_sqdist {(N, M, D)}: max abs err {err:.3g} "
-              f"(limit {lim:.3g}) ok", flush=True)
+        torch.cuda.empty_cache()
+        print(f"pairwise_sqdist {(N, M, D)}: max abs diff from plain "
+              f"{err:.3g}, {note} ok", flush=True)
     for N, M, D in int_cases:
         x = torch.as_tensor(rng.integers(0, 8, size=(N, D)).astype(
             np.float32), device="cuda")
@@ -446,6 +491,9 @@ def time_phases(torch, task, sizes=None):
     collects each retrain's row count."""
     spent = dict.fromkeys(PHASES, 0.0)
     for name in PHASES:
+        if not hasattr(task, name):
+            continue
+
         def timed(*args, _fn=getattr(task, name), _name=name, **kw):
             if _name == "train" and sizes is not None:
                 sizes.append(len(args[0]))
@@ -540,6 +588,7 @@ def run_campaigns(torch, np, mh, pd, pool: int, max_iters: int, seen: dict,
         if ends["graph"] != ends["eager"]:
             fail(f"{metric} campaign: the graph retrain ended {ends['graph']}"
                  f", the eager loop {ends['eager']}")
+        out[f"{metric}_end"] = ends["graph"]
         if metric == "margin" and pool == 50_000:
             print(f"campaign metric=margin against the recorded decisions "
                   f"{RECORDED_MARGIN}: "
@@ -599,6 +648,222 @@ def run_launcher_campaign(torch, mh, x, y, sync, trace_dir: Path,
     if launches == 0:
         fail("margin_head never launched in the launcher campaign")
     return launches
+
+
+def run_kcenter_plain_distances(torch, x, y, max_iters: int, kernel_end):
+    """The k-center campaign again with ``kernels.ops.pairwise_sqdist``
+    routed to its plain fp32 version (the margin head still on its kernel):
+    both distance routes' iterations, |S| and distance calls are printed.
+    Near ties split fp32 routes, so a different trajectory is printed, not
+    failed."""
+    from repro_torch.core import AMAZON, LiveTask, MCALConfig, run_mcal
+    from repro_torch.kernels import ops, ref
+
+    calls = {"plain": 0}
+    kernel_fn = ops.pairwise_sqdist
+
+    def plain(a, c):
+        calls["plain"] += 1
+        return ref.pairwise_sqdist_ref(a, c)
+    ops.pairwise_sqdist = plain
+    try:
+        task = LiveTask(features=x, groundtruth=y, num_classes=10)
+        t0 = time.perf_counter()
+        res = run_mcal(task, AMAZON, MCALConfig(
+            eps_target=0.05, seed=0, metric="kcenter", max_iters=max_iters))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        task.close()
+    finally:
+        ops.pairwise_sqdist = kernel_fn
+    end = summary(res)
+    print(f"campaign metric=kcenter distances=plain: {end}, distance calls "
+          f"{calls['plain']}, wall {wall:.2f} s; distances=kernel: "
+          f"{kernel_end} -> "
+          f"{'same' if end == kernel_end else 'different trajectory'}",
+          flush=True)
+    if res.labels.shape != (len(x),) or (res.labels < 0).any():
+        fail("the plain-distance k-center campaign left rows unlabeled")
+
+
+# the reference's replay campaigns (repro.launch.label --dataset ..., CPU
+# JAX, seed 0, eps 0.05, amazon): (dataset, arch, metric) -> decision,
+# |B|, |S|, cost, iterations.  The emulator's error depends only on |B|,
+# so k-center's picks cannot move these.
+REPLAY_CASES = {
+    ("cifar10", "resnet18", "margin"): ("hybrid", 11000, 33580, "780.80", 9),
+    ("cifar10", "resnet18", "kcenter"): ("hybrid", 11000, 33580, "780.80",
+                                         9),
+    ("imagenet", "efficientnet-b0", "margin"): ("human_all", 36000, 0,
+                                                "53760.00", 3),
+}
+
+
+def run_replay_campaigns(torch, pd, seen: set):
+    """The paper-scale replay campaigns through ``make_emulated_task`` on
+    the card (k-center's greedy and its anchor distances there; the
+    emulator's draws and the paged sweeps on the host).  Each must end as
+    the reference's; k-center must launch ``pairwise_sqdist``.  Returns
+    the launches of the k-center campaign."""
+    from repro_torch.core import AMAZON, MCALConfig, make_emulated_task, \
+        run_mcal
+    launches = 0
+    restore = record_shapes(pd, "pairwise_sqdist", seen, pairwise_key)
+    for (dataset, arch, metric), want in REPLAY_CASES.items():
+        task = make_emulated_task(dataset, arch, seed=0)
+        spent = time_phases(torch, task)
+        torch.cuda.synchronize()
+        pd.launches = 0
+        t0 = time.perf_counter()
+        res = run_mcal(task, AMAZON, MCALConfig(eps_target=0.05, seed=0,
+                                                metric=metric))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = pd.launches
+        got = (res.decision, res.B_size, res.S_size,
+               f"{res.total_cost:.2f}", len(res.history))
+        print(f"replay {dataset}/{arch} metric={metric} pool "
+              f"{task.pool_size}: decision {got[0]}, |B| {got[1]}, |S| "
+              f"{got[2]}, cost {got[3]}, measured error "
+              f"{res.measured_error:.5f}, iterations {got[4]}, wall "
+              f"{wall:.3f} s, pairwise_sqdist launches {n}", flush=True)
+        print(f"replay {dataset}/{arch} metric={metric} seconds by phase: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in spent.items() if v)
+              + f", rest {wall - sum(spent.values()):.3f}", flush=True)
+        if got != want:
+            fail(f"replay {dataset}/{arch} {metric} ended {got}, the "
+                 f"reference {want}")
+        if (res.labels < 0).any():
+            fail(f"replay {dataset}/{arch} {metric} left rows unlabeled")
+        if metric == "kcenter":
+            if n == 0:
+                fail("pairwise_sqdist never launched in the replay k-center "
+                     "campaign")
+            launches += n
+    restore()
+    return launches
+
+
+def run_noisy_campaign(torch, mh, x, y, trace_dir: Path, max_iters: int,
+                       seen: set):
+    """The live margin campaign buying every label from a noisy annotation
+    service (5 workers, noise 0.2, 3 votes a label, Dawid-Skene on the
+    card), through ``launch.label.run_campaign``: once uninterrupted, once
+    preempted every two iterations and resumed from its state file.  The
+    traces must diff clean, the results be equal, and ``margin_head``
+    launch.  Returns its launches over both runs."""
+    from repro_torch.annotation import make_annotation_service
+    from repro_torch.core import AMAZON, LiveTask, MCALConfig
+    from repro_torch.launch.label import run_campaign
+    from repro_torch.trace import diff
+
+    def task():
+        svc = make_annotation_service(10, n_workers=5, noise=0.2, repeats=3,
+                                      aggregator="ds", pricing=AMAZON,
+                                      seed=0)
+        return LiveTask(features=x, groundtruth=y, num_classes=10,
+                        annotation=svc)
+    first = task()
+    t0 = time.perf_counter()
+    quality = first.annotation.calibrate()
+    cal_s = time.perf_counter() - t0
+    cfg = MCALConfig(eps_target=0.1, seed=0, max_iters=max_iters,
+                     label_quality=quality)
+    restore = record_shapes(mh, "margin_head", seen, margin_key)
+    whole, cut = trace_dir / "noisy.jsonl", trace_dir / "noisy_cut.jsonl"
+    state = trace_dir / "noisy_state.json"
+    torch.cuda.synchronize()
+    mh.launches = 0
+    t0 = time.perf_counter()
+    res, _ = run_campaign(first, AMAZON, cfg, trace_path=str(whole),
+                          campaign_id="live-noisy-s0")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    votes = first.annotation.votes_bought
+    resumed, hops = None, 0
+    while resumed is None:
+        resumed, _ = run_campaign(task(), AMAZON, cfg,
+                                  state_path=str(state), iters_per_run=2,
+                                  trace_path=str(cut),
+                                  campaign_id="live-noisy-s0")
+        hops += 1
+        if hops > 50:
+            fail("the noisy campaign never finished")
+    torch.cuda.synchronize()
+    launches = mh.launches
+    restore()
+    d = diff(str(whole), str(cut))
+    print(f"noisy campaign (5 workers, noise 0.2, 3 votes, ds; calibrated "
+          f"residual {quality.residual_error:.5f} in {cal_s:.3f} s): "
+          f"{summary(res)}, votes {votes}, ledger human_votes "
+          f"{res.ledger['human_votes']}, wall {wall:.2f} s; preempted "
+          f"every 2 iterations: {hops} runs, {summary(resumed)}, trace "
+          f"diff {'clean' if d is None else d.describe()}, margin_head "
+          f"launches {launches}", flush=True)
+    if d is not None:
+        fail(f"noisy campaign trace: {d.describe()}")
+    if hops < 2:
+        fail("the noisy campaign was never preempted")
+    if summary(res) != summary(resumed) or \
+            not (res.labels == resumed.labels).all():
+        fail(f"noisy campaign resumed to {summary(resumed)}, not "
+             f"{summary(res)}")
+    if res.ledger["human_votes"] != votes or votes != \
+            3 * res.ledger["human_labels"] or (res.labels < 0).any():
+        fail(f"noisy campaign charged {res.ledger['human_votes']} votes, "
+             f"the service sold {votes}")
+    if launches == 0:
+        fail("margin_head never launched in the noisy campaign")
+    return launches
+
+
+def check_aggregator(torch, np, n=50_000, workers=5, classes=100,
+                     repeats=3, reps=5):
+    """The vote aggregator on the card against the float64 host oracles:
+    majority exact (ties to the first class), Dawid-Skene posteriors,
+    confusion and prior within the JAX package's atol 1e-4 with identical
+    labels; seconds per aggregation (to the host result)."""
+    from repro_torch.annotation import (VoteAggregator, dawid_skene_host,
+                                        majority_vote_host,
+                                        make_annotator_pool,
+                                        vote_counts_host)
+    pool = make_annotator_pool(workers, classes, noise=0.25,
+                               spammer_frac=0.2, seed=0)
+    gt = np.random.default_rng(1).integers(0, classes, n)
+    votes = pool.vote_matrix(np.arange(n), gt, repeats)
+    agg = VoteAggregator(classes)
+
+    def timed(fn):
+        out = fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return out, statistics.median(times)
+    (lab, conf), maj_s = timed(lambda: agg.majority(votes))
+    lh, ch = majority_vote_host(votes, classes)
+    top2 = np.sort(vote_counts_host(votes, classes), axis=1)[:, -2:]
+    ties = int(np.sum(top2[:, 0] == top2[:, 1]))
+    if not (np.array_equal(lab, lh) and np.allclose(conf, ch, atol=1e-7)):
+        fail("majority vote on the card differs from the host oracle")
+    ds, ds_s = timed(lambda: agg.dawid_skene(votes))
+    t0 = time.perf_counter()
+    dsh = dawid_skene_host(votes, classes)
+    host_s = time.perf_counter() - t0
+    errs = {f: float(np.abs(getattr(ds, f) - getattr(dsh, f)).max())
+            for f in ("posterior", "confusion", "prior")}
+    same = bool(np.array_equal(ds.labels, dsh.labels))
+    print(f"aggregator ({n} items, {workers} workers, {classes} classes, "
+          f"{repeats} votes; {ties} rows tied at the top): majority exact, "
+          f"{maj_s:.4f} s; ds max abs err {errs}, labels "
+          f"{'identical' if same else 'DIFFER'}, {ds_s:.4f} s on the card "
+          f"({agg.cfg.em_iters} EM iterations, pack {agg.cache_keys()}), "
+          f"host float64 oracle {host_s:.2f} s", flush=True)
+    if not same or max(errs.values()) > 1e-4:
+        fail(f"Dawid-Skene on the card: labels identical {same}, errors "
+             f"{errs} beyond atol 1e-4")
 
 
 def check_retrain_graphs(torch, task, x, y, sizes):
@@ -885,20 +1150,22 @@ def time_kernels(torch, np, mods, ref, shapes):
             4 * (T * D + D * V) + 16 * T, 2 * T * D * V + 6 * T * V,
             FP32_FLOPS_PER_S, "margin_head_"))
         del h, w
-    N, M, D = shapes["pairwise_sqdist"]
-    x = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
-                        device="cuda")
-    c = torch.as_tensor(rng.normal(size=(M, D)).astype(np.float32),
-                        device="cuda")
-    # the bound's operations: x.c as three bf16 products on the tensor
-    # cores (the norms and the epilogue, O(N M + (N + M) D), are noise)
-    rows.append(timing_row(
-        torch, "pairwise_sqdist", (N, M, D), lambda: pd.pairwise_sqdist(x, c),
-        lambda: ref.pairwise_sqdist_ref(x, c),
-        lambda: torch.cdist(x, c).square(),
-        4 * (N * D + M * D + N * M), 3 * 2 * N * M * D, BF16_FLOPS_PER_S,
-        "pairwise_sqdist_kernel"))
-    del x, c
+    for N, M, D in shapes["pairwise_sqdist"]:
+        x = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                            device="cuda")
+        c = torch.as_tensor(rng.normal(size=(M, D)).astype(np.float32),
+                            device="cuda")
+        # the bound's operations: x.c as six bf16 products on the tensor
+        # cores (the norms and the epilogue, O(N M + (N + M) D), are noise)
+        rows.append(timing_row(
+            torch, "pairwise_sqdist", (N, M, D),
+            lambda: pd.pairwise_sqdist(x, c),
+            lambda: ref.pairwise_sqdist_ref(x, c),
+            lambda: torch.cdist(x, c).square(),
+            4 * (N * D + M * D + N * M), 6 * 2 * N * M * D,
+            BF16_FLOPS_PER_S, "pairwise_sqdist_kernel"))
+        del x, c
+        torch.cuda.empty_cache()
     case = shapes["flash_attention"]
     B, H, Hk, Tq, Tk, hd, causal, window = case
     q, k, v = flash_inputs(torch, np, case, torch.bfloat16)
@@ -998,13 +1265,15 @@ def main() -> None:
 
     check_margin_head(torch, np, mh, ref, MARGIN_GRID)
     check_margin_ties(torch, np, mh, ref, MARGIN_DUP_GRID)
-    check_pairwise(torch, np, pd, ref, PAIRWISE_GRID, PAIRWISE_INT_GRID)
+    check_pairwise(torch, np, pd, ref, PAIRWISE_GRID, PAIRWISE_INT_GRID,
+                   PAIRWISE_REF_GRID)
     check_flash(torch, np, fa, ref, FLASH_GRID)
     check_ssd(torch, np, ssd, ref, SSD_GRID)
     check_ssd_states(torch, np, ssd, ref, SSD_GRID[4])
 
     # the shapes each main path gave each kernel
-    seen_by = {p: {k: set() for k in mods} for p in ("campaigns", "serving")}
+    seen_by = {p: {k: set() for k in mods}
+               for p in ("campaigns", "replay", "noisy", "serving")}
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -1015,6 +1284,14 @@ def main() -> None:
         launcher = run_launcher_campaign(torch, mh, x, y, camps["sync"],
                                          Path(tmp), args.max_iters)
         restore()
+        run_kcenter_plain_distances(torch, x, y, args.max_iters,
+                                    camps["kcenter_end"])
+        replay = run_replay_campaigns(torch, pd,
+                                      seen_by["replay"]["pairwise_sqdist"])
+        noisy = run_noisy_campaign(torch, mh, x, y, Path(tmp),
+                                   args.max_iters,
+                                   seen_by["noisy"]["margin_head"])
+    check_aggregator(torch, np)
     check_retrain_graphs(torch, camps["task"], x, y, camps["sizes"])
     check_paged_sinks(torch, np, camps["task"], x)
     launches = camps["launches"]
@@ -1023,8 +1300,11 @@ def main() -> None:
                          args.gen, seen_by["serving"])
     by_path = {k: {"campaigns": launches.get(k, 0),
                    "launcher_campaign": launcher if k == "margin_head" else 0,
+                   "replay_campaigns": replay if k == "pairwise_sqdist"
+                   else 0,
+                   "noisy_campaign": noisy if k == "margin_head" else 0,
                    "serving": served[k]} for k in mods}
-    seen = {k: seen_by["campaigns"][k] | seen_by["serving"][k] for k in mods}
+    seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain
     # version again; max_abs_err is the worst of these
     for name, shapes in seen.items():
@@ -1040,13 +1320,15 @@ def main() -> None:
             "ssd_scan": check_ssd(torch, np, ssd, ref,
                                   sorted(seen["ssd_scan"]))}
     # timed at the largest main-path shape of each (margin_head at the
-    # largest of each path: the campaigns' and the LM head's, that last)
+    # largest of each path: the campaigns' and the LM head's, that last;
+    # pairwise_sqdist at the live and the replay k-center's, that last)
     rows = time_kernels(torch, np, mods, ref, {
         "margin_head": [max(seen_by[p]["margin_head"],
                             key=lambda s: (s[0] * s[2], s))
                         for p in ("campaigns", "serving")],
-        "pairwise_sqdist": max(seen["pairwise_sqdist"],
-                               key=lambda s: (s[0] * s[1], s)),
+        "pairwise_sqdist": [max(seen_by[p]["pairwise_sqdist"],
+                                key=lambda s: (s[0] * s[1], s))
+                            for p in ("campaigns", "replay")],
         "flash_attention": max(seen["flash_attention"],
                                key=lambda s: (s[0] * s[1] * s[3] * s[4], s)),
         "ssd_scan": max(seen["ssd_scan"],

@@ -17,7 +17,11 @@ One campaign = one (task, labeling service, MCALConfig).  The loop:
               prefix the *measured* test-set error curve admits within
               eps_target, human-label the residual.
 
-Every decision is the reference's, for perfect human labels.  With
+Every decision is the reference's, for perfect human labels and for a
+noisy annotation service on the task (``task.annotation``): the campaign
+charges the votes the service bought, prices future labels
+repeats-inclusive and folds the residual aggregated-label error into its
+accuracy target (``MCALConfig.label_quality``).  With
 ``sweep_async`` the M(.) sweep overlaps the host-side fits and search; with
 ``fit_async`` each retrain and its measurement run on the fit engine's
 worker and fold at the next consumer (:meth:`MCALCampaign._sync_fit`).
@@ -30,8 +34,7 @@ fit events), and ``state_dict``/``load_state_dict`` persist the loop at the
 reference's schema (``STATE_VERSION``), so a state file written by either
 package resumes in the other.
 
-Left out for later slices: the metrics, fault and health wiring, the
-noisy-annotation economics (``label_quality``) and
+Left out for later slices: the metrics, fault and health wiring and
 ``select_architecture`` (with the forced acquisitions and frozen delta it
 drives).
 """
@@ -44,7 +47,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import selection as sel
-from repro_torch.core.cost import CostLedger, LabelingService, TrainCostModel
+from repro_torch.core.cost import (CostLedger, LabelQuality, LabelingService,
+                                   TrainCostModel)
 from repro_torch.core.powerlaw import PowerLaw, fit_power_law
 from repro_torch.core.search import (SearchResult, adapt_delta, budget_search,
                                      joint_search)
@@ -73,11 +77,20 @@ class MCALConfig:
     max_iters: int = 200
     min_fit_points: int = 3
     seed: int = 0
+    keep_surface: bool = False      # keep each search's (|B|, theta)
+                                    # grid on its IterationRecord
     budget: Optional[float] = None  # set -> budget-constrained variant
     sweep_async: bool = False       # overlap the M(.) sweep with the
                                     # host-side fits + joint search
     fit_async: bool = False         # defer each retrain + its measurement
                                     # onto the fit-engine worker
+    label_quality: Optional[LabelQuality] = None
+                                    # noisy annotation-service economics:
+                                    # residual aggregated-label error is
+                                    # folded into the accuracy target and
+                                    # future human labels are priced
+                                    # repeats-inclusive in the joint
+                                    # search (None = perfect labels)
 
 
 @dataclasses.dataclass
@@ -93,10 +106,11 @@ class IterationRecord:
     stable: bool
     human_spent: float
     training_spent: float
+    search: Optional[SearchResult] = None   # keep_surface only
 
     def to_dict(self) -> Dict:
         """JSON form — the ``iteration`` trace event and the state file's
-        history entry."""
+        history entry (``search`` stays in memory)."""
         return {
             "i": int(self.i), "B_size": int(self.B_size),
             "delta": int(self.delta),
@@ -186,6 +200,15 @@ def _fitted_payload(laws: Dict[float, PowerLaw],
     }
 
 
+def oracle_labels(task, idx: np.ndarray) -> np.ndarray:
+    """TRUE labels for evaluation only.  Tasks expose ``oracle_labels`` so
+    that measurement never routes through ``human_label``: with a noisy
+    annotation service attached, that path returns aggregated noisy votes
+    and consumes priced annotation requests."""
+    fn = getattr(task, "oracle_labels", None)
+    return fn(idx) if fn is not None else task.human_label(idx)
+
+
 class SharedPool:
     """Label store: which rows are test/train and what each one cost."""
 
@@ -200,12 +223,19 @@ class SharedPool:
 
     def buy_labels(self, task, idx: np.ndarray, service: LabelingService):
         """THE charging site: every purchased label pays through
-        ``CostLedger.pay_human`` at the service's tier rates."""
+        ``CostLedger.pay_human`` at the service's tier rates — with an
+        annotation service on the task, repeats-inclusive (the votes the
+        service reports for the call, so adaptive-repeats batches are
+        charged exactly what they consumed)."""
         idx = np.asarray(idx, np.int64)
         fresh = idx[self.labels[idx] < 0]
         if len(fresh):
+            ann = getattr(task, "annotation", None)
+            v0 = ann.votes_bought if ann is not None else 0
             self.labels[fresh] = task.human_label(fresh)
-            self.ledger.pay_human(len(fresh), service, votes=len(fresh))
+            votes = (ann.votes_bought - v0) if ann is not None \
+                else len(fresh)
+            self.ledger.pay_human(len(fresh), service, votes=votes)
 
     def unlabeled_candidates(self) -> np.ndarray:
         mask = (~self.is_test) & (~self.in_B)
@@ -254,11 +284,15 @@ class MCALCampaign:
 
     def attach_trace(self, trace) -> None:
         """Wire the event bus through this campaign's decision sites, the
-        ledger's charging sites and the task's sweep/fit runtimes.  Call
-        before ``bootstrap``/``load_state_dict``."""
+        ledger's charging sites, the annotation service (vote rounds,
+        top-ups, quality snapshots) and the task's sweep/fit runtimes.
+        Call before ``bootstrap``/``load_state_dict``."""
         self.trace = trace
         self.pool.ledger.trace = trace
         self.pool.ledger.trace_name = "campaign"
+        ann = getattr(self.task, "annotation", None)
+        if ann is not None and hasattr(ann, "attach_trace"):
+            ann.attach_trace(trace)
         if hasattr(self.task, "attach_trace"):
             self.task.attach_trace(trace)
 
@@ -374,6 +408,16 @@ class MCALCampaign:
                    **_fitted_payload(laws, cm))
         return laws, cm
 
+    # -- noisy-annotation economics ---------------------------------------
+    def _quality(self) -> LabelQuality:
+        return self.cfg.label_quality or LabelQuality()
+
+    def _effective_service(self) -> LabelingService:
+        """Future human labels priced repeats-inclusive: what every
+        prediction (joint search, delta adaptation, bailout/budget
+        thresholds) must use."""
+        return self._quality().effective_service(self.service)
+
     def search(self) -> SearchResult:
         self._sync_fit()
         laws, cm = self._fit_models()
@@ -381,11 +425,16 @@ class MCALCampaign:
         kw = dict(pool_size=self.task.pool_size, test_size=len(p.T_idx),
                   current_B=len(p.B_idx), spent=self.own_training,
                   laws=laws, cost_model=cm, delta=self.delta,
-                  service=self.service)
+                  service=self._effective_service())
         if self.cfg.budget is not None:
             res = budget_search(budget=self.cfg.budget, **kw)
         else:
-            res = joint_search(eps_target=self.cfg.eps_target, **kw)
+            # residual aggregated-label error eats into the target: the
+            # machine-label slice must clear what is left of it
+            res = joint_search(
+                eps_target=self._quality().effective_target(
+                    self.cfg.eps_target),
+                keep_surface=self.cfg.keep_surface, **kw)
         self._emit("search", cost=res.cost, B_opt=int(res.B_opt),
                    theta_opt=float(res.theta_opt),
                    machine_labeled=int(res.machine_labeled),
@@ -429,7 +478,8 @@ class MCALCampaign:
             eps_theta={t: self.eps_hist[t][-1][1] for t in self.cfg.thetas},
             cstar=res.cost, B_opt=res.B_opt, theta_opt=res.theta_opt,
             feasible=res.feasible, stable=self.stable,
-            human_spent=p.ledger.human, training_spent=p.ledger.training)
+            human_spent=p.ledger.human, training_spent=p.ledger.training,
+            search=res if self.cfg.keep_surface else None)
         self.history.append(rec)
         self._emit("iteration", **rec.to_dict())
         self._iter += 1
@@ -437,7 +487,8 @@ class MCALCampaign:
         if self.cfg.budget is not None:
             # budget variant: stop training when the next acquisition would
             # break the budget (reserve the residual human labels' worth)
-            next_spend = (self.delta * self.service.price_per_label +
+            next_spend = (self.delta *
+                          self._effective_service().price_per_label +
                           self._fit_models()[1].iteration_cost(
                               len(p.B_idx) + self.delta))
             if p.ledger.total + float(next_spend) > self.cfg.budget:
@@ -447,7 +498,7 @@ class MCALCampaign:
             # bail-out (paper §5.1 footnote): exploration tax exceeded while
             # the classifier still cannot machine-label any meaningful
             # fraction (ImageNet behaviour) -> human-label everything.
-            human_all = X * self.service.price_per_label
+            human_all = X * self._effective_service().price_per_label
             no_meaningful_S = (not res.feasible or res.theta_opt == 0.0 or
                                res.machine_labeled < self.cfg.bailout_min_s * X)
             if no_meaningful_S and \
@@ -462,7 +513,7 @@ class MCALCampaign:
                 spent=self.own_training, pool_size=X, test_size=len(p.T_idx),
                 machine_labeled=res.machine_labeled,
                 cost_model=self._fit_models()[1],
-                service=self.service, beta=self.cfg.beta)
+                service=self._effective_service(), beta=self.cfg.beta)
             if nd > 0:
                 self.delta = nd
 
@@ -541,23 +592,31 @@ class MCALCampaign:
         if len(p.B_idx) == 0:
             return None
         if self._anchor_feats is None:
-            self._anchor_feats = self.task.anchor_features(p.B_idx)
+            if hasattr(self.task, "anchor_features"):
+                self._anchor_feats = self.task.anchor_features(p.B_idx)
+            else:
+                self._anchor_feats = np.asarray(
+                    self.task.score(p.B_idx)[1], np.float32)
         return self._anchor_feats
 
     def _rank_candidates(self, k: int, cand: np.ndarray) -> np.ndarray:
         """M(.): pick ``k`` of ``cand`` — the task's paged top-k for the
-        uncertainty metrics, its device k-center, or (``random``) the host
-        reference path."""
+        uncertainty metrics (the host ranking of its scores for a task
+        without one, the emulator), its device k-center, or (``random``)
+        the host reference path."""
         if k <= 0:
             return np.zeros((0,), np.int64)
-        if self.cfg.metric in sel.UNCERTAINTY_METRICS:
+        if self.cfg.metric in sel.UNCERTAINTY_METRICS and \
+                hasattr(self.task, "topk_candidates"):
             return self.task.topk_candidates(self.cfg.metric, k, cand)
         if self.cfg.metric == "kcenter":
             pick, _ = self.task.kcenter_candidates(
                 k, cand, anchors=self._anchor_features())
             return pick
-        return sel.select_for_training(self.cfg.metric, k, candidates=cand,
-                                       rng=self.rng)
+        stats = (self.task.score(cand)[0]
+                 if self.cfg.metric in sel.UNCERTAINTY_METRICS else None)
+        return sel.select_for_training(self.cfg.metric, k, stats=stats,
+                                       candidates=cand, rng=self.rng)
 
     def _machine_label(self, idx: np.ndarray):
         """L(.): one paged sweep over ``idx`` -> (rows most-confident-
@@ -587,8 +646,9 @@ class MCALCampaign:
             # afford as many residual human labels as the budget allows;
             # machine-label the most confident rest (accuracy is what gives)
             afford = max(self.cfg.budget - p.ledger.total, 0.0)
-            n_human = min(int(afford / self.service.price_per_label),
-                          len(remaining))
+            n_human = min(
+                int(afford / self._effective_service().price_per_label),
+                len(remaining))
             m = len(remaining) - n_human
             order, pred = self._machine_label(remaining)
             S_idx = remaining[order[:m]]
@@ -597,7 +657,7 @@ class MCALCampaign:
                 p.labels[S_idx] = pred[order[:m]]
                 machine_mask[S_idx] = True
             p.buy_labels(self.task, residual, self.service)
-            gt = self.task.oracle_labels(np.arange(X))
+            gt = oracle_labels(self.task, np.arange(X))
             return self._emit_commit(MCALResult(
                 labels=p.labels.copy(), machine_mask=machine_mask,
                 ledger=p.ledger.snapshot(), history=self.history,
@@ -619,7 +679,12 @@ class MCALCampaign:
             curve = sel.machine_label_error_curve(
                 stats_T, correct, fine, self.cfg.l_metric)
             S_frac = fine * len(remaining) / X
-            ok = np.nonzero(S_frac * curve <= self.cfg.eps_target)[0]
+            # the human-labeled (1 - S/X) share carries the annotation
+            # service's residual aggregated-label error; the machine slice
+            # must fit in what is left of the target
+            overall = S_frac * curve + \
+                (1.0 - S_frac) * self._quality().residual_error
+            ok = np.nonzero(overall <= self.cfg.eps_target)[0]
             theta_final = float(fine[ok[-1]]) if len(ok) else 0.0
             m = int(round(theta_final * len(remaining)))
             if m <= 0:
@@ -635,7 +700,8 @@ class MCALCampaign:
                 p.buy_labels(self.task, residual, self.service)
                 S_size = m
 
-        gt = self.task.oracle_labels(np.arange(X))
+        # the evaluation oracle, never human_label (see oracle_labels)
+        gt = oracle_labels(self.task, np.arange(X))
         measured_error = float(np.mean(p.labels != gt))
         return self._emit_commit(MCALResult(
             labels=p.labels.copy(), machine_mask=machine_mask,
@@ -691,7 +757,13 @@ class MCALCampaign:
                           else None),
             "history": [r.to_dict() for r in self.history],
             "rng": self.rng.bit_generator.state,
-            "annotation": None,       # perfect labels: no service state
+            # the annotation service's state (None for perfect labels):
+            # its request cursor, ledger and worker statistics — with the
+            # persisted labels, what makes a resumed noisy campaign replay
+            # its future requests bit-identically
+            "annotation": (self.task.annotation.state_dict()
+                           if getattr(self.task, "annotation", None)
+                           is not None else None),
             "labels": p.labels.tolist(),
             "is_test": np.nonzero(p.is_test)[0].tolist(),
             "B_idx": p.B_idx.tolist(),
@@ -727,10 +799,10 @@ class MCALCampaign:
             raise ValueError(
                 f"campaign state has schema version {v}, but this build "
                 f"understands at most version {STATE_VERSION}")
-        if s.get("annotation") is not None or s.get("freeze_delta"):
+        if s.get("freeze_delta"):
             raise NotImplementedError(
-                "this state file comes from a noisy-annotation or "
-                "architecture-selection campaign, which is not ported yet")
+                "this state file comes from an architecture-selection "
+                "campaign, which is not ported yet")
         # fold an in-flight async retrain first: it would race the resume
         # retrain below on the same engine buffers
         self._sync_fit()
@@ -746,6 +818,11 @@ class MCALCampaign:
         if self.trace is not None:
             p.ledger.trace = self.trace
             p.ledger.trace_name = "campaign"
+        ann = getattr(self.task, "annotation", None)
+        if ann is not None and s.get("annotation") is not None:
+            ann.load_state_dict(s["annotation"])
+            if self.trace is not None and hasattr(ann, "attach_trace"):
+                ann.attach_trace(self.trace)
         self.eps_hist = {float(t): [tuple(x) for x in v]
                          for t, v in s["eps_hist"].items()}
         self.train_sizes = list(s["train_sizes"])

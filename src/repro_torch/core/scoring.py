@@ -70,6 +70,19 @@ def uncertainty_from_stats(stats: ScoreStats, metric: str) -> torch.Tensor:
     raise ValueError(f"unknown uncertainty metric {metric!r}")
 
 
+def stats_from_confidence(conf: np.ndarray, num_classes: int,
+                          top1: np.ndarray) -> ScoreStats:
+    """Pack a scalar confidence in [~0, 1] into a consistent ScoreStats of
+    host float64 arrays (the emulator's scoring path; margin == confidence
+    by convention)."""
+    conf = np.asarray(conf, np.float64)
+    return ScoreStats(
+        margin=conf,
+        entropy=np.maximum(1.0 - conf, 0.0) * np.log(num_classes),
+        max_logprob=np.minimum(conf - 1.0, -1e-9),
+        top1=np.asarray(top1))
+
+
 def head_stats(hidden: torch.Tensor, w_head: torch.Tensor, *,
                mode: str = "auto", vocab_chunk: int = 8192) -> ScoreStats:
     """Vocab projection + ScoreStats for last-token hidden states.

@@ -29,7 +29,8 @@ class LiveTask:
 
     ``features``: (N, d) float array; ``groundtruth``: (N,) int labels —
     human labels are simulated as groundtruth (the paper's assumption:
-    human labels are perfect).
+    human labels are perfect), or bought from a noisy ``annotation``
+    service.
     """
 
     features: np.ndarray
@@ -56,6 +57,11 @@ class LiveTask:
                                      # n -> (init params, epoch orders) for
                                      # an n-row retrain; None = the port's
                                      # own seeded draws
+    annotation: Optional[object] = None  # AnnotationService (or a shared
+                                     # service's AnnotationSession): route
+                                     # human_label through a noisy multi-
+                                     # annotator oracle (None = the
+                                     # paper's perfect-label assumption)
 
     def __post_init__(self):
         from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -94,14 +100,24 @@ class LiveTask:
         self._fit.trace = trace
 
     def close(self) -> None:
-        """Join both engines' worker threads (idempotent)."""
+        """Join both engines' worker threads and the annotation service's
+        (idempotent; a session's close is a no-op)."""
         self._sweep.close()
         self._fit.close()
+        if self.annotation is not None and hasattr(self.annotation, "close"):
+            self.annotation.close()
 
     # -- annotation ------------------------------------------------------
     def human_label(self, idx: np.ndarray) -> np.ndarray:
-        """Purchased human labels: the paper's perfect-label assumption."""
-        return self.groundtruth[np.asarray(idx, np.int64)]
+        """Purchased human labels: aggregated noisy-annotator votes with an
+        :attr:`annotation` service attached (charged per vote by the
+        buyer, ``SharedPool.buy_labels``), else the paper's perfect-label
+        assumption."""
+        idx = np.asarray(idx, np.int64)
+        gt = self.groundtruth[idx]
+        if self.annotation is not None:
+            return self.annotation.annotate(idx, gt)
+        return gt
 
     def oracle_labels(self, idx: np.ndarray) -> np.ndarray:
         """TRUE labels for evaluation only — never charged."""

@@ -10,7 +10,7 @@
 // What bounds it: it reads 4 (N + M) D bytes and writes 4 N M, and x.c is
 // 2 N M D flops.  On the k-center anchor path (N = 65,536, M = 2,048,
 // D = 64) the bytes take 0.160 ms at 3.35 TB/s, most of them the 537 MB
-// output; the three bf16 products below take 0.052 ms at the tensor-core
+// output; the six bf16 products below take 0.104 ms at the tensor-core
 // peak, and fp32 FMAs alone would take 0.26 ms.  So the design puts the
 // product on the tensor cores and makes the output write the work.
 //
@@ -18,24 +18,34 @@
 // the blocks that share an x tile run together and read it from L2), 8
 // warps of 32 x 64 outputs, two blocks an SM.  The block stages its x and
 // c tiles, D in chunks of 64 (zero past D, so K is padded to a multiple of
-// 16), and splits each fp32 element once, while staging, into a bf16 hi
-// part and a bf16 lo part (the rounded remainder) in shared memory; the
-// same pass sums the fp32 squared norms (each row's 4-element pieces with
-// FMAs, then its 16 pieces in a fixed shuffle tree, then the chunks in
-// order).  x.c accumulates in fp32 through `mma.sync.m16n8k16` bf16
-// (`csrc/mma.cuh`, fragments by `ldmatrix`) as three products, hi.hi +
-// hi.lo + lo.hi, about 2^-16 relative per product (lo.lo, about 2^-18,
-// is dropped).  Integers up to 256 are exact in hi with lo = 0, and their
-// products and sums stay exact in fp32 below 2^24, so integer-valued
-// inputs agree exactly with the plain version.  The epilogue forms
-// max(x2 - 2 g + c2, 0) from the fragments into a per-warp tile in shared
-// memory (over the consumed operands), and writes it back as 16-byte
-// streaming stores, a warp covering two full 256-byte output row pieces
-// per instruction.  A block's staging, products and stores run one after
-// another, and two blocks an SM overlap them only in part: on the card
-// the staging and the products take about as long as the write, so the
-// kernel runs at about twice its bytes bound (PERF.md).  No atomics: the
-// result is the same from run to run.
+// 16), and splits each fp32 element once, while staging, into three bf16
+// parts in shared memory: hi = bf16(v), mid = bf16(v - hi) and
+// lo = bf16(v - hi - mid), whose 3 x 8 significant bits hold all of fp32's
+// 24 (both remainders are exact in fp32); the same pass sums the fp32
+// squared norms (each row's 4-element pieces with FMAs, then its 16 pieces
+// in a fixed shuffle tree, then the chunks in order).  x.c accumulates in
+// fp32 through `mma.sync.m16n8k16` bf16 (`csrc/mma.cuh`, fragments by
+// `ldmatrix`) as the six products whose parts' orders sum to at most 2:
+// hi.hi + hi.mid + mid.hi + mid.mid + hi.lo + lo.hi.  Each is exact in
+// fp32; the dropped mid.lo, lo.mid and lo.lo are below 2^-25 relative.
+// Each k step sums the five corrections, smallest first, into a fresh
+// fragment, hi.hi into the running sum, and then adds the corrections to
+// it once, in fp32 on the CUDA cores: accumulated straight into the
+// running sum, the corrections lost to the tensor cores' fp32 adds (which
+// do not round to nearest) and the distances came out at 2-3.5x the
+// plain version's error against float64; this way they are within 1.4x
+// of it, and a second accumulator set (1.0x) would cost 222 registers and
+// one block an SM.  Integers up to 256 are exact in hi with mid = lo = 0, and
+// their products and sums stay exact in fp32 below 2^24, so
+// integer-valued inputs agree exactly with the plain version.  The
+// epilogue forms max(x2 - 2 g + c2, 0) from the fragments into a per-warp
+// tile in shared memory (over the consumed operands), and writes it back
+// as 16-byte streaming stores, a warp covering two full 256-byte output
+// row pieces per instruction.  A block's staging, products and stores run
+// one after another, and two blocks an SM (2 x 111.6 KB of shared memory)
+// overlap them only in part: on the card the staging and the six products
+// take longer than the write (PERF.md).  No atomics: the result is the
+// same from run to run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,7 +66,9 @@ constexpr int OS = WN + 8;       // fp32 row stride of the epilogue tile
 constexpr int GROUPS = BM * KC / 4 / THREADS;  // 4-float pieces a thread
 constexpr int BATCH = 4;   // pieces a thread holds at once
 static_assert(GROUPS % BATCH == 0, "whole batches");
-constexpr size_t OPERAND_BYTES = 2 * (BM + BN) * KS * sizeof(__nv_bfloat16);
+constexpr int PARTS = 3;         // hi, mid, lo
+constexpr size_t OPERAND_BYTES =
+    PARTS * (BM + BN) * KS * sizeof(__nv_bfloat16);
 constexpr size_t SMEM_BYTES = OPERAND_BYTES + (BM + BN) * sizeof(float);
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(BM == BN, "x and c tiles are staged alike");
@@ -87,16 +99,26 @@ __device__ __forceinline__ void fetch(float4 (&v)[BATCH], const float* src,
   }
 }
 
-// the fetched pieces split into bf16 hi and lo rows of the tile, and each
-// row's squared norm added to norm[row]
+// v's four values as bf16 part rows (two 32-bit pairs), and v minus them
+__device__ __forceinline__ uint2 split(float4& v) {
+  const __nv_bfloat162 p01 = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 p23 = __floats2bfloat162_rn(v.z, v.w);
+  const float2 f01 = __bfloat1622float2(p01), f23 = __bfloat1622float2(p23);
+  v = make_float4(v.x - f01.x, v.y - f01.y, v.z - f23.x, v.w - f23.y);
+  return make_uint2(bits(p01), bits(p23));
+}
+
+// the fetched pieces split into bf16 hi, mid and lo rows of the tile (part
+// p at part + p * part_stride), and each row's squared norm added to
+// norm[row]
 __device__ __forceinline__ void stage(const float4 (&v)[BATCH],
-                                      __nv_bfloat16* hi, __nv_bfloat16* lo,
+                                      __nv_bfloat16* part, int part_stride,
                                       float* norm, int j0) {
 #pragma unroll
   for (int j = 0; j < BATCH; ++j) {
     const int i = threadIdx.x + (j0 + j) * THREADS;
     const int r = i / (KC / 4), q = i % (KC / 4);
-    const float4 a = v[j];
+    float4 a = v[j];
     // the row's 16 pieces lie in 16 neighbouring lanes
     float n = a.x * a.x;
     n = fmaf(a.y, a.y, n);
@@ -104,14 +126,10 @@ __device__ __forceinline__ void stage(const float4 (&v)[BATCH],
     n = fmaf(a.w, a.w, n);
     for (int off = 8; off > 0; off >>= 1) n += __shfl_xor_sync(FULL, n, off);
     if (q == 0) norm[r] += n;
-    const __nv_bfloat162 h01 = __floats2bfloat162_rn(a.x, a.y);
-    const __nv_bfloat162 h23 = __floats2bfloat162_rn(a.z, a.w);
-    const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
-    *reinterpret_cast<uint2*>(hi + r * KS + q * 4) =
-        make_uint2(bits(h01), bits(h23));
-    *reinterpret_cast<uint2*>(lo + r * KS + q * 4) =
-        make_uint2(pack_bf16(a.x - f01.x, a.y - f01.y),
-                   pack_bf16(a.z - f23.x, a.w - f23.y));
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p)
+      *reinterpret_cast<uint2*>(part + p * part_stride + r * KS + q * 4) =
+          split(a);
   }
 }
 
@@ -120,10 +138,10 @@ __global__ void __launch_bounds__(THREADS, 2)
 pairwise_sqdist_kernel(const float* __restrict__ x, const float* __restrict__ c,
                        float* __restrict__ out, int N, int M, int D) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xhi = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* xlo = xhi + BM * KS;
-  __nv_bfloat16* chi = xlo + BM * KS;
-  __nv_bfloat16* clo = chi + BN * KS;
+  // x's hi, mid and lo tiles, then c's
+  constexpr int XP = BM * KS, CP = BN * KS;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* cs = xs + PARTS * XP;
   float* x2s = reinterpret_cast<float*>(smem + OPERAND_BYTES);
   float* c2s = x2s + BM;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -149,36 +167,49 @@ pairwise_sqdist_kernel(const float* __restrict__ x, const float* __restrict__ c,
       float4 xv[BATCH], cv[BATCH];
       fetch<VEC>(xv, x, N, row0, D, k0, j0);
       fetch<VEC>(cv, c, M, col0, D, k0, j0);
-      stage(xv, xhi, xlo, x2s, j0);
-      stage(cv, chi, clo, c2s, j0);
+      stage(xv, xs, XP, x2s, j0);
+      stage(cv, cs, CP, c2s, j0);
     }
     __syncthreads();
     const int ksteps = (min(KC, D - k0) + 15) / 16;
     for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t ah[MT][4], al[MT][4];
+      uint32_t ah[MT][4], am[MT][4], al[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const int off = (wr * WM + mt * 16 + lane % 16) * KS + ks * 16 +
                         (lane / 16) * 8;
-        ldsm_x4(ah[mt], xhi + off);
-        ldsm_x4(al[mt], xlo + off);
+        ldsm_x4(ah[mt], xs + off);
+        ldsm_x4(am[mt], xs + XP + off);
+        ldsm_x4(al[mt], xs + 2 * XP + off);
       }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         // n tiles 2 np and 2 np + 1, k halves 0-7 and 8-15
         const int off = (wc * WN + np * 16 + (lane & 7) + ((lane >> 4) << 3))
                             * KS + ks * 16 + ((lane >> 3) & 1) * 8;
-        uint32_t bh[4], bl[4];
-        ldsm_x4(bh, chi + off);
-        ldsm_x4(bl, clo + off);
+        uint32_t bh[4], bm[4], bl[4];
+        ldsm_x4(bh, cs + off);
+        ldsm_x4(bm, cs + CP + off);
+        ldsm_x4(bl, cs + 2 * CP + off);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], ah[mt], bh[0], bh[1]);
-          mma_bf16(acc[mt][2 * np], ah[mt], bl[0], bl[1]);
-          mma_bf16(acc[mt][2 * np], al[mt], bh[0], bh[1]);
-          mma_bf16(acc[mt][2 * np + 1], ah[mt], bh[2], bh[3]);
-          mma_bf16(acc[mt][2 * np + 1], ah[mt], bl[2], bl[3]);
-          mma_bf16(acc[mt][2 * np + 1], al[mt], bh[2], bh[3]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // the five corrections, smallest first, into a fresh sum t;
+            // hi.hi into the running sum, then t added once in fp32
+            const uint32_t h0 = bh[2 * h], h1 = bh[2 * h + 1];
+            const uint32_t m0 = bm[2 * h], m1 = bm[2 * h + 1];
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(t, am[mt], m0, m1);
+            mma_bf16(t, ah[mt], bl[2 * h], bl[2 * h + 1]);
+            mma_bf16(t, al[mt], h0, h1);
+            mma_bf16(t, ah[mt], m0, m1);
+            mma_bf16(t, am[mt], h0, h1);
+            float (&a)[4] = acc[mt][2 * np + h];
+            mma_bf16(a, ah[mt], h0, h1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] += t[e];
+          }
         }
       }
     }

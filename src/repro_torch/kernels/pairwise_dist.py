@@ -4,7 +4,8 @@ kernel ``csrc/pairwise_dist.cu`` (the port of ``repro.kernels.pairwise_dist``).
 ``pairwise_sqdist(x, c)`` launches the kernel on CUDA tensors and raises on
 anything it does not take; :func:`repro_torch.kernels.ref.pairwise_sqdist_ref`
 is its plain version, and :func:`repro_torch.kernels.ref.pairwise_sqdist_split_ref`
-the same function with x.c taken as the kernel takes it (bf16 hi + lo).
+the same function with x.c taken as the kernel takes it (bf16 hi + mid +
+lo, six products).
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations

@@ -91,26 +91,37 @@ def pairwise_sqdist_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x2[:, None] - 2.0 * g + c2[None, :], min=0.0)
 
 
-def _bf16_split(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """t = hi + lo + a remainder: hi rounded to bf16, lo the rounded
-    remainder, about 17 significant bits together (both returned in fp32)."""
-    hi = t.to(torch.bfloat16).float()
-    return hi, (t - hi).to(torch.bfloat16).float()
+def _bf16_split(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """t = hi + mid + lo + a remainder below 2^-24 |t|: each part the bf16
+    rounding of what the parts before it leave (both remainders exact in
+    fp32), so the three hold fp32's 24 significant bits (returned in
+    fp32)."""
+    parts = []
+    for _ in range(3):
+        p = t.to(torch.bfloat16).float()
+        parts.append(p)
+        t = t - p
+    return tuple(parts)
 
 
 def pairwise_sqdist_split_ref(x: torch.Tensor, c: torch.Tensor
                               ) -> torch.Tensor:
     """``pairwise_sqdist_ref`` with x.c taken as the CUDA kernel takes it on
-    the tensor cores: each fp32 element split once into bf16 hi + lo, and
-    x.c = hi.hi + hi.lo + lo.hi summed in fp32; the norms stay fp32.  Exact
-    on integers up to 256 (lo = 0); otherwise about 2^-16 relative per
-    product.  The main path never calls it."""
+    the tensor cores: each fp32 element split once into bf16 hi + mid + lo,
+    and x.c the six products whose parts' orders sum to at most 2,
+    hi.hi + hi.mid + mid.hi + mid.mid + hi.lo + lo.hi, each exact and summed
+    in fp32 (the kernel sums the five corrections apart from hi.hi in each
+    16-deep k step; the order of the fp32 sums is the one difference); the
+    norms stay fp32.  The dropped mid.lo, lo.mid and lo.lo are below 2^-25
+    relative, so it is as accurate as the plain version; exact on integers
+    up to 256 (mid = lo = 0).  The main path never calls it."""
     x = x.float()
     c = c.float()
     x2 = torch.sum(x * x, dim=-1)
     c2 = torch.sum(c * c, dim=-1)
-    (xh, xl), (ch, cl) = _bf16_split(x), _bf16_split(c)
-    g = xh @ ch.T + xh @ cl.T + xl @ ch.T
+    (xh, xm, xl), (ch, cm, cl) = _bf16_split(x), _bf16_split(c)
+    g = (xh @ ch.T + xh @ cm.T + xm @ ch.T + xm @ cm.T + xh @ cl.T
+         + xl @ ch.T)
     return torch.clamp(x2[:, None] - 2.0 * g + c2[None, :], min=0.0)
 
 

@@ -1,11 +1,26 @@
-"""MCAL labeling-campaign launcher (``repro.launch.label``), live mode: a
-campaign over a live classifier trained on this host's device (a CUDA
-device unless ``--device cpu``).
+"""MCAL labeling-campaign launcher (``repro.launch.label``) on this host's
+device (a CUDA device unless ``--device cpu``).
 
+Live mode (a classifier trained on the device):
     PYTHONPATH=src python -m repro_torch.launch.label --live --pool 50000 \\
         --sweep-async --fit-async
     PYTHONPATH=src python -m repro_torch.launch.label --live --device cpu \\
         --pool 2000
+
+Replay mode (paper-scale emulated learning curves, ``core.emulator``):
+    PYTHONPATH=src python -m repro_torch.launch.label --dataset cifar10 \\
+        --arch resnet18 --device cpu
+
+Noisy annotation service (repeated labeling, aggregated on the device):
+    PYTHONPATH=src python -m repro_torch.launch.label --dataset cifar10 \\
+        --annotator-noise 0.2 --label-repeats 3 --annotator-aggregate ds
+
+``--annotator-noise > 0`` (or ``--label-repeats > 1``, or
+``--adaptive-repeats``) replaces the perfect oracle with a seeded
+noisy-annotator pool: every human label is an aggregation (majority vote
+or Dawid-Skene EM) over per-worker votes, every vote is charged at the
+service rate, and the campaign folds the measured residual label error
+into its accuracy target (``MCALConfig.label_quality``).
 
 Campaign state (ledger, pool bitmap, per-theta history, fitted power laws,
 the engines' bucket keys) is saved to ``--state`` after every iteration,
@@ -19,8 +34,8 @@ and the other way round.  ``--trace`` writes the campaign's event log
 (appended to at the checkpointed cursor on resume);
 ``--trace-replay`` and ``--trace-diff`` read traces of either package.
 
-The reference's replay mode (``--dataset``, emulated learning curves) and
-its annotation, fault, metrics and mesh flags are not ported yet.
+The reference's fault, metrics, health, profiling and mesh flags are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -32,13 +47,18 @@ import os
 # parsing succeeds: --help never pays for it)
 METRIC_CHOICES = ("margin", "entropy", "least_confidence", "kcenter",
                   "random")
+# annotation.service.AGGREGATORS, a literal for the same reason
+AGGREGATE_CHOICES = ("majority", "ds")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--live", action="store_true",
                     help="live mode: train a classifier on this host's "
-                         "device (the only mode ported)")
+                         "device (default: the replay mode)")
+    ap.add_argument("--dataset", default="cifar10",
+                    choices=("fashion", "cifar10", "cifar100", "imagenet"))
+    ap.add_argument("--arch", default="resnet18")
     ap.add_argument("--pool", type=int, default=4000)
     ap.add_argument("--classes", type=int, default=10)
     ap.add_argument("--difficulty", type=float, default=0.3)
@@ -78,6 +98,34 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run at most N iterations this invocation, then "
                          "save --state and exit resumable (0 = run to "
                          "completion)")
+    # -- annotation service (noisy multi-annotator oracle) -----------------
+    ap.add_argument("--annotator-noise", type=float, default=0.0,
+                    help="per-vote error rate of the noisy annotator "
+                         "pool (0 = the paper's perfect-oracle "
+                         "assumption, no service attached)")
+    ap.add_argument("--annotator-workers", type=int, default=5,
+                    help="annotator pool size (each worker votes at most "
+                         "once per item)")
+    ap.add_argument("--annotator-spammers", type=float, default=0.0,
+                    help="fraction of workers answering uniformly at "
+                         "random")
+    ap.add_argument("--annotator-aggregate", default="majority",
+                    choices=AGGREGATE_CHOICES,
+                    help="vote aggregation: majority vote or Dawid-Skene "
+                         "EM, on the device")
+    ap.add_argument("--label-repeats", type=int, default=1,
+                    help="votes bought per human label (repeated "
+                         "labeling; each vote is charged at the service "
+                         "rate)")
+    ap.add_argument("--max-repeats", type=int, default=0,
+                    help="adaptive-repeats vote cap (0 = --label-repeats, "
+                         "no top-up)")
+    ap.add_argument("--adaptive-repeats", action="store_true",
+                    help="stop buying votes for an item once its "
+                         "aggregated posterior confidence clears "
+                         "--repeat-confidence")
+    ap.add_argument("--repeat-confidence", type=float, default=0.9,
+                    help="adaptive-repeats confidence threshold")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
     ap.add_argument("--trace", default="",
@@ -94,6 +142,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "campaign traces, then exit")
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def build_annotation(args, num_classes: int, service):
+    """The campaign's annotation service from the CLI flags, aggregating on
+    ``args.device`` — None when the flags describe the perfect oracle (no
+    noise, single vote, no adaptive policy)."""
+    if args.annotator_noise <= 0 and args.label_repeats <= 1 \
+            and not args.adaptive_repeats:
+        return None
+    from repro_torch.annotation import make_annotation_service
+    return make_annotation_service(
+        num_classes, n_workers=args.annotator_workers,
+        noise=args.annotator_noise, spammer_frac=args.annotator_spammers,
+        repeats=args.label_repeats,
+        max_repeats=args.max_repeats or None,
+        adaptive=args.adaptive_repeats,
+        confidence=args.repeat_confidence,
+        aggregator=args.annotator_aggregate,
+        pricing=service, seed=args.seed, device=args.device)
 
 
 def _save_state(path: str, campaign=None, cursor=None, campaign_blob=None):
@@ -217,29 +284,43 @@ def main(argv=None):
             with open(args.out, "w") as f:
                 json.dump(report, f)
         return
-    if not args.live:
-        raise SystemExit(
-            "repro_torch.launch.label: the replay mode (emulated learning "
-            "curves, --dataset) is not yet ported; pass --live")
-
-    from repro_torch.core import SERVICES, LiveTask, MCALConfig
+    from repro_torch.core import (DATASETS, SERVICES, LiveTask, MCALConfig,
+                                  make_emulated_task)
     from repro_torch.data.synth import make_classification
 
     service = SERVICES[args.service]
+    num_classes = (args.classes if args.live
+                   else DATASETS[args.dataset]["classes"])
+    annotation = build_annotation(args, num_classes, service)
     cfg = MCALConfig(eps_target=args.eps, metric=args.metric,
                      budget=args.budget, seed=args.seed,
-                     sweep_async=args.sweep_async, fit_async=args.fit_async)
-    x, y = make_classification(args.pool, num_classes=args.classes,
-                               difficulty=args.difficulty, seed=args.seed)
-    task = LiveTask(features=x, groundtruth=y, num_classes=args.classes,
-                    seed=args.seed, sweep_page=args.sweep_page,
-                    fit_fused=args.fit_fused, fit_resident=args.fit_resident,
-                    device=args.device)
+                     sweep_async=args.sweep_async, fit_async=args.fit_async,
+                     # measured (calibration-batch) quality: what DS and
+                     # adaptive repeats deliver, deterministic per seed so
+                     # a resumed run rebuilds the same config
+                     label_quality=(annotation.calibrate()
+                                    if annotation is not None else None))
+    if args.live:
+        x, y = make_classification(args.pool, num_classes=args.classes,
+                                   difficulty=args.difficulty,
+                                   seed=args.seed)
+        task = LiveTask(features=x, groundtruth=y, num_classes=args.classes,
+                        seed=args.seed, sweep_page=args.sweep_page,
+                        fit_fused=args.fit_fused,
+                        fit_resident=args.fit_resident, device=args.device,
+                        annotation=annotation)
+    else:
+        task = make_emulated_task(args.dataset, args.arch, seed=args.seed,
+                                  sweep_page=args.sweep_page,
+                                  device=args.device)
+        task.annotation = annotation
+    campaign_id = (f"{'live' if args.live else args.dataset}-"
+                   f"{args.arch}-s{args.seed}")
     res, camp = run_campaign(task, service, cfg, state_path=args.state,
                              sweep_ckpt_pages=args.sweep_ckpt_pages,
                              iters_per_run=args.iters_per_run,
                              trace_path=args.trace,
-                             campaign_id=f"live-mlp-s{args.seed}")
+                             campaign_id=campaign_id)
     if res is None:
         report = {"resumable": True, "state": args.state,
                   "iterations": len(camp.history),
@@ -250,6 +331,8 @@ def main(argv=None):
         return
     X = task.pool_size
     human_all = X * service.price_per_label
+    if annotation is not None:   # the honest baseline pays repeats too
+        human_all *= cfg.label_quality.avg_repeats
     report = {
         "decision": res.decision,
         "B_frac": res.B_size / X,
@@ -265,6 +348,13 @@ def main(argv=None):
     }
     if args.trace:
         report["trace"] = args.trace
+    if annotation is not None:
+        report["annotation"] = {
+            "votes": annotation.votes_bought,
+            "avg_repeats": annotation.avg_repeats(),
+            "residual_error_est": annotation.estimated_residual_error(),
+            "worker_accuracy": annotation.worker_accuracy().tolist(),
+        }
     print(json.dumps(report, indent=2))
     if args.out:
         with open(args.out, "w") as f:

@@ -51,7 +51,11 @@ def test_every_ported_module_was_imported(probe):
             "repro_torch.models.mamba2", "repro_torch.models.transformer",
             "repro_torch.models.hybrid", "repro_torch.models.registry",
             "repro_torch.configs.zamba2_2p7b",
-            "repro_torch.serving.engine", "repro_torch.launch.serve"}
+            "repro_torch.serving.engine", "repro_torch.launch.serve",
+            "repro_torch.core.emulator", "repro_torch.core.baselines",
+            "repro_torch.data.pool", "repro_torch.annotation.oracle",
+            "repro_torch.annotation.aggregate",
+            "repro_torch.annotation.service", "repro_torch.launch.label"}
     assert want <= set(probe["modules"])
 
 

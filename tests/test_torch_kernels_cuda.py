@@ -26,6 +26,8 @@ MH_GRID = [(2048, 64, 10), (128, 64, 512), (200, 48, 1000), (65, 32, 257),
 PD_GRID = [(65536, 512, 64), (5, 3, 4), (64, 16, 8), (130, 9, 33),
            (257, 128, 16), (65537, 2049, 64), (300, 130, 33),
            (300, 1100, 100), (257, 140, 130)]
+# the JAX package's grid for its kernel (tests/test_selection_device.py)
+PD_REF_GRID = [(5, 3, 4), (64, 16, 8), (130, 9, 33), (257, 128, 16)]
 
 
 def _need_card():
@@ -105,11 +107,30 @@ def test_pairwise_kernel_matches_plain_on_card(N, M, D):
     got = ops.pairwise_sqdist(x, c)
     assert pd.launches == before + 1
     want = ref.pairwise_sqdist_ref(x, c)
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=1e-4 * float(want.max()))
+    # against float64: no more than twice the plain fp32 version's error
+    x64, c64 = x.double(), c.double()
+    exact = torch.cdist(x64, c64) ** 2
+    assert float((got.double() - exact).abs().max()) <= \
+        2.0 * float((want.double() - exact).abs().max())
     xi, ci = (torch.round(3 * t) for t in (x, c))
     assert torch.equal(ops.pairwise_sqdist(xi, ci),
                        ref.pairwise_sqdist_ref(xi, ci))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,D", PD_REF_GRID)
+def test_pairwise_kernel_reference_tolerance_on_card(N, M, D):
+    """The JAX package's test of its kernel, on the card: the reference's
+    grid and inputs, atol 1e-5 against the plain version."""
+    _need_card()
+    rng = np.random.default_rng(N * 1000 + M)
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    c = rng.normal(size=(M, D)).astype(np.float32)
+    got = pd.pairwise_sqdist(torch.as_tensor(x, device="cuda"),
+                             torch.as_tensor(c, device="cuda"))
+    want = ref.pairwise_sqdist_ref(torch.as_tensor(x), torch.as_tensor(c))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    assert got.shape == (N, M) and bool((got >= 0).all())
 
 
 # the JAX package's grids (tests/test_kernels.py), then zamba2-2.7b's

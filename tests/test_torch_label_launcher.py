@@ -26,10 +26,13 @@ def test_shared_flags_have_the_reference_defaults_and_choices():
         _actions(jlabel.build_parser())
     shared = set(mine) & set(ref)
     assert set(mine) - shared == {"device"}
-    assert {"live", "pool", "classes", "difficulty", "eps", "budget",
-            "metric", "service", "sweep_page", "sweep_async", "fit_fused",
-            "fit_async", "fit_resident", "state", "sweep_ckpt_pages",
-            "iters_per_run", "seed", "out", "trace", "trace_replay",
+    assert {"live", "dataset", "arch", "pool", "classes", "difficulty",
+            "eps", "budget", "metric", "service", "sweep_page",
+            "sweep_async", "fit_fused", "fit_async", "fit_resident", "state",
+            "sweep_ckpt_pages", "iters_per_run", "annotator_noise",
+            "annotator_workers", "annotator_spammers", "annotator_aggregate",
+            "label_repeats", "max_repeats", "adaptive_repeats",
+            "repeat_confidence", "seed", "out", "trace", "trace_replay",
             "trace_diff"} == shared
     for dest in shared:
         assert mine[dest].default == ref[dest].default, dest
@@ -37,6 +40,7 @@ def test_shared_flags_have_the_reference_defaults_and_choices():
         assert mine[dest].option_strings == ref[dest].option_strings, dest
     assert label.build_parser().parse_args([]).device == "cuda"
     assert label.METRIC_CHOICES == jlabel.METRIC_CHOICES
+    assert label.AGGREGATE_CHOICES == jlabel.AGGREGATE_CHOICES
 
 
 @pytest.mark.parametrize("argv", [["--help"], ["--live", "--help"]])
@@ -58,9 +62,30 @@ def test_help_loads_no_torch(argv):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-def test_replay_mode_is_not_ported():
-    with pytest.raises(SystemExit, match="not yet ported"):
-        label.main(["--device", "cpu"])
+@pytest.mark.parametrize("argv", [
+    ["--dataset", "cifar10", "--annotator-noise", "0.2", "--label-repeats",
+     "3", "--annotator-aggregate", "ds"],
+    ["--dataset", "fashion", "--annotator-noise", "0.2", "--label-repeats",
+     "2", "--max-repeats", "4", "--adaptive-repeats",
+     "--annotator-spammers", "0.2"]])
+def test_noisy_replay_report_matches_jax(argv, tmp_path, monkeypatch,
+                                         capsys):
+    """The noisy replay campaign through both launchers: the reference's
+    report keys with equal values, and the annotation block (the residual
+    estimate comes from fp32 DS posteriors on each side)."""
+    jout, out = str(tmp_path / "j.json"), str(tmp_path / "t.json")
+    monkeypatch.setattr(sys, "argv", ["label", *argv, "--out", jout])
+    jlabel.main()
+    label.main([*argv, "--device", "cpu", "--out", out])
+    got, want = json.load(open(out)), json.load(open(jout))
+    ann, jann = got.pop("annotation"), want.pop("annotation")
+    assert got.pop("device") == "cpu"
+    assert got == want
+    assert ann["residual_error_est"] == pytest.approx(
+        jann.pop("residual_error_est"), abs=1e-6)
+    ann.pop("residual_error_est")
+    assert ann == jann
+    assert got["ledger"]["human_votes"] == ann["votes"]
 
 
 def test_state_file_preempt_and_resume(tmp_path, capsys):

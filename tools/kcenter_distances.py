@@ -12,7 +12,7 @@ computes the two functions of the campaign's path, ``kernels.ops``
 
 - ``kernels``: the hand-written kernels, as the main path runs them;
 - ``split``: ``pairwise_sqdist`` by ``ref.pairwise_sqdist_split_ref``
-  (x.c as the kernel takes it, three bf16 products, in plain PyTorch on the
+  (x.c as the kernel takes it, six bf16 products, in plain PyTorch on the
   same device), ``score_head`` by the kernel;
 - ``plain``: ``pairwise_sqdist`` by ``ref.pairwise_sqdist_ref`` (fp32
   x.c), ``score_head`` by the kernel;
