@@ -50,7 +50,23 @@
    votes) against the float64 host oracles: majority exact, Dawid-Skene
    within the JAX package's atol 1e-4 with identical labels, seconds per
    aggregation.
-7. Serves zamba2-2.7b (full config: 54 layers, d_model 2560, bf16 weights
+7. Runs the fleet (``repro_torch.launch.orchestrator.build_fleet``): eight
+   live campaigns, t0-t7 (priority i % 3, seed i, eps 0.05 + 0.01 (i % 4),
+   k-center on the odd ones), sharing one engine bundle on the card,
+   concurrently and then serially — every tenant's trace diffs clean
+   between the two, t0 and t1 alone on private engines diff clean against
+   theirs, each ``fit_plan`` bucket is captured once; the same eight as
+   sessions of one noisy annotation service under a global ceiling of half
+   their bootstrap spend, twice — the cascade walks pause, shrink_votes
+   and force_commit the same way both times, and every tenant's votes
+   equal its ``buy_labels`` charges; the noisy margin campaign through the
+   launcher (async) fault-free, under the ``--chaos`` plan (every site
+   fires), killed at iteration 2 with ``--autosave`` and resumed, with
+   metrics, an SLO and ``--prom`` (the reference's spans, fit spans
+   fenced; its wall against the plain one), and with ``--profile`` over
+   iteration 1 (the Chrome trace holds ``margin_head``'s kernel): each
+   diffs clean against the fault-free run.
+8. Serves zamba2-2.7b (full config: 54 layers, d_model 2560, bf16 weights
    from ``Model.init(seed 0)``) through ``ServeEngine``: 8 requests of
    2,048 random tokens are scored (``score``, the fp32 LM head through
    ``margin_head``), 32 rows are scored by ``score_pool`` in pages of 8
@@ -62,9 +78,10 @@
    cast of the bf16 LM head to fp32.
    The kernels' launch counts are zeroed just before each main-path pass
    (each campaign, the launcher campaign, the replay and noisy campaigns,
-   each serving pass) and read just after it; a kernel of a path that was
-   never launched there fails the run.
-8. Times each kernel at the largest shape the main paths gave it, its plain
+   the fleets, the chaos and instrumented campaigns, each serving pass)
+   and read just after it; a kernel of a path that was never launched
+   there fails the run.
+9. Times each kernel at the largest shape the main paths gave it, its plain
    version and (where one PyTorch call computes the same function) that
    call, with CUDA events: the median of 30 single-call timings after a
    warm-up, host launch gaps included.  The profiler's CUDA trace gives the
@@ -77,7 +94,7 @@
    fp32 on the CUDA cores, 989 TFLOP/s for bf16 on the tensor cores
    (``flash_attention``, ``ssd_scan``, and ``pairwise_sqdist``'s six
    bf16 products), H100 SXM data-sheet peaks.
-9. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
+10. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
 
@@ -866,6 +883,366 @@ def check_aggregator(torch, np, n=50_000, workers=5, classes=100,
              f"{errs} beyond atol 1e-4")
 
 
+# the reference's fleet test specs (tests/test_orchestrator.py) at full
+# size, the odd tenants on k-center so that both campaign kernels launch
+FLEET_TENANTS = 8
+# span names the CPU test finds in the reference's registry after the same
+# noisy margin campaign (tests/test_torch_obs.py)
+REFERENCE_SPANS = {"bootstrap", "iteration", "commit", "annotate", "fit",
+                   "sweep"}
+
+
+def fleet_specs(max_iters: int, eps=None, quality=None):
+    from repro_torch.core import MCALConfig
+    from repro_torch.core.tenant import TenantSpec
+    return [TenantSpec(f"t{i}", priority=i % 3, seed=i, cfg=MCALConfig(
+        eps_target=0.05 + 0.01 * (i % 4) if eps is None else eps, seed=i,
+        metric="kcenter" if i % 2 else "margin", max_iters=max_iters,
+        label_quality=quality)) for i in range(FLEET_TENANTS)]
+
+
+def run_fleet(torch, mh, pd, x, y, trace_dir: Path, max_iters: int,
+              seen: dict):
+    """Eight live campaigns sharing one engine bundle on the card
+    (``launch.orchestrator.build_fleet``, the engines at ``LiveTask``'s
+    defaults), run concurrently, then serially: every tenant's trace must
+    diff clean between the two, and t0 (margin) and t1 (k-center) run
+    alone on private engines must diff clean against their fleet traces.
+    Each ``fit_plan`` bucket is captured once over the concurrent fleet.
+    Returns the kernels' launches in the concurrent run."""
+    from repro_torch.core import AMAZON, LiveTask, MCALCampaign
+    from repro_torch.launch.orchestrator import build_fleet
+    from repro_torch.trace import TraceStore, diff
+
+    specs = fleet_specs(max_iters)
+    walls, launches, results = {}, None, {}
+    for mode in ("concurrent", "serial"):
+        d = trace_dir / f"fleet_{mode}"
+        orch = build_fleet(x, y, specs, service=AMAZON, trace_dir=str(d),
+                           concurrent=mode == "concurrent")
+        restore = []
+        if mode == "concurrent":
+            restore = [record_shapes(mh, "margin_head", seen["margin_head"],
+                                     margin_key),
+                       record_shapes(pd, "pairwise_sqdist",
+                                     seen["pairwise_sqdist"], pairwise_key)]
+        torch.cuda.synchronize()
+        mh.launches = 0
+        pd.launches = 0
+        t0 = time.perf_counter()
+        try:
+            results[mode] = orch.run()
+            torch.cuda.synchronize()
+            walls[mode] = time.perf_counter() - t0
+            got = {"margin_head": mh.launches,
+                   "pairwise_sqdist": pd.launches}
+            fit = orch.engines.fit
+            buckets, captures = fit.cache_keys(), fit.captures
+            graphs = sorted(fit._graphs)
+        finally:
+            for r in restore:
+                r()
+            orch.close()
+        ends = {t: summary(r) for t, r in sorted(results[mode].items())}
+        print(f"fleet {mode} ({FLEET_TENANTS} tenants, pool {len(x)}): "
+              f"wall {walls[mode]:.2f} s, launches {got}, fit_plan "
+              f"buckets {len(buckets)}, graphs captured {captures}",
+              flush=True)
+        for t, end in ends.items():
+            print(f"fleet {mode} {t}: {end}", flush=True)
+        if set(results[mode]) != {s.tenant_id for s in specs}:
+            fail(f"the {mode} fleet committed {sorted(results[mode])}")
+        for t, r in results[mode].items():
+            if (r.labels < 0).any():
+                fail(f"fleet {mode} {t} left rows unlabeled")
+        if mode == "concurrent":
+            launches = got
+            if got["margin_head"] == 0 or got["pairwise_sqdist"] == 0:
+                fail(f"the fleet launched {got}: a campaign kernel never "
+                     f"ran on the fleet path")
+            if fit.device.type == "cuda" and (captures != len(buckets)
+                                              or graphs != buckets):
+                fail(f"the concurrent fleet captured {captures} graphs for "
+                     f"{len(buckets)} fit_plan buckets ({graphs} against "
+                     f"{buckets})")
+    for s in specs:
+        d = diff(str(trace_dir / "fleet_concurrent" / f"{s.tenant_id}.jsonl"),
+                 str(trace_dir / "fleet_serial" / f"{s.tenant_id}.jsonl"))
+        if d is not None:
+            fail(f"fleet tenant {s.tenant_id}, concurrent against serial: "
+                 f"{d.describe()}")
+        if not (results["concurrent"][s.tenant_id].labels
+                == results["serial"][s.tenant_id].labels).all():
+            fail(f"fleet tenant {s.tenant_id}: concurrent and serial labels "
+                 f"differ")
+    solo_wall = 0.0
+    for s in specs[:2]:
+        path = trace_dir / f"solo_{s.tenant_id}.jsonl"
+        task = LiveTask(features=x, groundtruth=y, num_classes=10,
+                        seed=s.seed)
+        camp = MCALCampaign(task, AMAZON, s.cfg)
+        trace = TraceStore(str(path), s.tenant_id)
+        camp.attach_trace(trace)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = camp.run()
+            torch.cuda.synchronize()
+            solo_wall += time.perf_counter() - t0
+        finally:
+            camp.close()
+            trace.close()
+        d = diff(str(path), str(trace_dir / "fleet_concurrent"
+                                / f"{s.tenant_id}.jsonl"))
+        print(f"fleet solo {s.tenant_id} ({s.cfg.metric}) on private "
+              f"engines: {summary(res)}, trace diff against the fleet "
+              f"{'clean' if d is None else d.describe()}", flush=True)
+        if d is not None:
+            fail(f"solo {s.tenant_id} against its fleet trace: "
+                 f"{d.describe()}")
+    print(f"fleet walls: concurrent {walls['concurrent']:.2f} s, serial "
+          f"{walls['serial']:.2f} s, solo t0 + t1 {solo_wall:.2f} s; every "
+          f"tenant concurrent = serial, t0 and t1 = solo", flush=True)
+    return launches
+
+
+def noisy_service(seed=0):
+    """The noisy campaign's annotation service: 5 workers, noise 0.2, 3
+    votes a label, Dawid-Skene on the card."""
+    from repro_torch.annotation import make_annotation_service
+    from repro_torch.core import AMAZON
+    return make_annotation_service(10, n_workers=5, noise=0.2, repeats=3,
+                                   aggregator="ds", pricing=AMAZON,
+                                   seed=seed)
+
+
+def run_capped_fleet(torch, mh, x, y, trace_dir: Path, max_iters: int):
+    """The eight specs sharing one noisy annotation service (each tenant
+    an ``AnnotationSession`` of it), eps raised to 0.1 as in the noisy
+    campaign, under a global ceiling of half the fleet's bootstrap spend:
+    the downgrade cascade walks pause, shrink_votes and force_commit.  Run
+    concurrently twice: the fleet traces diff clean under ``FLEET_KINDS``
+    with equal downgrade sequences, and every tenant's votes equal its
+    ``buy_labels`` charges.  Returns margin_head's launches in the first
+    run."""
+    from repro_torch.core import AMAZON
+    from repro_torch.core.tenant import (DOWNGRADE_ACTIONS, FLEET_KINDS,
+                                         downgrade_sequence)
+    from repro_torch.launch.orchestrator import build_fleet
+    from repro_torch.trace import diff
+
+    pool = len(x)
+    labels0 = max(int(round(0.05 * pool)), 16) + \
+        max(int(round(0.01 * pool)), 8)
+    ceiling = FLEET_TENANTS / 2 * labels0 * 3 * AMAZON.price_per_label
+    seqs, launches = [], 0
+    for run in (1, 2):
+        svc = noisy_service()
+        specs = fleet_specs(max_iters, eps=0.1, quality=svc.calibrate())
+        d = trace_dir / f"capped_{run}"
+        orch = build_fleet(x, y, specs, service=AMAZON, trace_dir=str(d),
+                           global_budget=ceiling, annotation_service=svc)
+        torch.cuda.synchronize()
+        mh.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = orch.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = mh.launches
+            votes = {t.tenant_id: (t.campaign.task.annotation.votes_bought,
+                                   t.campaign.pool.ledger.human_votes)
+                     for t in orch.tenants}
+            spent = orch.controller.spent()
+        finally:
+            orch.close()
+        if run == 1:
+            launches = got
+        seq = downgrade_sequence(str(d / "fleet.jsonl"))
+        seqs.append(seq)
+        actions = [e["action"] for e in seq]
+        print(f"capped fleet run {run} (ceiling {ceiling:.2f}, 8 sessions "
+              f"of one service): wall {wall:.2f} s, spent {spent:.2f}, "
+              f"margin_head launches {got}, downgrades "
+              + ", ".join(f"r{e['round']} {e['action']} {e['tenant']}"
+                          for e in seq), flush=True)
+        print(f"capped fleet run {run} votes (session, buy_labels): "
+              f"{votes}", flush=True)
+        if set(actions) != set(DOWNGRADE_ACTIONS):
+            fail(f"the capped fleet's downgrades {sorted(set(actions))} "
+                 f"miss one of {DOWNGRADE_ACTIONS}")
+        for t, (sold, charged) in votes.items():
+            if sold != charged or sold <= 0:
+                fail(f"capped fleet {t}: the session sold {sold} votes, "
+                     f"buy_labels charged {charged}")
+        if set(res) != {s.tenant_id for s in specs}:
+            fail(f"the capped fleet committed {sorted(res)}")
+        if got == 0:
+            fail("margin_head never launched in the capped fleet")
+    d = diff(str(trace_dir / "capped_1" / "fleet.jsonl"),
+             str(trace_dir / "capped_2" / "fleet.jsonl"), kinds=FLEET_KINDS)
+    print(f"capped fleet: two runs' downgrade sequences "
+          f"{'equal' if seqs[0] == seqs[1] else 'DIFFER'}, fleet traces "
+          f"{'clean' if d is None else d.describe()}", flush=True)
+    if seqs[0] != seqs[1] or d is not None:
+        fail("the capped fleet's two runs made different budget decisions")
+    return launches
+
+
+def run_chaos_and_instrumented(torch, mh, x, y, trace_dir: Path,
+                               max_iters: int, seen: set):
+    """The noisy live margin campaign through ``launch.label.run_campaign``
+    (``sweep_async``, ``fit_async``): fault-free; under the launcher's
+    ``--chaos`` plan (``FaultPlan.standard_transient(0)`` and a
+    ``RetryPolicy``), where every site of the plan must fire; killed at
+    its third iteration with ``--autosave`` and resumed; with metrics
+    interleaved into its trace, an SLO spec and a Prometheus snapshot; and
+    with that plus ``--profile`` over its first iteration, whose Chrome
+    trace must hold ``margin_head``'s kernel.  Every run diffs clean
+    against the fault-free one.  Returns margin_head's launches in the
+    chaos and the instrumented runs."""
+    from repro_torch.core import AMAZON, LiveTask, MCALConfig
+    from repro_torch.faults import (FaultInjector, FaultPlan, FaultRule,
+                                    InjectedKill, RetryPolicy)
+    from repro_torch.launch.label import run_campaign
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs.profiling import trace_path
+    from repro_torch.trace import diff, read_trace
+
+    def task():
+        return LiveTask(features=x, groundtruth=y, num_classes=10,
+                        annotation=noisy_service())
+    first = task()
+    cfg = MCALConfig(eps_target=0.1, seed=0, max_iters=max_iters,
+                     label_quality=first.annotation.calibrate(),
+                     sweep_async=True, fit_async=True)
+
+    def run(name, t=None, **kw):
+        path = trace_dir / f"{name}.jsonl"
+        torch.cuda.synchronize()
+        mh.launches = 0
+        t0 = time.perf_counter()
+        res, camp = run_campaign(t or task(), AMAZON, cfg,
+                                 trace_path=str(path),
+                                 campaign_id="live-noisy-s0", **kw)
+        torch.cuda.synchronize()
+        return res, camp, path, time.perf_counter() - t0, mh.launches
+
+    def clean_against(path, what):
+        d = diff(str(path), str(plain_path))
+        if d is not None:
+            fail(f"{what} trace against the fault-free one: {d.describe()}")
+
+    plain, _, plain_path, plain_wall, _ = run("plain", first)
+    print(f"chaos baseline (noisy margin campaign, sweep_async, fit_async): "
+          f"{summary(plain)}, wall {plain_wall:.2f} s", flush=True)
+
+    plan = FaultPlan.standard_transient(0)
+    inj = FaultInjector(plan)
+    fired = MetricsRegistry()
+    inj.attach_metrics(fired)
+    restore = record_shapes(mh, "margin_head", seen, margin_key)
+    res, _, path, wall, chaos_launches = run("chaos", faults=inj,
+                                             retry=RetryPolicy(seed=0))
+    restore()
+    by_site = {}
+    for c in fired.snapshot()["counters"]:
+        if c["name"] == "faults_injected_total":
+            key = f"{c['labels']['site']}/{c['labels']['kind']}"
+            by_site[key] = by_site.get(key, 0) + int(c["value"])
+    retries = sum(e.kind == "retry" for e in read_trace(str(path)))
+    print(f"chaos (standard_transient seed 0 + RetryPolicy): {summary(res)}, "
+          f"wall {wall:.2f} s, faults_injected {inj.fired} by site {by_site}, "
+          f"sites ticked {inj.counters()}, {retries} retry events, "
+          f"margin_head launches {chaos_launches}", flush=True)
+    clean_against(path, "chaos")
+    if summary(res) != summary(plain) or not (res.labels
+                                              == plain.labels).all():
+        fail(f"chaos campaign ended {summary(res)}, fault-free "
+             f"{summary(plain)}")
+    missing = {r.site for r in plan.rules} - {k.split("/")[0]
+                                              for k in by_site}
+    if missing:
+        fail(f"sites of the chaos plan that never fired: {sorted(missing)}")
+    if chaos_launches == 0:
+        fail("margin_head never launched in the chaos campaign")
+
+    side = trace_dir / "autosave.json"
+    killer = FaultInjector(FaultPlan(rules=(
+        FaultRule("campaign.iteration", "kill", at=(2,)),)))
+    killed = False
+    try:
+        run("kill", faults=killer, autosave_path=str(side))
+    except InjectedKill:
+        killed = True
+    saved = side.exists()
+    res, hops = None, 0
+    while res is None:
+        res, _, path, _, _ = run("kill", autosave_path=str(side))
+        hops += 1
+        if hops > 5:
+            fail("the killed campaign never finished")
+    print(f"kill at iteration 2 + autosave: killed {killed}, sidecar "
+          f"written {saved}, resumed in {hops} run(s): {summary(res)}",
+          flush=True)
+    if not (killed and saved) or side.exists():
+        fail("the kill point did not fire, or the sidecar was not written "
+             "and spent")
+    clean_against(path, "killed and resumed")
+    if summary(res) != summary(plain):
+        fail(f"killed campaign resumed to {summary(res)}")
+
+    slo = trace_dir / "slo.json"
+    slo.write_text(json.dumps({"cost_per_label_max": 0.02,
+                               "projected_quality_min": 0.99}))
+    prom = trace_dir / "metrics.prom"
+    inst = trace_dir / "instrumented.jsonl"
+    res, camp, path, inst_wall, inst_launches = run(
+        "instrumented", metrics_path=str(inst), prom_path=str(prom),
+        slo_path=str(slo))
+    snap = camp.metrics.snapshot()
+    spans = {h["labels"]["name"] for h in snap["histograms"]
+             if h["name"] == "span_seconds"}
+    events = read_trace(str(path))
+    fit_spans = [e.payload for e in events
+                 if e.kind == "metric_span" and e.payload["name"] == "fit"]
+    fenced = sum(bool(p["fenced"]) for p in fit_spans)
+    alerts = sum(e.kind in ("alert", "slo_breach") for e in events)
+    print(f"instrumented (metrics in the trace, SLO, prom): {summary(res)}, "
+          f"wall {inst_wall:.2f} s against {plain_wall:.2f} s plain "
+          f"(ratio {inst_wall / plain_wall:.4f}), spans {sorted(spans)}, "
+          f"fit spans fenced {fenced}/{len(fit_spans)}, health "
+          f"{camp.health.counts()}, {alerts} alert events, prom "
+          f"{prom.stat().st_size if prom.exists() else 0} bytes, "
+          f"margin_head launches {inst_launches}", flush=True)
+    clean_against(path, "instrumented")
+    if not REFERENCE_SPANS <= spans:
+        fail(f"the registry lacks spans {sorted(REFERENCE_SPANS - spans)}")
+    if not fit_spans or fenced != len(fit_spans):
+        fail(f"fit spans fenced {fenced} of {len(fit_spans)}")
+    if not prom.exists() or inst_launches == 0:
+        fail("no Prometheus snapshot, or margin_head never launched")
+
+    prof = trace_dir / "profile"
+    res, _, path, prof_wall, _ = run(
+        "profiled", metrics_path=str(trace_dir / "profiled.jsonl"),
+        prom_path=str(prom), slo_path=str(slo), profile_dir=str(prof),
+        profile_iter=1)
+    clean_against(path, "profiled")
+    chrome = Path(trace_path(str(prof)))
+    if not chrome.exists():
+        fail("--profile wrote no trace")
+    kernels = [e for e in json.loads(chrome.read_text())["traceEvents"]
+               if str(e.get("cat", "")).lower() == "kernel"]
+    ours = sorted({e["name"] for e in kernels
+                   if "margin_head_slice_kernel" in e["name"]})
+    print(f"profiled iteration 1: wall {prof_wall:.2f} s, {len(kernels)} "
+          f"CUDA kernel events, margin_head symbols {ours[:2]}", flush=True)
+    if not ours:
+        fail("the profile's CUDA kernel events hold no margin_head kernel")
+    return chaos_launches, inst_launches
+
+
 def check_retrain_graphs(torch, task, x, y, sizes):
     """One retrain per bucket the campaigns used, through a fresh engine's
     CUDA graph and through the eager loop: params and losses bit-equal.
@@ -1273,7 +1650,7 @@ def main() -> None:
 
     # the shapes each main path gave each kernel
     seen_by = {p: {k: set() for k in mods}
-               for p in ("campaigns", "replay", "noisy", "serving")}
+               for p in ("campaigns", "replay", "noisy", "fleet", "serving")}
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -1291,6 +1668,13 @@ def main() -> None:
         noisy = run_noisy_campaign(torch, mh, x, y, Path(tmp),
                                    args.max_iters,
                                    seen_by["noisy"]["margin_head"])
+        fleet = run_fleet(torch, mh, pd, x, y, Path(tmp), args.max_iters,
+                          seen_by["fleet"])
+        capped = run_capped_fleet(torch, mh, x, y, Path(tmp),
+                                  args.max_iters)
+        chaos, instrumented = run_chaos_and_instrumented(
+            torch, mh, x, y, Path(tmp), args.max_iters,
+            seen_by["noisy"]["margin_head"])
     check_aggregator(torch, np)
     check_retrain_graphs(torch, camps["task"], x, y, camps["sizes"])
     check_paged_sinks(torch, np, camps["task"], x)
@@ -1303,6 +1687,11 @@ def main() -> None:
                    "replay_campaigns": replay if k == "pairwise_sqdist"
                    else 0,
                    "noisy_campaign": noisy if k == "margin_head" else 0,
+                   "fleet": fleet.get(k, 0),
+                   "capped_fleet": capped if k == "margin_head" else 0,
+                   "chaos_campaign": chaos if k == "margin_head" else 0,
+                   "instrumented_campaign": instrumented
+                   if k == "margin_head" else 0,
                    "serving": served[k]} for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain
@@ -1321,14 +1710,15 @@ def main() -> None:
                                   sorted(seen["ssd_scan"]))}
     # timed at the largest main-path shape of each (margin_head at the
     # largest of each path: the campaigns' and the LM head's, that last;
-    # pairwise_sqdist at the live and the replay k-center's, that last)
+    # pairwise_sqdist at the live k-center's, the fleet's and the replay
+    # k-center's, that last)
     rows = time_kernels(torch, np, mods, ref, {
         "margin_head": [max(seen_by[p]["margin_head"],
                             key=lambda s: (s[0] * s[2], s))
                         for p in ("campaigns", "serving")],
         "pairwise_sqdist": [max(seen_by[p]["pairwise_sqdist"],
                                 key=lambda s: (s[0] * s[1], s))
-                            for p in ("campaigns", "replay")],
+                            for p in ("campaigns", "fleet", "replay")],
         "flash_attention": max(seen["flash_attention"],
                                key=lambda s: (s[0] * s[1] * s[3] * s[4], s)),
         "ssd_scan": max(seen["ssd_scan"],

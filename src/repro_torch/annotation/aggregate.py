@@ -232,6 +232,9 @@ class VoteAggregator:
         self.cfg = cfg
         self.device = torch.device(device)
         self.pack_keys: set = set()
+        # runtime metrics (repro_torch.obs.MetricsRegistry); None = free
+        # no-op
+        self.metrics = None
 
     # -- packing -----------------------------------------------------------
     def _pad(self, votes) -> Tuple[torch.Tensor, int]:
@@ -239,6 +242,10 @@ class VoteAggregator:
         assert votes.ndim == 2, "votes must be (items, workers)"
         n = votes.shape[0]
         n_mb, mb = pack_shape(n, self.cfg.microbatch)
+        if self.metrics is not None:
+            self.metrics.inc(
+                "pack_cache_hits_total" if (n_mb, mb) in self.pack_keys
+                else "pack_cache_misses_total", engine="votes")
         self.pack_keys.add((n_mb, mb))
         pad = n_mb * mb - n
         if pad:

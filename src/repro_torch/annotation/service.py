@@ -34,15 +34,12 @@ MCAL integration: tasks carry ``task.annotation = service`` and route
 ``human_label`` through :meth:`annotate`; ``SharedPool.buy_labels`` reads
 the per-call vote count (:attr:`votes_bought` delta) and charges the
 campaign ledger repeats-inclusive through ``pay_human``.
-
-Left out for a later slice: the metrics and fault seams
-(``attach_metrics``, ``attach_faults``, the retry policy) and the fleet's
-uses of :class:`AnnotationSession` beyond the per-tenant view.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -51,7 +48,8 @@ from repro_torch.annotation.aggregate import AggregateConfig, VoteAggregator
 from repro_torch.annotation.oracle import AnnotatorPool
 from repro_torch.core.cost import CostLedger, LabelQuality, LabelingService
 from repro_torch.core.worker import SerialWorker
-# the sweep runtime's async handle, shared as the fit engine shares it
+# the sweep runtime's async handle, shared rather than mirrored (the same
+# convention FitEngine follows) so worker-handle hardening lands once
 from repro_torch.serving.sweep import SweepFuture as AnnotationFuture
 
 AGGREGATORS = ("majority", "ds")
@@ -121,6 +119,10 @@ class AnnotationService:
                                          device=device)
         self.ledger = CostLedger()             # the service budget ledger
         self.trace = None                      # campaign event bus (attach_trace)
+        self.metrics = None                    # runtime metrics (attach_metrics)
+        self.faults = None                     # chaos injector (attach_faults)
+        self.retry = None                      # faults.RetryPolicy: re-issue
+        #                                        transiently-failed batches
         # -- persisted runtime state (state_dict) --------------------------
         self._cursor = 0                       # request-batch counter: the
         #                                        worker-schedule offset
@@ -150,6 +152,26 @@ class AnnotationService:
         self.trace = trace
         self.ledger.trace = trace
         self.ledger.trace_name = "service"
+
+    def attach_metrics(self, metrics) -> None:
+        """Wire the runtime metrics registry (repro_torch.obs) through the
+        request path: per-batch spans, EM/top-up round counters, and the
+        broker queue depth/wait telemetry.  None (the default) keeps
+        every instrumented site a free no-op."""
+        self.metrics = metrics
+        self.aggregator.metrics = metrics
+
+    def attach_faults(self, faults, retry=None) -> None:
+        """Wire the chaos/resilience seam: every request batch ticks the
+        ``annotation.request`` fault site BEFORE any charge or cursor
+        advance, and with a :class:`~repro_torch.faults.RetryPolicy` attached
+        transiently-failed batches are re-issued (safe: votes are
+        counter-free hashes of (pool seed, worker, item), so a re-issued
+        request yields the identical vote matrix, and a failed attempt
+        charges nothing — retries charge exactly once)."""
+        self.faults = faults
+        if retry is not None:
+            self.retry = retry
 
     def _emit(self, kind: str, **payload) -> None:
         if self.trace is not None:
@@ -277,14 +299,74 @@ class AnnotationService:
         idx = np.asarray(idx, np.int64)
         true = np.asarray(true_labels, np.int64)
 
-        with self._lock:
-            labels, votes, self._cursor = self._annotate_impl(
-                idx, true, self._cursor, self.policy)
+        def attempt():
+            # read-modify-write of the cursor stays atomic per attempt:
+            # a failed attempt (the fault fires pre-mutation) leaves
+            # cursor, ledger, and statistics untouched, so the retry
+            # replays the identical worker schedule and charges once
+            with self._lock:
+                out = self._annotate_locked(idx, true, self._cursor,
+                                            self.policy)
+                self._cursor = out[2]
+                return out
+
+        labels, votes, _ = self._run_request(attempt)
         return labels, votes
 
+    def _run_request(self, attempt, *, retry=None, trace=None):
+        """One request batch through the resilience layer: run
+        ``attempt`` under the retry policy (session override first,
+        service default second, none = a single bare attempt).  Each
+        re-issue emits a ``retry`` observability event and bumps
+        ``retries_total``; exhaustion raises
+        :class:`~repro_torch.faults.RetryExhausted` (terminal — the fleet
+        layer quarantines)."""
+        retry = retry if retry is not None else self.retry
+        if retry is None:
+            return attempt()
+        emitter = trace if trace is not None else self.trace
+
+        def notify(attempt_no, exc, delay):
+            if emitter is not None:
+                emitter.emit("retry", site="annotation.request",
+                             attempt=int(attempt_no),
+                             error=type(exc).__name__, delay=float(delay))
+            if self.metrics is not None:
+                self.metrics.inc("retries_total", site="annotation.request")
+
+        return retry.call(attempt, site="annotation.request", notify=notify)
+
+    def _annotate_locked(self, idx: np.ndarray, true: np.ndarray,
+                         cursor: int, pol: RepeatPolicy,
+                         faults=None, timeout: Optional[float] = None
+                         ) -> Tuple[np.ndarray, int, int]:
+        faults = faults if faults is not None else self.faults
+        if faults is not None:
+            # the injection seam sits BEFORE the metrics span and before
+            # any mutation: a fault here models the request never
+            # reaching the backend — nothing was charged or counted
+            if timeout is None and self.retry is not None:
+                timeout = self.retry.timeout
+            faults.check("annotation.request", timeout=timeout)
+        if self.metrics is None:
+            return self._annotate_impl(idx, true, cursor, pol)
+        with self.metrics.span("annotate"):
+            return self._annotate_impl(idx, true, cursor, pol)
+
     def _aggregate(self, resident, pol: RepeatPolicy):
-        """One device aggregation round (majority or Dawid-Skene EM)."""
-        return self.aggregator.aggregate_resident(resident, pol.aggregator)
+        """One device aggregation round (majority or Dawid-Skene EM),
+        timed when metrics are attached."""
+        if self.metrics is None:
+            return self.aggregator.aggregate_resident(resident,
+                                                      pol.aggregator)
+        t0 = time.perf_counter()
+        out = self.aggregator.aggregate_resident(resident, pol.aggregator)
+        self.metrics.observe("annotation_agg_seconds",
+                             time.perf_counter() - t0,
+                             aggregator=pol.aggregator)
+        self.metrics.inc("annotation_agg_rounds_total",
+                         aggregator=pol.aggregator)
+        return out
 
     def _annotate_impl(self, idx: np.ndarray, true: np.ndarray,
                        cursor: int, pol: RepeatPolicy
@@ -322,6 +404,10 @@ class AnnotationService:
         # (the FitEngine.extend_resident convention) — re-aggregation
         # never re-materializes or re-uploads the (N, W) matrix
         resident = self.aggregator.upload(votes)
+        if self.metrics is not None:
+            self.metrics.inc("annotation_labels_total", float(N))
+            self.metrics.inc("annotation_votes_total",
+                             float(N * pol.repeats))
         labels, conf, ds = self._aggregate(resident, pol)
         if pol.adaptive:
             rows = np.arange(N)
@@ -334,6 +420,10 @@ class AnnotationService:
                 spent += len(active)
                 self._emit("topup", round=int(r), n=int(len(active)),
                            cursor=int(base))
+                if self.metrics is not None:
+                    self.metrics.inc("annotation_topup_rounds_total")
+                    self.metrics.inc("annotation_votes_total",
+                                     float(len(active)))
                 self._topup_round(votes, active, idx, true, base, r)
                 resident = self.aggregator.scatter(resident, active,
                                                    votes[active])
@@ -378,8 +468,23 @@ class AnnotationService:
         ``result()`` — the aggregated labels."""
         idx = np.asarray(idx, np.int64).copy()
         true = np.asarray(true_labels, np.int64).copy()
-        return AnnotationFuture(
-            self._executor().submit(self.annotate, idx, true))
+        m = self.metrics
+        if m is None:
+            return AnnotationFuture(
+                self._executor().submit(self.annotate, idx, true))
+        m.add_gauge("queue_depth", 1, queue="annotation")
+        t_sub = time.perf_counter()
+
+        def job():
+            # wait = broker latency: submit -> the worker picks it up
+            m.observe("queue_wait_seconds", time.perf_counter() - t_sub,
+                      queue="annotation")
+            try:
+                return self.annotate(idx, true)
+            finally:
+                m.add_gauge("queue_depth", -1, queue="annotation")
+
+        return AnnotationFuture(self._executor().submit(job))
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
@@ -471,6 +576,10 @@ class AnnotationSession:
         self._labels = 0
         self._policy: Optional[RepeatPolicy] = None
         self.trace = None
+        # per-tenant resilience overrides (None = the service's): a chaos
+        # harness can fail ONE tenant's requests while siblings run clean
+        self._faults = None
+        self._retry = None
 
     # -- shared-surface delegation -----------------------------------------
     @property
@@ -538,9 +647,19 @@ class AnnotationSession:
         idx = np.asarray(idx, np.int64)
         true = np.asarray(true_labels, np.int64)
         svc = self.service
-        with svc._lock:
-            labels, votes, self._cursor = svc._annotate_impl(
-                idx, true, self._cursor, self.policy)
+        retry = self._retry if self._retry is not None else svc.retry
+        timeout = retry.timeout if retry is not None else None
+
+        def attempt():
+            with svc._lock:
+                out = svc._annotate_locked(idx, true, self._cursor,
+                                           self.policy, self._faults,
+                                           timeout)
+                self._cursor = out[2]
+                return out
+
+        labels, votes, _ = svc._run_request(attempt, retry=retry,
+                                            trace=self.trace)
         self._votes += votes
         self._labels += len(idx)
         if self.trace is not None:
@@ -568,6 +687,23 @@ class AnnotationSession:
         interleave every tenant's requests and belong to the fleet
         trace, not to any one tenant's decision stream."""
         self.trace = trace
+
+    def attach_metrics(self, metrics) -> None:
+        """Runtime metrics are shared-service telemetry: delegate to the
+        service registry (per-tenant attribution happens via the
+        registry's bound labels on the calling thread, not here)."""
+        self.service.attach_metrics(metrics)
+
+    def attach_faults(self, faults, retry=None) -> None:
+        """Per-SESSION chaos/retry override: only this tenant's request
+        batches tick the injector (and retry under ``retry``) — the seam
+        the quarantine acceptance test fails one tenant through while
+        its siblings stay fault-free.  The service-level
+        :meth:`AnnotationService.attach_faults` remains the
+        whole-endpoint chaos switch."""
+        self._faults = faults
+        if retry is not None:
+            self._retry = retry
 
     def close(self) -> None:
         """Sessions do not own the broker thread — closing one is a
@@ -599,7 +735,7 @@ def make_annotation_service(
         budget: Optional[float] = None, seed: int = 0,
         device="cuda") -> AnnotationService:
     """One-call construction of the full runtime (the launcher's and the
-    tests' entry point); the votes aggregate on ``device``."""
+    tests' entry point)."""
     from repro_torch.annotation.oracle import make_annotator_pool
     pool = make_annotator_pool(n_workers, num_classes, noise=noise,
                                spammer_frac=spammer_frac, seed=seed)

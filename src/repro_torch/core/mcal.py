@@ -32,14 +32,19 @@ trace attached emits the reference's decision events (``campaign_begin``,
 observability events (``state_save``, ``resume``, the runtimes' sweep and
 fit events), and ``state_dict``/``load_state_dict`` persist the loop at the
 reference's schema (``STATE_VERSION``), so a state file written by either
-package resumes in the other.
+package resumes in the other.  ``attach_metrics``, ``attach_faults`` and
+``attach_health`` wire the runtime metrics registry, the chaos injector
+(with the ``campaign.iteration`` kill point) and the streaming health
+engine through the campaign, its task and its annotation service; all
+three emit observability kinds only, so an instrumented, monitored or
+chaos campaign whose retries succeed diffs clean against a plain one.
 
-Left out for later slices: the metrics, fault and health wiring and
-``select_architecture`` (with the forced acquisitions and frozen delta it
-drives).
+Left out for a later slice: ``select_architecture`` (with the forced
+acquisitions and frozen delta it drives).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import zlib
 from typing import Dict, List, Optional, Tuple
@@ -52,6 +57,7 @@ from repro_torch.core.cost import (CostLedger, LabelQuality, LabelingService,
 from repro_torch.core.powerlaw import PowerLaw, fit_power_law
 from repro_torch.core.search import (SearchResult, adapt_delta, budget_search,
                                      joint_search)
+from repro_torch.faults.errors import StragglerTimeout
 from repro_torch.trace.store import sanitize as _trace_sanitize
 
 DEFAULT_THETAS = tuple(round(0.05 * i, 2) for i in range(1, 21))
@@ -278,9 +284,20 @@ class MCALCampaign:
         self.sweep_checkpoint_every = 0          # pages between cursor cuts
         self.on_sweep_checkpoint = None          # callback(SweepCheckpoint)
         self.resume_sweep_checkpoint = None      # cursor to resume from
+        # straggler wall budgets for the async folds (seconds; None = wait
+        # forever).  Launcher-set plumbing like the cursors above
+        # (--sweep-timeout/--fit-timeout)
+        self.sweep_timeout = None
+        self.fit_timeout = None
         self._iter = 0
         # campaign event bus (attach_trace): None = tracing off
         self.trace = None
+        # runtime metrics registry (attach_metrics): None = metrics off
+        self.metrics = None
+        # chaos injector (attach_faults): None = injection off
+        self.faults = None
+        # streaming health engine (attach_health): None = monitoring off
+        self.health = None
 
     def attach_trace(self, trace) -> None:
         """Wire the event bus through this campaign's decision sites, the
@@ -296,12 +313,72 @@ class MCALCampaign:
         if hasattr(self.task, "attach_trace"):
             self.task.attach_trace(trace)
 
+    def attach_metrics(self, metrics) -> None:
+        """Wire a runtime metrics registry (``repro_torch.obs``) through the
+        campaign: loop-phase spans (bootstrap/iteration/commit) here,
+        engine telemetry through the task's ``attach_metrics``, and the
+        annotation service's queue and EM counters.  Metric events are
+        OBSERVABILITY_KINDS, so an instrumented campaign's decision stream
+        diffs clean against an uninstrumented sibling's."""
+        self.metrics = metrics
+        ann = getattr(self.task, "annotation", None)
+        if ann is not None and hasattr(ann, "attach_metrics"):
+            ann.attach_metrics(metrics)
+        if hasattr(self.task, "attach_metrics"):
+            self.task.attach_metrics(metrics)
+
+    def attach_faults(self, faults, retry=None) -> None:
+        """Wire a :class:`repro_torch.faults.FaultInjector` (and optional
+        :class:`~repro_torch.faults.RetryPolicy`) through every fault site
+        this campaign owns: the annotation request path (per service or
+        per session), the task's sweep/fit workers, the trace store's
+        flush and this loop's kill point.  Call AFTER ``attach_trace`` /
+        ``attach_metrics`` so fault and retry events ride the same
+        surfaces.  A chaos run whose retries succeed stays diff-clean
+        against its fault-free sibling."""
+        self.faults = faults
+        if self.trace is not None:
+            faults.attach_trace(self.trace)
+            if hasattr(self.trace, "attach_faults"):
+                self.trace.attach_faults(faults)
+        if self.metrics is not None:
+            faults.attach_metrics(self.metrics)
+        ann = getattr(self.task, "annotation", None)
+        if ann is not None and hasattr(ann, "attach_faults"):
+            ann.attach_faults(faults, retry)
+        if hasattr(self.task, "attach_faults"):
+            self.task.attach_faults(faults, retry)
+
+    def attach_health(self, health) -> None:
+        """Wire a :class:`repro_torch.obs.health.HealthEngine` to the
+        iteration boundary: after every iteration it samples the ledger
+        and fit state and emits its hysteresis-gated ``alert`` events.
+        Call AFTER ``attach_trace``/``attach_metrics`` — the engine
+        inherits this campaign's trace and registry unless it has its
+        own."""
+        self.health = health
+        if health.trace is None and self.trace is not None:
+            health.attach_trace(self.trace)
+        if health.metrics is None and self.metrics is not None:
+            health.attach_metrics(self.metrics)
+
+    def _mspan(self, name: str):
+        """A named campaign-phase span, or a no-op context when metrics
+        are off."""
+        if self.metrics is None:
+            return contextlib.nullcontext()
+        return self.metrics.span(name)
+
     def _emit(self, kind: str, **payload) -> None:
         if self.trace is not None:
             self.trace.emit(kind, **_trace_sanitize(payload))
 
     # -- bootstrap ----------------------------------------------------------
     def bootstrap(self):
+        with self._mspan("bootstrap"):
+            return self._bootstrap_impl()
+
+    def _bootstrap_impl(self):
         X = self.task.pool_size
         p = self.pool
         if self.trace is not None:
@@ -383,7 +460,12 @@ class MCALCampaign:
             return
         nB, fut = self._fit_pending
         self._fit_pending = None
-        _c, (stats_T, correct) = fut.result()
+        try:
+            _c, (stats_T, correct) = fut.result(self.fit_timeout)
+        except StragglerTimeout:
+            if self.metrics is not None:
+                self.metrics.inc("straggler_timeouts_total", engine="fit")
+            raise
         self._record_measurement(nB, stats_T, correct)
 
     def _fit_models(self) -> Tuple[Dict[float, PowerLaw], TrainCostModel]:
@@ -444,7 +526,24 @@ class MCALCampaign:
 
     # -- one loop body --------------------------------------------------------
     def iteration(self):
+        with self._mspan("iteration"):
+            rec = self._iteration_impl()
+        if self.metrics is not None:
+            self.metrics.inc("campaign_iterations_total")
+            self.metrics.set_gauge("campaign_spent_total",
+                                   float(self.pool.ledger.total))
+        if self.health is not None:
+            self.health.tick_campaign(self)
+        return rec
+
+    def _iteration_impl(self):
         assert not self.done
+        if self.faults is not None:
+            # the kill point sits BEFORE any mutation of this iteration
+            # (and before the async-fit fold), so an InjectedKill here
+            # leaves the campaign exactly at the previous iteration's
+            # state — what the autosave sidecar persists
+            self.faults.check("campaign.iteration")
         self._sync_fit()   # fold last iteration's async retrain first
         p = self.pool
         X = self.task.pool_size
@@ -551,7 +650,13 @@ class MCALCampaign:
         pick = None
         if pending is not None:
             if take <= pending[0]:
-                out = pending[1].result()
+                try:
+                    out = pending[1].result(self.sweep_timeout)
+                except StragglerTimeout:
+                    if self.metrics is not None:
+                        self.metrics.inc("straggler_timeouts_total",
+                                         engine="sweep")
+                    raise
                 full = out[0] if isinstance(out, tuple) else out
                 pick = np.asarray(full[:take], np.int64)
             else:   # the adapted delta outgrew the submitted sweep
@@ -572,7 +677,8 @@ class MCALCampaign:
 
     def _finish(self, reason: str):
         """End the loop, recording WHY (budget | bailout | converged |
-        max_iters | pool_exhausted); an in-flight async sweep is dropped."""
+        max_iters | pool_exhausted | fleet_ceiling | quarantined); an
+        in-flight async sweep is dropped."""
         self.done = True
         self.done_reason = reason
         self._emit("done", reason=reason)
@@ -636,6 +742,10 @@ class MCALCampaign:
 
     # -- commit ----------------------------------------------------------------
     def commit(self) -> MCALResult:
+        with self._mspan("commit"):
+            return self._commit_impl()
+
+    def _commit_impl(self) -> MCALResult:
         self._sync_fit()
         p = self.pool
         X = self.task.pool_size
@@ -872,8 +982,19 @@ class MCALCampaign:
 
 def run_mcal(task, service: LabelingService,
              cfg: MCALConfig = MCALConfig(),
-             trace: Optional[object] = None) -> MCALResult:
+             trace: Optional[object] = None,
+             metrics: Optional[object] = None,
+             faults: Optional[object] = None,
+             retry: Optional[object] = None,
+             health: Optional[object] = None) -> MCALResult:
     camp = MCALCampaign(task, service, cfg)
     if trace is not None:
         camp.attach_trace(trace)
+    if metrics is not None:
+        camp.attach_metrics(metrics)
+    if faults is not None:
+        camp.attach_faults(faults, retry)
+    if health is not None:
+        # last: the engine inherits whatever trace/metrics are attached
+        camp.attach_health(health)
     return camp.run()

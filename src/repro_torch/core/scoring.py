@@ -129,9 +129,21 @@ class PoolScoringEngine:
         self.device = torch.device(device)
         # (n_mb, mb) pack buckets swept or warmed so far
         self.pack_keys: set = set()
+        # runtime metrics (repro_torch.obs.MetricsRegistry); None = free
+        # no-op
+        self.metrics = None
 
     def _note_pack(self, key: Tuple[int, int]) -> None:
-        self.pack_keys.add((int(key[0]), int(key[1])))
+        """Record a pack-bucket touch: a cache hit when the bucket was
+        already swept, a miss at its first use."""
+        key = (int(key[0]), int(key[1]))
+        if self.metrics is not None:
+            if key in self.pack_keys:
+                self.metrics.inc("pack_cache_hits_total", engine="scoring")
+            else:
+                self.metrics.inc("pack_cache_misses_total",
+                                 engine="scoring")
+        self.pack_keys.add(key)
 
     def _microbatch_stats(self, params, x) -> Tuple[ScoreStats, torch.Tensor]:
         hidden = self.model.forward(params, {"features": x})
@@ -159,6 +171,10 @@ class PoolScoringEngine:
         features (padding rows included) — the sweep runtime's page step
         (``serving.sweep.EngineSweepAdapter``)."""
         self._note_pack(tuple(xs.shape[:2]))
+        return self._score_packed(params, xs)
+
+    @torch.no_grad()
+    def _score_packed(self, params, xs) -> Tuple[ScoreStats, torch.Tensor]:
         stats, feats = [], []
         for x in xs:
             s, h = self._microbatch_stats(params, x)
@@ -184,13 +200,15 @@ class PoolScoringEngine:
             self.score_pages(params, torch.zeros(
                 key + (self.model.cfg.input_dim,), device=self.device))
             count += 1
+        if count and self.metrics is not None:
+            self.metrics.inc("warm_compiles_total", count, engine="scoring")
         return count
 
     def score(self, params, pool_x) -> Tuple[ScoreStats, torch.Tensor]:
         """Score the whole pool: ScoreStats and (N, D) last-hidden features
         on the device, trimmed to the true pool size."""
         xs, n = self._pack(pool_x)
-        stats, feats = self.score_pages(params, xs)
+        stats, feats = self._score_packed(params, xs)
         return L.map_stats(lambda a: a[:n], stats), feats[:n]
 
     def pool_features(self, params, pool_x) -> torch.Tensor:
@@ -213,7 +231,7 @@ class PoolScoringEngine:
         k = min(k, n)
         if k <= 0:
             return np.zeros((0,), np.int64)
-        stats, _ = self.score_pages(params, xs)
+        stats, _ = self._score_packed(params, xs)
         scores = uncertainty_from_stats(stats, metric)
         valid = torch.arange(scores.shape[0], device=scores.device) < n
         scores = torch.where(valid, scores, -torch.inf)

@@ -78,13 +78,25 @@ def _kcenter_padded(X: torch.Tensor, n: int, mind0: torch.Tensor, k: int,
 
 def k_center_greedy_device(features, k: int, anchors=None,
                            cfg: KCenterConfig = KCenterConfig(),
-                           device="cuda") -> np.ndarray:
+                           device="cuda", metrics=None) -> np.ndarray:
     """Device twin of ``selection.k_center_greedy``.
 
     ``features``: (N, d) array or tensor (e.g. the scoring engine's feature
     emission, already on the device); ``anchors``: (M, d) features of
     already-selected/labeled samples.  Returns (k,) row indices into
-    ``features`` as host int64."""
+    ``features`` as host int64.  ``metrics`` (a
+    ``repro_torch.obs.MetricsRegistry``) wraps the greedy loop in a
+    ``kcenter`` span; None keeps the call un-instrumented."""
+    if metrics is not None:
+        # the host copy of the picks at the end already waits for the
+        # device, so the span covers the loop's device time
+        with metrics.span("kcenter"):
+            return _kcenter(features, k, anchors, cfg, device)
+    return _kcenter(features, k, anchors, cfg, device)
+
+
+def _kcenter(features, k: int, anchors, cfg: KCenterConfig,
+             device) -> np.ndarray:
     X = torch.as_tensor(features, dtype=torch.float32, device=device)
     N, d = X.shape
     k = int(min(k, N))

@@ -62,6 +62,13 @@ class LiveTask:
                                      # human_label through a noisy multi-
                                      # annotator oracle (None = the
                                      # paper's perfect-label assumption)
+    engines: Optional[object] = None  # launch.orchestrator.SharedEngines:
+                                     # reuse a fleet's scoring/sweep/fit
+                                     # engines (and their buckets and
+                                     # graphs) instead of building per-task
+                                     # ones.  Requires matching model/data
+                                     # shapes and device; the fleet owns
+                                     # the engines' lifecycle.
 
     def __post_init__(self):
         from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -71,6 +78,33 @@ class LiveTask:
                                                PoolSweepRunner, SweepConfig)
         from repro_torch.training.fit_device import FitConfig, FitEngine
         self.pool_size = len(self.features)
+        self.metrics = None  # runtime metrics registry (attach_metrics)
+        if self.engines is not None:
+            # shared-engine fleet mode: adopt the bundle's model + train
+            # config so this task's params are exactly what the bundle's
+            # engines were built for.  The engines are stateless per call
+            # given params (each retrain starts from its own init), so
+            # per-tenant results are bit-identical to owning private
+            # engines — EXCEPT the fit engine's resident set, which is
+            # per-engine state and must stay off.
+            b = self.engines
+            assert not self.fit_resident, \
+                "fit_resident keeps per-engine state; unsupported with " \
+                "shared engines"
+            assert b.input_dim == self.features.shape[1] and \
+                b.num_classes == self.num_classes, \
+                "shared engines were built for a different data shape"
+            assert b.fit.device == torch.device(self.device), \
+                "shared engines were built for another device"
+            self.cfg = b.cfg
+            self.model = b.model
+            self.tc = b.tc
+            self._engine = b.scoring
+            self._sweep = b.sweep
+            self._fit = b.fit
+            self._params = None
+            self._res_idx = np.zeros((0,), np.int64)
+            return
         self.cfg = ModelConfig(
             name=f"{self.arch_name}-live", family="mlp",
             num_layers=self.depth, d_model=self.hidden,
@@ -95,15 +129,46 @@ class LiveTask:
 
     def attach_trace(self, trace) -> None:
         """Wire the campaign event bus into the sweep runner (page cursors,
-        sink finalizations) and the fit engine (async submit/fold)."""
+        sink finalizations) and the fit engine (async submit/fold).
+        SHARED engines are left unwired: their telemetry interleaves every
+        tenant's jobs and belongs to the fleet's observability, not to one
+        tenant's trace (all of it is OBSERVABILITY_KINDS, so tenant
+        decision streams stay complete without it)."""
+        if self.engines is not None:
+            return
         self._sweep.trace = trace
         self._fit.trace = trace
 
+    def attach_metrics(self, metrics) -> None:
+        """Wire the runtime metrics registry (repro_torch.obs) through this
+        task's engines: sweep page/fold timings, fit spans and bucket
+        hit/miss counters, and the k-center span.  Unlike
+        :meth:`attach_trace`, SHARED engines are wired too — the fleet
+        hands every tenant the same registry and attributes per-tenant
+        time through the orchestrator's bound ``tenant`` label."""
+        self.metrics = metrics
+        self._sweep.metrics = metrics
+        self._fit.metrics = metrics
+        self._engine.metrics = metrics
+
+    def attach_faults(self, faults, retry=None) -> None:
+        """Wire the chaos injector (and optional re-dispatch retry policy)
+        into the OWNED engines' workers (fault sites ``worker.pool-sweep``
+        / ``worker.fit-engine``).  Shared engines are left unwired, as in
+        :meth:`attach_trace`: their jobs interleave every tenant's work,
+        so injecting there would chaos the whole fleet, not this tenant."""
+        if self.engines is not None:
+            return
+        self._sweep.attach_faults(faults, retry)
+        self._fit.attach_faults(faults, retry)
+
     def close(self) -> None:
-        """Join both engines' worker threads and the annotation service's
-        (idempotent; a session's close is a no-op)."""
-        self._sweep.close()
-        self._fit.close()
+        """Join the OWNED engines' worker threads (shared engines belong
+        to the fleet) and the annotation service's (idempotent; a
+        session's close is a no-op)."""
+        if self.engines is None:
+            self._sweep.close()
+            self._fit.close()
         if self.annotation is not None and hasattr(self.annotation, "close"):
             self.annotation.close()
 
@@ -214,7 +279,8 @@ class LiveTask:
         feats = self._sweep.run(self._params, self._pool(candidates),
                                 FeatureSink())
         rows = k_center_greedy_device(feats, k, anchors=anchors,
-                                      device=self.device)
+                                      device=self.device,
+                                      metrics=self.metrics)
         picked = np.asarray(candidates, np.int64)[rows]
         sel = torch.as_tensor(rows, device=feats.device)
         return picked, feats[sel].cpu().numpy()

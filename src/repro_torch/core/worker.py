@@ -16,6 +16,11 @@ broker jobs onto a single worker thread and hand back a
   thread and returns whether it joined within ``timeout`` (a stuck job
   warns and leaks its daemon thread); ``submit`` afterwards raises
   :class:`WorkerClosed`.
+* with a ``RetryPolicy``/``FaultInjector`` attached (``attach_faults``)
+  every job ticks the ``worker.<name>`` fault site before it runs, and a
+  transiently crashed job is re-dispatched in place — the resilience seam
+  ``repro_torch.faults`` exercises with injected
+  :class:`~repro_torch.faults.errors.InjectedWorkerCrash` faults.
 
 A worker built with a CUDA ``device`` makes it current when its thread
 starts, so its jobs launch on that device's default stream — the stream
@@ -41,7 +46,8 @@ class SerialWorker:
     """One daemon thread draining a FIFO job queue into Futures, named so
     thread dumps attribute stuck jobs to their engine."""
 
-    def __init__(self, name: str = "serial-worker", device=None):
+    def __init__(self, name: str = "serial-worker", device=None, *,
+                 retry=None, faults=None):
         self._name = name
         self._index = None          # the CUDA device its thread makes current
         if device is not None and torch.device(device).type == "cuda":
@@ -52,7 +58,26 @@ class SerialWorker:
         self._thread: Optional[threading.Thread] = None
         self._closed = False
         self._lock = threading.Lock()
+        self.retry = retry            # faults.RetryPolicy: re-dispatch
+        self.faults = faults          # faults.FaultInjector: chaos seam
+        self.metrics = None           # obs registry for retries_total
+        self.redispatches = 0         # transient job crashes survived
 
+    # -- resilience wiring ---------------------------------------------------
+    @property
+    def fault_site(self) -> str:
+        """This worker's fault-plan site key (``worker.<name>``)."""
+        return f"worker.{self._name}"
+
+    def attach_faults(self, faults, retry=None) -> None:
+        """Wire the chaos seam: every job ticks ``worker.<name>`` before
+        running (an injected crash raises into the job), and with a
+        retry policy transiently-crashed jobs are re-dispatched."""
+        self.faults = faults
+        if retry is not None:
+            self.retry = retry
+
+    # -- the executor surface ----------------------------------------------
     def submit(self, fn, *args, **kw) -> Future:
         fut: Future = Future()
         with self._lock:
@@ -78,9 +103,28 @@ class SerialWorker:
             if not fut.set_running_or_notify_cancel():
                 continue              # cancelled while queued
             try:
-                fut.set_result(fn(*args, **kw))
+                if self.retry is not None:
+                    result = self.retry.call(
+                        lambda: self._run_job(fn, args, kw),
+                        site=self.fault_site, notify=self._notify_retry)
+                else:
+                    result = self._run_job(fn, args, kw)
+                fut.set_result(result)
             except BaseException as e:   # delivered at result()
                 fut.set_exception(e)
+
+    def _run_job(self, fn, args, kw):
+        """One dispatch of a job through the fault seam; re-dispatched
+        as a whole by the retry policy on a transient crash."""
+        if self.faults is not None:
+            self.faults.check(self.fault_site)
+        return fn(*args, **kw)
+
+    def _notify_retry(self, attempt: int, exc: BaseException,
+                      delay: float) -> None:
+        self.redispatches += 1
+        if self.metrics is not None:
+            self.metrics.inc("retries_total", site=self.fault_site)
 
     @property
     def alive(self) -> bool:

@@ -5,9 +5,12 @@ library with a plain C interface, loaded with ``ctypes``.  Builds go to
 ``build/repro_torch_kernels/<hash>/`` at the repo root, keyed by a hash of
 the sources and flags, so a changed source rebuilds and an unchanged one is
 loaded as built.  All sources build at the first use of any kernel, one
-``nvcc`` each, started together.  A failed build raises with nvcc's
-output; there is no fallback.  :func:`call` runs an entry point on
-PyTorch's current stream of a tensor's device.
+``nvcc`` each, started together, once per process whatever the threads:
+:data:`LOCK` guards the build, the loaded libraries and each wrapper's
+cache of typed entry points.  A failed build raises with nvcc's output;
+there is no fallback.  :func:`call` runs an entry point on PyTorch's
+current stream of a tensor's device; each wrapper counts its launches
+under :data:`COUNT_LOCK`.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -27,6 +31,11 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# one build and one load per process, and the wrappers' entry-point caches
+# (reentrant: a wrapper's first use loads under it)
+LOCK = threading.RLock()
+# the wrappers' ``launches += 1`` (threads would drop increments)
+COUNT_LOCK = threading.Lock()
 # nvcc's output per source (ptxas registers / shared memory / spills)
 LOG: Dict[str, str] = {}
 
@@ -58,6 +67,11 @@ def build_dir() -> Path:
 def build_all() -> Dict[str, Path]:
     """Compile every source not yet built (in parallel); return the
     library path of each."""
+    with LOCK:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, Path]:
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     libs = {name: out / f"lib{name}.so" for name in sources()}
@@ -83,10 +97,11 @@ def build_all() -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
-    if name not in _libs:
-        for n, path in build_all().items():
-            _libs.setdefault(n, ctypes.CDLL(str(path)))
-    return _libs[name]
+    with LOCK:
+        if name not in _libs:
+            for n, path in build_all().items():
+                _libs.setdefault(n, ctypes.CDLL(str(path)))
+        return _libs[name]
 
 
 def stream(index: int) -> int:

@@ -29,14 +29,15 @@ _fns = {}
 
 def _fn(dtype: torch.dtype):
     """The C entry point for ``dtype``, typed on first use."""
-    if dtype not in _fns:
-        fn = getattr(build.load("flash_attention"), _SYMBOLS[dtype])
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns[dtype] = fn
-    return _fns[dtype]
+    with build.LOCK:
+        if dtype not in _fns:
+            fn = getattr(build.load("flash_attention"), _SYMBOLS[dtype])
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                           + [ctypes.c_float] + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _fns[dtype] = fn
+        return _fns[dtype]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -90,5 +91,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      B, H, Hk, Tq, Tk, hd, scale, int(causal), int(window))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return out

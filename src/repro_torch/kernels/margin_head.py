@@ -28,15 +28,16 @@ def _fn(dtype: torch.dtype):
     """The C entry point for ``dtype``, typed on first use, and the
     kernel's slice width (W columns per block of its slice pass; V over
     one slice adds the merge pass and its scratch)."""
-    got = _fns.get(dtype)
-    if got is None:
-        lib = build.load("margin_head")
-        fn = getattr(lib, _SYMBOLS[dtype])
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        got = _fns[dtype] = (fn, lib.margin_head_slice_cols())
-    return got
+    with build.LOCK:
+        got = _fns.get(dtype)
+        if got is None:
+            lib = build.load("margin_head")
+            fn = getattr(lib, _SYMBOLS[dtype])
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            got = _fns[dtype] = (fn, lib.margin_head_slice_cols())
+        return got
 
 
 def margin_head(hidden: torch.Tensor, w_vocab: torch.Tensor
@@ -74,5 +75,6 @@ def margin_head(hidden: torch.Tensor, w_vocab: torch.Tensor
                      w_vocab.data_ptr(), buf.data_ptr(), T, D, V)
     if err != 0:
         raise RuntimeError(f"margin_head launch failed: CUDA error {err}")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return outs

@@ -24,13 +24,14 @@ _fns = []
 
 def _fn():
     """The C entry point, typed on first use."""
-    if not _fns:
-        fn = build.load("pairwise_dist").pairwise_sqdist_f32
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns.append(fn)
-    return _fns[0]
+    with build.LOCK:
+        if not _fns:
+            fn = build.load("pairwise_dist").pairwise_sqdist_f32
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _fns.append(fn)
+        return _fns[0]
 
 
 def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -59,5 +60,6 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                      out.data_ptr(), N, M, D)
     if err != 0:
         raise RuntimeError(f"pairwise_sqdist launch failed: CUDA error {err}")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return out

@@ -25,13 +25,14 @@ _fns = {}
 
 def _fn(dtype: torch.dtype):
     """The C entry point for ``dtype``, typed on first use."""
-    if dtype not in _fns:
-        fn = getattr(build.load("ssd_scan"), _SYMBOLS[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[dtype] = fn
-    return _fns[dtype]
+    with build.LOCK:
+        if dtype not in _fns:
+            fn = getattr(build.load("ssd_scan"), _SYMBOLS[dtype])
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _fns[dtype] = fn
+        return _fns[dtype]
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -98,5 +99,6 @@ def ssd_scan_with_states(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         # memory: see csrc/ssd_scan.cu for the bytes a launch needs
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
                            f"(chunk {C}, N {N}, hd {hd})")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
     return y, hfin, states

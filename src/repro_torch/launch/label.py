@@ -34,8 +34,17 @@ and the other way round.  ``--trace`` writes the campaign's event log
 (appended to at the checkpointed cursor on resume);
 ``--trace-replay`` and ``--trace-diff`` read traces of either package.
 
-The reference's fault, metrics, health, profiling and mesh flags are not
-ported yet.
+Resilience and observability: ``--chaos`` runs the campaign under the
+standard transient fault plan with a retry policy, ``--autosave`` leaves a
+resumable sidecar when a fault unwinds the loop, ``--sweep-timeout`` /
+``--fit-timeout`` bound the async folds; ``--metrics``, ``--prom``,
+``--slo`` and ``--profile`` record runtime telemetry, judge it, and trace
+one iteration's kernels with ``torch.profiler``:
+    PYTHONPATH=src python -m repro_torch.launch.label --live --device cpu \
+        --pool 2000 --chaos --trace t.jsonl --metrics t.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.report t.jsonl --metrics
+
+The reference's ``--mesh`` is not ported.
 """
 from __future__ import annotations
 
@@ -91,6 +100,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="campaign state file: saved every iteration (and "
                          "every --sweep-ckpt-pages pages of the commit "
                          "sweep); an existing file is resumed")
+    ap.add_argument("--autosave", default="", metavar="PATH",
+                    help="crash-safe sidecar: on any unhandled fault past "
+                         "bootstrap the campaign flushes its trace and "
+                         "writes state_dict here (atomic rename); the "
+                         "next invocation resumes from it bit-identically "
+                         "(--state, when present, wins)")
+    ap.add_argument("--sweep-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="straggler wall budget for the async M(.) sweep "
+                         "fold: a hung sweep job raises StragglerTimeout "
+                         "instead of blocking forever (default: wait "
+                         "forever)")
+    ap.add_argument("--fit-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="straggler wall budget for the async retrain "
+                         "fold (default: wait forever)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="demo fault injection: run under the standard "
+                         "transient FaultPlan (flaky annotation backend, "
+                         "one broker-job crash per engine, one torn trace "
+                         "write) with the default RetryPolicy — the "
+                         "campaign must complete and its trace must diff "
+                         "clean against a fault-free sibling")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="fault-plan seed (default: --seed)")
     ap.add_argument("--sweep-ckpt-pages", type=int, default=0,
                     help="cut a resumable commit-sweep cursor into --state "
                          "every N pages (0 disables)")
@@ -132,7 +166,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="append-only campaign trace (JSONL): every "
                          "decision/charge/measurement event; a campaign "
                          "resumed via --state appends to it at the "
-                         "checkpointed cursor")
+                         "checkpointed cursor.  Watch it live with "
+                         "python -m repro_torch.launch.report")
     ap.add_argument("--trace-replay", default="", metavar="TRACE",
                     help="reconstruct a campaign report from its trace "
                          "alone (no engines, zero recompute) and exit")
@@ -140,6 +175,35 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar=("TRACE_A", "TRACE_B"),
                     help="first-divergence analysis between two sibling "
                          "campaign traces, then exit")
+    # -- runtime metrics & profiling (repro_torch.obs) ---------------------
+    ap.add_argument("--metrics", default="", metavar="PATH",
+                    help="record runtime telemetry (spans, counters, "
+                         "bucket-cache hits) as metric events at PATH; "
+                         "pass the --trace path to interleave them into "
+                         "the campaign trace (replay/diff ignore them).  "
+                         "View with python -m repro_torch.launch.report "
+                         "--metrics")
+    ap.add_argument("--slo", default="", metavar="SPEC.json",
+                    help="streaming health engine: judge the campaign "
+                         "against the declarative SLO spec (cost per "
+                         "committed label, iteration-latency p95, "
+                         "projected quality) plus the detector suite "
+                         "(budget burn ETA, annotator drift, fit "
+                         "quality, cache storms, queue saturation, "
+                         "fault pressure) at every iteration boundary; "
+                         "hysteresis-gated alert events interleave into "
+                         "--trace (observability kinds — replay/diff "
+                         "ignore them).  Render with python -m "
+                         "repro_torch.launch.report --health")
+    ap.add_argument("--prom", default="", metavar="PATH",
+                    help="write a Prometheus textfile snapshot of the "
+                         "metrics registry at campaign teardown")
+    ap.add_argument("--profile", default="", metavar="DIR",
+                    help="bracket one iteration (see --profile-iter) with "
+                         "torch.profiler; its Chrome trace lands in DIR")
+    ap.add_argument("--profile-iter", type=int, default=1,
+                    help="which iteration --profile brackets (1-based, "
+                         "default: the first)")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -179,20 +243,44 @@ def _save_state(path: str, campaign=None, cursor=None, campaign_blob=None):
 
 def run_campaign(task, service, cfg, *, state_path: str = "",
                  sweep_ckpt_pages: int = 0, iters_per_run: int = 0,
-                 trace_path: str = "", campaign_id: str = "campaign"):
+                 trace_path: str = "", campaign_id: str = "campaign",
+                 metrics_path: str = "", prom_path: str = "",
+                 profile_dir: str = "", profile_iter: int = 1,
+                 autosave_path: str = "", sweep_timeout=None,
+                 fit_timeout=None, faults=None, retry=None,
+                 slo_path: str = ""):
     """Drive one campaign with optional ``--state`` preemption and an
     optional ``--trace`` event log.  Returns (MCALResult | None,
     campaign): None when ``iters_per_run`` stopped the loop first.  A
     campaign resumed from a state file whose trace cursor is set appends
-    to its trace (no gaps, no duplicate sequence numbers)."""
+    to its trace (no gaps, no duplicate sequence numbers).
+
+    ``metrics_path``/``prom_path``/``profile_dir`` wire the runtime
+    observability layer (``repro_torch.obs``): any of them builds a
+    ``MetricsRegistry`` and attaches it to the campaign.  When
+    ``metrics_path`` names the ``trace_path`` file the metric events
+    interleave into the campaign trace (observability kinds: replay and
+    diff ignore them); another path gets its own store.  ``profile_dir``
+    brackets iteration ``profile_iter`` with ``torch.profiler``.
+    ``faults``/``retry`` run the campaign under a fault plan, and
+    ``autosave_path`` keeps a resumable sidecar when anything unwinds the
+    loop past bootstrap (an injected kill included)."""
     from repro_torch.core import MCALCampaign
     from repro_torch.serving.sweep import SweepCheckpoint
     from repro_torch.trace import TraceStore
 
     camp = MCALCampaign(task, service, cfg)
+    camp.sweep_timeout = sweep_timeout
+    camp.fit_timeout = fit_timeout
     blob = None
     if state_path and os.path.exists(state_path):
         with open(state_path) as f:
+            blob = json.load(f)
+    elif autosave_path and os.path.exists(autosave_path):
+        # a prior invocation died past bootstrap and left its sidecar:
+        # resume from it (an explicit --state blob wins above — it is at
+        # least as recent, saved every iteration)
+        with open(autosave_path) as f:
             blob = json.load(f)
 
     trace = None
@@ -206,6 +294,32 @@ def run_campaign(task, service, cfg, *, state_path: str = "",
         # event (campaign_begin or the resume marker)
         camp.attach_trace(trace)
 
+    metrics = None
+    metrics_store = None     # owned here iff metrics get their own file
+    if metrics_path or prom_path or profile_dir:
+        from repro_torch.obs import MetricsRegistry
+        metrics = MetricsRegistry()
+        if (metrics_path and trace is not None
+                and os.path.abspath(metrics_path)
+                == os.path.abspath(trace_path)):
+            metrics.attach_trace(trace)
+        elif metrics_path:
+            metrics_store = TraceStore(metrics_path, campaign_id)
+            metrics.attach_trace(metrics_store)
+        camp.attach_metrics(metrics)
+
+    if slo_path:
+        # after attach_trace/attach_metrics: the health engine inherits
+        # whatever surfaces the campaign already observes with
+        from repro_torch.obs import HealthEngine, SLOSpec
+        camp.attach_health(HealthEngine(SLOSpec.load(slo_path)))
+
+    if faults is not None:
+        # after attach_trace/attach_metrics: the injector mirrors its
+        # events into whatever the campaign already observes with
+        camp.attach_faults(faults, retry)
+
+    bootstrapped = False
     try:
         if blob is not None:
             camp.load_state_dict(blob["campaign"])
@@ -216,6 +330,7 @@ def run_campaign(task, service, cfg, *, state_path: str = "",
             camp.bootstrap()
             if state_path:
                 _save_state(state_path, camp)
+        bootstrapped = True
 
         if state_path and sweep_ckpt_pages:
             camp.sweep_checkpoint_every = sweep_ckpt_pages
@@ -229,21 +344,50 @@ def run_campaign(task, service, cfg, *, state_path: str = "",
 
             camp.on_sweep_checkpoint = save_cursor
 
-        ran = 0
-        while not camp.done:
-            camp.iteration()
-            ran += 1
-            if state_path:
-                _save_state(state_path, camp)
-            if iters_per_run and ran >= iters_per_run and not camp.done:
-                return None, camp
-        res = camp.commit()
+        try:
+            ran = 0
+            while not camp.done:
+                if profile_dir and ran + 1 == profile_iter:
+                    from repro_torch.obs import profile_block
+                    with profile_block(profile_dir):
+                        camp.iteration()
+                else:
+                    camp.iteration()
+                ran += 1
+                if state_path:
+                    _save_state(state_path, camp)
+                if iters_per_run and ran >= iters_per_run and not camp.done:
+                    return None, camp
+            res = camp.commit()
+        except BaseException:
+            # crash-safe autosave: anything that unwinds past bootstrap —
+            # an injected kill included — leaves a resumable sidecar.
+            # Best-effort by design: the original exception always wins.
+            if autosave_path and bootstrapped:
+                try:
+                    if trace is not None:
+                        trace.emit("autosave", path=autosave_path,
+                                   iterations=len(camp.history))
+                    _save_state(autosave_path, camp)
+                except Exception:
+                    pass
+            raise
         if state_path and os.path.exists(state_path):
             os.remove(state_path)   # campaign complete: the state is spent
+        if autosave_path and os.path.exists(autosave_path):
+            os.remove(autosave_path)
         return res, camp
     finally:
-        # join the workers first (nothing emits afterwards), then the store
+        # join the workers first (nothing emits afterwards), then the
+        # final metrics snapshot (through the still-open stores), then
+        # the stores
         camp.close()
+        if metrics is not None:
+            metrics.emit_snapshot(scope="campaign")
+            if prom_path:
+                metrics.write_prometheus(prom_path)
+        if metrics_store is not None:
+            metrics_store.close()
         if trace is not None:
             trace.close()
 
@@ -314,13 +458,31 @@ def main(argv=None):
                                   sweep_page=args.sweep_page,
                                   device=args.device)
         task.annotation = annotation
+
+    faults = retry = None
+    if args.chaos:
+        from repro_torch.faults import FaultInjector, FaultPlan, RetryPolicy
+        chaos_seed = (args.seed if args.chaos_seed is None
+                      else args.chaos_seed)
+        faults = FaultInjector(FaultPlan.standard_transient(chaos_seed))
+        retry = RetryPolicy(seed=chaos_seed)
+
     campaign_id = (f"{'live' if args.live else args.dataset}-"
                    f"{args.arch}-s{args.seed}")
     res, camp = run_campaign(task, service, cfg, state_path=args.state,
                              sweep_ckpt_pages=args.sweep_ckpt_pages,
                              iters_per_run=args.iters_per_run,
                              trace_path=args.trace,
-                             campaign_id=campaign_id)
+                             campaign_id=campaign_id,
+                             metrics_path=args.metrics,
+                             prom_path=args.prom,
+                             profile_dir=args.profile,
+                             profile_iter=args.profile_iter,
+                             autosave_path=args.autosave,
+                             sweep_timeout=args.sweep_timeout,
+                             fit_timeout=args.fit_timeout,
+                             faults=faults, retry=retry,
+                             slo_path=args.slo)
     if res is None:
         report = {"resumable": True, "state": args.state,
                   "iterations": len(camp.history),
@@ -348,6 +510,13 @@ def main(argv=None):
     }
     if args.trace:
         report["trace"] = args.trace
+    if args.metrics:
+        report["metrics"] = args.metrics
+    if faults is not None:
+        report["chaos"] = {"faults_injected": faults.fired,
+                           "sites_ticked": faults.counters()}
+    if args.slo and camp.health is not None:
+        report["health"] = camp.health.counts()
     if annotation is not None:
         report["annotation"] = {
             "votes": annotation.votes_bought,

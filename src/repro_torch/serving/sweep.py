@@ -29,7 +29,10 @@ scoring step as **pages**:
   either package resumes in the other); :meth:`PoolSweepRunner.run`
   continues from it bit-identically to an uninterrupted sweep;
 * :meth:`PoolSweepRunner.submit` runs the sweep on the runner's worker
-  thread and returns a :class:`SweepFuture`.
+  thread and returns a :class:`SweepFuture`;
+* one runner serves many threads at once (the fleet's tenants share it):
+  each calling thread stages its pages through its own ring of pinned
+  buffers, so no sweep refills a buffer another sweep is still copying.
 
 Oracle contract (``tests/test_torch_sweep.py``): every sink agrees exactly
 with the engine's unpaged pass — ragged final pages, duplicate-row ties
@@ -42,6 +45,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import threading
+import time
+from concurrent.futures import TimeoutError as FuturesTimeout
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -89,13 +95,16 @@ class SweepCheckpoint:
 
 
 class SweepFuture:
-    """Async handle of a worker job (:meth:`PoolSweepRunner.submit`, and
-    the fit engine's ``FitFuture``).  ``result()`` is the synchronization
-    point: the job's host-side results, mapped once by ``map_result``."""
+    """Async handle of a worker job (:meth:`PoolSweepRunner.submit`, the
+    fit engine's ``FitFuture`` and the annotation broker's
+    ``AnnotationFuture``).  ``result()`` is the synchronization point: the
+    job's host-side results, mapped once by ``map_result``."""
 
-    def __init__(self, future, map_result: Optional[Callable] = None):
+    def __init__(self, future, map_result: Optional[Callable] = None,
+                 label: str = ""):
         self._future = future
         self._map = map_result
+        self._label = label
         self._done_value: Any = None
         self._mapped = False
 
@@ -106,8 +115,19 @@ class SweepFuture:
         return self._future.cancel()
 
     def result(self, timeout: Optional[float] = None):
+        """The fold.  With a ``timeout`` (seconds) the wait is a wall
+        budget: a job still running when it expires raises
+        :class:`~repro_torch.faults.errors.StragglerTimeout` (the campaign's
+        ``sweep_timeout``/``fit_timeout``).  The job keeps running on its
+        daemon worker; the future stays valid for a later, longer wait."""
         if not self._mapped:
-            out = self._future.result(timeout)
+            try:
+                out = self._future.result(timeout)
+            except FuturesTimeout:
+                from repro_torch.faults.errors import StragglerTimeout
+                raise StragglerTimeout(
+                    f"{self._label or 'worker job'} still running after "
+                    f"its {timeout:g}s wall budget") from None
             self._done_value = self._map(out) if self._map else out
             self._mapped = True
         return self._done_value
@@ -310,7 +330,8 @@ class _Stager:
     device on a copy stream (on the CPU a page is a plain tensor).  A ring
     of pinned buffers, one more than the pages a double-buffered sweep
     keeps in flight; each is refilled only after the copy that last read it
-    has finished (a deeper prefetch waits on that, and stays correct)."""
+    has finished (a deeper prefetch waits on that, and stays correct).  A
+    ring serves one thread: :class:`_ThreadStagers` gives each its own."""
 
     DEPTH = SweepConfig.prefetch + 1
 
@@ -352,6 +373,24 @@ class _Stager:
         return page, done
 
 
+class _ThreadStagers:
+    """One :class:`_Stager` per (calling thread, key): two threads sweeping
+    through one adapter never share a ring slot or its counter."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._local = threading.local()
+
+    def get(self, key: str = "") -> _Stager:
+        stagers = getattr(self._local, "stagers", None)
+        if stagers is None:
+            stagers = self._local.stagers = {}
+        stage = stagers.get(key)
+        if stage is None:
+            stage = stagers[key] = _Stager(self.device)
+        return stage
+
+
 def _ready(page: torch.Tensor, copied) -> torch.Tensor:
     """Order the current (compute) stream after the page's copy, and keep
     the allocator from reusing the page's memory before that compute is
@@ -377,7 +416,7 @@ class EngineSweepAdapter:
     def __init__(self, engine):
         self.engine = engine
         self.device = engine.device
-        self._stage = _Stager(engine.device)
+        self._stages = _ThreadStagers(engine.device)
 
     def length(self, pool) -> int:
         return int(pool.shape[0])
@@ -385,7 +424,7 @@ class EngineSweepAdapter:
     def put(self, pool, lo: int, hi: int):
         n = hi - lo
         n_mb, mb = pack_shape(n, self.engine.cfg.microbatch)
-        page, copied = self._stage.upload(
+        page, copied = self._stages.get().upload(
             np.asarray(pool[lo:hi], np.float32), n_mb * mb)
         return (page.view((n_mb, mb) + tuple(page.shape[1:])), copied), n
 
@@ -400,7 +439,7 @@ class ServeSweepAdapter:
 
     def __init__(self, score_step, device):
         self._step = score_step
-        self._stages: Dict[str, _Stager] = {}
+        self._stages = _ThreadStagers(device)
         self.device = torch.device(device)
 
     def length(self, pool: Dict) -> int:
@@ -411,10 +450,7 @@ class ServeSweepAdapter:
         b = max(next_pow2(n), 8)
         page = {}
         for key, v in pool.items():
-            stage = self._stages.get(key)
-            if stage is None:
-                stage = self._stages[key] = _Stager(self.device)
-            page[key] = stage.upload(np.asarray(v[lo:hi]), b)
+            page[key] = self._stages.get(key).upload(np.asarray(v[lo:hi]), b)
         return page, n
 
     def score(self, params, page):
@@ -459,6 +495,23 @@ class PoolSweepRunner:
         # campaign event bus (observability only: page cursors and sink
         # finalizations; emits may come from the worker thread)
         self.trace = None
+        # runtime metrics (repro_torch.obs.MetricsRegistry); None = free
+        # no-op
+        self.metrics = None
+        # resilience seam: chaos injector + broker re-dispatch policy,
+        # handed to the lazy SerialWorker (site ``worker.pool-sweep``)
+        self.faults = None
+        self.retry = None
+
+    def attach_faults(self, faults, retry=None) -> None:
+        """Wire the fault injector (and optional re-dispatch policy)
+        into the runner's broker: every submitted job ticks the
+        ``worker.pool-sweep`` site, and transient crashes re-dispatch."""
+        self.faults = faults
+        if retry is not None:
+            self.retry = retry
+        if self._exec is not None:
+            self._exec.attach_faults(faults, retry)
 
     def _emit(self, kind: str, **payload) -> None:
         if self.trace is not None:
@@ -477,6 +530,20 @@ class PoolSweepRunner:
         the sink's deliverable.  With ``checkpoint_every`` and
         ``on_checkpoint`` a cursor is cut every N pages and handed to the
         callback (never after the last page)."""
+        if self.metrics is not None:
+            with self.metrics.span("sweep", sink=sink.kind):
+                return self._run_sync(params, pool, sink,
+                                      checkpoint=checkpoint,
+                                      checkpoint_every=checkpoint_every,
+                                      on_checkpoint=on_checkpoint)
+        return self._run_sync(params, pool, sink, checkpoint=checkpoint,
+                              checkpoint_every=checkpoint_every,
+                              on_checkpoint=on_checkpoint)
+
+    def _run_sync(self, params, pool, sink, *,
+                  checkpoint: Optional[SweepCheckpoint] = None,
+                  checkpoint_every: int = 0,
+                  on_checkpoint: Optional[Callable] = None):
         n = self.adapter.length(pool)
         n_pages = self.n_pages(n)
         start, state = self._restore(sink, n, checkpoint)
@@ -525,12 +592,13 @@ class PoolSweepRunner:
         return SweepFuture(
             self._executor().submit(self.run, params, pool, sink,
                                     checkpoint=checkpoint),
-            map_result)
+            map_result, label=f"sweep[{sink.kind}]")
 
     def submit_call(self, fn: Callable, *args, **kw) -> SweepFuture:
         """Run any callable on the sweep worker (composite jobs that end in
         a sweep, like features + device k-center)."""
-        return SweepFuture(self._executor().submit(fn, *args, **kw))
+        return SweepFuture(self._executor().submit(fn, *args, **kw),
+                           label="sweep[call]")
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -552,7 +620,9 @@ class PoolSweepRunner:
         if self._exec is None:
             # the adapter's device is made current on the worker thread
             self._exec = SerialWorker("pool-sweep",
-                                      getattr(self.adapter, "device", None))
+                                      getattr(self.adapter, "device", None),
+                                      retry=self.retry, faults=self.faults)
+            self._exec.metrics = self.metrics
         return self._exec
 
     def _restore(self, sink, n: int,
@@ -572,19 +642,38 @@ class PoolSweepRunner:
     def _sweep(self, params, pool, sink, state, start: int, stop: int,
                n: int):
         P = self.cfg.page_rows
+        m = self.metrics
+        clock = time.perf_counter
         queue: List = []
         nxt = start
         depth = max(self.cfg.prefetch, 1)
+
+        def put_page(i: int):
+            # h2d submit latency (the copy itself overlaps compute)
+            t0 = clock() if m is not None else 0.0
+            out = self.adapter.put(pool, i * P, min((i + 1) * P, n))
+            if m is not None:
+                m.observe("sweep_put_seconds", clock() - t0)
+            return out
+
         while nxt < stop and len(queue) < depth:
-            queue.append(self.adapter.put(pool, nxt * P,
-                                          min((nxt + 1) * P, n)))
+            queue.append(put_page(nxt))
             nxt += 1
         for p in range(start, stop):
             page, nvalid = queue.pop(0)
+            t0 = clock() if m is not None else 0.0
             stats, feats = self.adapter.score(params, page)
+            if m is not None:
+                # launch-side latency only: the device work stays queued
+                # and overlaps the next page's copy below
+                m.observe("sweep_score_submit_seconds", clock() - t0)
             if nxt < stop:   # the next page's copy overlaps this compute
-                queue.append(self.adapter.put(pool, nxt * P,
-                                              min((nxt + 1) * P, n)))
+                queue.append(put_page(nxt))
                 nxt += 1
+            t0 = clock() if m is not None else 0.0
             state = sink.fold(state, stats, feats, p * P, nvalid)
+            if m is not None:
+                m.observe("sweep_fold_seconds", clock() - t0)
+                m.inc("sweep_pages_total")
+                m.inc("sweep_rows_total", float(nvalid))
         return state

@@ -121,6 +121,13 @@ class TraceStore:
         self._end_pos = os.path.getsize(self.path) if _append else 0
         self._torn: Optional[int] = None
         self.write_errors = 0          # flushes that hit an OSError
+        self._faults = None            # chaos injector (attach_faults)
+
+    def attach_faults(self, faults) -> None:
+        """Wire the chaos seam: every buffer flush ticks the
+        ``trace.flush`` fault site (an injected fault emulates a torn
+        write: half the payload reaches the file, then OSError)."""
+        self._faults = faults
 
     # -- writing -----------------------------------------------------------
     @property
@@ -148,7 +155,7 @@ class TraceStore:
 
     def _flush_locked(self) -> None:
         """One buffer flush, torn-write tolerant: an OSError mid-write
-        (a full disk, a flaky volume) KEEPS the
+        (a full disk, a flaky volume, an injected fault) KEEPS the
         buffer and remembers the last durable byte offset; the next
         flush truncates the torn tail and rewrites the whole kept buffer
         — readers never see duplicate or gapped sequence numbers, only
@@ -169,6 +176,14 @@ class TraceStore:
                 self._torn = None
             if self._buf:
                 payload = "\n".join(self._buf) + "\n"
+                if self._faults is not None and \
+                        self._faults.tick("trace.flush",
+                                          emit=False) is not None:
+                    # emulate the torn write (emit=False: we hold the
+                    # store lock — a fault_injected emit would deadlock)
+                    self._f.write(payload[:max(len(payload) // 2, 1)])
+                    self._f.flush()
+                    raise OSError("injected trace-write fault")
                 self._f.write(payload)
                 self._f.flush()
                 # ensure_ascii JSON + "\n" joins: byte length == length

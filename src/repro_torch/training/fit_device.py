@@ -35,10 +35,16 @@ labeled set can stay device-resident across MCAL iterations
 (:meth:`extend_resident` / :meth:`fit_resident`, same bucket graphs), and
 :meth:`submit_fit` / :meth:`submit_call` run on the engine's worker
 thread.
+
+One engine serves many threads (the fleet's tenants share it): a bucket's
+graph is captured once, under the engine's lock, and each retrain loads
+its inputs, replays and copies its params out under that lock, so every
+caller gets the params it would get alone.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -117,6 +123,9 @@ class _RetrainGraph:
                                  state["params"].items()},
                       "opt": [{k: v.clone() for k, v in s.items()}
                               for s in state["opt"]], "step": 0}
+        # the end of the last run's reads of the static buffers, for a run
+        # queued on another stream to wait on
+        self._done: Optional[torch.cuda.Event] = None
         # autograd's first use on a side stream, then the capture; the
         # warm-up steps only touch the static buffers every run reloads
         side = torch.cuda.Stream(dev)
@@ -151,6 +160,13 @@ class _RetrainGraph:
 
     def run(self, state: Dict, orders: torch.Tensor, x: torch.Tensor,
             y: torch.Tensor, n: int) -> Tuple[Dict, torch.Tensor]:
+        """One retrain on the current stream; the caller holds the
+        engine's lock, so no other run touches the static buffers until
+        this one's are queued, and a run on another stream waits for
+        this one's last read."""
+        stream = torch.cuda.current_stream(self.x.device)
+        if self._done is not None:
+            stream.wait_event(self._done)
         for k, p in self.state["params"].items():
             p.copy_(state["params"][k])
         for slot, init in zip(self.state["opt"], state["opt"]):
@@ -163,8 +179,11 @@ class _RetrainGraph:
         self.t.zero_()
         for _ in range(self.steps):
             self.graph.replay()
-        return ({k: p.clone() for k, p in self.state["params"].items()},
-                self.losses.clone())
+        out = ({k: p.clone() for k, p in self.state["params"].items()},
+               self.losses.clone())
+        self._done = torch.cuda.Event()
+        self._done.record(stream)
+        return out
 
 
 class FitEngine:
@@ -182,6 +201,8 @@ class FitEngine:
         self._step = make_train_step(model, tc)
         self._keys: set = set()          # fit_plan buckets run or warmed
         self._graphs: Dict[Tuple[int, int, int], _RetrainGraph] = {}
+        self._lock = threading.Lock()    # capture + replay of the graphs
+        self.captures = 0                # graphs captured (one per bucket)
         self._exec: Optional[SerialWorker] = None
         # campaign-resident labeled set: device buffers + valid row count
         self._res_x: Optional[torch.Tensor] = None
@@ -191,6 +212,23 @@ class FitEngine:
         # async jobs; the fold emit runs on the worker thread)
         self.trace = None
         self._submit_seq = 0
+        # runtime metrics (repro_torch.obs.MetricsRegistry); None = free
+        # no-op
+        self.metrics = None
+        # resilience seam: chaos injector + broker re-dispatch policy,
+        # handed to the lazy SerialWorker (site ``worker.fit-engine``)
+        self.faults = None
+        self.retry = None
+
+    def attach_faults(self, faults, retry=None) -> None:
+        """Wire the fault injector (and optional re-dispatch policy)
+        into the engine's broker: every submitted job ticks the
+        ``worker.fit-engine`` site, and transient crashes re-dispatch."""
+        self.faults = faults
+        if retry is not None:
+            self.retry = retry
+        if self._exec is not None:
+            self._exec.attach_faults(faults, retry)
 
     def _start(self, seed: int, n: int, init_params, orders):
         """Initial train state and (epochs, n_pad) orders on the CPU: the
@@ -234,15 +272,46 @@ class FitEngine:
 
     def _run(self, seed, x, y, n: int, init_params,
              orders) -> Tuple[Dict, torch.Tensor]:
-        key = fit_plan(n, self.cfg.batch_size)
+        if self.metrics is not None:
+            # fence on losses: the span covers the device retrain, not
+            # just the launches; labeled by the fit_plan bucket, not the
+            # raw n — O(log N) series
+            n_pad = fit_plan(n, self.cfg.batch_size)[2]
+            with self.metrics.span("fit", n_pad=n_pad) as sp:
+                params, losses = self._run_impl(seed, x, y, n, init_params,
+                                                orders)
+                sp.fence(losses)
+            return params, losses
+        return self._run_impl(seed, x, y, n, init_params, orders)
+
+    def _note_bucket(self, key: Tuple[int, int, int]) -> None:
+        """Record a bucket touch: a cache hit when the bucket was run or
+        warmed before, a miss when this is its first (capturing) use."""
+        if self.metrics is not None:
+            self.metrics.inc("pack_cache_hits_total" if key in self._keys
+                             else "pack_cache_misses_total", engine="fit")
         self._keys.add(key)
+
+    def _run_impl(self, seed, x, y, n: int, init_params,
+                  orders) -> Tuple[Dict, torch.Tensor]:
+        key = fit_plan(n, self.cfg.batch_size)
+        self._note_bucket(key)
         state, orders = self._start(seed, n, init_params, orders)
         if self.device.type != "cuda":
             return self._eager(state, orders, x, y, n)
+        orders = orders.to(self.device)
+        with self._lock:
+            return self._graph(key, state).run(state, orders, x, y, n)
+
+    def _graph(self, key: Tuple[int, int, int], state: Dict
+               ) -> _RetrainGraph:
+        """The bucket's graph, captured at its first use (the caller holds
+        the engine's lock)."""
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = _RetrainGraph(self, key, state)
-        return graph.run(state, orders.to(self.device), x, y, n)
+            self.captures += 1
+        return graph
 
     def _eager(self, state, orders, x, y, n: int):
         spe, bs, _ = fit_plan(n, self.cfg.batch_size)
@@ -329,7 +398,9 @@ class FitEngine:
 
     def _executor(self) -> SerialWorker:
         if self._exec is None:
-            self._exec = SerialWorker("fit-engine", device=self.device)
+            self._exec = SerialWorker("fit-engine", device=self.device,
+                                      retry=self.retry, faults=self.faults)
+            self._exec.metrics = self.metrics
         return self._exec
 
     def close(self) -> None:
@@ -364,13 +435,14 @@ class FitEngine:
         """:meth:`fit` on the engine's worker thread; the caller overlaps
         its own work and synchronizes at ``result()``."""
         return FitFuture(self._executor().submit(
-            self._traced(self.fit, "fit"), seed, x, y, **kw))
+            self._traced(self.fit, "fit"), seed, x, y, **kw),
+            label="fit")
 
     def submit_call(self, fn: Callable, *args, **kw) -> FitFuture:
         """Run any callable on the fit worker (composite jobs such as a
         retrain and its measurement)."""
         return FitFuture(self._executor().submit(
-            self._traced(fn, "call"), *args, **kw))
+            self._traced(fn, "call"), *args, **kw), label="fit[call]")
 
     # -- bucket bookkeeping --------------------------------------------------
 
@@ -384,6 +456,15 @@ class FitEngine:
         """Capture the graphs of ``keys`` (bucket tuples or raw row counts)
         not captured yet, without training; returns how many were built
         (on the CPU, where there is nothing to build, 0)."""
+        if self.metrics is None:
+            return self._warm_impl(keys)
+        with self.metrics.span("warm", engine="fit"):
+            count = self._warm_impl(keys)
+        if count:
+            self.metrics.inc("warm_compiles_total", count, engine="fit")
+        return count
+
+    def _warm_impl(self, keys) -> int:
         count = 0
         for k in keys:
             n_pad = int(k[2]) if isinstance(k, (tuple, list)) else \
@@ -394,6 +475,8 @@ class FitEngine:
                 continue
             state = init_train_state(self.model, self.tc,
                                      self.model.init(0, self.device))
-            self._graphs[key] = _RetrainGraph(self, key, state)
-            count += 1
+            with self._lock:
+                if key not in self._graphs:
+                    self._graph(key, state)
+                    count += 1
         return count

@@ -505,8 +505,25 @@ def test_session_is_a_per_tenant_view():
     assert svc.votes_bought == 1200
     assert a.state_dict() == {"session": True, "cursor": 2, "votes": 600,
                               "labels": 200}
-    for name in ("attach_metrics", "attach_faults"):
-        assert not hasattr(svc, name) and not hasattr(a, name)
+    # the seams are ported: a session's fault plan is its own, and its
+    # metrics are the service's
+    from repro_torch.faults import (FaultInjector, FaultPlan, FaultRule,
+                                    RetryPolicy)
+    from repro_torch.obs import MetricsRegistry
+    m = MetricsRegistry()
+    a.attach_metrics(m)
+    assert svc.metrics is m and svc.aggregator.metrics is m
+    a.attach_faults(FaultInjector(FaultPlan(rules=(
+        FaultRule("annotation.request", "transient", at=(0,)),))),
+        RetryPolicy(sleep_scale=0.0))
+    la3 = a.annotate(idx[:100], gt[:100])       # retried, charged once
+    b.annotate(idx[100:], gt[100:])            # the sibling: no plan
+    np.testing.assert_array_equal(la3, alone.annotate(idx[:100], gt[:100]))
+    assert a.votes_bought == 900 and b.votes_bought == 1200
+    retries = {c["labels"]["site"]: c["value"]
+               for c in m.snapshot()["counters"] if c["name"] ==
+               "retries_total"}
+    assert retries == {"annotation.request": 1.0}
 
 
 # ---------------------------------------------------------------------------

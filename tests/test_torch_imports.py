@@ -55,7 +55,13 @@ def test_every_ported_module_was_imported(probe):
             "repro_torch.core.emulator", "repro_torch.core.baselines",
             "repro_torch.data.pool", "repro_torch.annotation.oracle",
             "repro_torch.annotation.aggregate",
-            "repro_torch.annotation.service", "repro_torch.launch.label"}
+            "repro_torch.annotation.service", "repro_torch.launch.label",
+            "repro_torch.faults.errors", "repro_torch.faults.plan",
+            "repro_torch.faults.retry", "repro_torch.obs.metrics",
+            "repro_torch.obs.export", "repro_torch.obs.slo",
+            "repro_torch.obs.health", "repro_torch.obs.profiling",
+            "repro_torch.core.tenant", "repro_torch.launch.orchestrator",
+            "repro_torch.launch.report"}
     assert want <= set(probe["modules"])
 
 

@@ -33,7 +33,10 @@ def test_shared_flags_have_the_reference_defaults_and_choices():
             "annotator_workers", "annotator_spammers", "annotator_aggregate",
             "label_repeats", "max_repeats", "adaptive_repeats",
             "repeat_confidence", "seed", "out", "trace", "trace_replay",
-            "trace_diff"} == shared
+            "trace_diff", "autosave", "sweep_timeout", "fit_timeout",
+            "chaos", "chaos_seed", "metrics", "slo", "prom", "profile",
+            "profile_iter"} == shared
+    assert set(ref) - shared == {"mesh"}
     for dest in shared:
         assert mine[dest].default == ref[dest].default, dest
         assert mine[dest].choices == ref[dest].choices, dest
@@ -124,3 +127,43 @@ def test_state_file_preempt_and_resume(tmp_path, capsys):
     assert rp["cost"] == want["cost"] and rp["decision"] == want["decision"]
     assert rp["runtime"] == {"sweep_async": True, "fit_async": True}
     assert np.isclose(rp["S_size"] / 1500, want["S_frac"])
+
+
+def test_chaos_metrics_health_report_matches_jax(tmp_path, monkeypatch):
+    """The noisy replay campaign under ``--chaos`` with ``--metrics``,
+    ``--slo`` and ``--prom`` through both launchers: the same report,
+    its ``chaos`` (faults fired and sites ticked), ``metrics`` and
+    ``health`` keys included, and traces that diff clean against each
+    other and against a fault-free run."""
+    from repro_torch.trace import diff
+    slo = tmp_path / "slo.json"
+    slo.write_text(json.dumps({"cost_per_label_max": 0.02}))
+    base = ["--dataset", "cifar10", "--annotator-noise", "0.2",
+            "--label-repeats", "3", "--annotator-aggregate", "ds"]
+
+    def argv(tag, chaos=True):
+        d = tmp_path / tag
+        d.mkdir()
+        return base + (["--chaos", "--chaos-seed", "3"] if chaos else []) \
+            + ["--trace", str(d / "t.jsonl"), "--metrics",
+               str(d / "m.jsonl"), "--slo", str(slo), "--prom",
+               str(d / "m.prom"), "--out", str(d / "r.json")], d
+
+    ja, jd = argv("jax")
+    monkeypatch.setattr(sys, "argv", ["label", *ja])
+    jlabel.main()
+    pa, pd = argv("port")
+    label.main([*pa, "--device", "cpu"])
+    ca, cd = argv("clean", chaos=False)
+    label.main([*ca, "--device", "cpu"])
+    got, want = (json.load(open(pd / "r.json")),
+                 json.load(open(jd / "r.json")))
+    assert got["chaos"] == want["chaos"]
+    assert got["chaos"]["faults_injected"] > 0
+    assert got["health"] == want["health"]
+    assert got["health"]["slo_breaches"] > 0
+    for k in ("decision", "cost", "ledger", "iterations", "theta_final"):
+        assert got[k] == want[k], k
+    assert diff(str(pd / "t.jsonl"), str(jd / "t.jsonl")) is None
+    assert diff(str(pd / "t.jsonl"), str(cd / "t.jsonl")) is None
+    assert (pd / "m.prom").read_text().startswith("# TYPE repro_")

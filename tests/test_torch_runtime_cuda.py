@@ -70,3 +70,106 @@ def test_paged_sinks_equal_unpaged_pass(n):
                                rtol=0, atol=0)
     np.testing.assert_array_equal(runner.run(params, x, TopKSink(500)),
                                   engine.top_k(params, x, 500))
+
+
+def _together(fn, n):
+    import threading
+    gate = threading.Barrier(n)
+    out, errors = [None] * n, []
+
+    def run(i):
+        try:
+            gate.wait()
+            out[i] = fn(i)
+        except BaseException as e:   # noqa: BLE001 - re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first_use", [True, False])
+def test_shared_fit_engine_two_threads_equal_serial(first_use):
+    """Two threads retraining in one bucket of one engine (the fleet's
+    shared FitEngine) get the serial params bit for bit; a first use
+    from both captures the bucket's graph once."""
+    _need_card()
+    eng = FitEngine(get_model(ModelConfig(**KW)), TrainConfig(**TC),
+                    FitConfig(epochs=5, batch_size=256), device="cuda")
+    rng = np.random.default_rng(7)
+    jobs = [(seed, rng.normal(size=(n, 32)).astype(np.float32),
+             rng.integers(0, 10, n)) for seed, n in ((0, 700), (1, 900))]
+    serial = FitEngine(eng.model, eng.tc, eng.cfg, device="cuda")
+    want = [serial.fit(*job) for job in jobs]
+    if not first_use:
+        eng.fit(*jobs[0])
+    for _ in range(3):
+        got = _together(lambda i: eng.fit(*jobs[i]), 2)
+        for (p, loss), (wp, wl) in zip(got, want):
+            torch.testing.assert_close(loss, wl, rtol=0, atol=0)
+            for k in wp:
+                torch.testing.assert_close(p[k], wp[k], rtol=0, atol=0)
+    assert eng.captures == len(eng._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_shared_sweep_runner_two_threads_equal_serial():
+    """Two threads sweeping through one runner (one adapter, one staging
+    ring per thread) get the serial sinks."""
+    _need_card()
+    model = get_model(ModelConfig(**KW))
+    params = model.init(0, "cuda")
+    engine = PoolScoringEngine(model, ScoringConfig(microbatch=2048),
+                               device="cuda")
+    runner = PoolSweepRunner(EngineSweepAdapter(engine),
+                             SweepConfig(page_rows=4096))
+    pools = [np.random.default_rng(n).normal(size=(n, 32)).astype(
+        np.float32) for n in (30000, 23000)]
+    want = [(runner.run(params, x, RankTop1Sink("margin")),
+             runner.run(params, x, FeatureSink()),
+             runner.run(params, x, TopKSink(700))) for x in pools]
+    for _ in range(3):
+        got = _together(lambda i: (
+            runner.run(params, pools[i], RankTop1Sink("margin")),
+            runner.run(params, pools[i], FeatureSink()),
+            runner.run(params, pools[i], TopKSink(700))), 2)
+        for (rank, feats, topk), (wrank, wfeats, wtopk) in zip(got, want):
+            np.testing.assert_array_equal(rank[0], wrank[0])
+            np.testing.assert_array_equal(rank[1], wrank[1])
+            torch.testing.assert_close(feats, wfeats, rtol=0, atol=0)
+            np.testing.assert_array_equal(topk, wtopk)
+
+
+@pytest.mark.cuda
+def test_fenced_span_waits_on_its_own_event_only():
+    """A span fenced on a value waits for the stream work queued before
+    that value, not for another stream's (a whole-device synchronize
+    would charge one tenant with every tenant's kernels)."""
+    _need_card()
+    from repro_torch.obs import MetricsRegistry
+    other = torch.cuda.Stream()
+    mine = torch.cuda.Stream()
+    busy = torch.cuda.Event()
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(2_000_000_000)        # about a second
+        busy.record(other)
+    events = []
+
+    class Trace:
+        def emit(self, kind, **payload):
+            events.append(payload)
+    m = MetricsRegistry(trace=Trace())
+    with torch.cuda.stream(mine):
+        with m.span("fit") as sp:
+            value = torch.ones(1 << 20, device="cuda") * 2.0
+            sp.fence(value)
+    assert not busy.query(), "the span waited for the other stream"
+    assert value.sum().item() == 2.0 * (1 << 20)
+    assert events[-1]["fenced"] is True
+    busy.synchronize()

@@ -47,3 +47,21 @@ def test_kcenter_distances_routes_on_cpu():
     sel = routes["kernels"]["selections"]
     assert sel and all(s["plain_first_difference"] == -1 for s in sel)
     assert routes["kernels"]["calls"]["pairwise_sqdist"] == len(sel)
+
+
+def test_fleet_spans_on_cpu():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "fleet_spans.py"),
+         "--pool", "1000", "--max-iters", "2", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert list(res["modes"]) == ["serial", "concurrent"]
+    for mode in res["modes"].values():
+        spans = mode["spans"]
+        assert {"bootstrap", "iteration", "commit", "fit", "sweep",
+                "kcenter", "round"} <= set(spans)
+        assert spans["bootstrap"]["calls"] == 8
+        assert spans["commit"]["calls"] == 8
+        assert mode["wall"] > 0
+    assert res["modes"]["serial"]["spans"]["fit"]["calls"] == \
+        res["modes"]["concurrent"]["spans"]["fit"]["calls"]
