@@ -7,7 +7,7 @@ from repro_torch.core.cost import (AMAZON, SATYAM, SERVICES, CostLedger,  # noqa
 from repro_torch.core.emulator import (DATASETS, EmulatedTask,  # noqa: F401
                                        make_emulated_task)
 from repro_torch.core.mcal import (MCALCampaign, MCALConfig, MCALResult,  # noqa: F401
-                                   SharedPool, run_mcal)
+                                   SharedPool, run_mcal, select_architecture)
 from repro_torch.core.scoring import PoolScoringEngine, ScoringConfig  # noqa: F401
 from repro_torch.core.selection_device import (KCenterConfig,  # noqa: F401
                                                k_center_greedy_device)

@@ -39,8 +39,13 @@ engine through the campaign, its task and its annotation service; all
 three emit observability kinds only, so an instrumented, monitored or
 chaos campaign whose retries succeed diffs clean against a plain one.
 
-Left out for a later slice: ``select_architecture`` (with the forced
-acquisitions and frozen delta it drives).
+:func:`select_architecture` runs several campaigns over one
+:class:`SharedPool` (labels bought once, every candidate trains and pays
+its own training into the shared ledger) with delta frozen at delta0
+until the argmin-C* candidate is settled, then continues that one alone —
+the paper's CNN18/Res18/Res50 selection (§4).  ``budget`` in MCALConfig
+switches the search to the budget-constrained variant (min error s.t.
+cost <= budget).
 """
 from __future__ import annotations
 
@@ -216,16 +221,17 @@ def oracle_labels(task, idx: np.ndarray) -> np.ndarray:
 
 
 class SharedPool:
-    """Label store: which rows are test/train and what each one cost."""
+    """Label store shared across campaigns (architecture selection buys
+    each label once): which rows are test/train and what each one cost."""
 
-    def __init__(self, pool_size: int):
+    def __init__(self, pool_size: int, ledger: Optional[CostLedger] = None):
         self.pool_size = pool_size
         self.labels = np.full(pool_size, -1, np.int64)
         self.is_test = np.zeros(pool_size, bool)
         self.in_B = np.zeros(pool_size, bool)
         self.T_idx: Optional[np.ndarray] = None
         self.B_idx: np.ndarray = np.zeros((0,), np.int64)
-        self.ledger = CostLedger()
+        self.ledger = ledger or CostLedger()
 
     def buy_labels(self, task, idx: np.ndarray, service: LabelingService):
         """THE charging site: every purchased label pays through
@@ -249,11 +255,12 @@ class SharedPool:
 
 
 class MCALCampaign:
-    def __init__(self, task, service: LabelingService, cfg: MCALConfig):
+    def __init__(self, task, service: LabelingService, cfg: MCALConfig,
+                 shared: Optional[SharedPool] = None):
         self.task = task
         self.service = service
         self.cfg = cfg
-        self.pool = SharedPool(task.pool_size)
+        self.pool = shared or SharedPool(task.pool_size)
         self.rng = np.random.default_rng(cfg.seed)
         self.history: List[IterationRecord] = []
         # per-theta (B, eps) measurement history
@@ -266,7 +273,11 @@ class MCALCampaign:
         self.stable = False
         self.done = False
         self.done_reason = ""
+        # this campaign's own training spend: C* predictions compare
+        # architectures as if each ran alone (the shared ledger still
+        # collects every candidate's spend as the exploration tax)
         self.own_training = 0.0
+        self.freeze_delta = False   # exploration keeps delta at delta0
         self.decision = "hybrid"
         self.B_opt = 0
         self.theta_opt = 0.0
@@ -374,11 +385,13 @@ class MCALCampaign:
             self.trace.emit(kind, **_trace_sanitize(payload))
 
     # -- bootstrap ----------------------------------------------------------
-    def bootstrap(self):
+    def bootstrap(self, *, adopt: bool = False):
+        """Buy T and B0 and train; ``adopt`` takes both from the shared
+        pool another campaign bootstrapped (no rng draw, nothing bought)."""
         with self._mspan("bootstrap"):
-            return self._bootstrap_impl()
+            return self._bootstrap_impl(adopt=adopt)
 
-    def _bootstrap_impl(self):
+    def _bootstrap_impl(self, *, adopt: bool = False):
         X = self.task.pool_size
         p = self.pool
         if self.trace is not None:
@@ -390,18 +403,20 @@ class MCALCampaign:
             self._emit("campaign_begin", config=cfgd, runtime=runtime,
                        pool_size=int(X),
                        arch=getattr(self.task, "arch_name", ""))
-        T_size = max(int(round(self.cfg.test_frac * X)), 16)
-        p.T_idx = self.rng.choice(X, T_size, replace=False)
-        p.is_test[p.T_idx] = True
-        p.buy_labels(self.task, p.T_idx, self.service)
-        delta0 = max(int(round(self.cfg.delta0_frac * X)), 8)
-        b0 = self.rng.choice(p.unlabeled_candidates(), delta0, replace=False)
-        p.in_B[b0] = True
-        p.B_idx = b0
-        p.buy_labels(self.task, b0, self.service)
+        if not adopt:
+            T_size = max(int(round(self.cfg.test_frac * X)), 16)
+            p.T_idx = self.rng.choice(X, T_size, replace=False)
+            p.is_test[p.T_idx] = True
+            p.buy_labels(self.task, p.T_idx, self.service)
+            delta0 = max(int(round(self.cfg.delta0_frac * X)), 8)
+            b0 = self.rng.choice(p.unlabeled_candidates(), delta0,
+                                 replace=False)
+            p.in_B[b0] = True
+            p.B_idx = b0
+            p.buy_labels(self.task, b0, self.service)
         self.delta = len(p.B_idx)
         self._emit("bootstrap", T_size=int(len(p.T_idx)),
-                   B_size=int(len(p.B_idx)), adopt=False)
+                   B_size=int(len(p.B_idx)), adopt=bool(adopt))
         self._train_and_measure()
 
     # -- internals ----------------------------------------------------------
@@ -500,7 +515,7 @@ class MCALCampaign:
         thresholds) must use."""
         return self._quality().effective_service(self.service)
 
-    def search(self) -> SearchResult:
+    def search(self, keep_surface: Optional[bool] = None) -> SearchResult:
         self._sync_fit()
         laws, cm = self._fit_models()
         p = self.pool
@@ -516,7 +531,8 @@ class MCALCampaign:
             res = joint_search(
                 eps_target=self._quality().effective_target(
                     self.cfg.eps_target),
-                keep_surface=self.cfg.keep_surface, **kw)
+                keep_surface=self.cfg.keep_surface
+                if keep_surface is None else keep_surface, **kw)
         self._emit("search", cost=res.cost, B_opt=int(res.B_opt),
                    theta_opt=float(res.theta_opt),
                    machine_labeled=int(res.machine_labeled),
@@ -525,9 +541,15 @@ class MCALCampaign:
         return res
 
     # -- one loop body --------------------------------------------------------
-    def iteration(self):
+    def iteration(self, *, acquire: bool = True,
+                  forced_acquisition: Optional[np.ndarray] = None):
+        """One loop body; ``acquire=False`` stops before the purchase, and
+        ``forced_acquisition`` buys the given rows instead of M(.)'s
+        (architecture selection).  Neither submits the async M(.)
+        sweep."""
         with self._mspan("iteration"):
-            rec = self._iteration_impl()
+            rec = self._iteration_impl(acquire=acquire,
+                                       forced_acquisition=forced_acquisition)
         if self.metrics is not None:
             self.metrics.inc("campaign_iterations_total")
             self.metrics.set_gauge("campaign_spent_total",
@@ -536,7 +558,8 @@ class MCALCampaign:
             self.health.tick_campaign(self)
         return rec
 
-    def _iteration_impl(self):
+    def _iteration_impl(self, *, acquire: bool = True,
+                        forced_acquisition: Optional[np.ndarray] = None):
         assert not self.done
         if self.faults is not None:
             # the kill point sits BEFORE any mutation of this iteration
@@ -552,7 +575,8 @@ class MCALCampaign:
         # current delta: the rankings are prefix-stable, so acquire() trims
         # to a smaller take, and a larger adapted delta re-ranks.
         self._pending = None
-        if (self.cfg.sweep_async and self.cfg.metric != "random"
+        if (acquire and forced_acquisition is None and self.cfg.sweep_async
+                and self.cfg.metric != "random"
                 and hasattr(self.task, "submit_candidates")):
             cand = p.unlabeled_candidates()
             k = min(self.delta, len(cand))
@@ -606,7 +630,7 @@ class MCALCampaign:
                 self._finish("bailout")
                 return rec
 
-        if self.stable:
+        if self.stable and not self.freeze_delta:
             nd = adapt_delta(
                 current_B=len(p.B_idx), B_opt=res.B_opt, cstar=res.cost,
                 spent=self.own_training, pool_size=X, test_size=len(p.T_idx),
@@ -618,10 +642,11 @@ class MCALCampaign:
 
         # Alg. 1 line 9: continue only while growing B is predicted to
         # reduce cost (C* < C(B_opt + delta) <=> B_opt > |B|), gated on the
-        # fit having min_fit_points and a stable C*.
+        # fit having min_fit_points and a stable C*.  Exploration-frozen
+        # campaigns (architecture selection) never end here.
         enough = len(self.train_sizes) >= self.cfg.min_fit_points
         if enough and self.stable and res.feasible and \
-                res.B_opt <= len(p.B_idx):
+                res.B_opt <= len(p.B_idx) and not self.freeze_delta:
             self._finish("converged")
             return rec
 
@@ -629,13 +654,15 @@ class MCALCampaign:
             self._finish("max_iters")
             return rec
 
-        self.acquire()
+        if acquire:
+            self.acquire(forced_acquisition)
         return rec
 
-    def acquire(self):
-        """Buy delta labels ranked by M(.), retrain, re-measure.  An async
-        ranking sweep launched by ``iteration`` is folded here and its
-        prefix trimmed to the final take."""
+    def acquire(self, forced: Optional[np.ndarray] = None):
+        """Buy delta labels ranked by M(.) (or the ``forced`` rows as
+        given), retrain, re-measure.  An async ranking sweep launched by
+        ``iteration`` is folded here and its prefix trimmed to the final
+        take."""
         p = self.pool
         cand = p.unlabeled_candidates()
         pending, self._pending = self._pending, None
@@ -644,32 +671,37 @@ class MCALCampaign:
                 pending[1].cancel()
             self._finish("pool_exhausted")
             return
-        take = min(self.delta, len(cand))
-        if self.stable and self.B_opt > len(p.B_idx):
-            take = min(take, self.B_opt - len(p.B_idx))
-        pick = None
-        if pending is not None:
-            if take <= pending[0]:
-                try:
-                    out = pending[1].result(self.sweep_timeout)
-                except StragglerTimeout:
-                    if self.metrics is not None:
-                        self.metrics.inc("straggler_timeouts_total",
-                                         engine="sweep")
-                    raise
-                full = out[0] if isinstance(out, tuple) else out
-                pick = np.asarray(full[:take], np.int64)
-            else:   # the adapted delta outgrew the submitted sweep
+        if forced is not None:
+            if pending is not None:
                 pending[1].cancel()
-        if pick is None:
-            pick = self._rank_candidates(take, cand)
+            pick = np.asarray(forced, np.int64)
+        else:
+            take = min(self.delta, len(cand))
+            if self.stable and self.B_opt > len(p.B_idx):
+                take = min(take, self.B_opt - len(p.B_idx))
+            pick = None
+            if pending is not None:
+                if take <= pending[0]:
+                    try:
+                        out = pending[1].result(self.sweep_timeout)
+                    except StragglerTimeout:
+                        if self.metrics is not None:
+                            self.metrics.inc("straggler_timeouts_total",
+                                             engine="sweep")
+                        raise
+                    full = out[0] if isinstance(out, tuple) else out
+                    pick = np.asarray(full[:take], np.int64)
+                else:   # the adapted delta outgrew the submitted sweep
+                    pending[1].cancel()
+            if pick is None:
+                pick = self._rank_candidates(take, cand)
         if self.trace is not None:
             # a CRC over the ordered picks pins the acquisition bit-exactly
             # across sibling runs without the index set in the trace
             pick_arr = np.ascontiguousarray(np.asarray(pick, np.int64))
             self._emit("acquisition", n=int(len(pick_arr)),
                        digest=int(zlib.crc32(pick_arr.tobytes())),
-                       forced=False)
+                       forced=bool(forced is not None))
         p.buy_labels(self.task, pick, self.service)
         p.in_B[pick] = True
         p.B_idx = np.concatenate([p.B_idx, pick])
@@ -723,6 +755,13 @@ class MCALCampaign:
                  if self.cfg.metric in sel.UNCERTAINTY_METRICS else None)
         return sel.select_for_training(self.cfg.metric, k, stats=stats,
                                        candidates=cand, rng=self.rng)
+
+    def propose_acquisition(self, k: int) -> np.ndarray:
+        """Rank candidates by this campaign's M(.) without buying or
+        charging anything (a pending async retrain is folded first)."""
+        self._sync_fit()
+        cand = self.pool.unlabeled_candidates()
+        return self._rank_candidates(min(k, len(cand)), cand)
 
     def _machine_label(self, idx: np.ndarray):
         """L(.): one paged sweep over ``idx`` -> (rows most-confident-
@@ -890,7 +929,7 @@ class MCALCampaign:
             "decision": self.decision,
             "B_opt": int(self.B_opt),
             "theta_opt": float(self.theta_opt),
-            "freeze_delta": False,    # no architecture selection here
+            "freeze_delta": bool(self.freeze_delta),
         }
         # the trace append cursor: flush first, so the persisted cursor
         # points inside the file
@@ -909,10 +948,6 @@ class MCALCampaign:
             raise ValueError(
                 f"campaign state has schema version {v}, but this build "
                 f"understands at most version {STATE_VERSION}")
-        if s.get("freeze_delta"):
-            raise NotImplementedError(
-                "this state file comes from an architecture-selection "
-                "campaign, which is not ported yet")
         # fold an in-flight async retrain first: it would race the resume
         # retrain below on the same engine buffers
         self._sync_fit()
@@ -946,6 +981,7 @@ class MCALCampaign:
         self.decision = str(s.get("decision", "hybrid"))
         self.B_opt = int(s.get("B_opt", 0))
         self.theta_opt = float(s.get("theta_opt", 0.0))
+        self.freeze_delta = bool(s.get("freeze_delta", False))
         self.history = [IterationRecord.from_dict(r)
                         for r in s.get("history", [])]
         if "rng" in s:
@@ -998,3 +1034,69 @@ def run_mcal(task, service: LabelingService,
         # last: the engine inherits whatever trace/metrics are attached
         camp.attach_health(health)
     return camp.run()
+
+
+def select_architecture(
+    tasks: Dict[str, object], service: LabelingService,
+    cfg: MCALConfig = MCALConfig(), max_explore_iters: int = 24,
+) -> Tuple[str, MCALResult, Dict[str, List[IterationRecord]]]:
+    """Paper §4: explore every candidate classifier over one shared pool
+    with delta frozen at delta0, then continue the argmin-C* campaign
+    alone.  Labels are bought once; every candidate pays its own training
+    into the shared ledger (the exploration tax).  Returns ``(winner,
+    result, {name: history})``."""
+    names = list(tasks)
+    pool = SharedPool(tasks[names[0]].pool_size)
+    camps = {n: MCALCampaign(tasks[n], service, cfg, shared=pool)
+             for n in names}
+    for c in camps.values():
+        c.freeze_delta = True       # exploration stays at delta0
+    camps[names[0]].bootstrap()
+    for n in names[1:]:
+        camps[n].bootstrap(adopt=True)
+
+    def argmin_cstar():
+        cs = {n: camps[n].cstar_old if camps[n].cstar_old is not None
+              else np.inf for n in names}
+        return min(cs, key=cs.get)
+
+    rounds, leader_votes, last_leader = 0, 0, None
+    while rounds < max_explore_iters:
+        # the leader rotates: its M(.) picks the next acquisition for all
+        leader = camps[names[rounds % len(names)]]
+        # elect early once the C* ranking is settled: every campaign has
+        # its fit and the argmin is unchanged 3 rounds running
+        if all(c.stable for c in camps.values()) or leader_votes >= 3:
+            break
+        pick = leader.propose_acquisition(leader.delta)
+        for i, n in enumerate(names):
+            # every campaign adopts the same acquisition; only the first
+            # mutates B, the others retrain on the grown shared pool
+            camps[n].iteration(acquire=(i == 0), forced_acquisition=pick)
+            if i == 0:
+                continue
+            camps[n]._train_and_measure()
+        for c in camps.values():
+            # fold the async retrains (with fit_async every candidate's
+            # ran at once) before the election reads the histories
+            c._sync_fit()
+        cur = argmin_cstar()
+        enough = all(len(c.train_sizes) >= cfg.min_fit_points
+                     for c in camps.values())
+        leader_votes = leader_votes + 1 if (enough and cur == last_leader) \
+            else 0
+        last_leader = cur
+        if any(c.done for c in camps.values()):
+            break
+        rounds += 1
+
+    for c in camps.values():
+        c._sync_fit()
+    winner = argmin_cstar()
+    wc = camps[winner]
+    wc.freeze_delta = False
+    wc.stable = False   # re-establish C* stability in the continuation
+    while not wc.done:
+        wc.iteration()
+    result = wc.commit()
+    return winner, result, {n: camps[n].history for n in names}

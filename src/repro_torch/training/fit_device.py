@@ -39,7 +39,14 @@ thread.
 One engine serves many threads (the fleet's tenants share it): a bucket's
 graph is captured once, under the engine's lock, and each retrain loads
 its inputs, replays and copies its params out under that lock, so every
-caller gets the params it would get alone.
+caller gets the params it would get alone.  Several engines retrain at
+once in architecture selection (one per candidate, each on its own fit
+worker); their captures take :data:`CAPTURE_LOCK` in turn.
+``torch.cuda.graph``'s entry synchronizes the device and empties the
+allocator's caches, and while another thread captures, that fails on the
+card ("operation not permitted when stream is capturing") and
+invalidates the other capture.  Replays of captured graphs do not take
+the lock.
 """
 from __future__ import annotations
 
@@ -58,6 +65,9 @@ from repro_torch.serving.sweep import SweepFuture as FitFuture
 from repro_torch.training import optimizer as opt
 from repro_torch.training.schedules import make_schedule
 from repro_torch.training.train_loop import init_train_state, make_train_step
+
+# one CUDA graph capture at a time in the process, whichever engine makes it
+CAPTURE_LOCK = threading.Lock()
 
 
 def fit_plan(n: int, batch_size: int) -> Tuple[int, int, int]:
@@ -306,10 +316,11 @@ class FitEngine:
     def _graph(self, key: Tuple[int, int, int], state: Dict
                ) -> _RetrainGraph:
         """The bucket's graph, captured at its first use (the caller holds
-        the engine's lock)."""
+        the engine's lock; the capture takes :data:`CAPTURE_LOCK`)."""
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = _RetrainGraph(self, key, state)
+            with CAPTURE_LOCK:
+                graph = self._graphs[key] = _RetrainGraph(self, key, state)
             self.captures += 1
         return graph
 

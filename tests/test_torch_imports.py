@@ -1,5 +1,6 @@
 """The PyTorch port imports neither JAX nor anything of the JAX package,
-and switches TF32 off (checked in one fresh interpreter)."""
+and switches TF32 off (checked in one fresh interpreter); its example twins
+import only the port."""
 import json
 import os
 import subprocess
@@ -67,3 +68,22 @@ def test_every_ported_module_was_imported(probe):
 
 def test_tf32_is_off_after_import(probe):
     assert probe["tf32"] == [False, False]
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart.py",
+                                  "torch_arch_select.py",
+                                  "torch_label_dataset.py"])
+def test_example_twin_imports_only_the_port(name):
+    """The example twins import the port and never JAX or the JAX package
+    (``tests/test_torch_examples.py`` runs them and checks the modules
+    they load)."""
+    import ast
+    roots = set()
+    for node in ast.walk(ast.parse((SRC.parent / "examples" / name)
+                                   .read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}

@@ -119,6 +119,70 @@ def test_shared_fit_engine_two_threads_equal_serial(first_use):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("round_", range(3))
+def test_engines_of_two_widths_first_used_at_once_equal_serial(round_):
+    """Two fit engines of different widths (architecture selection's
+    candidates, each on its own fit worker) used for the first time on
+    two threads at once: their captures take ``CAPTURE_LOCK`` in turn,
+    each engine captures its bucket once, and each thread gets the params
+    its engine gives it alone."""
+    _need_card()
+    widths = (32, 128)
+    models = [get_model(ModelConfig(**dict(KW, d_model=d))) for d in widths]
+    rng = np.random.default_rng(round_)
+    jobs = [(seed, rng.normal(size=(n, 32)).astype(np.float32),
+             rng.integers(0, 10, n)) for seed, n in ((0, 700), (1, 1500))]
+    cfg = FitConfig(epochs=5, batch_size=256)
+    want = [FitEngine(m, TrainConfig(**TC), cfg, device="cuda").fit(*job)
+            for m, job in zip(models, jobs)]
+    engines = [FitEngine(m, TrainConfig(**TC), cfg, device="cuda")
+               for m in models]
+    got = _together(lambda i: engines[i].fit(*jobs[i]), 2)
+    for (p, loss), (wp, wl) in zip(got, want):
+        torch.testing.assert_close(loss, wl, rtol=0, atol=0)
+        for k in wp:
+            torch.testing.assert_close(p[k], wp[k], rtol=0, atol=0)
+    assert [e.captures for e in engines] == [1, 1]
+
+
+def _live_selection(fit_async):
+    from repro_torch.core import (AMAZON, LiveTask, MCALConfig,
+                                  select_architecture)
+    from repro_torch.data.synth import make_classification
+    x, y = make_classification(700, num_classes=10, dim=16, difficulty=0.3,
+                               seed=4)
+    tasks = {f"h{h}": LiveTask(features=x, groundtruth=y, num_classes=10,
+                               epochs=3, seed=4, sweep_page=256,
+                               score_microbatch=256, hidden=h)
+             for h in (32, 64)}
+    cfg = MCALConfig(seed=4, max_iters=4, delta0_frac=0.02,
+                     fit_async=fit_async, sweep_async=fit_async)
+    try:
+        return select_architecture(tasks, AMAZON, cfg, max_explore_iters=3)
+    finally:
+        for t in tasks.values():
+            t.close()
+
+
+@pytest.mark.cuda
+def test_live_arch_selection_async_equals_sync_on_card():
+    """The reference's contract (``tests/test_fit_device.py``) on the
+    card: with ``fit_async`` every candidate's retrain runs at once on its
+    own engine, and the winner, every history and the labels equal the
+    synchronous selection's."""
+    _need_card()
+    (w_s, res_s, hist_s) = _live_selection(False)
+    (w_a, res_a, hist_a) = _live_selection(True)
+    assert w_s == w_a
+    for name in hist_s:
+        for field in ("cstar", "training_spent", "human_spent"):
+            assert [getattr(r, field) for r in hist_s[name]] == \
+                [getattr(r, field) for r in hist_a[name]]
+    assert res_s.total_cost == res_a.total_cost
+    np.testing.assert_array_equal(res_s.labels, res_a.labels)
+
+
+@pytest.mark.cuda
 def test_shared_sweep_runner_two_threads_equal_serial():
     """Two threads sweeping through one runner (one adapter, one staging
     ring per thread) get the serial sinks."""

@@ -10,6 +10,9 @@ holds the card half: the retrain graphs and the pinned staging rings).
 * One fit engine retraining for several threads gives each the params it
   gets alone; one sweep runner gives each sweeping thread its own staging
   ring.
+* Several fit engines making their first captures at once (architecture
+  selection's candidates) capture one at a time, under
+  ``fit_device.CAPTURE_LOCK``.
 """
 import os
 import stat
@@ -176,6 +179,44 @@ def test_shared_fit_engine_gives_each_thread_its_serial_params():
         for k in want_p:
             torch.testing.assert_close(params[k], want_p[k], rtol=0,
                                        atol=0)
+
+
+def test_engines_capturing_at_once_capture_one_at_a_time(monkeypatch):
+    """Three engines' first uses of a bucket on three threads: each
+    engine captures its graph once, and no two captures overlap."""
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import fit_device
+    lock = threading.Lock()
+    active, overlap, made = [0], [0], []
+
+    class Graph:
+        def __init__(self, engine, key, state):
+            with lock:
+                active[0] += 1
+                overlap[0] = max(overlap[0], active[0])
+            threading.Event().wait(0.1)
+            with lock:
+                active[0] -= 1
+            made.append((id(engine), key))
+    monkeypatch.setattr(fit_device, "_RetrainGraph", Graph)
+    engines = [fit_device.FitEngine(
+        get_model(ModelConfig(**dict(KW, d_model=d))),
+        TrainConfig(learning_rate=1e-2, schedule="constant"),
+        fit_device.FitConfig(epochs=2, batch_size=64), device="cpu")
+        for d in (16, 32, 64)]
+    key = fit_device.fit_plan(100, 64)
+
+    def first_use(i):
+        eng = engines[i % 3]
+        with eng._lock:          # as FitEngine._run_impl holds it
+            return eng._graph(key, None)
+    got = _together(first_use, 6)
+    assert overlap[0] == 1
+    assert sorted(made) == sorted((id(e), key) for e in engines)
+    assert [e.captures for e in engines] == [1, 1, 1]
+    for i, g in enumerate(got):
+        assert g is engines[i % 3]._graphs[key]
 
 
 def test_each_sweeping_thread_stages_through_its_own_ring():

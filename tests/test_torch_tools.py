@@ -1,7 +1,6 @@
 """The port's scripts beside the package: ``chip_smoke.py`` and
-``tools/*.py`` import nothing of JAX or of the JAX package, and
-``tools/kcenter_distances.py`` runs its routes on the CPU at a small
-size."""
+``tools/*.py`` import nothing of JAX or of the JAX package, and the tools
+run on the CPU at a small size."""
 import ast
 import json
 import subprocess
@@ -65,3 +64,18 @@ def test_fleet_spans_on_cpu():
         assert mode["wall"] > 0
     assert res["modes"]["serial"]["spans"]["fit"]["calls"] == \
         res["modes"]["concurrent"]["spans"]["fit"]["calls"]
+
+
+def test_concurrent_captures_on_cpu():
+    """The threads and the serial comparison run on the CPU, where the
+    engines capture nothing; with or without the lock every round equals
+    the serial retrains."""
+    for flags in ([], ["--no-lock"]):
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "tools" / "concurrent_captures.py"),
+             "--rounds", "2", "--widths", "16", "32", "--device", "cpu",
+             *flags], capture_output=True, text=True, timeout=300,
+            check=True)
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        assert res == {"lock": not flags, "widths": [16, 32],
+                       "bad_rounds": 0, "rounds": 2}
