@@ -85,21 +85,36 @@
    last logits.  Prints init seconds, prefill tokens/s, decode tokens/s,
    score and score_pool rows/s and peak device memory; profiles one score
    pass, one forward pass and one decode step, and times the score pass's
-   cast of the bf16 LM head to fp32.
+   cast of the bf16 LM head to fp32.  Then the dense LM labeler, each at
+   its full config with bf16 weights from ``Model.init(seed 0)``, through
+   the same passes: qwen2-1.5b (28 layers, GQA 12:2 at hd 128, vocab
+   151,936; 32 tokens generated), followed by MCAL's pool pass over a
+   1,024 x 256-token int32 pool (seed 0) through ``PoolScoringEngine``
+   (microbatch 64): the top-100 by margin and the L(.) ranking, unpaged
+   and through ``PoolSweepRunner`` in pages of 256, paged equal to
+   unpaged in index order, the first microbatch's statistics against the
+   host oracle ``score_pool_reference``, and the head cast's share; and
+   gemma3-4b (34 layers, GQA 8:4 at hd 256, a 1,024-token window on five
+   layers of six, a tied 262,144-row head; 16 tokens generated), whose
+   attention must run with both windows.
    The kernels' launch counts are zeroed just before each main-path pass
    (each campaign, the launcher campaign, the replay and noisy campaigns,
    the fleets, the chaos and instrumented campaigns, each selection run,
-   each serving pass)
+   each serving pass and each pool pass: ``flash_attention`` 9 times a
+   zamba2 forward, 28 a qwen2-1.5b one and 34 a gemma3-4b one)
    and read just after it; a kernel of a path that was never launched
    there fails the run.
-9. Times each kernel at the largest shape the main paths gave it, its plain
-   version and (where one PyTorch call computes the same function) that
-   call, with CUDA events: the median of 30 single-call timings after a
-   warm-up, host launch gaps included.  The profiler's CUDA trace gives the
-   device time alone (``device_ms``, ``plain_device_ms``,
-   ``library_device_ms``), summed over every launch whose name carries the
-   kernel's prefix, and each launch's own (``ssd_scan``'s three passes,
-   ``margin_head``'s slice and merge passes, ``device_ms_by_launch``).
+9. Times each kernel at the largest shape each main path gave it, its
+   plain version and (where one PyTorch call computes the same function:
+   ``scaled_dot_product_attention`` with ``enable_gqa`` and, for a
+   window, a boolean mask) that call, with CUDA events: the median of 30
+   single-call timings after a warm-up, host launch gaps included.
+   ``device_ms`` (``plain_device_ms``, ``library_device_ms``) times calls
+   queued back to back between two CUDA events, with no host wait
+   between them; the profiler's CUDA trace gives each launch's own
+   device time (``ssd_scan``'s three passes, ``margin_head``'s slice and
+   merge passes, ``device_ms_by_launch``), None for a launch whose
+   records the trace lost.
    The bound is the larger of the bytes the function must move over 3.35
    TB/s and its flops over the peak for the work's type: 67 TFLOP/s for
    fp32 on the CUDA cores, 989 TFLOP/s for bf16 on the tensor cores
@@ -157,13 +172,29 @@ def median_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel: str, reps: int = 20, by_name=None):
-    """Device time per call from the profiler's CUDA trace: the kernel's
-    own time (names containing ``kernel``, which every launch of a
-    multi-launch kernel shares as a prefix) and all device time (what the
-    call's launches take on the card, host gaps excluded).  None where the
-    trace holds no device events.  ``by_name``, a dict, collects the time
-    per call of each of the kernel's launches by name."""
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Time per call of ``reps`` calls queued back to back between two
+    CUDA events, no host wait between them: the card's time for the call
+    wherever its launches outlast the host's issue of the next; a call of
+    a few microseconds reads the host's issue rate instead."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def launch_ms(torch, fn, kernel: str, reps: int = 20) -> dict:
+    """Device time per call of each launch whose name carries ``kernel``
+    (``ssd_scan``'s three passes, ``margin_head``'s slice and merge
+    passes), from the profiler's CUDA trace.  Late in a long process the
+    trace can lose records: a name whose count is not a whole multiple of
+    ``reps`` is None, and printed."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -171,19 +202,18 @@ def device_ms(torch, fn, kernel: str, reps: int = 20, by_name=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    own = total = 0.0
+    out = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = e.self_cuda_time_total
-        total += t
-        if kernel in e.key:
-            own += t
-            if by_name is not None:
-                by_name[e.key] = t / reps / 1e3
-    if total == 0.0:
-        return None, None
-    return own / reps / 1e3, total / reps / 1e3
+        if kernel not in e.key or t <= 0:
+            continue
+        out[e.key] = None if e.count % reps else t / reps / 1e3
+        if out[e.key] is None:
+            print(f"launch_ms {kernel}: the trace kept {e.count} records "
+                  f"of {e.key[:60]} over {reps} calls", flush=True)
+    return out
 
 
 def tensor_core_instructions(nvcc: str, lib: Path) -> int:
@@ -209,10 +239,15 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S):
 MARGIN_GRID = [(2048, 64, 10), (128, 64, 512), (200, 48, 1000),
                (65, 32, 257), (256, 128, 4096), (8, 2560, 32000),
                (64, 2560, 32000), (8, 2560, 31999), (8, 2560, 32001),
-               (1, 2560, 32000)]
+               (1, 2560, 32000), (8, 1536, 151936), (64, 1536, 151936),
+               (8, 2560, 262144)]
 # (T, D, V, first, copy): each row's maximal column copied into a later
-# slice, far off and across one slice edge
-MARGIN_DUP_GRID = [(8, 2560, 32000, 7, 20000), (8, 2560, 32000, 127, 128)]
+# slice, far off and across one slice edge; then into the last (ragged)
+# slice of qwen2-1.5b's head (1,187 slices merged) and the last of
+# gemma3-4b's (2,048)
+MARGIN_DUP_GRID = [(8, 2560, 32000, 7, 20000), (8, 2560, 32000, 127, 128),
+                   (8, 1536, 151936, 100, 151935),
+                   (8, 2560, 262144, 5, 262143)]
 
 
 def check_margin_head(torch, np, mh, ref, cases):
@@ -354,7 +389,10 @@ def check_pairwise(torch, np, pd, ref, cases, int_cases=(),
 # the JAX package's grid (tests/test_kernels.py:40-46), a window without
 # causal, zamba2-2.7b's serving shape, and the tile edges of the kernel: Tq
 # and Tk off its 128-row query and 64-key tiles, GQA group 4, windows that
-# cross a tile border, hd 8 padded to the mma's k = 16: (B, H, Hk, Tq, Tk,
+# cross a tile border, hd 8 padded to the mma's k = 16; then the dense
+# LMs' head dims: qwen2-1.5b's GQA 12:2 at hd 128 (serving, pool pass),
+# gemma3-4b's 8:4 at hd 256 on a local (window 1,024) and a global layer,
+# and the edges of the 64-row blocks and 32-key tiles: (B, H, Hk, Tq, Tk,
 # hd, causal, window)
 FLASH_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
               (2, 8, 2, 64, 64, 32, True, 24),
@@ -367,7 +405,16 @@ FLASH_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
               (1, 8, 2, 256, 256, 80, True, 0),
               (1, 4, 2, 300, 300, 32, True, 100),
               (1, 2, 1, 190, 190, 80, False, 70),
-              (2, 4, 2, 150, 150, 8, True, 0)]
+              (2, 4, 2, 150, 150, 8, True, 0),
+              (8, 12, 2, 2048, 2048, 128, True, 0),
+              (64, 12, 2, 256, 256, 128, True, 0),
+              (8, 8, 4, 2048, 2048, 256, True, 1024),
+              (8, 8, 4, 2048, 2048, 256, True, 0),
+              (1, 4, 1, 129, 200, 128, True, 0),
+              (2, 6, 2, 190, 333, 128, False, 0),
+              (1, 4, 2, 300, 300, 256, True, 100),
+              (1, 2, 1, 190, 190, 256, False, 70),
+              (1, 8, 4, 100, 100, 256, True, 0)]
 
 
 def flash_inputs(torch, np, case, dtype, seed=3):
@@ -1485,30 +1532,41 @@ def check_paged_sinks(torch, np, task, x):
             fail(f"paged sinks differ from the unpaged pass at n {n}")
 
 
-def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
-                seen: dict):
-    """zamba2-2.7b, full config, bf16, through ServeEngine; returns the
-    serving path's launch counts.  ``seen`` collects kernel shapes."""
+def per_forward(cfg) -> dict:
+    """Kernel launches of one forward pass of a served LM: zamba2's shared
+    attention block once every ``shared_attn_every`` Mamba2 layers (an
+    ``ssd_scan`` each), a dense model's attention once a layer."""
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.num_layers // cfg.shared_attn_every,
+                "ssd_scan": cfg.num_layers}
+    return {"flash_attention": cfg.num_layers, "ssd_scan": 0}
+
+
+def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
+                gen: int, seen: dict, pool_pass=None):
+    """``arch``'s full config, bf16, through ServeEngine; returns the
+    serving path's launch counts.  ``seen`` collects kernel shapes.
+    ``pool_pass``, where given, is called with (model, params) before the
+    model is freed and returns its own launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.core.scoring import resolve_head_weight
     from repro_torch.models.registry import get_model
     from repro_torch.serving.engine import ServeEngine
 
-    cfg = get_config("zamba2-2.7b")
+    cfg = get_config(arch)
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params = model.init(0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.values())
-    print(f"serve init seconds: {model.init_seconds:.3f} ({n_params:,} "
-          f"params, {cfg.num_layers} layers, d_model {cfg.d_model})",
-          flush=True)
+    print(f"serve {arch} init seconds: {model.init_seconds:.3f} "
+          f"({n_params:,} params, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model})", flush=True)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
     engine = ServeEngine(model, params, max_seq=prompt_len + gen + 8,
                          batch_size=batch, device="cuda")
-    per_pass = {"flash_attention": cfg.num_layers // cfg.shared_attn_every,
-                "ssd_scan": cfg.num_layers}
+    per_pass = per_forward(cfg)
     restore = [record_shapes(mods["margin_head"], "margin_head",
                              seen["margin_head"], margin_key),
                record_shapes(mods["flash_attention"], "flash_attention",
@@ -1530,10 +1588,12 @@ def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
         got = {k: m.launches for k, m in mods.items()}
         for k, v in got.items():
             total[k] += v
-        print(f"serve {label}: {secs:.3f} s, launches {got}", flush=True)
+        print(f"serve {arch} {label}: {secs:.3f} s, launches {got}",
+              flush=True)
         for k, n in want.items():
             if got[k] != n:
-                fail(f"serve {label}: {k} launched {got[k]} times, want {n}")
+                fail(f"serve {arch} {label}: {k} launched {got[k]} times, "
+                     f"want {n}")
         return out, secs
 
     hidden, _ = counted("forward", lambda: model.forward(
@@ -1543,19 +1603,20 @@ def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
     want_first = torch.argmax(last[:, -1, :], dim=-1).to(torch.int32)
     if hidden.shape != (batch, prompt_len, cfg.d_model) or \
             not bool(torch.isfinite(hidden).all()):
-        fail(f"serve forward: hidden {tuple(hidden.shape)} not finite")
+        fail(f"serve {arch} forward: hidden {tuple(hidden.shape)} not "
+             f"finite")
     del hidden
 
     stats, secs = counted("score", lambda: engine.score({"tokens": tokens}),
                           dict(per_pass, margin_head=1))
-    print(f"serve score rows/s: {batch / secs:.3f}", flush=True)
+    print(f"serve {arch} score rows/s: {batch / secs:.3f}", flush=True)
     if not all(bool(torch.isfinite(a).all()) for a in stats[:3]) or \
             not bool(((stats.top1 >= 0) & (stats.top1 < cfg.vocab_size))
                      .all()) or stats.margin.shape != (batch,):
-        fail(f"serve score: bad stats {stats}")
-    print(f"serve score margin {stats.margin.tolist()} top1 "
+        fail(f"serve {arch} score: bad stats {stats}")
+    print(f"serve {arch} score margin {stats.margin.tolist()} top1 "
           f"{stats.top1.tolist()}", flush=True)
-    # the pool pass: 4 batches of requests streamed by score_pool in pages
+    # the pool pass: batches of requests streamed by score_pool in pages
     # of one batch, each page the score step's own batch shape
     pages = 4
     pool = {"tokens": rng.integers(0, cfg.vocab_size,
@@ -1563,32 +1624,39 @@ def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
     pooled, secs = counted(
         "score_pool", lambda: engine.score_pool(pool, page_rows=batch),
         {k: v * pages for k, v in dict(per_pass, margin_head=1).items()})
-    print(f"serve score_pool rows/s: {pages * batch / secs:.3f} ({pages} "
-          f"pages of {batch} rows of {prompt_len} tokens; launches per page "
-          f"{dict(per_pass, margin_head=1)})", flush=True)
+    print(f"serve {arch} score_pool rows/s: {pages * batch / secs:.3f} "
+          f"({pages} pages of {batch} rows of {prompt_len} tokens; launches "
+          f"per page {dict(per_pass, margin_head=1)})", flush=True)
     for lo in range(0, pages * batch, batch):
         want = engine.score({"tokens": pool["tokens"][lo:lo + batch]})
         if not all(torch.equal(p[lo:lo + batch], w)
                    for p, w in zip(pooled, want)):
-            fail(f"serve score_pool rows {lo}-{lo + batch} differ from "
-                 f"score on that batch")
-    print(f"serve score_pool: each page's stats equal score on its batch",
-          flush=True)
+            fail(f"serve {arch} score_pool rows {lo}-{lo + batch} differ "
+                 f"from score on that batch")
+    print(f"serve {arch} score_pool: each page's stats equal score on its "
+          f"batch", flush=True)
     engine.close()
     # the head's operand cast (the reference's w.astype(float32)): the
-    # bf16 lm_head read and an fp32 copy written, every score pass
+    # bf16 lm_head read and an fp32 copy written, every score pass; a tied
+    # head (the embedding's transpose) is then made contiguous for the
+    # kernel, a second fp32 copy
     w_head = resolve_head_weight(cfg, params)
-    cast_dev = device_ms(torch, lambda: w_head.float(), "")[1]
-    print(f"serve score head cast {tuple(w_head.shape)} {w_head.dtype} -> "
-          f"fp32: {median_ms(torch, lambda: w_head.float()):.4f} ms events, "
-          f"device {cast_dev} ms, bound "
-          f"{6 * w_head.numel() / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)",
-          flush=True)
+
+    def cast():
+        return w_head.float().contiguous()
+    cast_ms = median_ms(torch, cast, reps=10, warmup=2)
+    cast_dev = device_ms(torch, cast, reps=5)
+    # bf16 read, fp32 written (and read and written again when tied)
+    nbytes = (6 if w_head.is_contiguous() else 14) * w_head.numel()
+    print(f"serve {arch} score head cast {tuple(w_head.shape)} "
+          f"{w_head.dtype} -> fp32 (contiguous {w_head.is_contiguous()}): "
+          f"{cast_ms:.4f} ms events, device {cast_dev:.4f} ms, bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)", flush=True)
 
     (_, cache, _), secs = counted(
         "prefill", lambda: engine.prefill({"tokens": tokens}),
         dict(per_pass, margin_head=0))
-    print(f"serve prefill tokens/s: {batch * prompt_len / secs:.1f}",
+    print(f"serve {arch} prefill tokens/s: {batch * prompt_len / secs:.1f}",
           flush=True)
     del cache
 
@@ -1605,32 +1673,155 @@ def run_serving(torch, np, mods, batch: int, prompt_len: int, gen: int,
     out, secs = counted("generate", lambda: engine.generate(
         {"tokens": tokens}, gen), dict(per_pass, margin_head=0))
     engine.decode = step
-    print(f"serve decode tokens/s: {batch * len(decode_s) / sum(decode_s):.1f}"
-          f" ({len(decode_s)} steps of {batch} rows)", flush=True)
-    print(f"serve max_memory_allocated bytes: "
+    print(f"serve {arch} decode tokens/s: "
+          f"{batch * len(decode_s) / sum(decode_s):.1f} ({len(decode_s)} "
+          f"steps of {batch} rows)", flush=True)
+    print(f"serve {arch} max_memory_allocated bytes: "
           f"{torch.cuda.max_memory_allocated()}", flush=True)
     if out.shape != (batch, gen) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
-        fail(f"serve generate: bad tokens {tuple(out.shape)}")
+        fail(f"serve {arch} generate: bad tokens {tuple(out.shape)}")
     if not torch.equal(out[:, 0], want_first):
-        fail(f"serve generate: first tokens {out[:, 0].tolist()} differ from "
-             f"the forward pass's argmax {want_first.tolist()}")
-    print(f"serve generated {tuple(out.shape)}, first tokens "
+        fail(f"serve {arch} generate: first tokens {out[:, 0].tolist()} "
+             f"differ from the forward pass's argmax {want_first.tolist()}")
+    print(f"serve {arch} generated {tuple(out.shape)}, first tokens "
           f"{out[:, 0].tolist()} equal the forward argmax", flush=True)
     for r in restore:
         r()
     # where the time goes: one score pass, one forward pass and one decode
     # step, profiled outside the counted passes
     batch_t = {"tokens": torch.as_tensor(tokens, device="cuda")}
-    profile_pass(torch, "score", lambda: engine.score({"tokens": tokens}))
-    profile_pass(torch, "forward", lambda: model.forward(params, batch_t))
+    profile_pass(torch, f"{arch} score",
+                 lambda: engine.score({"tokens": tokens}))
+    profile_pass(torch, f"{arch} forward",
+                 lambda: model.forward(params, batch_t))
     logits, cache, pos = engine.prefill({"tokens": tokens})
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
-    profile_pass(torch, "decode step",
+    profile_pass(torch, f"{arch} decode step",
                  lambda: engine.decode(cache, tok, pos))
-    del params, engine, cache
+    del logits, cache
+    pooled_launches = None
+    if pool_pass is not None:
+        pooled_launches = pool_pass(model, params)
+    del params, engine
     torch.cuda.empty_cache()
-    return total
+    return total, pooled_launches
+
+
+def pool_pass(torch, np, mods, seen: dict, rows: int = 1024, seq: int = 256,
+              microbatch: int = 64, page_rows: int = 256, k: int = 100):
+    """MCAL's LLM-labeler pass over a ``rows`` x ``seq`` int32 token pool
+    (seed 0) through ``PoolScoringEngine(microbatch)``: the M(.) top-k by
+    margin and the L(.) ranking, unpaged and through ``PoolSweepRunner``
+    in pages of ``page_rows``; paged must equal unpaged exactly, in index
+    order.  The engine's first microbatch is held against the JAX
+    package's host oracle's arithmetic (``score_pool_reference``: the same
+    forward, the head as a plain fp32 product).  Returns a function of
+    (model, params) that runs it and returns its launch counts."""
+    from repro_torch.core.scoring import (PoolScoringEngine, ScoringConfig,
+                                          pack_shape, resolve_head_weight,
+                                          score_pool_reference)
+    from repro_torch.serving.sweep import (EngineSweepAdapter,
+                                           PoolSweepRunner, RankTop1Sink,
+                                           SweepConfig, TopKSink)
+
+    def run(model, params):
+        cfg = model.cfg
+        pool = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (rows, seq)).astype(np.int32)
+        engine = PoolScoringEngine(model, ScoringConfig(
+            microbatch=microbatch), device="cuda")
+        runner = PoolSweepRunner(EngineSweepAdapter(engine),
+                                 SweepConfig(page_rows=page_rows))
+        # microbatches swept: the pow2 bucketing of the pool, or of each
+        # page
+        n_mb = pack_shape(rows, microbatch)[0]
+        paged_mb = sum(pack_shape(min(page_rows, rows - lo), microbatch)[0]
+                       for lo in range(0, rows, page_rows))
+        per_mb = dict(per_forward(cfg), margin_head=1)
+        restore = [record_shapes(mods["margin_head"], "margin_head",
+                                 seen["margin_head"], margin_key),
+                   record_shapes(mods["flash_attention"], "flash_attention",
+                                 seen["flash_attention"], flash_key)]
+        engine.top_k(params, pool[:microbatch], k)   # cuBLAS settles
+        total = dict.fromkeys(mods, 0)
+        out, secs = {}, {}
+        passes = (
+            ("top_k", lambda: engine.top_k(params, pool, k, "margin")),
+            ("rank_confident", lambda: engine.rank_confident(params, pool,
+                                                             "margin")),
+            ("paged top_k", lambda: runner.run(params, pool,
+                                               TopKSink(k, "margin"))),
+            ("paged rank_confident", lambda: runner.run(
+                params, pool, RankTop1Sink("margin"))[0]))
+        for label, fn in passes:
+            mbs = paged_mb if label.startswith("paged") else n_mb
+            torch.cuda.synchronize()
+            for m in mods.values():
+                m.launches = 0
+            t0 = time.perf_counter()
+            out[label] = fn()
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+            got = {name: m.launches for name, m in mods.items()}
+            for name, v in got.items():
+                total[name] += v
+            print(f"pool pass {cfg.name} {label}: {secs[label]:.3f} s, "
+                  f"{rows / secs[label]:.1f} rows/s, launches {got}",
+                  flush=True)
+            for name, n in per_mb.items():
+                if got[name] != n * mbs:
+                    fail(f"pool pass {label}: {name} launched {got[name]} "
+                         f"times, want {n * mbs}")
+        for r in restore:
+            r()
+        runner.close()
+        for a, b in (("top_k", "paged top_k"),
+                     ("rank_confident", "paged rank_confident")):
+            if not np.array_equal(out[a], out[b]):
+                fail(f"pool pass: {b} differs from the unpaged {a}")
+        top, order = out["top_k"], out["rank_confident"]
+        if top.shape != (k,) or len(set(top.tolist())) != k or \
+                sorted(order.tolist()) != list(range(rows)):
+            fail(f"pool pass: top-{k} {top.shape} or the ranking is not a "
+                 f"set of distinct pool rows")
+        print(f"pool pass {cfg.name}: paged = unpaged (top-{k} by margin "
+              f"and the ranking of {rows} rows, pages of {page_rows}, "
+              f"microbatch {microbatch}); top-{k} head {top[:8].tolist()}",
+              flush=True)
+        # the engine against the oracle's arithmetic on one microbatch:
+        # the forward is the same launch for launch, the head a plain
+        # fp32 product; the kernel's tolerance (check_margin_head)
+        stats, _ = engine.score(params, pool[:microbatch])
+        ref_stats, _ = score_pool_reference(model, params, pool[:microbatch],
+                                            device="cuda")
+        for name, tol in (("margin", 5e-5), ("entropy", 5e-4),
+                          ("max_logprob", 5e-5)):
+            g = getattr(stats, name).cpu().numpy()
+            r = getattr(ref_stats, name)
+            if not np.isfinite(g).all() or \
+                    not (np.abs(g - r) <= tol + tol * np.abs(r)).all():
+                fail(f"pool pass {name}: max err {np.abs(g - r).max()} "
+                     f"beyond atol = rtol = {tol}")
+        # top1 may part only where the oracle's top two logits nearly tie
+        split = (stats.top1.cpu().numpy() != ref_stats.top1) & \
+            (ref_stats.margin > 1e-4)
+        if split.any():
+            fail(f"pool pass: top1 differs from the oracle's at rows "
+                 f"{np.nonzero(split)[0].tolist()}")
+        print(f"pool pass {cfg.name}: the first microbatch's stats agree "
+              f"with score_pool_reference", flush=True)
+        # the head's fp32 copy each microbatch makes (the reference's
+        # arithmetic), against the top-k pass's wall
+        w = resolve_head_weight(cfg, params)
+        cast_ms = median_ms(torch, lambda: w.float(), reps=10, warmup=2)
+        share = cast_ms * n_mb / 1e3 / secs["top_k"]
+        print(f"pool pass {cfg.name}: head cast {cast_ms:.4f} ms x {n_mb} "
+              f"microbatches = {100 * share:.2f}% of the top_k pass",
+              flush=True)
+        del engine, runner
+        return total
+    return run
 
 
 def profile_pass(torch, label: str, fn, top: int = 10):
@@ -1663,25 +1854,59 @@ def profile_pass(torch, label: str, fn, top: int = 10):
 def timing_row(torch, name, shape, kern, plain, library, nbytes, flops,
                peak, own):
     b_ms, b_by = bound(nbytes, flops, peak)
-    passes = {}
     row = {"name": name, "shape": list(shape),
            "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
            "library_ms": None if library is None
            else median_ms(torch, library),
            "bound_ms": b_ms, "bound_by": b_by,
-           "device_ms": device_ms(torch, kern, own, by_name=passes)[0],
-           "plain_device_ms": device_ms(torch, plain, own)[1],
+           "device_ms": device_ms(torch, kern),
+           "plain_device_ms": device_ms(torch, plain, reps=5),
            "library_device_ms": None if library is None
-           else device_ms(torch, library, own)[1]}
+           else device_ms(torch, library),
+           "device_ms_by_launch": launch_ms(torch, kern, own)}
     print(f"time {name} {row['shape']}: kernel {row['ms']:.4f} ms "
-          f"(device {row['device_ms']}), plain {row['plain_ms']:.4f} ms "
-          f"(device {row['plain_device_ms']}), library {row['library_ms']} "
-          f"ms (device {row['library_device_ms']}), bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
-    row["device_ms_by_launch"] = passes
-    for key, ms in passes.items():
-        print(f"time {name} {row['shape']} device ms by launch: {ms:.6f} "
+          f"(device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms "
+          f"(device {row['plain_device_ms']:.4f}), library "
+          f"{row['library_ms']} ms (device {row['library_device_ms']}), "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    for key, ms in row["device_ms_by_launch"].items():
+        print(f"time {name} {row['shape']} device ms by launch: {ms} "
               f"{key[:100]}", flush=True)
+    return row
+
+
+def time_flash(torch, np, fa, ref, case):
+    """``flash_attention`` at one (B, H, Hk, Tq, Tk, hd, causal, window),
+    bf16, beside its plain version and ``scaled_dot_product_attention``
+    (``enable_gqa`` for grouped kv heads, a boolean mask for a window)."""
+    B, H, Hk, Tq, Tk, hd, causal, window = case
+    q, k, v = flash_inputs(torch, np, case, torch.bfloat16)
+    # visible (query, key) pairs of this mask; 4 hd flops each (QK^T, PV)
+    qp = np.arange(Tq)[:, None]
+    kp = np.arange(Tk)[None, :]
+    vis = np.ones((Tq, Tk), bool)
+    if causal:
+        vis &= qp >= kp
+    if window > 0:
+        vis &= (qp - kp) < window
+    pairs = B * H * int(vis.sum())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = None if causal and not window else torch.as_tensor(vis,
+                                                              device="cuda")
+
+    def library():
+        if mask is None:
+            return sdpa(q, k, v, is_causal=True, enable_gqa=H != Hk)
+        return sdpa(q, k, v, attn_mask=mask, enable_gqa=H != Hk)
+    row = timing_row(
+        torch, "flash_attention", case,
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+        lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window), library,
+        2 * (2 * B * H * Tq * hd + 2 * B * Hk * Tk * hd), 4 * hd * pairs,
+        BF16_FLOPS_PER_S, "flash_attention_")
+    del q, k, v
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1720,29 +1945,8 @@ def time_kernels(torch, np, mods, ref, shapes):
             BF16_FLOPS_PER_S, "pairwise_sqdist_kernel"))
         del x, c
         torch.cuda.empty_cache()
-    case = shapes["flash_attention"]
-    B, H, Hk, Tq, Tk, hd, causal, window = case
-    q, k, v = flash_inputs(torch, np, case, torch.bfloat16)
-    # visible (query, key) pairs of this mask; 4 hd flops each (QK^T, PV)
-    qp = np.arange(Tq)[:, None]
-    kp = np.arange(Tk)[None, :]
-    vis = np.ones((Tq, Tk), bool)
-    if causal:
-        vis &= qp >= kp
-    if window > 0:
-        vis &= (qp - kp) < window
-    pairs = B * H * int(vis.sum())
-    rows.append(timing_row(
-        torch, "flash_attention", case,
-        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
-        lambda: ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window),
-        (lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True)) if causal and not window and H == Hk
-        else None,
-        2 * (2 * B * H * Tq * hd + 2 * B * Hk * Tk * hd), 4 * hd * pairs,
-        BF16_FLOPS_PER_S, "flash_attention_"))
-    del q, k, v
+    for case in shapes["flash_attention"]:
+        rows.append(time_flash(torch, np, fa, ref, case))
     case = shapes["ssd_scan"]
     B, T, H, hd, N, C = case
     ins = ssd_inputs(torch, np, case, torch.bfloat16)
@@ -1772,6 +1976,7 @@ def main() -> None:
     ap.add_argument("--gen", type=int, default=32)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -1828,7 +2033,8 @@ def main() -> None:
     # the shapes each main path gave each kernel
     seen_by = {p: {k: set() for k in mods}
                for p in ("campaigns", "replay", "noisy", "fleet", "arch",
-                         "serving")}
+                         "serving", "serving_qwen2", "pool_pass",
+                         "serving_gemma3")}
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -1860,8 +2066,21 @@ def main() -> None:
     check_paged_sinks(torch, np, camps["task"], x)
     launches = camps["launches"]
     del camps
-    served = run_serving(torch, np, mods, args.serve_batch, args.prompt_len,
-                         args.gen, seen_by["serving"])
+    served, _ = run_serving(torch, np, mods, "zamba2-2.7b", args.serve_batch,
+                            args.prompt_len, args.gen, seen_by["serving"])
+    # the dense LM labeler: qwen2-1.5b served, then its token-pool pass;
+    # gemma3-4b (hd 256, local:global windows, tied 262k head) served
+    served_qwen2, pooled = run_serving(
+        torch, np, mods, "qwen2-1.5b", args.serve_batch, args.prompt_len,
+        args.gen, seen_by["serving_qwen2"],
+        pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass"]))
+    served_gemma3, _ = run_serving(
+        torch, np, mods, "gemma3-4b", args.serve_batch, args.prompt_len,
+        args.gen // 2, seen_by["serving_gemma3"])
+    windows = {s[-1] for s in seen_by["serving_gemma3"]["flash_attention"]}
+    if windows != {0, 1024}:
+        fail(f"gemma3-4b's attention ran with windows {sorted(windows)}, "
+             f"want 0 (global layers) and 1024 (local layers)")
     by_path = {k: {"campaigns": launches.get(k, 0),
                    "launcher_campaign": launcher if k == "margin_head" else 0,
                    "replay_campaigns": replay if k == "pairwise_sqdist"
@@ -1875,7 +2094,10 @@ def main() -> None:
                    "arch_selection": arch_live.get(k, 0),
                    "arch_selection_replay": arch_replay
                    if k == "pairwise_sqdist" else 0,
-                   "serving": served[k]} for k in mods}
+                   "serving": served[k],
+                   "serving_qwen2": served_qwen2[k],
+                   "pool_pass_qwen2": pooled[k],
+                   "serving_gemma3": served_gemma3[k]} for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain
     # version again; max_abs_err is the worst of these
@@ -1893,9 +2115,11 @@ def main() -> None:
                                   sorted(seen["ssd_scan"]))}
     # timed at the largest main-path shape of each (margin_head at the
     # largest of each path: the campaigns', the selection's other widths
-    # and the LM head's, that last; pairwise_sqdist at the live
-    # k-center's, the fleet's, the selection's other widths and the replay
-    # k-center's, that last)
+    # and the LM heads': zamba2's, qwen2's, the pool pass's and gemma3's,
+    # that last; pairwise_sqdist at the live k-center's, the fleet's, the
+    # selection's other widths and the replay k-center's, that last;
+    # flash_attention at zamba2's, qwen2's, the pool pass's and gemma3's
+    # local and global layers', that last)
     def widest(shapes, size, width):
         return [max((s for s in shapes if width(s) == w),
                     key=lambda s: (size(s), s))
@@ -1907,8 +2131,9 @@ def main() -> None:
             s for s in widest(seen_by["arch"]["margin_head"],
                               lambda s: s[0] * s[2], lambda s: s[1])
             if s[1] not in camp_d] + [
-            max(seen_by["serving"]["margin_head"],
-                key=lambda s: (s[0] * s[2], s))],
+            max(seen_by[p]["margin_head"], key=lambda s: (s[0] * s[2], s))
+            for p in ("serving", "serving_qwen2", "pool_pass",
+                      "serving_gemma3")],
         "pairwise_sqdist": [max(seen_by[p]["pairwise_sqdist"],
                                 key=lambda s: (s[0] * s[1], s))
                             for p in ("campaigns", "fleet")] + [
@@ -1917,8 +2142,13 @@ def main() -> None:
             if s[2] not in (2, 64)] + [
             max(seen_by["replay"]["pairwise_sqdist"],
                 key=lambda s: (s[0] * s[1], s))],
-        "flash_attention": max(seen["flash_attention"],
-                               key=lambda s: (s[0] * s[1] * s[3] * s[4], s)),
+        "flash_attention": [
+            max(seen_by[p]["flash_attention"],
+                key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
+            for p in ("serving", "serving_qwen2", "pool_pass")] + [
+            max((s for s in seen_by["serving_gemma3"]["flash_attention"]
+                 if s[-1] == w), key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
+            for w in (1024, 0)],
         "ssd_scan": max(seen["ssd_scan"],
                         key=lambda s: (s[0] * s[1] * s[2], s))})
 
@@ -1949,10 +2179,12 @@ def main() -> None:
             "library_device_ms": r["library_device_ms"],
             "device_ms_by_launch": r["device_ms_by_launch"],
             "shape": r["shape"],
-            "other_shapes": [{k: o[k] for k in ("shape", "ms", "device_ms",
-                                                "plain_ms", "bound_ms",
-                                                "bound_by")}
-                             for o in mine[:-1]]})
+            "other_shapes": [{k: o[k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "plain_device_ms",
+                "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+                for o in mine[:-1]]})
+    print(f"chip_smoke wall seconds: {time.perf_counter() - t_start:.1f}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ DTYPES = {
 class ModelConfig:
     # identity -----------------------------------------------------------
     name: str = "model"
-    family: str = "mlp"          # mlp | hybrid
+    family: str = "mlp"          # mlp | hybrid | dense
     # backbone -----------------------------------------------------------
     num_layers: int = 2
     d_model: int = 128
@@ -40,6 +40,7 @@ class ModelConfig:
     max_seq_len: int = 4096
     # attention pattern ---------------------------------------------------
     sliding_window: int = 0      # 0 -> full causal
+    local_global_ratio: int = 0  # N: every (N+1)-th layer global (gemma3 5)
     # ssm (hybrid) ---------------------------------------------------------
     ssm_state: int = 0
     ssm_expand: int = 2

@@ -4,15 +4,18 @@ scoring pass.
 The pool is padded into ``(n_microbatches, microbatch, ...)`` with the
 reference's pow2 bucketing (:func:`pack_shape`) and swept microbatch by
 microbatch: model forward, then the head fused into :class:`ScoreStats`
-(margin / entropy / max-logprob / top1).  On a CUDA device the head goes
-through the hand-written ``margin_head`` kernel; on the CPU it follows the
-reference's rule (dense logits when V <= 4096, else vocab chunks).  The
-same sweep emits the pooled last-hidden features that k-center consumes,
-left on the device.  The ``(n_mb, mb)`` pack buckets swept so far are the
-engine's :meth:`~PoolScoringEngine.cache_keys` (the keys the reference's
-compile cache holds, persisted in campaign state files); :meth:`warm`
-runs one page of each, so the kernels are built and cuBLAS has chosen its
-algorithms before a campaign's loop.
+(margin / entropy / max-logprob / top1).  Feature classifiers (``mlp``)
+take ``(N, input_dim)`` float pools; token models (``dense``, ``hybrid``)
+take ``(N, T)`` int32 token pools and are scored at the last position
+through their (possibly tied) LM head, the serving convention.  On a CUDA
+device the head goes through the hand-written ``margin_head`` kernel; on
+the CPU it follows the reference's rule (dense logits when V <= 4096, else
+vocab chunks).  The same sweep emits the pooled last-hidden features that
+k-center consumes, left on the device.  The ``(n_mb, mb)`` pack buckets
+swept so far are the engine's :meth:`~PoolScoringEngine.cache_keys` (the
+keys the reference's compile cache holds, persisted in campaign state
+files); :meth:`warm` runs one page of each, so the kernels are built and
+cuBLAS has chosen its algorithms before a campaign's loop.
 
 :func:`score_pool_reference` keeps the host loop the reference validates
 its engine against.
@@ -116,14 +119,25 @@ class ScoringConfig:
     vocab_chunk: int = 8192
 
 
+# the pool each ported family scores: its batch key and element dtype
+_POOLS = {"mlp": ("features", torch.float32),
+          "dense": ("tokens", torch.int32),
+          "hybrid": ("tokens", torch.int32)}
+
+
 class PoolScoringEngine:
-    """Microbatched pool scorer for one model (feature classifiers:
-    ``(N, input_dim)`` float pools)."""
+    """Microbatched pool scorer for one model: feature classifiers
+    consume ``(N, input_dim)`` float pools, token families ``(N, T)`` int32
+    pools (last-position statistics)."""
 
     def __init__(self, model, cfg: ScoringConfig = ScoringConfig(),
                  device="cuda"):
-        if model.cfg.family != "mlp":
-            raise NotImplementedError("only feature classifiers are ported")
+        if model.cfg.family not in _POOLS:
+            raise NotImplementedError(
+                f"scoring the {model.cfg.family!r} family is not ported")
+        self._batch_key, self.pool_dtype = _POOLS[model.cfg.family]
+        # the same dtype on the host, where the sweep stages its pages
+        self.host_dtype = torch.empty(0, dtype=self.pool_dtype).numpy().dtype
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
@@ -146,17 +160,18 @@ class PoolScoringEngine:
         self.pack_keys.add(key)
 
     def _microbatch_stats(self, params, x) -> Tuple[ScoreStats, torch.Tensor]:
-        hidden = self.model.forward(params, {"features": x})
+        hidden = self.model.forward(params, {self._batch_key: x})
         h = hidden[:, -1, :].float()
-        w = params["cls_head"].float()
-        stats = head_stats(h, w, mode=self.cfg.head_mode,
+        w = resolve_head_weight(self.model.cfg, params)
+        stats = head_stats(h, w.float(), mode=self.cfg.head_mode,
                            vocab_chunk=self.cfg.vocab_chunk)
         return stats, h
 
     def _pack(self, pool_x) -> Tuple[torch.Tensor, int]:
         """Pad the pool to a power-of-two microbatch count and fold it into
         (n_mb, mb, ...)."""
-        x = torch.as_tensor(pool_x, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(pool_x, dtype=self.pool_dtype,
+                            device=self.device)
         n = x.shape[0]
         n_mb, mb = pack_shape(n, self.cfg.microbatch)
         pad = n_mb * mb - n
@@ -191,7 +206,12 @@ class PoolScoringEngine:
         """Score one zero page of each (n_mb, mb) bucket in ``keys`` (e.g.
         restored from a campaign state file) not swept yet, so the kernels
         are built and cuBLAS has chosen its algorithms before the loop;
-        returns how many buckets were warmed."""
+        returns how many buckets were warmed.  Feature classifiers only,
+        as in the reference: a token pool's sequence length is not part of
+        the pack key."""
+        if self._batch_key != "features":
+            raise NotImplementedError(
+                "warm() supports feature-classifier engines")
         count = 0
         for n_mb, mb in keys:
             key = (int(n_mb), int(mb))
@@ -249,16 +269,17 @@ class PoolScoringEngine:
 
 def score_pool_reference(model, params, pool_x, chunk: int = 2048,
                          device="cuda") -> Tuple[ScoreStats, np.ndarray]:
-    """The seed host loop: chunked forward, logits to the host per chunk,
-    statistics at the end.  Exact; the engine's oracle."""
-    w = params["cls_head"].float()
+    """The seed host loop: chunked forward, last-position logits to the
+    host per chunk, statistics at the end.  Exact; the engine's oracle."""
+    key = _POOLS[model.cfg.family][0]
+    w = resolve_head_weight(model.cfg, params).float()
     outs, feats = [], []
     pool = np.asarray(pool_x)
     with torch.no_grad():
         for lo in range(0, pool.shape[0], chunk):
             x = torch.as_tensor(pool[lo:lo + chunk], device=device)
-            hidden = model.forward(params, {"features": x})
-            outs.append((hidden.float() @ w)[:, -1].cpu().numpy())
+            hidden = model.forward(params, {key: x})
+            outs.append((hidden[:, -1].float() @ w).cpu().numpy())
             feats.append(hidden[:, -1].float().cpu().numpy())
     stats = L.score_stats_from_logits(torch.as_tensor(np.concatenate(outs)))
     return (L.map_stats(lambda a: a.numpy(), stats), np.concatenate(feats))

@@ -15,20 +15,33 @@
 // 4 * hd flops per visible (query, key) pair.  On zamba2-2.7b's serving path
 // (B 8, H 32, T 2048, hd 80, causal, bf16) that is 336 MB against 0.17
 // TFLOP: the operations bound it (0.17 ms at the bf16 tensor-core peak,
-// against 0.10 ms for the bytes).
+// against 0.10 ms for the bytes).  So do the dense LMs' prefills: qwen2-1.5b
+// (B 8, H 12 over 2 kv heads, T 2048, hd 128, causal) 0.10 TFLOP, 0.10 ms
+// at the peak, against 0.035 ms for 117 MB; gemma3-4b (H 8 over 4, hd 256)
+// 0.14 TFLOP on a global layer, three quarters of that on its local layers
+// (window 1,024).
+//
+// Head dims built: 8, 16, 32 (the JAX package's test grid), 80 (zamba2),
+// 128 (qwen2, qwen1.5, phi3) and 256 (gemma3).  Per head dim the bf16
+// kernel takes 128 query rows a block and 64-key tiles up to hd 80, 64
+// rows and 64 keys at hd 128, 64 rows and 32 keys at hd 256 (`Tile`); the
+// fp32 kernel one thread a row and 64-key tiles up to hd 80, hd / 32
+// threads a row and 4096 / hd keys a tile from hd 128 (`F32Tile`).
 //
 // Design of the bf16 kernel (`flash_attention_mma_kernel`), the serving
 // path's: the FlashAttention-2 shape on tensor cores.  A block owns 128
-// query rows of one (b, h): 4 warps of 32 rows, each as two 16-row tiles,
-// and walks the key tiles of BK = 64 keys inside the block, carrying
-// (m, l, o) in registers.  S = Q K^T and O += P V are
-// `mma.sync.m16n8k16` bf16 -> fp32, fed by `ldmatrix` from bf16 tiles in
-// shared memory (rows padded by 16 B, so the eight rows an `ldmatrix`
-// reads fall in distinct banks); each K and V fragment a warp loads feeds
-// both of its row tiles, which halves the shared-memory reads per flop
-// against one tile a warp.  Q is scaled and rounded to bf16 once in
-// shared memory and its fragments are read again at each tile, which
-// leaves the registers to the accumulators (two blocks an SM).  The S
+// query rows of one (b, h) (64 from hd 128): 4 warps of 32 rows, each as
+// two 16-row tiles (one from hd 128, where the O accumulator alone is 64
+// or 128 registers a thread), and walks the key tiles of BK = 64 keys (32
+// at hd 256) inside the block, carrying (m, l, o) in registers.
+// S = Q K^T and O += P V are `mma.sync.m16n8k16` bf16 -> fp32, fed by
+// `ldmatrix` from bf16 tiles in shared memory (rows padded by 16 B, so
+// the eight rows an `ldmatrix` reads fall in distinct banks); each K and V
+// fragment a warp loads feeds both of its row tiles (where it has two),
+// which halves the shared-memory reads per flop against one tile a warp.
+// Q is scaled and rounded to bf16 once in shared memory and its fragments
+// are read again at each tile, which leaves the registers to the
+// accumulators (two blocks an SM).  The S
 // accumulators become P's A fragments in registers (rounded to bf16,
 // which is exactly the reference's cast of p); l sums the fp32 p before
 // that rounding.  K and V tiles are staged with `cp.async` (16 B a
@@ -44,9 +57,12 @@
 // products of each tile, and mma.sync in place of Hopper's wgmma.
 //
 // fp32 inputs keep the exact kernel (`flash_attention_kernel`): one thread
-// per query row, fp32 FMAs on the CUDA cores, K/V tiles in shared memory
-// in fp32.  TF32 tensor cores would break the fp32 tolerance, and no
-// serving path sends fp32; the dtype selects the kernel.
+// per query row (hd / 32 neighbouring lanes from hd 128, each holding 32
+// dims of q and o and summing its partial scores with shuffles, so that a
+// row's registers never exceed 64 floats), fp32 FMAs on the CUDA cores,
+// K/V tiles in static shared memory in fp32 (at most 40 KB).  TF32
+// tensor cores would break the fp32 tolerance, and no serving path sends
+// fp32; the dtype selects the kernel.
 //
 // A row with no visible key at all (possible only with a window and no
 // causal mask) is not defined alike by the two reference functions: each
@@ -67,35 +83,57 @@ struct Strides {  // in elements; hd has stride 1
 };
 
 // ---------------------------------------------------------------------------
-// fp32: one thread per query row, fp32 FMAs
+// fp32: TPR threads per query row, fp32 FMAs
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;  // query rows per block, one per thread
-constexpr int BK = 64;  // keys per staged tile: 40 KB of fp32 K and V at hd 80
+constexpr int BQ = 64;  // query rows per block
 constexpr int KS = 8;   // keys folded into the softmax at a time
 
+// Per head dim: up to hd 80 one thread holds a whole row (q and the output
+// accumulator in registers) and a staged tile is 64 keys; from hd 128 a row
+// is split across TPR = hd / 32 neighbouring lanes, 32 dims each, whose
+// partial scores are summed with shuffles, and the tile shrinks to keep K
+// and V at 32 KB of static shared memory (40 KB at hd 80).
 template <int HD>
-__global__ void __launch_bounds__(BQ)
+struct F32Tile {
+  static constexpr int TPR = HD >= 128 ? HD / 32 : 1;   // threads a row
+  static constexpr int DPT = HD / TPR;                  // dims a thread
+  static constexpr int BK = HD >= 128 ? 4096 / HD : 64; // keys a tile
+  static constexpr int THREADS = BQ * TPR;
+  static_assert(DPT % 4 == 0 && 32 % TPR == 0, "float4 pieces in a warp");
+  static_assert(BK % KS == 0, "a tile is whole softmax steps");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(F32Tile<HD>::THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        Strides sq, Strides sk, Strides sv, Strides so, int H,
                        int Hk, int Tq, int Tk, float scale, int causal,
                        int window) {
+  using FT = F32Tile<HD>;
+  constexpr int TPR = FT::TPR, DPT = FT::DPT, BK = FT::BK;
+  constexpr int NT = FT::THREADS, G4 = DPT / 4;
   __shared__ __align__(16) float ks[BK * HD];
   __shared__ __align__(16) float vs[BK * HD];
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hk = h / (H / Hk);
   const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + threadIdx.x;
+  // this thread's dims: the float4 pieces sub, sub + TPR, ... of its row,
+  // so that the row's lanes read neighbouring 16 bytes of a K or V row
+  const int sub = threadIdx.x % TPR;
+  const int qi = q0 + threadIdx.x / TPR;
   const bool q_ok = qi < Tq;
 
-  float qr[HD], acc[HD];
+  float qr[DPT], acc[DPT];
   const float* qrow = q + b * sq.b + h * sq.h + (long long)qi * sq.t;
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = q_ok ? qrow[d] * scale : 0.0f;
-    acc[d] = 0.0f;
-  }
+  for (int i = 0; i < G4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      qr[4 * i + c] = q_ok ? qrow[4 * (sub + TPR * i) + c] * scale : 0.0f;
+      acc[4 * i + c] = 0.0f;
+    }
   float m = NEG_INF, l = 0.0f;
 
   // the keys some row of this block can see
@@ -108,7 +146,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t0 = k_lo; t0 < k_hi; t0 += BK) {
     const int nk = min(BK, k_hi - t0);
     __syncthreads();  // the previous tile consumed
-    for (int i = threadIdx.x; i < BK * HD; i += BQ) {
+    for (int i = threadIdx.x; i < BK * HD; i += NT) {
       const int j = i / HD, d = i % HD;
       const bool ok = j < nk;
       ks[i] = ok ? kb[(long long)(t0 + j) * sk.t + d] : 0.0f;
@@ -124,13 +162,18 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float* kr = ks + j * HD;
         float x = 0.0f;
 #pragma unroll
-        for (int d = 0; d < HD; d += 4) {
-          const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
-          x = fmaf(qr[d], k4.x, x);
-          x = fmaf(qr[d + 1], k4.y, x);
-          x = fmaf(qr[d + 2], k4.z, x);
-          x = fmaf(qr[d + 3], k4.w, x);
+        for (int i = 0; i < G4; ++i) {
+          const float4 k4 =
+              *reinterpret_cast<const float4*>(kr + 4 * (sub + TPR * i));
+          x = fmaf(qr[4 * i], k4.x, x);
+          x = fmaf(qr[4 * i + 1], k4.y, x);
+          x = fmaf(qr[4 * i + 2], k4.z, x);
+          x = fmaf(qr[4 * i + 3], k4.w, x);
         }
+        // the row's partial scores, summed alike in each of its lanes
+#pragma unroll
+        for (int off = TPR / 2; off > 0; off >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, off);
         bool vis = j < nk && q_ok;
         if (causal) vis = vis && qi >= kp;
         if (window > 0) vis = vis && (qi - kp) < window;
@@ -146,18 +189,19 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l = l * corr + psum;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= corr;
+      for (int d = 0; d < DPT; ++d) acc[d] *= corr;
 #pragma unroll
       for (int jj = 0; jj < KS; ++jj) {
         const float p = s[jj];
         const float* vr = vs + (j0 + jj) * HD;
 #pragma unroll
-        for (int d = 0; d < HD; d += 4) {
-          const float4 v4 = *reinterpret_cast<const float4*>(vr + d);
-          acc[d] = fmaf(p, v4.x, acc[d]);
-          acc[d + 1] = fmaf(p, v4.y, acc[d + 1]);
-          acc[d + 2] = fmaf(p, v4.z, acc[d + 2]);
-          acc[d + 3] = fmaf(p, v4.w, acc[d + 3]);
+        for (int i = 0; i < G4; ++i) {
+          const float4 v4 =
+              *reinterpret_cast<const float4*>(vr + 4 * (sub + TPR * i));
+          acc[4 * i] = fmaf(p, v4.x, acc[4 * i]);
+          acc[4 * i + 1] = fmaf(p, v4.y, acc[4 * i + 1]);
+          acc[4 * i + 2] = fmaf(p, v4.z, acc[4 * i + 2]);
+          acc[4 * i + 3] = fmaf(p, v4.w, acc[4 * i + 3]);
         }
       }
       m = mx;
@@ -168,7 +212,10 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.0f / fmaxf(l, 1e-30f);
     float* orow = o + b * so.b + h * so.h + (long long)qi * so.t;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) orow[d] = acc[d] * inv;
+    for (int i = 0; i < G4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        orow[4 * (sub + TPR * i) + c] = acc[4 * i + c] * inv;
   }
 }
 
@@ -176,25 +223,34 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16: tensor cores (mma.sync m16n8k16), cp.async K/V ring
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BK = 64;  // keys per tile
 constexpr int STAGES = 2;   // K/V tiles in flight
 constexpr int WARPS = 4;    // warps a block
-constexpr int MT = 2;       // 16-row query tiles a warp
-constexpr int MBQ = 16 * WARPS * MT;  // query rows a block
 
-// the head dim padded to the mma's k = 16, and the shared-memory row (16 B
-// more, against bank conflicts in ldmatrix)
+// Per head dim: the head dim padded to the mma's k = 16, the shared-memory
+// row (16 B more, against bank conflicts in ldmatrix), and the tiles.  A
+// warp's O accumulator is MT x hd/8 x 4 fp32 registers a thread and its S
+// tile MT x BKV/8 x 4, under the 255-register cap of two blocks an SM:
+// up to hd 80 a warp holds MT = 2 query tiles (128 rows a block) over
+// 64-key tiles; at hd 128 one tile (64 rows a block; O 64 and S 32
+// registers); at hd 256 one tile over 32-key tiles (O 128 and S 16
+// registers), so that Q and two K/V stages stay at 99 KB of shared memory
+// and two blocks still fit on an SM (85 KB at hd 128).
 template <int HD>
 struct Tile {
   static constexpr int HDP = (HD + 15) / 16 * 16;
   static constexpr int ROW = HDP + 8;    // bf16 elements per smem row
   static constexpr int CHUNKS = HD / 8;  // 16-byte pieces of a global row
+  static constexpr int MT = HD <= 80 ? 2 : 1;        // 16-row tiles a warp
+  static constexpr int BKV = HD <= 128 ? 64 : 32;    // keys per tile
+  static constexpr int MBQ = 16 * WARPS * MT;        // query rows a block
+  static_assert(BKV % 16 == 0, "a key tile is whole mma k-steps");
 };
 
 template <int HD>
 size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)Tile<HD>::ROW *
-         (MBQ + 2 * STAGES * MMA_BK);
+  using TL = Tile<HD>;
+  return sizeof(__nv_bfloat16) * (size_t)TL::ROW *
+         (TL::MBQ + 2 * STAGES * TL::BKV);
 }
 
 // two blocks an SM: up to 255 registers a thread
@@ -209,6 +265,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            int window) {
   using TL = Tile<HD>;
   constexpr int ROW = TL::ROW, HDP = TL::HDP, CH = TL::CHUNKS;
+  constexpr int MT = TL::MT, MMA_BK = TL::BKV, MBQ = TL::MBQ;
   constexpr int NTHR = 32 * WARPS;
   constexpr int KSTEPS = HDP / 16;  // k-steps of Q K^T
   constexpr int NTO = HD / 8;       // n8 tiles of the output
@@ -440,7 +497,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                int Hk, int Tq, int Tk, float scale, int causal, int window,
                cudaStream_t stream) {
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flash_attention_kernel<HD><<<grid, BQ, 0, stream>>>(
+  flash_attention_kernel<HD><<<grid, F32Tile<HD>::THREADS, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk,
       sv, so, H, Hk, Tq, Tk, scale, causal, window);
   return (int)cudaGetLastError();
@@ -465,7 +522,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return (int)err;
     sized[dev] = true;
   }
-  const dim3 grid(B * H, (Tq + MBQ - 1) / MBQ);
+  const dim3 grid(B * H, (Tq + Tile<HD>::MBQ - 1) / Tile<HD>::MBQ);
   flash_attention_mma_kernel<HD><<<grid, 32 * WARPS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, sk, sv, so, H, Hk, Tq,
@@ -493,6 +550,8 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
     FA_CASE(16)
     FA_CASE(32)
     FA_CASE(80)
+    FA_CASE(128)
+    FA_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -518,6 +577,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     FA_CASE(16)
     FA_CASE(32)
     FA_CASE(80)
+    FA_CASE(128)
+    FA_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

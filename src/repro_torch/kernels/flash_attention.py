@@ -5,6 +5,11 @@ kernel ``csrc/flash_attention.cu`` (the port of
 ``flash_attention(q, k, v)`` launches the kernel on CUDA tensors and raises
 on anything it does not take: bf16 inputs go to the tensor-core kernel,
 fp32 inputs to the exact fp32-FMA kernel (the dtype selects);
+head dims 8, 16, 32, 80, 128 and 256 (:data:`HEAD_DIMS`).  Tiles per head
+dim: the bf16 kernel takes 128 query rows a block over 64-key tiles up to
+hd 80, 64 rows over 64 keys at hd 128 and 64 rows over 32 keys at hd 256;
+the fp32 kernel one thread a query row over 64-key tiles up to hd 80, and
+hd / 32 threads a row over 4096 / hd keys a tile from hd 128;
 :func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version.
 ``launches`` counts kernel launches.
 """
@@ -22,8 +27,9 @@ launches = 0
 _SYMBOLS = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
 # the head dims the kernel is compiled for (csrc/flash_attention.cu): the
-# JAX package's test grid and zamba2's 80
-HEAD_DIMS = (8, 16, 32, 80)
+# JAX package's test grid (8, 16, 32), zamba2's 80, qwen2's, qwen1.5's and
+# phi3's 128, and gemma3's 256
+HEAD_DIMS = (8, 16, 32, 80, 128, 256)
 _fns = {}
 
 

@@ -10,7 +10,9 @@ runtime):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --smoke --device cpu --score-pool 32 --sweep-page 8 --sweep-async
 
-``--smoke`` takes the reduced config.
+``--arch`` takes the ported ids (``repro_torch.configs.ARCH_IDS``:
+zamba2-2.7b and the dense qwen2-1.5b, gemma3-4b, qwen1.5-4b and
+phi3-medium-14b); ``--smoke`` takes the reduced config.
 """
 from __future__ import annotations
 

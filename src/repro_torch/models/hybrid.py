@@ -22,7 +22,6 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models import param as P
@@ -60,24 +59,6 @@ def specs(cfg: ModelConfig) -> Dict:
     return sp
 
 
-def _shared_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                  positions: torch.Tensor, with_cache: bool = False):
-    q, kk, vv = tf._qkv(cfg, p["attn"], x, positions)
-    ck = min(x.shape[1],
-             L.pick_kv_chunk(x.shape[0], x.shape[1], cfg.num_heads))
-    out = ops.attention(q, kk, vv, causal=True, kv_chunk=ck)
-    x = x + torch.einsum("btnh,nhd->btd", out, p["attn"]["wo"])
-    x = x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x))
-    cache = {"k": kk.to(cfg.torch_dtype), "v": vv.to(cfg.torch_dtype)} \
-        if with_cache else None
-    return x, cache
-
-
-def _layer(blocks: Dict, i: int) -> Dict:
-    """Layer ``i`` of the stacked mamba block params (views, no copies)."""
-    return P.tree_map(lambda a: a[i], blocks)
-
-
 # the mamba2 block that also returns its final SSM and conv states (the
 # SSD kernel returns the final state); ``mamba2.mamba_block`` is this
 # function's output alone, so forward and prefill compute alike
@@ -92,11 +73,14 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     na, per = _n_apps(cfg), cfg.shared_attn_every
     attn_caches, ssm_states = [], []
     for a in range(na):
-        x, attn_cache = _shared_block(cfg, tree["shared"], x, positions,
-                                      with_cache)
+        # the shared block is the dense family's block (causal, no
+        # window), one set of weights at every application
+        x, attn_cache = tf._block(cfg, tree["shared"], x,
+                                  positions=positions, is_global=True,
+                                  with_cache=with_cache)
         attn_caches.append(attn_cache)
         for j in range(per):
-            p = _layer(tree["mamba_blocks"], a * per + j)
+            p = tf._layer(tree["mamba_blocks"], a * per + j)
             if with_cache:
                 x, st = _run_mamba_with_state(cfg, p, x)
                 ssm_states.append(st)
@@ -174,7 +158,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         x = x + L.apply_mlp(cfg, shared["mlp"],
                             L.apply_norm(cfg, shared["mlp_norm"], x))
         for j in range(per):
-            p = _layer(tree["mamba_blocks"], a * per + j)
+            p = tf._layer(tree["mamba_blocks"], a * per + j)
             state = {k: cache["ssm"][k][a, j] for k in ("ssm", "conv")}
             x, new = mamba2.mamba_block_decode(cfg, p, x, state)
             for k in ("ssm", "conv"):

@@ -1,6 +1,7 @@
 """Family -> implementation registry + uniform model facade
-(``repro.models.registry``).  The ``mlp`` and ``hybrid`` families are
-ported."""
+(``repro.models.registry``).  The ``mlp``, ``hybrid`` and ``dense``
+families are ported; ``moe``, ``vlm``, ``ssm`` and ``audio`` are
+refused."""
 from __future__ import annotations
 
 import threading
@@ -15,7 +16,7 @@ from repro_torch.models import hybrid, mlp
 from repro_torch.models import param as P
 from repro_torch.models import transformer as tf
 
-_FAMILIES = {"mlp": mlp, "hybrid": hybrid}
+_FAMILIES = {"mlp": mlp, "hybrid": hybrid, "dense": tf}
 
 
 class Model:
@@ -24,8 +25,9 @@ class Model:
     ``mlp``: the family is the ``nn.Module`` ``MLP``, built here on the meta
     device (structure and parameter names only) as ``net`` and run over the
     given dict by :meth:`forward`; the batch is ``{"features"}``.
-    ``hybrid``: plain functions over the dict (``models.hybrid``); the batch
-    is ``{"tokens"}``, and :meth:`prefill`, :meth:`decode_step`,
+    ``hybrid`` and ``dense``: plain functions over the dict
+    (``models.hybrid``, ``models.transformer``); the batch is
+    ``{"tokens"}``, and :meth:`prefill`, :meth:`decode_step`,
     :meth:`init_cache` and :meth:`logits` serve ``serving.engine``."""
 
     def __init__(self, cfg: ModelConfig):

@@ -131,11 +131,18 @@ class ServeEngine:
 
 
 def _load_cache(cfg: ModelConfig, full: Dict, prefix: Dict) -> Dict:
-    """Copy a prefill cache into the zero-initialized max_seq cache."""
-    if cfg.family != "hybrid":
+    """Copy a prefill cache into the zero-initialized max_seq cache: the
+    K/V leaves are copied in at position 0 (the hybrid's SSM states are
+    taken as they are); the reference's ``dynamic_update_slice``."""
+    if cfg.family == "hybrid":
+        kv, out = full["attn"], {"attn": full["attn"], "ssm": prefix["ssm"]}
+        prefix = prefix["attn"]
+    elif cfg.family == "dense":
+        kv = out = full
+    else:
         raise NotImplementedError(
             f"serving the {cfg.family!r} family is not ported yet")
     for k in ("k", "v"):
-        src = prefix["attn"][k]
-        full["attn"][k][tuple(slice(0, n) for n in src.shape)] = src
-    return {"attn": full["attn"], "ssm": prefix["ssm"]}
+        src = prefix[k]
+        kv[k][tuple(slice(0, n) for n in src.shape)] = src
+    return out

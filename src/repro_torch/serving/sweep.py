@@ -424,8 +424,10 @@ class EngineSweepAdapter:
     def put(self, pool, lo: int, hi: int):
         n = hi - lo
         n_mb, mb = pack_shape(n, self.engine.cfg.microbatch)
+        # float32 features or int32 token ids, as the engine takes them
+        # (the pinned ring keys its buffers on the dtype)
         page, copied = self._stages.get().upload(
-            np.asarray(pool[lo:hi], np.float32), n_mb * mb)
+            np.asarray(pool[lo:hi], self.engine.host_dtype), n_mb * mb)
         return (page.view((n_mb, mb) + tuple(page.shape[1:])), copied), n
 
     def score(self, params, page):

@@ -3,10 +3,13 @@
 print the reference examples' output exactly (the emulator's draws are
 numpy in both packages); ``torch_label_dataset.py`` prints the reference
 report's lines and meets its error target (the two packages' classifiers
-differ in their last bits, so its numbers are not the reference's).  No
-twin loads a ``jax*`` or ``repro*`` module."""
+differ in their last bits, so its numbers are not the reference's);
+``torch_serve_batched.py`` prints the reference's lines with the port's
+own numbers (its weights are the port's draws).  No twin loads a ``jax*``
+or ``repro*`` module."""
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -59,3 +62,18 @@ def test_label_dataset_twin_reports_like_the_reference():
     assert err <= 0.05 + 0.01              # the example's own assertion
     ledger = report["ledger"].strip()
     assert ledger.startswith("{'human': ") and "'total': " in ledger
+
+
+def test_serve_batched_twin_prints_the_reference_lines():
+    """The reference's four lines (``examples/serve_batched.py``), numbers
+    aside: 8 x 16 generated tokens and 256 scored positions."""
+    got, foreign = _run("torch_serve_batched.py", "--device", "cpu")
+    assert foreign == []
+    assert [re.sub(r"\d+(\.\d+)?", "#", line) for line in got] == [
+        "generated #x# tokens in #s (# tok/s on CPU)",
+        "scored # positions: margin p#=# p#=#, mean entropy=# nats",
+        "lowest-margin (most uncertain) positions would be routed to "
+        "humans;",
+        "highest-margin positions are machine-labeled — MCAL's L(.)/M(.)."]
+    assert got[0].startswith("generated 8x16 tokens in ")
+    assert got[1].startswith("scored 256 positions: ")

@@ -202,7 +202,7 @@ def test_cache_and_config_registry():
             assert str(t.dtype).removeprefix("torch.") == \
                 np.dtype(jab[part][k].dtype).name
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("qwen2-1.5b")
+        get_config("mamba2-1.3b")
     stats = launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                                "--score-pool", "8"])
     assert tuple(stats.margin.shape) == (8,)

@@ -52,6 +52,9 @@ def test_every_ported_module_was_imported(probe):
             "repro_torch.models.mamba2", "repro_torch.models.transformer",
             "repro_torch.models.hybrid", "repro_torch.models.registry",
             "repro_torch.configs.zamba2_2p7b",
+            "repro_torch.configs.qwen2_1p5b", "repro_torch.configs.gemma3_4b",
+            "repro_torch.configs.qwen1p5_4b",
+            "repro_torch.configs.phi3_medium_14b",
             "repro_torch.serving.engine", "repro_torch.launch.serve",
             "repro_torch.core.emulator", "repro_torch.core.baselines",
             "repro_torch.data.pool", "repro_torch.annotation.oracle",
@@ -72,7 +75,8 @@ def test_tf32_is_off_after_import(probe):
 
 @pytest.mark.parametrize("name", ["torch_quickstart.py",
                                   "torch_arch_select.py",
-                                  "torch_label_dataset.py"])
+                                  "torch_label_dataset.py",
+                                  "torch_serve_batched.py"])
 def test_example_twin_imports_only_the_port(name):
     """The example twins import the port and never JAX or the JAX package
     (``tests/test_torch_examples.py`` runs them and checks the modules

@@ -20,7 +20,10 @@ from repro_torch.kernels import ssd_scan as ssd
 # 128-column slices and the 4-column vector loads) and one request
 MH_GRID = [(2048, 64, 10), (128, 64, 512), (200, 48, 1000), (65, 32, 257),
            (256, 128, 4096), (8, 2560, 32000), (64, 2560, 32000),
-           (8, 2560, 31999), (8, 2560, 32001), (1, 2560, 32000)]
+           (8, 2560, 31999), (8, 2560, 32001), (1, 2560, 32000),
+           # the dense LMs' heads: qwen2-1.5b (1,187 slices) at 8 requests
+           # and at the pool pass's microbatch of 64, gemma3-4b (2,048)
+           (8, 1536, 151936), (64, 1536, 151936), (8, 2560, 262144)]
 # then N and M off the kernel's 128 x 128 tiles, D off its 16-deep k steps,
 # and D over its 64-wide chunks (130: also off its 16-byte pieces)
 PD_GRID = [(65536, 512, 64), (5, 3, 4), (64, 16, 8), (130, 9, 33),
@@ -145,7 +148,20 @@ FA_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
            (1, 4, 1, 129, 129, 80, True, 0), (2, 8, 2, 200, 333, 16, True, 0),
            (2, 8, 2, 200, 333, 16, False, 0), (1, 8, 2, 256, 256, 80, True, 0),
            (1, 4, 2, 300, 300, 32, True, 100),
-           (1, 2, 1, 190, 190, 80, False, 70), (2, 4, 2, 150, 150, 8, True, 0)]
+           (1, 2, 1, 190, 190, 80, False, 70), (2, 4, 2, 150, 150, 8, True, 0),
+           # the dense LMs' head dims: qwen2-1.5b's GQA 12:2 at hd 128
+           # (prefill, pool pass), gemma3-4b's 8:4 at hd 256 on a local
+           # (window 1,024) and a global layer, and the tile edges of the
+           # 64-row blocks and the 32-key tiles at hd 256
+           (1, 12, 2, 2048, 2048, 128, True, 0),
+           (2, 12, 2, 256, 256, 128, True, 0),
+           (1, 8, 4, 2048, 2048, 256, True, 1024),
+           (1, 8, 4, 2048, 2048, 256, True, 0),
+           (1, 4, 1, 129, 200, 128, True, 0),
+           (2, 6, 2, 190, 333, 128, False, 0),
+           (1, 4, 2, 300, 300, 256, True, 100),
+           (1, 2, 1, 190, 190, 256, False, 70),
+           (1, 8, 4, 100, 100, 256, True, 0)]
 # likewise, then T off the chunk, one chunk (C = T = 100), H off the
 # kernel's group of 8 heads
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
