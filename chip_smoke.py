@@ -96,16 +96,28 @@
    host oracle ``score_pool_reference``, and the head cast's share; and
    gemma3-4b (34 layers, GQA 8:4 at hd 256, a 1,024-token window on five
    layers of six, a tied 262,144-row head; 16 tokens generated), whose
-   attention must run with both windows.
+   attention must run with both windows.  Then the rest of the zoo
+   through the same passes: mamba2-1.3b (48 Mamba2 layers, ``ssd_scan``
+   at state N 128, vocab 50,280; full config) and its pool pass as
+   qwen2's; dbrx-132b at full width (d_model 6,144, GQA 48:8 at hd 128,
+   16 experts top-4 at d_ff 10,752, capacity factor 1.25, vocab 100,352)
+   cut to ``DBRX_LAYERS`` = 4 of its 40 layers (6.5 GB of bf16 weights a
+   layer); internvl2-26b (48 layers, GQA 48:8 at hd 128, vocab 92,672;
+   full config) with 1,024 random fp32 patch embeddings a request (seed
+   0) before its prompt, so its attention runs over 3,072 positions and
+   its cache holds ``1,024 + prompt + gen + 8``.
    The kernels' launch counts are zeroed just before each main-path pass
    (each campaign, the launcher campaign, the replay and noisy campaigns,
    the fleets, the chaos and instrumented campaigns, each selection run,
    each serving pass and each pool pass: ``flash_attention`` 9 times a
-   zamba2 forward, 28 a qwen2-1.5b one and 34 a gemma3-4b one)
-   and read just after it; a kernel of a path that was never launched
-   there fails the run.
-9. Times each kernel at the largest shape each main path gave it, its
-   plain version and (where one PyTorch call computes the same function:
+   zamba2 forward, once a layer in the others (28 qwen2-1.5b, 34
+   gemma3-4b, 4 dbrx-132b, 48 internvl2-26b), ``ssd_scan`` 54 times a
+   zamba2 forward and 48 a mamba2-1.3b one) and read just after it; a
+   kernel of a path that was never launched there fails the run.
+9. Times each kernel at the largest shape each main path gave it
+   (``ssd_scan`` at zamba2's N 64 and at mamba2's and its pool pass's N
+   128), its plain version and (where one PyTorch call computes the same
+   function:
    ``scaled_dot_product_attention`` with ``enable_gqa`` and, for a
    window, a boolean mask) that call, with CUDA events: the median of 30
    single-call timings after a warm-up, host launch gaps included.
@@ -129,6 +141,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -139,6 +152,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
+# dbrx-132b's depth on one 80 GB card: 4 of its 40 layers (6.5 GB of bf16
+# weights a layer), every width the config's
+DBRX_LAYERS = 4
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 
@@ -1535,25 +1551,35 @@ def check_paged_sinks(torch, np, task, x):
 def per_forward(cfg) -> dict:
     """Kernel launches of one forward pass of a served LM: zamba2's shared
     attention block once every ``shared_attn_every`` Mamba2 layers (an
-    ``ssd_scan`` each), a dense model's attention once a layer."""
+    ``ssd_scan`` each), mamba2's ``ssd_scan`` once a layer and no
+    attention, a dense, MoE or VLM model's attention once a layer."""
     if cfg.family == "hybrid":
         return {"flash_attention": cfg.num_layers // cfg.shared_attn_every,
                 "ssd_scan": cfg.num_layers}
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "ssd_scan": cfg.num_layers}
     return {"flash_attention": cfg.num_layers, "ssd_scan": 0}
 
 
 def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
-                gen: int, seen: dict, pool_pass=None):
+                gen: int, seen: dict, pool_pass=None, layers: int = 0):
     """``arch``'s full config, bf16, through ServeEngine; returns the
     serving path's launch counts.  ``seen`` collects kernel shapes.
     ``pool_pass``, where given, is called with (model, params) before the
-    model is freed and returns its own launch counts."""
+    model is freed and returns its own launch counts.  ``layers``, where
+    given, cuts the depth (every width stays the config's).  A VLM's
+    requests carry ``frontend_tokens`` random fp32 patch embeddings each
+    (seed 0), which its cache holds before the prompt."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.core.scoring import resolve_head_weight
     from repro_torch.models.registry import get_model
     from repro_torch.serving.engine import ServeEngine
 
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params = model.init(0, device="cuda")
@@ -1564,7 +1590,13 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
           f"{cfg.d_model})", flush=True)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
-    engine = ServeEngine(model, params, max_seq=prompt_len + gen + 8,
+    patches = cfg.frontend_tokens   # a VLM's patch embeddings a request
+    req = {"tokens": tokens}
+    if patches:
+        req["patch_embeds"] = rng.normal(
+            size=(batch, patches, cfg.d_model)).astype(np.float32)
+    seq = patches + prompt_len        # positions a request fills
+    engine = ServeEngine(model, params, max_seq=seq + gen + 8,
                          batch_size=batch, device="cuda")
     per_pass = per_forward(cfg)
     restore = [record_shapes(mods["margin_head"], "margin_head",
@@ -1596,18 +1628,18 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
                      f"want {n}")
         return out, secs
 
-    hidden, _ = counted("forward", lambda: model.forward(
-        params, {"tokens": torch.as_tensor(tokens, device="cuda")}),
-        dict(per_pass, margin_head=0))
+    batch_t = {k: torch.as_tensor(v, device="cuda") for k, v in req.items()}
+    hidden, _ = counted("forward", lambda: model.forward(params, batch_t),
+                        dict(per_pass, margin_head=0))
     last = model.logits(params, hidden[:, -1:, :])
     want_first = torch.argmax(last[:, -1, :], dim=-1).to(torch.int32)
-    if hidden.shape != (batch, prompt_len, cfg.d_model) or \
+    if hidden.shape != (batch, seq, cfg.d_model) or \
             not bool(torch.isfinite(hidden).all()):
         fail(f"serve {arch} forward: hidden {tuple(hidden.shape)} not "
              f"finite")
     del hidden
 
-    stats, secs = counted("score", lambda: engine.score({"tokens": tokens}),
+    stats, secs = counted("score", lambda: engine.score(req),
                           dict(per_pass, margin_head=1))
     print(f"serve {arch} score rows/s: {batch / secs:.3f}", flush=True)
     if not all(bool(torch.isfinite(a).all()) for a in stats[:3]) or \
@@ -1621,6 +1653,9 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     pages = 4
     pool = {"tokens": rng.integers(0, cfg.vocab_size,
                                    (pages * batch, prompt_len))}
+    if patches:
+        pool["patch_embeds"] = rng.normal(
+            size=(pages * batch, patches, cfg.d_model)).astype(np.float32)
     pooled, secs = counted(
         "score_pool", lambda: engine.score_pool(pool, page_rows=batch),
         {k: v * pages for k, v in dict(per_pass, margin_head=1).items()})
@@ -1628,7 +1663,7 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
           f"({pages} pages of {batch} rows of {prompt_len} tokens; launches "
           f"per page {dict(per_pass, margin_head=1)})", flush=True)
     for lo in range(0, pages * batch, batch):
-        want = engine.score({"tokens": pool["tokens"][lo:lo + batch]})
+        want = engine.score({k: v[lo:lo + batch] for k, v in pool.items()})
         if not all(torch.equal(p[lo:lo + batch], w)
                    for p, w in zip(pooled, want)):
             fail(f"serve {arch} score_pool rows {lo}-{lo + batch} differ "
@@ -1653,10 +1688,13 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
           f"{cast_ms:.4f} ms events, device {cast_dev:.4f} ms, bound "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)", flush=True)
 
-    (_, cache, _), secs = counted(
-        "prefill", lambda: engine.prefill({"tokens": tokens}),
-        dict(per_pass, margin_head=0))
-    print(f"serve {arch} prefill tokens/s: {batch * prompt_len / secs:.1f}",
+    (_, cache, pos), secs = counted(
+        "prefill", lambda: engine.prefill(req), dict(per_pass, margin_head=0))
+    if pos != seq:
+        fail(f"serve {arch} prefill: the cache holds {pos} positions, want "
+             f"{seq}")
+    # positions filled a second, the patches included
+    print(f"serve {arch} prefill tokens/s: {batch * seq / secs:.1f}",
           flush=True)
     del cache
 
@@ -1670,9 +1708,12 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
         decode_s.append(time.perf_counter() - t0)
         return out
     engine.decode = timed_decode
-    out, secs = counted("generate", lambda: engine.generate(
-        {"tokens": tokens}, gen), dict(per_pass, margin_head=0))
-    engine.decode = step
+    out, secs = counted("generate", lambda: engine.generate(req, gen),
+                        dict(per_pass, margin_head=0))
+    # back to the class's method: a bound method kept on the instance is a
+    # cycle that holds the engine, and its params, past this function
+    # until the cyclic collector runs
+    del engine.decode, step, timed_decode
     print(f"serve {arch} decode tokens/s: "
           f"{batch * len(decode_s) / sum(decode_s):.1f} ({len(decode_s)} "
           f"steps of {batch} rows)", flush=True)
@@ -1690,21 +1731,22 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
         r()
     # where the time goes: one score pass, one forward pass and one decode
     # step, profiled outside the counted passes
-    batch_t = {"tokens": torch.as_tensor(tokens, device="cuda")}
-    profile_pass(torch, f"{arch} score",
-                 lambda: engine.score({"tokens": tokens}))
+    profile_pass(torch, f"{arch} score", lambda: engine.score(req))
     profile_pass(torch, f"{arch} forward",
                  lambda: model.forward(params, batch_t))
-    logits, cache, pos = engine.prefill({"tokens": tokens})
+    logits, cache, pos = engine.prefill(req)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
     profile_pass(torch, f"{arch} decode step",
                  lambda: engine.decode(cache, tok, pos))
-    del logits, cache
+    del logits, cache, batch_t
     pooled_launches = None
     if pool_pass is not None:
         pooled_launches = pool_pass(model, params)
-    del params, engine
+    del params, engine, w_head, cast, stats, pooled, out, last, want_first
+    gc.collect()
     torch.cuda.empty_cache()
+    print(f"serve {arch} freed: {torch.cuda.memory_allocated()} bytes still "
+          f"allocated", flush=True)
     return total, pooled_launches
 
 
@@ -1742,7 +1784,9 @@ def pool_pass(torch, np, mods, seen: dict, rows: int = 1024, seq: int = 256,
         restore = [record_shapes(mods["margin_head"], "margin_head",
                                  seen["margin_head"], margin_key),
                    record_shapes(mods["flash_attention"], "flash_attention",
-                                 seen["flash_attention"], flash_key)]
+                                 seen["flash_attention"], flash_key),
+                   record_shapes(mods["ssd_scan"], "ssd_scan",
+                                 seen["ssd_scan"], ssd_key)]
         engine.top_k(params, pool[:microbatch], k)   # cuBLAS settles
         total = dict.fromkeys(mods, 0)
         out, secs = {}, {}
@@ -1947,23 +1991,25 @@ def time_kernels(torch, np, mods, ref, shapes):
         torch.cuda.empty_cache()
     for case in shapes["flash_attention"]:
         rows.append(time_flash(torch, np, fa, ref, case))
-    case = shapes["ssd_scan"]
-    B, T, H, hd, N, C = case
-    ins = ssd_inputs(torch, np, case, torch.bfloat16)
-    C = min(C, T)
-    nc = -(-T // C)
-    # xh and y bf16; dt, B, C and the final state fp32.  Flops: C.B^T per
-    # (batch, chunk); per (batch, chunk, head) the lower-triangle intra
-    # term (C (C+1)/2 * hd FMAs), the chunk summary and the inter term
-    # (C hd N FMAs each)
-    nbytes = 2 * 2 * B * T * H * hd + 4 * (B * T * H + H + 2 * B * T * N
-                                           + B * H * hd * N)
-    flops = B * nc * (2 * C * C * N + H * (C * (C + 1) * hd
-                                          + 4 * C * hd * N))
-    rows.append(timing_row(
-        torch, "ssd_scan", case, lambda: ssd.ssd_scan(*ins, chunk=C),
-        lambda: ref.ssd_scan_ref(*ins, chunk=C), None, nbytes, flops,
-        BF16_FLOPS_PER_S, "ssd_scan_"))
+    for case in shapes["ssd_scan"]:
+        B, T, H, hd, N, C = case
+        ins = ssd_inputs(torch, np, case, torch.bfloat16)
+        C = min(C, T)
+        nc = -(-T // C)
+        # xh and y bf16; dt, B, C and the final state fp32.  Flops: C.B^T
+        # per (batch, chunk); per (batch, chunk, head) the lower-triangle
+        # intra term (C (C+1)/2 * hd FMAs), the chunk summary and the inter
+        # term (C hd N FMAs each)
+        nbytes = 2 * 2 * B * T * H * hd + 4 * (B * T * H + H + 2 * B * T * N
+                                               + B * H * hd * N)
+        flops = B * nc * (2 * C * C * N + H * (C * (C + 1) * hd
+                                              + 4 * C * hd * N))
+        rows.append(timing_row(
+            torch, "ssd_scan", case, lambda: ssd.ssd_scan(*ins, chunk=C),
+            lambda: ref.ssd_scan_ref(*ins, chunk=C), None, nbytes, flops,
+            BF16_FLOPS_PER_S, "ssd_scan_"))
+        del ins
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2034,7 +2080,9 @@ def main() -> None:
     seen_by = {p: {k: set() for k in mods}
                for p in ("campaigns", "replay", "noisy", "fleet", "arch",
                          "serving", "serving_qwen2", "pool_pass",
-                         "serving_gemma3")}
+                         "serving_gemma3", "serving_mamba2",
+                         "pool_pass_mamba2", "serving_dbrx",
+                         "serving_internvl2")}
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -2081,6 +2129,30 @@ def main() -> None:
     if windows != {0, 1024}:
         fail(f"gemma3-4b's attention ran with windows {sorted(windows)}, "
              f"want 0 (global layers) and 1024 (local layers)")
+    # the rest of the zoo: mamba2-1.3b (ssd_scan at state N 128) and its
+    # pool pass; dbrx-132b at full width, cut to DBRX_LAYERS of its 40
+    # layers (the MoE block, GQA 48:8 at hd 128); internvl2-26b with its
+    # 1,024 patch tokens before the prompt
+    served_mamba2, pooled_mamba2 = run_serving(
+        torch, np, mods, "mamba2-1.3b", args.serve_batch, args.prompt_len,
+        args.gen, seen_by["serving_mamba2"],
+        pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass_mamba2"]))
+    served_dbrx, _ = run_serving(
+        torch, np, mods, "dbrx-132b", args.serve_batch, args.prompt_len,
+        args.gen, seen_by["serving_dbrx"], layers=DBRX_LAYERS)
+    served_internvl2, _ = run_serving(
+        torch, np, mods, "internvl2-26b", args.serve_batch, args.prompt_len,
+        args.gen, seen_by["serving_internvl2"])
+    from repro_torch.configs import get_config
+    states = {s[4] for s in seen_by["serving_mamba2"]["ssd_scan"]}
+    if states != {get_config("mamba2-1.3b").ssm_state}:
+        fail(f"mamba2-1.3b's ssd_scan ran at states {sorted(states)}, "
+             f"want {get_config('mamba2-1.3b').ssm_state}")
+    lengths = {s[3] for s in seen_by["serving_internvl2"]["flash_attention"]}
+    want = get_config("internvl2-26b").frontend_tokens + args.prompt_len
+    if lengths != {want}:
+        fail(f"internvl2-26b's attention ran over {sorted(lengths)} "
+             f"positions, want the patches and the prompt, {want}")
     by_path = {k: {"campaigns": launches.get(k, 0),
                    "launcher_campaign": launcher if k == "margin_head" else 0,
                    "replay_campaigns": replay if k == "pairwise_sqdist"
@@ -2097,7 +2169,11 @@ def main() -> None:
                    "serving": served[k],
                    "serving_qwen2": served_qwen2[k],
                    "pool_pass_qwen2": pooled[k],
-                   "serving_gemma3": served_gemma3[k]} for k in mods}
+                   "serving_gemma3": served_gemma3[k],
+                   "serving_mamba2": served_mamba2[k],
+                   "pool_pass_mamba2": pooled_mamba2[k],
+                   "serving_dbrx": served_dbrx[k],
+                   "serving_internvl2": served_internvl2[k]} for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain
     # version again; max_abs_err is the worst of these
@@ -2115,11 +2191,14 @@ def main() -> None:
                                   sorted(seen["ssd_scan"]))}
     # timed at the largest main-path shape of each (margin_head at the
     # largest of each path: the campaigns', the selection's other widths
-    # and the LM heads': zamba2's, qwen2's, the pool pass's and gemma3's,
-    # that last; pairwise_sqdist at the live k-center's, the fleet's, the
-    # selection's other widths and the replay k-center's, that last;
-    # flash_attention at zamba2's, qwen2's, the pool pass's and gemma3's
-    # local and global layers', that last)
+    # and the LM heads': zamba2's, qwen2's, the pool pass's, mamba2's and
+    # its pool pass's, dbrx's, internvl2's and gemma3's, that last;
+    # pairwise_sqdist at the live k-center's, the fleet's, the selection's
+    # other widths and the replay k-center's, that last; flash_attention
+    # at zamba2's, qwen2's, the pool pass's, dbrx's, gemma3's local and
+    # global layers' and internvl2's, that last; ssd_scan at zamba2's state
+    # N 64, mamba2's pool pass's and mamba2's serving shape, N 128, that
+    # last)
     def widest(shapes, size, width):
         return [max((s for s in shapes if width(s) == w),
                     key=lambda s: (size(s), s))
@@ -2133,7 +2212,8 @@ def main() -> None:
             if s[1] not in camp_d] + [
             max(seen_by[p]["margin_head"], key=lambda s: (s[0] * s[2], s))
             for p in ("serving", "serving_qwen2", "pool_pass",
-                      "serving_gemma3")],
+                      "serving_mamba2", "pool_pass_mamba2", "serving_dbrx",
+                      "serving_internvl2", "serving_gemma3")],
         "pairwise_sqdist": [max(seen_by[p]["pairwise_sqdist"],
                                 key=lambda s: (s[0] * s[1], s))
                             for p in ("campaigns", "fleet")] + [
@@ -2145,12 +2225,17 @@ def main() -> None:
         "flash_attention": [
             max(seen_by[p]["flash_attention"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
-            for p in ("serving", "serving_qwen2", "pool_pass")] + [
+            for p in ("serving", "serving_qwen2", "pool_pass",
+                      "serving_dbrx")] + [
             max((s for s in seen_by["serving_gemma3"]["flash_attention"]
                  if s[-1] == w), key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
-            for w in (1024, 0)],
-        "ssd_scan": max(seen["ssd_scan"],
-                        key=lambda s: (s[0] * s[1] * s[2], s))})
+            for w in (1024, 0)] + [
+            max(seen_by["serving_internvl2"]["flash_attention"],
+                key=lambda s: (s[0] * s[1] * s[3] * s[4], s))],
+        "ssd_scan": [max(seen_by[p]["ssd_scan"],
+                         key=lambda s: (s[0] * s[1] * s[2], s))
+                     for p in ("serving", "pool_pass_mamba2",
+                               "serving_mamba2")]})
 
     meta = {
         "margin_head": ("src/repro_torch/kernels/csrc/margin_head.cu",

@@ -9,7 +9,8 @@ from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
 
 # the reference's ARCH_IDS that the port serves so far
 ARCH_IDS = ("zamba2-2.7b", "qwen2-1.5b", "gemma3-4b", "qwen1.5-4b",
-            "phi3-medium-14b")
+            "phi3-medium-14b", "mamba2-1.3b", "dbrx-132b", "kimi-k2-1t-a32b",
+            "internvl2-26b")
 
 
 def _module(arch_id: str):

@@ -22,7 +22,7 @@ DTYPES = {
 class ModelConfig:
     # identity -----------------------------------------------------------
     name: str = "model"
-    family: str = "mlp"          # mlp | hybrid | dense
+    family: str = "mlp"          # mlp | hybrid | dense | ssm | moe | vlm
     # backbone -----------------------------------------------------------
     num_layers: int = 2
     d_model: int = 128
@@ -41,7 +41,7 @@ class ModelConfig:
     # attention pattern ---------------------------------------------------
     sliding_window: int = 0      # 0 -> full causal
     local_global_ratio: int = 0  # N: every (N+1)-th layer global (gemma3 5)
-    # ssm (hybrid) ---------------------------------------------------------
+    # ssm (ssm, hybrid) ---------------------------------------------------
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_head_dim: int = 64
@@ -49,6 +49,14 @@ class ModelConfig:
     ssm_chunk: int = 128         # SSD chunk length
     # hybrid (zamba2-style shared attention block) -------------------------
     shared_attn_every: int = 0   # 0 -> no shared attention block
+    # moe -------------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+    num_shared_experts: int = 0  # kimi-style always-on shared expert(s)
+    # vlm (stub frontend: precomputed patch embeddings) ---------------------
+    frontend: str = ""           # "" | vit_stub
+    frontend_tokens: int = 0     # patch tokens prepended to the text sequence
     # numerics ------------------------------------------------------------
     dtype: str = "bfloat16"
     logits_chunk: int = 0        # 0 -> materialize logits; else chunked

@@ -5,9 +5,10 @@ The pool is padded into ``(n_microbatches, microbatch, ...)`` with the
 reference's pow2 bucketing (:func:`pack_shape`) and swept microbatch by
 microbatch: model forward, then the head fused into :class:`ScoreStats`
 (margin / entropy / max-logprob / top1).  Feature classifiers (``mlp``)
-take ``(N, input_dim)`` float pools; token models (``dense``, ``hybrid``)
-take ``(N, T)`` int32 token pools and are scored at the last position
-through their (possibly tied) LM head, the serving convention.  On a CUDA
+take ``(N, input_dim)`` float pools; token models (``dense``, ``hybrid``,
+``ssm``, ``moe``, ``vlm``; a VLM's text alone, as in the reference) take
+``(N, T)`` int32 token pools and are scored at the last position through
+their (possibly tied) LM head, the serving convention.  On a CUDA
 device the head goes through the hand-written ``margin_head`` kernel; on
 the CPU it follows the reference's rule (dense logits when V <= 4096, else
 vocab chunks).  The same sweep emits the pooled last-hidden features that
@@ -121,8 +122,8 @@ class ScoringConfig:
 
 # the pool each ported family scores: its batch key and element dtype
 _POOLS = {"mlp": ("features", torch.float32),
-          "dense": ("tokens", torch.int32),
-          "hybrid": ("tokens", torch.int32)}
+          **{family: ("tokens", torch.int32)
+             for family in ("dense", "hybrid", "ssm", "moe", "vlm")}}
 
 
 class PoolScoringEngine:

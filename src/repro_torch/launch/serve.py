@@ -11,8 +11,12 @@ runtime):
         --smoke --device cpu --score-pool 32 --sweep-page 8 --sweep-async
 
 ``--arch`` takes the ported ids (``repro_torch.configs.ARCH_IDS``:
-zamba2-2.7b and the dense qwen2-1.5b, gemma3-4b, qwen1.5-4b and
-phi3-medium-14b); ``--smoke`` takes the reduced config.
+zamba2-2.7b, the dense qwen2-1.5b, gemma3-4b, qwen1.5-4b and
+phi3-medium-14b, the SSM mamba2-1.3b, the MoE dbrx-132b and
+kimi-k2-1t-a32b, and the VLM internvl2-26b); ``--smoke`` takes the reduced
+config.  A VLM's requests and pool rows carry ``frontend_tokens`` random
+fp32 patch embeddings each, and its cache holds them: ``max_seq`` is
+``frontend_tokens + prompt-len + gen + 8``.
 """
 from __future__ import annotations
 
@@ -56,8 +60,12 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (args.batch, args.prompt_len))}
+    patches = cfg.frontend_tokens   # a VLM's patch embeddings a request
+    if patches:
+        batch["patch_embeds"] = rng.normal(
+            size=(args.batch, patches, cfg.d_model)).astype(np.float32)
     engine = ServeEngine(model, params,
-                         max_seq=args.prompt_len + args.gen + 8,
+                         max_seq=patches + args.prompt_len + args.gen + 8,
                          batch_size=args.batch, device=args.device)
 
     def sync():
@@ -70,6 +78,10 @@ def main(argv=None):
         pool = {"tokens": rng.integers(
             0, cfg.vocab_size,
             (args.score_pool, args.prompt_len)).astype(np.int32)}
+        if patches:
+            pool["patch_embeds"] = rng.normal(
+                size=(args.score_pool, patches,
+                      cfg.d_model)).astype(np.float32)
         page = args.sweep_page or args.batch
         engine.score_pool({k: v[:page] for k, v in pool.items()},
                           page_rows=page)          # warm the page step

@@ -1,10 +1,15 @@
-"""Mamba2 (SSD — state-space duality) blocks (``repro.models.mamba2``).
+"""Mamba2 (SSD — state-space duality) blocks and the pure-SSM ``ssm``
+family, mamba2-1.3b (``repro.models.mamba2``).
 
 ``ssd_chunked`` is the chunked SSD algorithm in plain torch: the oracle of
 the ``ssd_scan`` kernel and its CPU path.  The blocks call
-``kernels.ops.ssd``, which runs the kernel on a CUDA tensor.  As in the
+``kernels.ops.ssd``, which runs the kernel on a CUDA tensor, so every
+``ssm`` forward, prefill and pool pass launches it once a layer.  As in the
 reference, the short causal conv is applied to the x stream only and
-n_groups == 1.  Inference only: no gradients, no remat.
+n_groups == 1.  Inference only: no gradients, no remat; the stacked layers
+run as a Python loop.  ``decode_step`` writes the new states into the cache
+it is given, in place, and returns it (the reference's engine donates the
+cache to the step).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import param as P
 from repro_torch.models.param import ParamSpec
 
 
@@ -195,3 +201,95 @@ def mamba_block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     y = L.rmsnorm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"])
     out = x + (y @ p["w_out"])[:, None, :]
     return out, {"ssm": h_new, "conv": hist[:, 1:, :]}
+
+
+# ---------------------------------------------------------------------------
+# full model (pure SSM: mamba2-1.3b)
+# ---------------------------------------------------------------------------
+
+
+def specs(cfg: ModelConfig) -> Dict:
+    """The ``ssm`` family's parameter specs: the Mamba2 blocks stacked on a
+    leading ``num_layers`` axis, an untied ``lm_head`` unless the embedding
+    is tied."""
+    bf16 = torch.bfloat16
+    sp = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), scale=1.0,
+                           dtype=bf16),
+        "blocks": block_specs(cfg, cfg.num_layers),
+        "final_norm": L.norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dtype=bf16)
+    if cfg.num_classes:
+        sp["cls_head"] = ParamSpec((cfg.d_model, cfg.num_classes),
+                                   dtype=bf16)
+    return sp
+
+
+def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor], with_state: bool):
+    from repro_torch.models import transformer as tf
+    tree = P.nest(params)
+    x = tf.embed_tokens(cfg, tree, tokens, patch_embeds)
+    states = []
+    for i in range(cfg.num_layers):
+        x, st = mamba_block_with_state(cfg, tf._layer(tree["blocks"], i), x)
+        states.append(st)
+    hidden = L.apply_norm(cfg, tree["final_norm"], x)
+    if not with_state:
+        return hidden, None
+    return hidden, {k: torch.stack([st[k] for st in states])
+                    for k in ("ssm", "conv")}
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+            patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, T) -> final hidden states (B, T, D)."""
+    return _forward_impl(cfg, params, tokens, patch_embeds, False)[0]
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+            patch_embeds: Optional[torch.Tensor] = None):
+    """Forward that also returns each layer's final states, the reference's
+    prefill arithmetic: {"ssm" (L, B, H, hd, N) fp32, "conv" (L, B, K-1,
+    d_inner), the last K-1 inputs of the conv}."""
+    return _forward_impl(cfg, params, tokens, patch_embeds, True)
+
+
+def cache_specs(cfg: ModelConfig, batch: int,
+                seq_len: int) -> Dict[str, Tuple]:
+    """{leaf: (shape, dtype)} of the state cache (its size does not depend
+    on ``seq_len``)."""
+    H, hd, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    K, di, nl = cfg.ssm_conv_kernel, cfg.ssm_d_inner, cfg.num_layers
+    return {"ssm": ((nl, batch, H, hd, N), torch.float32),
+            "conv": ((nl, batch, K - 1, di), cfg.torch_dtype)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device="cuda") -> Dict:
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, (shape, dtype) in cache_specs(cfg, batch, seq_len).items()}
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
+                tokens: torch.Tensor, cache_len: int
+                ) -> Tuple[torch.Tensor, Dict]:
+    """tokens (B, 1) -> (logits (B, 1, V), the state cache advanced by this
+    token, in place).  ``cache_len`` is not read: the states carry the
+    position."""
+    from repro_torch.models import transformer as tf
+    tree = P.nest(params)
+    x = tf.embed_tokens(cfg, tree, tokens)
+    for i in range(cfg.num_layers):
+        state = {k: cache[k][i] for k in ("ssm", "conv")}
+        x, new = mamba_block_decode(cfg, tf._layer(tree["blocks"], i), x,
+                                    state)
+        for k in ("ssm", "conv"):
+            cache[k][i] = new[k]
+    hidden = L.apply_norm(cfg, tree["final_norm"], x)
+    return tf.logits_fn(cfg, tree, hidden[:, -1:, :]), cache

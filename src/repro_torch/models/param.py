@@ -73,8 +73,10 @@ def init_params(specs: Dict, seed: int,
         else:
             leaf = zlib.crc32(_keystr(path).encode()) % (2**31)
             g = torch.Generator().manual_seed(derive_seed(seed, leaf))
-            arr = (torch.randn(spec.shape, generator=g, dtype=torch.float32)
-                   * _stddev(spec)).to(spec.dtype)
+            # scaled in place: the same bits as ``randn(...) * std`` with
+            # one fp32 copy fewer (a full-width leaf is tens of GB)
+            arr = torch.randn(spec.shape, generator=g, dtype=torch.float32)
+            arr = arr.mul_(_stddev(spec)).to(spec.dtype)
         out[path] = arr.to(device)
     return out
 

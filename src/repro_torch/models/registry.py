@@ -1,7 +1,6 @@
 """Family -> implementation registry + uniform model facade
-(``repro.models.registry``).  The ``mlp``, ``hybrid`` and ``dense``
-families are ported; ``moe``, ``vlm``, ``ssm`` and ``audio`` are
-refused."""
+(``repro.models.registry``).  The ``mlp``, ``hybrid``, ``dense``, ``ssm``,
+``moe`` and ``vlm`` families are ported; ``audio`` is refused."""
 from __future__ import annotations
 
 import threading
@@ -12,11 +11,12 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, mlp
+from repro_torch.models import hybrid, mamba2, mlp
 from repro_torch.models import param as P
 from repro_torch.models import transformer as tf
 
-_FAMILIES = {"mlp": mlp, "hybrid": hybrid, "dense": tf}
+_FAMILIES = {"mlp": mlp, "hybrid": hybrid, "dense": tf, "ssm": mamba2,
+             "moe": tf, "vlm": tf}
 
 
 class Model:
@@ -25,10 +25,12 @@ class Model:
     ``mlp``: the family is the ``nn.Module`` ``MLP``, built here on the meta
     device (structure and parameter names only) as ``net`` and run over the
     given dict by :meth:`forward`; the batch is ``{"features"}``.
-    ``hybrid`` and ``dense``: plain functions over the dict
-    (``models.hybrid``, ``models.transformer``); the batch is
-    ``{"tokens"}``, and :meth:`prefill`, :meth:`decode_step`,
-    :meth:`init_cache` and :meth:`logits` serve ``serving.engine``."""
+    The token families: plain functions over the dict (``hybrid``:
+    ``models.hybrid``; ``ssm``: ``models.mamba2``; ``dense``, ``moe`` and
+    ``vlm``: ``models.transformer``); the batch is ``{"tokens"}``, with
+    ``"patch_embeds"`` (B, P, D) for a VLM, and :meth:`prefill`,
+    :meth:`decode_step`, :meth:`init_cache` and :meth:`logits` serve
+    ``serving.engine``."""
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in _FAMILIES:
@@ -52,16 +54,26 @@ class Model:
         self.init_seconds = time.perf_counter() - t0
         return params
 
+    def _frontend(self, batch: Dict):
+        """The batch's frontend input (a VLM's ``patch_embeds``) or None."""
+        return batch.get("patch_embeds")
+
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         if self.cfg.family == "mlp":
             with self._net_lock:
                 return functional_call(self.net, params,
                                        (batch["features"],),
                                        tie_weights=False)
-        return self.mod.forward(self.cfg, params, batch["tokens"])
+        fe = self._frontend(batch)
+        if fe is None:
+            return self.mod.forward(self.cfg, params, batch["tokens"])
+        return self.mod.forward(self.cfg, params, batch["tokens"], fe)
 
     def prefill(self, params: Dict, batch: Dict):
-        return self.mod.prefill(self.cfg, params, batch["tokens"])
+        fe = self._frontend(batch)
+        if fe is None:
+            return self.mod.prefill(self.cfg, params, batch["tokens"])
+        return self.mod.prefill(self.cfg, params, batch["tokens"], fe)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
                     cache_len: int):

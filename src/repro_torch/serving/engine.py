@@ -23,9 +23,11 @@ from repro_torch.models.registry import Model
 class ServeEngine:
     """Minimal batched generation / scoring loop over a fixed-size cache.
 
-    ``params`` live on ``device``; batches (``{"tokens": (B, T) ints}``) are
-    moved there.  Runs under ``torch.no_grad``; the decode step updates the
-    cache in place."""
+    ``params`` live on ``device``; batches (``{"tokens": (B, T) ints}``,
+    with ``"patch_embeds"`` (B, P, D) fp32 for a VLM) are moved there.
+    Runs under ``torch.no_grad``; the decode step updates the cache in
+    place.  A VLM's cache holds its P patch positions before the prompt's
+    T, so ``max_seq`` must cover P + T + the tokens generated."""
 
     def __init__(self, model: Model, params: Dict, max_seq: int,
                  batch_size: int, device="cuda"):
@@ -42,11 +44,12 @@ class ServeEngine:
 
     @torch.no_grad()
     def prefill(self, batch: Dict) -> Tuple[torch.Tensor, Dict, int]:
-        """-> (last-position logits (B, 1, V), the max_seq cache, T)."""
+        """-> (last-position logits (B, 1, V), the max_seq cache, the
+        positions it holds: P + T, the patches and the prompt)."""
         batch = self._batch(batch)
         hidden, cache = self.model.prefill(self.params, batch)
         logits = self.model.logits(self.params, hidden[:, -1:, :])
-        T = batch["tokens"].shape[1]
+        T = hidden.shape[1]
         full = self.model.init_cache(self.batch_size, self.max_seq,
                                      self.device)
         return logits, _load_cache(self.model.cfg, full, cache), T
@@ -107,9 +110,14 @@ class ServeEngine:
                              checkpoint=checkpoint)
 
     def close(self) -> None:
-        """Join the sweep runners' worker threads (idempotent)."""
+        """Join the sweep runners' worker threads and drop the runners
+        (idempotent; a later pool pass starts new ones).  Each runner's
+        adapter holds this engine's scoring step, so a kept runner would
+        keep the engine, and its params, alive past its last reference
+        until the cyclic collector ran."""
         for runner in self._sweep_runners.values():
             runner.close()
+        self._sweep_runners.clear()
 
     @torch.no_grad()
     def generate(self, batch: Dict, steps: int,
@@ -132,17 +140,24 @@ class ServeEngine:
 
 def _load_cache(cfg: ModelConfig, full: Dict, prefix: Dict) -> Dict:
     """Copy a prefill cache into the zero-initialized max_seq cache: the
-    K/V leaves are copied in at position 0 (the hybrid's SSM states are
-    taken as they are); the reference's ``dynamic_update_slice``."""
+    K/V leaves are copied in at position 0 (SSM states are taken as they
+    are: the ``ssm`` family's whole cache, the hybrid's ``ssm`` part); the
+    reference's ``dynamic_update_slice``."""
+    if cfg.family == "ssm":
+        return prefix
     if cfg.family == "hybrid":
         kv, out = full["attn"], {"attn": full["attn"], "ssm": prefix["ssm"]}
         prefix = prefix["attn"]
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "moe", "vlm"):
         kv = out = full
     else:
         raise NotImplementedError(
             f"serving the {cfg.family!r} family is not ported yet")
     for k in ("k", "v"):
         src = prefix[k]
+        if src.shape[2] > kv[k].shape[2]:
+            raise ValueError(
+                f"the prefill holds {src.shape[2]} positions (patches and "
+                f"prompt), more than the cache's max_seq {kv[k].shape[2]}")
         kv[k][tuple(slice(0, n) for n in src.shape)] = src
     return out

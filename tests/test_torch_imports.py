@@ -55,6 +55,10 @@ def test_every_ported_module_was_imported(probe):
             "repro_torch.configs.qwen2_1p5b", "repro_torch.configs.gemma3_4b",
             "repro_torch.configs.qwen1p5_4b",
             "repro_torch.configs.phi3_medium_14b",
+            "repro_torch.configs.mamba2_1p3b",
+            "repro_torch.configs.dbrx_132b",
+            "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.configs.internvl2_26b",
             "repro_torch.serving.engine", "repro_torch.launch.serve",
             "repro_torch.core.emulator", "repro_torch.core.baselines",
             "repro_torch.data.pool", "repro_torch.annotation.oracle",

@@ -23,7 +23,11 @@ MH_GRID = [(2048, 64, 10), (128, 64, 512), (200, 48, 1000), (65, 32, 257),
            (8, 2560, 31999), (8, 2560, 32001), (1, 2560, 32000),
            # the dense LMs' heads: qwen2-1.5b (1,187 slices) at 8 requests
            # and at the pool pass's microbatch of 64, gemma3-4b (2,048)
-           (8, 1536, 151936), (64, 1536, 151936), (8, 2560, 262144)]
+           (8, 1536, 151936), (64, 1536, 151936), (8, 2560, 262144),
+           # mamba2-1.3b at 8 requests and the pool pass's 64, dbrx-132b
+           # and internvl2-26b at 8
+           (8, 2048, 50280), (64, 2048, 50280), (8, 6144, 100352),
+           (8, 6144, 92672)]
 # then N and M off the kernel's 128 x 128 tiles, D off its 16-deep k steps,
 # and D over its 64-wide chunks (130: also off its 16-byte pieces)
 PD_GRID = [(65536, 512, 64), (5, 3, 4), (64, 16, 8), (130, 9, 33),
@@ -161,14 +165,19 @@ FA_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
            (2, 6, 2, 190, 333, 128, False, 0),
            (1, 4, 2, 300, 300, 256, True, 100),
            (1, 2, 1, 190, 190, 256, False, 70),
-           (1, 8, 4, 100, 100, 256, True, 0)]
+           (1, 8, 4, 100, 100, 256, True, 0),
+           # dbrx-132b's and internvl2-26b's GQA 48:8 at hd 128, over
+           # internvl2's 1,024 patch tokens and 2,048 of text
+           (1, 48, 8, 3072, 3072, 128, True, 0)]
 # likewise, then T off the chunk, one chunk (C = T = 100), H off the
 # kernel's group of 8 heads
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
             (2, 64, 8, 32, 64, 64), (1, 256, 4, 64, 128, 128),
             (1, 2048, 80, 64, 64, 128), (2, 50, 3, 16, 8, 16),
             (2, 300, 4, 32, 64, 128), (2, 100, 5, 16, 32, 128),
-            (1, 256, 12, 64, 64, 64)]
+            (1, 256, 12, 64, 64, 64),
+            # mamba2-1.3b's state N 128 at C 128, hd 64, its 64 heads
+            (2, 512, 64, 64, 128, 128)]
 
 
 @pytest.mark.cuda

@@ -133,6 +133,32 @@ def test_param_names_layouts_and_roundtrip():
     assert not torch.equal(own["w_in"], other["w_in"])
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "dbrx-132b",
+                                  "internvl2-26b"])
+def test_init_scales_each_draw_in_place_bit_for_bit(arch):
+    """``init_params`` scales each fp32 draw in place (one full-width copy
+    fewer on the host); every leaf keeps the bits of ``randn(...) * std``
+    cast to its dtype, the draw before the change."""
+    import zlib
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import param as P
+    model = get_model(get_smoke(arch))
+    got = model.init(3, device="cpu")
+    for path, spec in P.iter_specs(model.specs):
+        if spec.init != "normal":
+            continue
+        leaf = zlib.crc32(P._keystr(path).encode()) % (2**31)
+        g = torch.Generator().manual_seed(P.derive_seed(3, leaf))
+        want = (torch.randn(spec.shape, generator=g, dtype=torch.float32)
+                * P._stddev(spec)).to(spec.dtype)
+        assert got[path].dtype == want.dtype
+        assert torch.equal(got[path].view(torch.int16 if want.dtype ==
+                                          torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if want.dtype ==
+                                     torch.bfloat16 else torch.int32)), path
+
+
 @pytest.mark.parametrize("warmup", [0, 5])
 def test_constant_schedule_matches_jax(warmup):
     kw = dict(learning_rate=1e-2, schedule="constant", warmup_steps=warmup)
