@@ -7,8 +7,8 @@
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (one
    nvcc per source, all started together), and counts the tensor-core
-   (HMMA) instructions of ``flash_attention``, ``ssd_scan`` and
-   ``pairwise_dist`` in their SASS: none fails the run.
+   (HMMA) instructions of ``flash_attention`` (forward and backward),
+   ``ssd_scan`` and ``pairwise_dist`` in their SASS: none fails the run.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, the JAX package's test grids and the tile edges of
    the kernels, and after the main paths again at every shape they gave
@@ -18,7 +18,10 @@
    the first copy, margin exactly 0).  ``pairwise_sqdist`` is held at the
    JAX package's atol 1e-5 on that package's grid, and elsewhere against
    a float64 computation of the same distances: its error at most twice
-   the plain fp32 version's.
+   the plain fp32 version's.  ``flash_attention``'s backward kernel (run
+   through ``ops.attention`` with grad) against ``torch.autograd.grad``
+   through the plain version, on ``FLASH_BWD_GRID`` and at every shape
+   the training paths gave it.
 4. Runs two MCAL campaigns through the port's entry points
    (``run_mcal(LiveTask(...))``), one with the margin M(.) and one with
    k-center, on ``make_classification(50_000, 10 classes, dim 32)`` — the
@@ -101,19 +104,37 @@
    at state N 128, vocab 50,280; full config) and its pool pass as
    qwen2's; dbrx-132b at full width (d_model 6,144, GQA 48:8 at hd 128,
    16 experts top-4 at d_ff 10,752, capacity factor 1.25, vocab 100,352)
-   cut to ``DBRX_LAYERS`` = 4 of its 40 layers (6.5 GB of bf16 weights a
-   layer); internvl2-26b (48 layers, GQA 48:8 at hd 128, vocab 92,672;
-   full config) with 1,024 random fp32 patch embeddings a request (seed
+   cut to ``DBRX_LAYERS`` = 2 of its 40 layers (6.5 GB of bf16 weights a
+   layer); internvl2-26b (GQA 48:8 at hd 128, vocab 92,672; full width,
+   cut to ``INTERNVL2_LAYERS`` = 24 of its 48 layers) with 1,024 random
+   fp32 patch embeddings a request (seed
    0) before its prompt, so its attention runs over 3,072 positions and
-   its cache holds ``1,024 + prompt + gen + 8``.
+   its cache holds ``1,024 + prompt + gen + 8``; and whisper-tiny (the
+   audio family: 4 encoder and 4 decoder layers, d_model 384, hd 64,
+   vocab 51,872; full config) with 1,500 random fp32 frame embeddings a
+   request and a pool row (seed 0), its attention the encoder's T 1,500,
+   the decoder's and the cross-attention's 2,048 x 1,500.
+   Training, each from the served bf16 weights through ``Trainer``: after
+   its pool pass, qwen2-1.5b at its full config (``remat="layer"``,
+   ``logits_chunk`` 16,384) for 6 steps of 8 x 2,048 tokens of
+   ``make_lm_tokens`` through ``ShardedLoader``, ``paper_steps``, no
+   checkpoint: the losses finite and falling, the backward kernel once a
+   layer a step; and whisper-tiny on batches of tokens, labels and 1,500
+   fp32 frames a row, 4 steps checkpointed every 2, then a fresh
+   ``Trainer`` resumed from step 4 to 6 on the same batch generator: the
+   restored state bit-equal to the saved one and the resumed losses
+   bit-equal to an uninterrupted run's over the same batches.
    The kernels' launch counts are zeroed just before each main-path pass
    (each campaign, the launcher campaign, the replay and noisy campaigns,
    the fleets, the chaos and instrumented campaigns, each selection run,
    each serving pass and each pool pass: ``flash_attention`` 9 times a
    zamba2 forward, once a layer in the others (28 qwen2-1.5b, 34
-   gemma3-4b, 4 dbrx-132b, 48 internvl2-26b), ``ssd_scan`` 54 times a
-   zamba2 forward and 48 a mamba2-1.3b one) and read just after it; a
-   kernel of a path that was never launched there fails the run.
+   gemma3-4b, 2 dbrx-132b, 24 internvl2-26b, 12 whisper-tiny: 4 encoder,
+   8 decoder), ``ssd_scan`` 54 times a zamba2 forward and 48 a
+   mamba2-1.3b one, the backward kernel never when serving and once a
+   layer a training step) and read just after it; a kernel of a path that
+   was never launched there fails the run.  Each phase's seconds are
+   printed.
 9. Times each kernel at the largest shape each main path gave it
    (``ssd_scan`` at zamba2's N 64 and at mamba2's and its pool pass's N
    128), its plain version and (where one PyTorch call computes the same
@@ -131,7 +152,10 @@
    TB/s and its flops over the peak for the work's type: 67 TFLOP/s for
    fp32 on the CUDA cores, 989 TFLOP/s for bf16 on the tensor cores
    (``flash_attention``, ``ssd_scan``, and ``pairwise_sqdist``'s six
-   bf16 products), H100 SXM data-sheet peaks.
+   bf16 products), H100 SXM data-sheet peaks.  The backward kernel at
+   whisper's and qwen2's training shapes, beside autograd's backward
+   through the plain version and SDPA's backward, bound by 2.5 times the
+   forward's operations or its bytes.
 10. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
@@ -152,11 +176,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
-# dbrx-132b's depth on one 80 GB card: 4 of its 40 layers (6.5 GB of bf16
-# weights a layer), every width the config's
-DBRX_LAYERS = 4
+# depths cut to keep the script inside its time limit, every width the
+# config's: host init of random weights is most of these two models' time
+# (6.5 GB of bf16 weights a dbrx-132b layer, 0.8 GB an internvl2-26b one)
+DBRX_LAYERS = 2           # of 40
+INTERNVL2_LAYERS = 24     # of 48
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+# the card's name and power limit (nvidia-smi), printed beside each rate
+CARD = "card not read"
 
 
 def fail(msg: str) -> None:
@@ -430,7 +458,29 @@ FLASH_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
               (2, 6, 2, 190, 333, 128, False, 0),
               (1, 4, 2, 300, 300, 256, True, 100),
               (1, 2, 1, 190, 190, 256, False, 70),
-              (1, 8, 4, 100, 100, 256, True, 0)]
+              (1, 8, 4, 100, 100, 256, True, 0),
+              # whisper-tiny's hd 64: the encoder's non-causal T 1,500 (off
+              # every tile), the cross-attention's 2,048 prompt rows over
+              # 1,500 frames, and a ragged small one
+              (8, 6, 6, 1500, 1500, 64, False, 0),
+              (8, 6, 6, 2048, 1500, 64, False, 0),
+              (2, 6, 6, 100, 37, 64, False, 0)]
+# the backward kernel against autograd through the plain version, before
+# the main paths (which give it qwen2's and whisper's training shapes, held
+# again after them): causal GQA 12:2 at hd 128 (qwen2's heads), windowed
+# GQA, non-causal ragged hd 64 with Tq != Tk both ways (whisper's heads),
+# and the other head dims' tiles; at the forward's tolerances, fp32 5e-4
+# and bf16 3e-2 (atol = rtol: the two round to bf16 at different places,
+# the plain version its P and the gradients between its ops, the
+# tensor-core kernel P and dS as product operands)
+FLASH_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
+                  (2, 12, 2, 1024, 1024, 128, True, 256),
+                  (2, 6, 6, 150, 200, 64, False, 0),
+                  (2, 6, 6, 300, 130, 64, False, 0),
+                  (1, 4, 2, 130, 130, 256, True, 0),
+                  (1, 4, 4, 100, 100, 80, True, 0),
+                  (1, 2, 1, 190, 190, 32, False, 70),
+                  (2, 4, 2, 77, 99, 16, True, 0)]
 
 
 def flash_inputs(torch, np, case, dtype, seed=3):
@@ -465,6 +515,52 @@ def check_flash(torch, np, fa, ref, cases):
             print(f"flash_attention {case} {str(dtype)[6:]}: max abs err "
                   f"{err:.3g} ok", flush=True)
             del q, k, v, got, want, g, r
+    return worst
+
+
+def check_flash_bwd(torch, np, mods, ref, cases):
+    """``ops.attention`` with grad at each case, fp32 and bf16 (the
+    forward kernel with its log-sum-exp, then the backward kernel), against
+    ``torch.autograd.grad`` through the plain version on the same inputs
+    and output gradient, at atol = rtol = 5e-4 (fp32) and 3e-2 (bf16);
+    returns the max abs error of dQ, dK and dV in bf16, the training
+    dtype.  Its launches are outside every main path's counts."""
+    from repro_torch.kernels import ops
+    fa, fab = mods["flash_attention"], mods["flash_attention_bwd"]
+    worst = 0.0
+    for case in cases:
+        causal, window = case[6], case[7]
+        for dtype, tol in ((torch.float32, 5e-4), (torch.bfloat16, 3e-2)):
+            q, k, v = flash_inputs(torch, np, case, dtype)
+            dout = flash_inputs(torch, np, case, dtype, seed=5)[0]
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = (fa.launches, fab.launches)
+            out = ops.attention(*(t.transpose(1, 2) for t in ins),
+                                causal=causal, window=window)
+            got = torch.autograd.grad(out.transpose(1, 2), ins, dout)
+            if (fa.launches, fab.launches) != (before[0] + 1,
+                                                before[1] + 1):
+                fail(f"flash_attention_bwd at {case}: launches "
+                     f"{(fa.launches, fab.launches)} after {before}")
+            plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            want = torch.autograd.grad(
+                ref.flash_attention_ref(*plain, causal=causal,
+                                        window=window), plain, dout)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                g, w = g.float(), w.float()
+                errs.append(float((g - w).abs().max()))
+                if g.shape != w.shape or not bool(
+                        ((g - w).abs() <= tol + tol * w.abs()).all()):
+                    fail(f"flash_attention_bwd {name} at {case} {dtype}: "
+                         f"err {errs[-1]} beyond atol = rtol = {tol}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, *errs)
+            print(f"flash_attention_bwd {case} {str(dtype)[6:]}: max abs "
+                  f"err dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
+                  f"ok", flush=True)
+            del q, k, v, dout, ins, out, got, plain, want
     return worst
 
 
@@ -558,9 +654,15 @@ def pairwise_key(x, c):
     return (x.shape[0], c.shape[0], x.shape[1])
 
 
-def flash_key(q, k, v, *, causal=True, window=0, scale=None):
+def flash_key(q, k, v, *, causal=True, window=0, scale=None,
+              return_lse=False):
     B, H, Tq, hd = q.shape
     return (B, H, k.shape[1], Tq, k.shape[2], hd, bool(causal), int(window))
+
+
+def flash_bwd_key(q, k, v, out, dout, lse, *, causal=True, window=0,
+                  scale=None):
+    return flash_key(q, k, v, causal=causal, window=window)
 
 
 def ssd_key(xh, dt, A, Bm, Cm, *, chunk=128):
@@ -1552,24 +1654,35 @@ def per_forward(cfg) -> dict:
     """Kernel launches of one forward pass of a served LM: zamba2's shared
     attention block once every ``shared_attn_every`` Mamba2 layers (an
     ``ssd_scan`` each), mamba2's ``ssd_scan`` once a layer and no
-    attention, a dense, MoE or VLM model's attention once a layer."""
+    attention, a dense, MoE or VLM model's attention once a layer,
+    whisper's once an encoder layer and twice a decoder layer (self and
+    cross)."""
     if cfg.family == "hybrid":
-        return {"flash_attention": cfg.num_layers // cfg.shared_attn_every,
-                "ssd_scan": cfg.num_layers}
-    if cfg.family == "ssm":
-        return {"flash_attention": 0, "ssd_scan": cfg.num_layers}
-    return {"flash_attention": cfg.num_layers, "ssd_scan": 0}
+        n = {"flash_attention": cfg.num_layers // cfg.shared_attn_every,
+             "ssd_scan": cfg.num_layers}
+    elif cfg.family == "ssm":
+        n = {"flash_attention": 0, "ssd_scan": cfg.num_layers}
+    elif cfg.family == "audio":   # the encoder's, each decoder layer's two
+        n = {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers,
+             "ssd_scan": 0}
+    else:
+        n = {"flash_attention": cfg.num_layers, "ssd_scan": 0}
+    return dict(n, flash_attention_bwd=0)   # serving takes no gradient
 
 
 def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
-                gen: int, seen: dict, pool_pass=None, layers: int = 0):
+                gen: int, seen: dict, pool_pass=None, layers: int = 0,
+                train=None):
     """``arch``'s full config, bf16, through ServeEngine; returns the
     serving path's launch counts.  ``seen`` collects kernel shapes.
-    ``pool_pass``, where given, is called with (model, params) before the
-    model is freed and returns its own launch counts.  ``layers``, where
-    given, cuts the depth (every width stays the config's).  A VLM's
-    requests carry ``frontend_tokens`` random fp32 patch embeddings each
-    (seed 0), which its cache holds before the prompt."""
+    ``pool_pass`` and ``train``, where given, are called in that order
+    with (model, params) before the model is freed, and each returns its
+    own launch counts (so a training phase reuses the served weights).
+    ``layers``, where given, cuts the depth (every width stays the
+    config's).  A VLM's requests carry ``frontend_tokens`` random fp32
+    patch embeddings each (seed 0), which its cache holds before the
+    prompt; an audio model's carry ``encoder_tokens`` random fp32 frame
+    embeddings each (seed 0), which its cross-attention cache holds."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1587,7 +1700,7 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     n_params = sum(p.numel() for p in params.values())
     print(f"serve {arch} init seconds: {model.init_seconds:.3f} "
           f"({n_params:,} params, {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model})", flush=True)
+          f"{cfg.d_model}; {CARD})", flush=True)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
     patches = cfg.frontend_tokens   # a VLM's patch embeddings a request
@@ -1595,6 +1708,9 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     if patches:
         req["patch_embeds"] = rng.normal(
             size=(batch, patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":       # whisper's frame embeddings a request
+        req["audio_frames"] = rng.normal(
+            size=(batch, cfg.encoder_tokens, cfg.d_model)).astype(np.float32)
     seq = patches + prompt_len        # positions a request fills
     engine = ServeEngine(model, params, max_seq=seq + gen + 8,
                          batch_size=batch, device="cuda")
@@ -1641,7 +1757,8 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
 
     stats, secs = counted("score", lambda: engine.score(req),
                           dict(per_pass, margin_head=1))
-    print(f"serve {arch} score rows/s: {batch / secs:.3f}", flush=True)
+    print(f"serve {arch} score rows/s: {batch / secs:.3f} ({CARD})",
+          flush=True)
     if not all(bool(torch.isfinite(a).all()) for a in stats[:3]) or \
             not bool(((stats.top1 >= 0) & (stats.top1 < cfg.vocab_size))
                      .all()) or stats.margin.shape != (batch,):
@@ -1656,12 +1773,16 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     if patches:
         pool["patch_embeds"] = rng.normal(
             size=(pages * batch, patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        pool["audio_frames"] = rng.normal(
+            size=(pages * batch, cfg.encoder_tokens,
+                  cfg.d_model)).astype(np.float32)
     pooled, secs = counted(
         "score_pool", lambda: engine.score_pool(pool, page_rows=batch),
         {k: v * pages for k, v in dict(per_pass, margin_head=1).items()})
     print(f"serve {arch} score_pool rows/s: {pages * batch / secs:.3f} "
           f"({pages} pages of {batch} rows of {prompt_len} tokens; launches "
-          f"per page {dict(per_pass, margin_head=1)})", flush=True)
+          f"per page {dict(per_pass, margin_head=1)}; {CARD})", flush=True)
     for lo in range(0, pages * batch, batch):
         want = engine.score({k: v[lo:lo + batch] for k, v in pool.items()})
         if not all(torch.equal(p[lo:lo + batch], w)
@@ -1694,8 +1815,8 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
         fail(f"serve {arch} prefill: the cache holds {pos} positions, want "
              f"{seq}")
     # positions filled a second, the patches included
-    print(f"serve {arch} prefill tokens/s: {batch * seq / secs:.1f}",
-          flush=True)
+    print(f"serve {arch} prefill tokens/s: {batch * seq / secs:.1f} "
+          f"({CARD})", flush=True)
     del cache
 
     decode_s = []
@@ -1716,9 +1837,9 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     del engine.decode, step, timed_decode
     print(f"serve {arch} decode tokens/s: "
           f"{batch * len(decode_s) / sum(decode_s):.1f} ({len(decode_s)} "
-          f"steps of {batch} rows)", flush=True)
+          f"steps of {batch} rows; {CARD})", flush=True)
     print(f"serve {arch} max_memory_allocated bytes: "
-          f"{torch.cuda.max_memory_allocated()}", flush=True)
+          f"{torch.cuda.max_memory_allocated()} ({CARD})", flush=True)
     if out.shape != (batch, gen) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         fail(f"serve {arch} generate: bad tokens {tuple(out.shape)}")
@@ -1739,14 +1860,18 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     profile_pass(torch, f"{arch} decode step",
                  lambda: engine.decode(cache, tok, pos))
     del logits, cache, batch_t
-    pooled_launches = None
+    pooled_launches = trained_launches = None
     if pool_pass is not None:
         pooled_launches = pool_pass(model, params)
+    if train is not None:
+        trained_launches = train(model, params)
     del params, engine, w_head, cast, stats, pooled, out, last, want_first
     gc.collect()
     torch.cuda.empty_cache()
     print(f"serve {arch} freed: {torch.cuda.memory_allocated()} bytes still "
           f"allocated", flush=True)
+    if train is not None:
+        return total, pooled_launches, trained_launches
     return total, pooled_launches
 
 
@@ -1868,6 +1993,220 @@ def pool_pass(torch, np, mods, seen: dict, rows: int = 1024, seq: int = 256,
     return run
 
 
+def _forever(loader):
+    while True:
+        yield from loader.epoch()
+
+
+def _record_losses(trainer, losses: list, secs: list = None):
+    """Wrap the trainer's step so each step's loss (read back, which
+    waits for the step) and wall seconds are kept."""
+    step_fn = trainer.step_fn
+
+    def step(state, batch):
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        losses.append(float(met["loss"]))
+        if secs is not None:
+            secs.append(time.perf_counter() - t0)
+        return state, met
+    trainer.step_fn = step
+    return trainer
+
+
+def _zero(torch, mods):
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.launches = 0
+
+
+def train_qwen2(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
+                seq: int = 2048, lr: float = 1e-4):
+    """A hook for ``run_serving``: train the served model (qwen2-1.5b at its
+    full config, the served bf16 weights from ``Model.init(seed 0)``) for
+    ``steps`` steps through ``Trainer``: ``paper_steps`` over ``steps``
+    from ``lr`` (at 3e-4 and 1e-3 the first steps' losses spiked on
+    these random weights before falling back, on the card),
+    ``batch`` sequences of ``seq`` tokens a step from ``make_lm_tokens``
+    (seed 0) through ``ShardedLoader``, no checkpoint, the config's
+    ``remat="layer"`` and ``logits_chunk``.  Prints each step's loss,
+    seconds and tokens/s, the peak device memory and the profile of one
+    more step (its result dropped); fails unless every
+    loss is finite, the last is below the first and the backward kernel ran
+    once a layer a step.  Returns the launch counts."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.synth import make_lm_tokens
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    def run(model, params):
+        cfg = model.cfg
+        t0 = time.perf_counter()
+        toks = make_lm_tokens(batch * steps, seq + 1, cfg.vocab_size, seed=0)
+        loader = ShardedLoader({"tokens": toks[:, :-1],
+                                "labels": toks[:, 1:]}, batch, seed=0,
+                               device="cuda")
+        print(f"train {cfg.name}: {toks.shape} tokens made in "
+              f"{time.perf_counter() - t0:.3f} s; remat {cfg.remat}, "
+              f"logits_chunk {cfg.logits_chunk}", flush=True)
+        tc = TrainConfig(learning_rate=lr, schedule="paper_steps",
+                         total_steps=steps)
+        restore = [record_shapes(mods["flash_attention_bwd"],
+                                 "flash_attention_bwd",
+                                 seen["flash_attention_bwd"], flash_bwd_key),
+                   record_shapes(mods["flash_attention"], "flash_attention",
+                                 seen["flash_attention"], flash_key)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        trainer = _record_losses(Trainer(
+            model, tc, TrainerConfig(max_steps=steps, log_every=0),
+            log_fn=lambda m: print(f"train {cfg.name} {m}", flush=True),
+            device="cuda", params=params), losses, secs)
+        _zero(torch, mods)
+        t0 = time.perf_counter()
+        trainer.fit(_forever(loader))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: m.launches for k, m in mods.items()}
+        for r in restore:
+            r()
+        for i, (loss, sec) in enumerate(zip(losses, secs)):
+            print(f"train {cfg.name} step {i + 1}: loss {loss!r}, "
+                  f"{sec:.3f} s, {batch * seq / sec:.1f} tokens/s ({CARD})",
+                  flush=True)
+        print(f"train {cfg.name}: {steps} steps in {wall:.3f} s, "
+              f"{batch * seq * steps / wall:.1f} tokens/s overall, steps "
+              f"2-{steps} {batch * seq * (steps - 1) / sum(secs[1:]):.1f} "
+              f"tokens/s; max_memory_allocated bytes "
+              f"{torch.cuda.max_memory_allocated()}; launches {got} "
+              f"({CARD})", flush=True)
+        if len(losses) != steps or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            fail(f"train {cfg.name}: losses {losses} are not finite and "
+                 f"falling")
+        if got["flash_attention_bwd"] != cfg.num_layers * steps or \
+                got["flash_attention"] < got["flash_attention_bwd"]:
+            fail(f"train {cfg.name}: launches {got}, want the backward "
+                 f"kernel {cfg.num_layers * steps} times")
+        # where a step's time goes: one more step, profiled, its result
+        # dropped
+        step = make_train_step(model, tc)
+        batch_1 = next(iter(loader.epoch()))
+        profile_pass(torch, f"{cfg.name} train step",
+                     lambda: step(trainer.state, batch_1))
+        del trainer, loader, step, batch_1
+        return got
+    return run
+
+
+def train_whisper_resume(torch, np, mods, seen: dict, steps: int = 4,
+                         more: int = 2, batch: int = 8, seq: int = 448):
+    """A hook for ``run_serving``: whisper-tiny at its full config trained
+    from the served weights through ``Trainer`` on batches of tokens,
+    labels and 1,500 fp32 frames a row (``make_lm_tokens`` and numpy, seed
+    1, ``batch`` rows of ``seq`` tokens), checkpointing every 2 steps for
+    ``steps`` steps; a fresh ``Trainer`` then resumes from the latest
+    checkpoint and runs ``more`` steps, drawing from the same batch
+    generator.  Fails unless the resumed state equals the saved one bit
+    for bit and the resumed steps' losses equal an uninterrupted run's over
+    the same batches.  Returns the launch counts of the two trainers."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.synth import make_lm_tokens
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    def run(model, params):
+        cfg = model.cfg
+        n = batch * (steps + more + 2)
+        toks = make_lm_tokens(n, seq + 1, cfg.vocab_size, seed=1)
+        frames = np.random.default_rng(1).normal(
+            size=(n, cfg.encoder_tokens, cfg.d_model)).astype(np.float32)
+        loader = ShardedLoader({"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                                "audio_frames": frames}, batch, seed=1,
+                               device="cuda")
+        tc = TrainConfig(learning_rate=1e-3, schedule="paper_steps",
+                         total_steps=steps + more)
+        drawn = []
+
+        def batches():
+            for b in _forever(loader):
+                drawn.append(b)
+                yield b
+        gen = batches()
+
+        def log(m):
+            print(f"train {cfg.name} {m}", flush=True)
+        restore = [record_shapes(mods["flash_attention_bwd"],
+                                 "flash_attention_bwd",
+                                 seen["flash_attention_bwd"], flash_bwd_key),
+                   record_shapes(mods["flash_attention"], "flash_attention",
+                                 seen["flash_attention"], flash_key)]
+        losses, secs = [], []
+        with tempfile.TemporaryDirectory() as d:
+            _zero(torch, mods)
+            t0 = time.perf_counter()
+            first = _record_losses(Trainer(
+                model, tc, TrainerConfig(ckpt_dir=d, ckpt_every=2,
+                                         max_steps=steps, log_every=1),
+                log_fn=log, device="cuda", params=params), losses, secs)
+            first.fit(gen)
+            resumed = _record_losses(Trainer(
+                model, tc, TrainerConfig(ckpt_dir=d, ckpt_every=2,
+                                         max_steps=steps + more,
+                                         log_every=1),
+                log_fn=log, device="cuda", params=params), losses, secs)
+            if resumed.step != steps or ckpt.latest_step(d) != steps:
+                fail(f"train {cfg.name}: resumed at {resumed.step}, want "
+                     f"{steps}")
+            same = all((a == b) if isinstance(a, int) else torch.equal(a, b)
+                       for (_, a), (_, b) in zip(ckpt.leaves(resumed.state),
+                                                 ckpt.leaves(first.state)))
+            n_leaves = len(list(ckpt.leaves(first.state)))
+            if not same:
+                fail(f"train {cfg.name}: the restored state differs from "
+                     f"the saved one")
+            print(f"train {cfg.name}: resumed at step {steps}, the restored "
+                  f"state ({n_leaves} leaves) equals the saved one bit for "
+                  f"bit", flush=True)
+            resumed.fit(gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: m.launches for k, m in mods.items()}
+        for r in restore:
+            r()
+        # uninterrupted, over the batches the two trainers stepped on (the
+        # first drew one past its last step and dropped it)
+        once_losses = []
+        once = _record_losses(Trainer(
+            model, tc, TrainerConfig(max_steps=steps + more, log_every=0),
+            log_fn=log, device="cuda", params=params), once_losses)
+        once.fit(iter(drawn[:steps] + drawn[steps + 1:steps + 1 + more]))
+        final_same = all(
+            (a == b) if isinstance(a, int) else torch.equal(a, b)
+            for (_, a), (_, b) in zip(ckpt.leaves(resumed.state),
+                                      ckpt.leaves(once.state)))
+        print(f"train {cfg.name}: losses {losses}, uninterrupted "
+              f"{once_losses}; final states equal: {final_same}; "
+              f"{steps + more} steps with resume in {wall:.3f} s, "
+              f"{batch * seq * (steps + more) / wall:.1f} tokens/s; "
+              f"launches {got} ({CARD})", flush=True)
+        if once_losses[steps] != losses[steps] or \
+                not all(np.isfinite(losses)):
+            fail(f"train {cfg.name}: step {steps + 1} loss "
+                 f"{losses[steps]!r} after resuming, {once_losses[steps]!r} "
+                 f"uninterrupted")
+        if got["flash_attention_bwd"] != \
+                (cfg.encoder_layers + 2 * cfg.num_layers) * (steps + more):
+            fail(f"train {cfg.name}: launches {got}")
+        del first, resumed, once, loader, drawn
+        return got
+    return run
+
+
 def profile_pass(torch, label: str, fn, top: int = 10):
     """Where one pass's time goes: the profiler's device time by kernel
     name, and the device's busy share of the pass's wall time."""
@@ -1954,6 +2293,50 @@ def time_flash(torch, np, fa, ref, case):
     return row
 
 
+def time_flash_bwd(torch, np, mods, ref, case):
+    """The backward kernel at one (B, H, Hk, Tq, Tk, hd, causal, window),
+    bf16, beside the backward of autograd through the plain version and
+    of ``scaled_dot_product_attention`` (``enable_gqa``), each over a
+    graph kept for repeated backwards.  Bound: the forward's operations
+    times 2.5 (five products against two) or the bytes of q, k, v, o, dO
+    and lse read and dQ, dK, dV written, whichever is larger."""
+    fa, fab = mods["flash_attention"], mods["flash_attention_bwd"]
+    B, H, Hk, Tq, Tk, hd, causal, window = case
+    q, k, v = flash_inputs(torch, np, case, torch.bfloat16)
+    dout = flash_inputs(torch, np, case, torch.bfloat16, seed=5)[0]
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    qp = np.arange(Tq)[:, None]
+    kp = np.arange(Tk)[None, :]
+    vis = np.ones((Tq, Tk), bool)
+    if causal:
+        vis &= qp >= kp
+    if window > 0:
+        vis &= (qp - kp) < window
+    pairs = B * H * int(vis.sum())
+    plain_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = ref.flash_attention_ref(*plain_in, causal=causal,
+                                        window=window)
+    lib_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    mask = None if not window else torch.as_tensor(vis, device="cuda")
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        *lib_in, is_causal=causal and mask is None, attn_mask=mask,
+        enable_gqa=H != Hk)
+    row = timing_row(
+        torch, "flash_attention_bwd", case,
+        lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse,
+                                        causal=causal, window=window),
+        lambda: torch.autograd.grad(plain_out, plain_in, dout,
+                                    retain_graph=True),
+        lambda: torch.autograd.grad(lib_out, lib_in, dout,
+                                    retain_graph=True),
+        2 * (4 * B * H * Tq * hd + 4 * B * Hk * Tk * hd) + 4 * B * H * Tq,
+        2.5 * 4 * hd * pairs, BF16_FLOPS_PER_S, "fa_bwd_")
+    del q, k, v, dout, out, lse, plain_in, plain_out, lib_in, lib_out
+    torch.cuda.empty_cache()
+    return row
+
+
 def time_kernels(torch, np, mods, ref, shapes):
     """Each kernel at its largest main-path shape."""
     rng = np.random.default_rng(2)
@@ -1991,6 +2374,8 @@ def time_kernels(torch, np, mods, ref, shapes):
         torch.cuda.empty_cache()
     for case in shapes["flash_attention"]:
         rows.append(time_flash(torch, np, fa, ref, case))
+    for case in shapes["flash_attention_bwd"]:
+        rows.append(time_flash_bwd(torch, np, mods, ref, case))
     for case in shapes["ssd_scan"]:
         B, T, H, hd, N, C = case
         ins = ssd_inputs(torch, np, case, torch.bfloat16)
@@ -2036,6 +2421,7 @@ def main() -> None:
         fail(f"imported the port from {repro_torch.__file__}, not {ROOT}")
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import margin_head as mh
     from repro_torch.kernels import pairwise_dist as pd
     from repro_torch.kernels import ssd_scan as ssd
@@ -2044,10 +2430,17 @@ def main() -> None:
            for m in sys.modules) or "repro" in sys.modules:
         fail("JAX or the JAX package was imported")
     mods = {"margin_head": mh, "pairwise_sqdist": pd, "flash_attention": fa,
-            "ssd_scan": ssd}
+            "ssd_scan": ssd, "flash_attention_bwd": fab}
 
-    card = card_line()
-    print(f"card: {card}", flush=True)
+    global CARD
+    CARD = card_line()
+    print(f"card: {CARD}", flush=True)
+    t_phase = [time.perf_counter()]
+
+    def phase(name):
+        now = time.perf_counter()
+        print(f"phase {name} seconds: {now - t_phase[0]:.1f}", flush=True)
+        t_phase[0] = now
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -2060,7 +2453,8 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     # the redesigned kernels run on tensor cores: their SASS holds HMMA
-    for name in ("flash_attention", "ssd_scan", "pairwise_dist"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                 "pairwise_dist"):
         n = tensor_core_instructions(build.nvcc(), libs[name])
         print(f"sass {name}: {n} HMMA instructions"
               + (" (cuobjdump not found: not measured)" if n < 0 else ""),
@@ -2073,8 +2467,10 @@ def main() -> None:
     check_pairwise(torch, np, pd, ref, PAIRWISE_GRID, PAIRWISE_INT_GRID,
                    PAIRWISE_REF_GRID)
     check_flash(torch, np, fa, ref, FLASH_GRID)
+    check_flash_bwd(torch, np, mods, ref, FLASH_BWD_GRID)
     check_ssd(torch, np, ssd, ref, SSD_GRID)
     check_ssd_states(torch, np, ssd, ref, SSD_GRID[4])
+    phase("build and kernel checks")
 
     # the shapes each main path gave each kernel
     seen_by = {p: {k: set() for k in mods}
@@ -2082,7 +2478,8 @@ def main() -> None:
                          "serving", "serving_qwen2", "pool_pass",
                          "serving_gemma3", "serving_mamba2",
                          "pool_pass_mamba2", "serving_dbrx",
-                         "serving_internvl2")}
+                         "serving_internvl2", "training_qwen2",
+                         "serving_whisper", "training_whisper")}
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -2109,19 +2506,25 @@ def main() -> None:
             seen_by["noisy"]["margin_head"])
         arch_live, arch_replay = run_arch_selection(
             torch, mh, pd, x, y, args.max_iters, seen_by["arch"])
+    phase("campaigns")
     check_aggregator(torch, np)
     check_retrain_graphs(torch, camps["task"], x, y, camps["sizes"])
     check_paged_sinks(torch, np, camps["task"], x)
     launches = camps["launches"]
     del camps
+    phase("aggregator, retrain graphs, paged sinks")
     served, _ = run_serving(torch, np, mods, "zamba2-2.7b", args.serve_batch,
                             args.prompt_len, args.gen, seen_by["serving"])
-    # the dense LM labeler: qwen2-1.5b served, then its token-pool pass;
-    # gemma3-4b (hd 256, local:global windows, tied 262k head) served
-    served_qwen2, pooled = run_serving(
+    phase("serving zamba2-2.7b")
+    # the dense LM labeler: qwen2-1.5b served, then its token-pool pass,
+    # then trained from the served weights; gemma3-4b (hd 256,
+    # local:global windows, tied 262k head) served
+    served_qwen2, pooled, trained_qwen2 = run_serving(
         torch, np, mods, "qwen2-1.5b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_qwen2"],
-        pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass"]))
+        pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass"]),
+        train=train_qwen2(torch, np, mods, seen_by["training_qwen2"]))
+    phase("serving, pool pass and training qwen2-1.5b")
     served_gemma3, _ = run_serving(
         torch, np, mods, "gemma3-4b", args.serve_batch, args.prompt_len,
         args.gen // 2, seen_by["serving_gemma3"])
@@ -2131,18 +2534,30 @@ def main() -> None:
              f"want 0 (global layers) and 1024 (local layers)")
     # the rest of the zoo: mamba2-1.3b (ssd_scan at state N 128) and its
     # pool pass; dbrx-132b at full width, cut to DBRX_LAYERS of its 40
-    # layers (the MoE block, GQA 48:8 at hd 128); internvl2-26b with its
-    # 1,024 patch tokens before the prompt
+    # layers (the MoE block, GQA 48:8 at hd 128); internvl2-26b, cut to
+    # INTERNVL2_LAYERS, with its 1,024 patch tokens before the prompt
+    phase("serving gemma3-4b")
     served_mamba2, pooled_mamba2 = run_serving(
         torch, np, mods, "mamba2-1.3b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_mamba2"],
         pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass_mamba2"]))
+    phase("serving and pool pass mamba2-1.3b")
     served_dbrx, _ = run_serving(
         torch, np, mods, "dbrx-132b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_dbrx"], layers=DBRX_LAYERS)
+    phase("serving dbrx-132b")
     served_internvl2, _ = run_serving(
         torch, np, mods, "internvl2-26b", args.serve_batch, args.prompt_len,
-        args.gen, seen_by["serving_internvl2"])
+        args.gen, seen_by["serving_internvl2"], layers=INTERNVL2_LAYERS)
+    phase("serving internvl2-26b")
+    # the audio family: whisper-tiny served with 1,500 frames a request,
+    # then trained from the served weights, checkpointed and resumed
+    served_whisper, _, trained_whisper = run_serving(
+        torch, np, mods, "whisper-tiny", args.serve_batch, args.prompt_len,
+        args.gen, seen_by["serving_whisper"],
+        train=train_whisper_resume(torch, np, mods,
+                                   seen_by["training_whisper"]))
+    phase("serving and training whisper-tiny")
     from repro_torch.configs import get_config
     states = {s[4] for s in seen_by["serving_mamba2"]["ssd_scan"]}
     if states != {get_config("mamba2-1.3b").ssm_state}:
@@ -2173,7 +2588,10 @@ def main() -> None:
                    "serving_mamba2": served_mamba2[k],
                    "pool_pass_mamba2": pooled_mamba2[k],
                    "serving_dbrx": served_dbrx[k],
-                   "serving_internvl2": served_internvl2[k]} for k in mods}
+                   "serving_internvl2": served_internvl2[k],
+                   "training_qwen2": trained_qwen2[k],
+                   "serving_whisper": served_whisper[k],
+                   "training_whisper": trained_whisper[k]} for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain
     # version again; max_abs_err is the worst of these
@@ -2188,7 +2606,10 @@ def main() -> None:
             "flash_attention": check_flash(
                 torch, np, fa, ref, sorted(seen["flash_attention"])),
             "ssd_scan": check_ssd(torch, np, ssd, ref,
-                                  sorted(seen["ssd_scan"]))}
+                                  sorted(seen["ssd_scan"])),
+            "flash_attention_bwd": check_flash_bwd(
+                torch, np, mods, ref, sorted(seen["flash_attention_bwd"]))}
+    phase("kernel checks at the main paths' shapes")
     # timed at the largest main-path shape of each (margin_head at the
     # largest of each path: the campaigns', the selection's other widths
     # and the LM heads': zamba2's, qwen2's, the pool pass's, mamba2's and
@@ -2213,7 +2634,8 @@ def main() -> None:
             max(seen_by[p]["margin_head"], key=lambda s: (s[0] * s[2], s))
             for p in ("serving", "serving_qwen2", "pool_pass",
                       "serving_mamba2", "pool_pass_mamba2", "serving_dbrx",
-                      "serving_internvl2", "serving_gemma3")],
+                      "serving_internvl2", "serving_whisper",
+                      "serving_gemma3")],
         "pairwise_sqdist": [max(seen_by[p]["pairwise_sqdist"],
                                 key=lambda s: (s[0] * s[1], s))
                             for p in ("campaigns", "fleet")] + [
@@ -2229,9 +2651,14 @@ def main() -> None:
                       "serving_dbrx")] + [
             max((s for s in seen_by["serving_gemma3"]["flash_attention"]
                  if s[-1] == w), key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
-            for w in (1024, 0)] + [
+            for w in (1024, 0)] + sorted(
+            seen_by["serving_whisper"]["flash_attention"]) + [
             max(seen_by["serving_internvl2"]["flash_attention"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))],
+        "flash_attention_bwd": [
+            max(seen_by[p]["flash_attention_bwd"],
+                key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
+            for p in ("training_whisper", "training_qwen2")],
         "ssd_scan": [max(seen_by[p]["ssd_scan"],
                          key=lambda s: (s[0] * s[1] * s[2], s))
                      for p in ("serving", "pool_pass_mamba2",
@@ -2246,6 +2673,10 @@ def main() -> None:
                             "src/repro/kernels/flash_attention.py:69"),
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:86"),
+        # the gradient of the forward above: the TPU kernel has none
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:69"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -2268,6 +2699,7 @@ def main() -> None:
                 "shape", "ms", "device_ms", "plain_ms", "plain_device_ms",
                 "bound_ms", "bound_by", "library_ms", "library_device_ms")}
                 for o in mine[:-1]]})
+    phase("kernel timing")
     print(f"chip_smoke wall seconds: {time.perf_counter() - t_start:.1f}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

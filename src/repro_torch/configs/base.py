@@ -2,7 +2,8 @@
 
 Only the fields the ported families read are kept, with the reference's
 defaults, except ``family``, which defaults to the port's first family,
-``mlp``.  Dtype strings map to torch dtypes.
+``mlp``.  Dtype strings map to torch dtypes.  The reference's
+``sharding`` settings wait for the mesh (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ DTYPES = {
 class ModelConfig:
     # identity -----------------------------------------------------------
     name: str = "model"
-    family: str = "mlp"          # mlp | hybrid | dense | ssm | moe | vlm
+    family: str = "mlp"          # mlp | hybrid | dense | ssm | moe | vlm |
+                                 # audio
     # backbone -----------------------------------------------------------
     num_layers: int = 2
     d_model: int = 128
@@ -36,7 +38,7 @@ class ModelConfig:
     qkv_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
-    pos_embed: str = "rope"      # rope (the only one a ported family uses)
+    pos_embed: str = "rope"      # rope | learned (whisper)
     max_seq_len: int = 4096
     # attention pattern ---------------------------------------------------
     sliding_window: int = 0      # 0 -> full causal
@@ -54,11 +56,16 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
     num_shared_experts: int = 0  # kimi-style always-on shared expert(s)
+    # enc-dec (whisper; stub frontend: precomputed frame embeddings) -------
+    encoder_layers: int = 0
+    encoder_tokens: int = 0      # stub frontend output length (whisper 1500)
     # vlm (stub frontend: precomputed patch embeddings) ---------------------
     frontend: str = ""           # "" | vit_stub
     frontend_tokens: int = 0     # patch tokens prepended to the text sequence
     # numerics ------------------------------------------------------------
     dtype: str = "bfloat16"
+    remat: str = "layer"         # none | layer: recompute each layer in the
+                                 # backward (torch.utils.checkpoint)
     logits_chunk: int = 0        # 0 -> materialize logits; else chunked
     # classifier head for MCAL labeling tasks --------------------------------
     num_classes: int = 0         # 0 -> plain LM head over vocab
@@ -86,7 +93,8 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer / schedule knobs (defaults as in the JAX package)."""
+    """Optimizer / schedule knobs (defaults as in the JAX package; its
+    ``grad_compression`` waits for the mesh)."""
 
     learning_rate: float = 3e-4
     weight_decay: float = 0.01
@@ -94,7 +102,12 @@ class TrainConfig:
     beta2: float = 0.95
     eps: float = 1e-8
     grad_clip: float = 1.0
-    moment_dtype: str = "float32"     # only float32 slots are ported
-    schedule: str = "constant"        # the only schedule ported (the
-                                      # reference defaults to paper_steps)
+    # memory levers for giant models
+    moment_dtype: str = "float32"     # float32 | bfloat16 | int8
+    factored_second_moment: bool = False
+    # schedule: the paper trains 200 epochs with 10x LR drops at 80/120/160/180
+    schedule: str = "paper_steps"     # paper_steps | cosine | constant
     warmup_steps: int = 0
+    total_steps: int = 1000
+    grad_accum: int = 1
+    accum_dtype: str = "float32"      # grad-accumulation carry dtype

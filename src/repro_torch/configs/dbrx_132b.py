@@ -2,8 +2,8 @@
 [hf:databricks/dbrx-base; unverified]  40L d_model=6144 48H (kv=8)
 d_ff=10752 (per expert) vocab=100352.
 
-The reference's ``sharding``, ``remat`` and ``seq_shard_train`` settings
-are left out: the port serves on one card and runs inference only."""
+The reference's ``sharding`` and ``seq_shard_train`` settings are left
+out: the port runs on one card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -34,4 +34,5 @@ SMOKE = ModelConfig(
     vocab_size=256,
     num_experts=4,
     experts_per_token=2,
+    remat="none",
 )

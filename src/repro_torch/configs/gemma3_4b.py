@@ -3,8 +3,8 @@
 d_ff=10240 vocab=262144.  Every 6th layer is global; local layers use a
 1024-token sliding window.  Tied embeddings (the 262k vocab dominates).
 
-The reference's ``sharding`` and ``remat`` settings are left out: the port
-serves on one card and runs inference only."""
+The reference's ``sharding`` setting is left out: the port runs on one
+card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -37,4 +37,5 @@ SMOKE = ModelConfig(
     tie_embeddings=True,
     sliding_window=8,
     local_global_ratio=5,
+    remat="none",
 )

@@ -5,8 +5,8 @@ embeddings ``patch_embeds`` (B, 1024, d_model), prepended to the text.
 Vocab padded 92553 -> 92672 (multiple of 256) for even sharding; padding
 ids are never produced.
 
-The reference's ``sharding`` and ``remat`` settings are left out: the port
-serves on one card and runs inference only."""
+The reference's ``sharding`` setting is left out: the port runs on one
+card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -36,4 +36,5 @@ SMOKE = ModelConfig(
     vocab_size=256,
     frontend="vit_stub",
     frontend_tokens=8,
+    remat="none",
 )

@@ -8,8 +8,8 @@ about 2 TB of bf16 expert weights the full config needs the sharded MoE
 routes, which the port does not have yet; its smoke config (with the shared
 expert) runs on one device.
 
-The reference's ``sharding``, ``remat`` and ``seq_shard_train`` settings
-are left out: the port serves on one card and runs inference only."""
+The reference's ``sharding`` and ``seq_shard_train`` settings are left
+out: the port runs on one card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -42,4 +42,5 @@ SMOKE = ModelConfig(
     num_experts=8,
     experts_per_token=2,
     num_shared_experts=1,
+    remat="none",
 )

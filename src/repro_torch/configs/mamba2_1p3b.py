@@ -2,8 +2,8 @@
 [arXiv:2405.21060; unverified]  48L d_model=2048 vocab=50280, ssm_state=128.
 d_inner = 2*d_model = 4096, head_dim 64 -> 64 ssm heads.
 
-The reference's ``sharding`` and ``remat`` settings are left out: the port
-serves on one card and runs inference only."""
+The reference's ``sharding`` setting is left out: the port runs on one
+card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -36,4 +36,5 @@ SMOKE = ModelConfig(
     ssm_head_dim=16,
     ssm_conv_kernel=4,
     ssm_chunk=16,
+    remat="none",
 )

@@ -2,8 +2,8 @@
 [arXiv:2404.14219; unverified]  40L d_model=5120 40H (kv=10) d_ff=17920
 vocab=100352.
 
-The reference's ``sharding`` and ``remat`` settings are left out: the port
-serves on one card and runs inference only."""
+The reference's ``sharding`` setting is left out: the port runs on one
+card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -29,4 +29,5 @@ SMOKE = ModelConfig(
     head_dim=16,
     d_ff=128,
     vocab_size=256,
+    remat="none",
 )

@@ -2,8 +2,8 @@
 [hf:Qwen/Qwen1.5-0.5B; hf]  40L d_model=2560 20H (kv=20) d_ff=6912
 vocab=151936.
 
-The reference's ``sharding`` and ``remat`` settings are left out: the port
-serves on one card and runs inference only."""
+The reference's ``sharding`` setting is left out: the port runs on one
+card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -31,4 +31,5 @@ SMOKE = ModelConfig(
     d_ff=128,
     vocab_size=256,
     qkv_bias=True,
+    remat="none",
 )

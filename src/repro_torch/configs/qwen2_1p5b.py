@@ -1,8 +1,8 @@
 """qwen2-1.5b — dense GQA with QKV bias.
 [arXiv:2407.10671; hf]  28L d_model=1536 12H (kv=2) d_ff=8960 vocab=151936.
 
-The reference's ``sharding`` and ``remat`` settings are left out: the port
-serves on one card and runs inference only."""
+The reference's ``sharding`` setting is left out: the port runs on one
+card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -30,4 +30,5 @@ SMOKE = ModelConfig(
     d_ff=96,
     vocab_size=256,
     qkv_bias=True,
+    remat="none",
 )

@@ -3,8 +3,8 @@
 [arXiv:2411.15242; hf]  54L d_model=2560 32H (kv=32) d_ff=10240 vocab=32000,
 ssm_state=64.  Shared transformer block applied every 6 mamba layers.
 
-The reference's ``sharding`` and ``remat`` settings are left out: the port
-serves on one card and runs inference only."""
+The reference's ``sharding`` setting is left out: the port runs on one
+card."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -41,4 +41,5 @@ SMOKE = ModelConfig(
     ssm_conv_kernel=4,
     ssm_chunk=16,
     shared_attn_every=2,
+    remat="none",
 )

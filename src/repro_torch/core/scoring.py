@@ -133,6 +133,13 @@ class PoolScoringEngine:
 
     def __init__(self, model, cfg: ScoringConfig = ScoringConfig(),
                  device="cuda"):
+        if model.cfg.family == "audio":
+            # the reference's engine passes {"tokens": x} alone, so its
+            # encoder gets no audio_frames and fails (ROADMAP C.5)
+            raise NotImplementedError(
+                "PoolScoringEngine scores token and feature pools; an audio "
+                "pool needs per-row audio_frames: its pool pass is "
+                "ServeEngine.score_pool")
         if model.cfg.family not in _POOLS:
             raise NotImplementedError(
                 f"scoring the {model.cfg.family!r} family is not ported")

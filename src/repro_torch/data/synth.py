@@ -6,6 +6,10 @@ noise; ``difficulty`` in [0, 1) scales the noise/margin ratio so the
 achievable classifier error spans the paper's easy (Fashion-like) to hard
 (CIFAR-100-like) regimes.  A fraction of samples is drawn with boosted
 noise ("hard tail") so uncertainty ranking has real structure to find.
+
+``make_lm_tokens`` builds deterministic pseudo-corpora for LM training
+(Zipf-ish unigram draws + a copy task so the loss is learnable).  Both are
+numpy, bit-equal to the reference's.
 """
 from __future__ import annotations
 
@@ -44,3 +48,23 @@ def make_classification(
     x[hard] = boundary[hard]
     return x.astype(np.float32), labels.astype(np.int64)
 
+
+
+def make_lm_tokens(
+    n_seq: int,
+    seq_len: int,
+    vocab_size: int,
+    seed: int = 0,
+    copy_prefix: int = 8,
+) -> np.ndarray:
+    """(n_seq, seq_len) i32 token ids: Zipf unigrams with the first
+    ``copy_prefix`` tokens repeated mid-sequence (learnable structure)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1)
+    p = 1.0 / ranks
+    p /= p.sum()
+    toks = rng.choice(vocab_size, size=(n_seq, seq_len), p=p)
+    if seq_len >= 2 * copy_prefix + 2:
+        mid = seq_len // 2
+        toks[:, mid:mid + copy_prefix] = toks[:, :copy_prefix]
+    return toks.astype(np.int32)

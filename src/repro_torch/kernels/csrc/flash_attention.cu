@@ -21,12 +21,15 @@
 // 0.14 TFLOP on a global layer, three quarters of that on its local layers
 // (window 1,024).
 //
-// Head dims built: 8, 16, 32 (the JAX package's test grid), 80 (zamba2),
-// 128 (qwen2, qwen1.5, phi3) and 256 (gemma3).  Per head dim the bf16
-// kernel takes 128 query rows a block and 64-key tiles up to hd 80, 64
-// rows and 64 keys at hd 128, 64 rows and 32 keys at hd 256 (`Tile`); the
-// fp32 kernel one thread a row and 64-key tiles up to hd 80, hd / 32
-// threads a row and 4096 / hd keys a tile from hd 128 (`F32Tile`).
+// Head dims built: 8, 16, 32 (the JAX package's test grid), 64
+// (whisper-tiny), 80 (zamba2), 128 (qwen2, qwen1.5, phi3) and 256
+// (gemma3).  Per head dim the bf16 kernel takes 128 query rows a block
+// and 64-key tiles up to hd 80, 64 rows and 64 keys at hd 128, 64 rows
+// and 32 keys at hd 256 (`Tile`); the fp32 kernel one thread a row and
+// 64-key tiles up to hd 80, hd / 32 threads a row and 4096 / hd keys a
+// tile from hd 128 (`F32Tile`).  Whisper's T 1,500 is off every tile: the
+// last query tile's rows past Tq are loaded as zeros and never written,
+// and the last key tile's keys past Tk are zero-filled and masked.
 //
 // Design of the bf16 kernel (`flash_attention_mma_kernel`), the serving
 // path's: the FlashAttention-2 shape on tensor cores.  A block owns 128
@@ -108,9 +111,9 @@ template <int HD>
 __global__ void __launch_bounds__(F32Tile<HD>::THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       Strides sq, Strides sk, Strides sv, Strides so, int H,
-                       int Hk, int Tq, int Tk, float scale, int causal,
-                       int window) {
+                       float* __restrict__ lse, Strides sq, Strides sk,
+                       Strides sv, Strides so, int H, int Hk, int Tq, int Tk,
+                       float scale, int causal, int window) {
   using FT = F32Tile<HD>;
   constexpr int TPR = FT::TPR, DPT = FT::DPT, BK = FT::BK;
   constexpr int NT = FT::THREADS, G4 = DPT / 4;
@@ -210,6 +213,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (q_ok) {
     const float inv = 1.0f / fmaxf(l, 1e-30f);
+    if (lse != nullptr && sub == 0)
+      lse[((long long)b * H + h) * Tq + qi] = m + logf(fmaxf(l, 1e-30f));
     float* orow = o + b * so.b + h * so.h + (long long)qi * so.t;
 #pragma unroll
     for (int i = 0; i < G4; ++i)
@@ -259,10 +264,10 @@ __global__ void __launch_bounds__(32 * WARPS, 2)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, Strides sq,
-                           Strides sk, Strides sv, Strides so, int H, int Hk,
-                           int Tq, int Tk, float scale, int causal,
-                           int window) {
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, Strides sq, Strides sk,
+                           Strides sv, Strides so, int H, int Hk, int Tq,
+                           int Tk, float scale, int causal, int window) {
   using TL = Tile<HD>;
   constexpr int ROW = TL::ROW, HDP = TL::HDP, CH = TL::CHUNKS;
   constexpr int MT = TL::MT, MMA_BK = TL::BKV, MBQ = TL::MBQ;
@@ -481,6 +486,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int qi = row0 + 16 * mt + 8 * i;
       if (qi >= Tq) continue;
       const float inv = 1.0f / fmaxf(li, 1e-30f);
+      if (lse != nullptr && tq == 0)
+        lse[((long long)b * H + h) * Tq + qi] =
+            m[mt][i] + logf(fmaxf(li, 1e-30f));
       __nv_bfloat16* orow = o + b * so.b + h * so.h + (long long)qi * so.t;
 #pragma unroll
       for (int j = 0; j < NTO; ++j) {
@@ -493,21 +501,21 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-               int Hk, int Tq, int Tk, float scale, int causal, int window,
-               cudaStream_t stream) {
+               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+               int B, int H, int Hk, int Tq, int Tk, float scale, int causal,
+               int window, cudaStream_t stream) {
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_attention_kernel<HD><<<grid, F32Tile<HD>::THREADS, 0, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk,
-      sv, so, H, Hk, Tq, Tk, scale, causal, window);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, sq,
+      sk, sv, so, H, Hk, Tq, Tk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-                int Hk, int Tq, int Tk, float scale, int causal, int window,
-                cudaStream_t stream) {
+                float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+                int B, int H, int Hk, int Tq, int Tk, float scale, int causal,
+                int window, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<HD>();
   // the attribute is per kernel and per device: set once on each device
   static bool sized[MAX_DEVICES] = {};
@@ -525,16 +533,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (Tq + Tile<HD>::MBQ - 1) / Tile<HD>::MBQ);
   flash_attention_mma_kernel<HD><<<grid, 32 * WARPS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, sk, sv, so, H, Hk, Tq,
-      Tk, scale, causal, window);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, sq, sk, sv, so, H, Hk,
+      Tq, Tk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// strides: 12 element strides, (b, h, t) of q, k, v and o in that order
+// strides: 12 element strides, (b, h, t) of q, k, v and o in that order.
+// lse: null, or (B, H, Tq) fp32 written with each row's log-sum-exp of its
+// scaled scores (m + log l), which the backward (flash_attention_bwd.cu)
+// recomputes P from; serving passes null and does the same work as without.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o,
+                                   const void* v, void* o, float* lse,
                                    const long long* st, int B, int H, int Hk,
                                    int Tq, int Tk, int hd, float scale,
                                    int causal, int window, void* stream) {
@@ -543,12 +554,13 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   const cudaStream_t s = (cudaStream_t)stream;
 #define FA_CASE(HD)                                                          \
   case HD:                                                                   \
-    return launch_f32<HD>(q, k, v, o, sq, sk, sv, so, B, H, Hk, Tq, Tk,      \
+    return launch_f32<HD>(q, k, v, o, lse, sq, sk, sv, so, B, H, Hk, Tq, Tk, \
                           scale, causal, window, s);
   switch (hd) {
     FA_CASE(8)
     FA_CASE(16)
     FA_CASE(32)
+    FA_CASE(64)
     FA_CASE(80)
     FA_CASE(128)
     FA_CASE(256)
@@ -561,7 +573,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
 // bf16 on tensor cores.  Pointers 16-byte aligned and strides multiples of
 // 8 elements.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o,
+                                    const void* v, void* o, float* lse,
                                     const long long* st, int B, int H, int Hk,
                                     int Tq, int Tk, int hd, float scale,
                                     int causal, int window, void* stream) {
@@ -570,12 +582,13 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   const cudaStream_t s = (cudaStream_t)stream;
 #define FA_CASE(HD)                                                          \
   case HD:                                                                   \
-    return launch_bf16<HD>(q, k, v, o, sq, sk, sv, so, B, H, Hk, Tq, Tk,     \
-                           scale, causal, window, s);
+    return launch_bf16<HD>(q, k, v, o, lse, sq, sk, sv, so, B, H, Hk, Tq,    \
+                           Tk, scale, causal, window, s);
   switch (hd) {
     FA_CASE(8)
     FA_CASE(16)
     FA_CASE(32)
+    FA_CASE(64)
     FA_CASE(80)
     FA_CASE(128)
     FA_CASE(256)

@@ -1,0 +1,836 @@
+// Flash attention backward (causal and/or sliding window, GQA) for Hopper
+// (sm_90a).
+//
+// The gradient of the forward in flash_attention.cu, which replaces the TPU
+// kernel `flash_attention` (src/repro/kernels/flash_attention.py, `_kernel`).
+// The TPU kernel has no backward: the reference trains through its jnp
+// attention (src/repro/models/layers.py, `blockwise_attention`, which
+// recomputes each chunk in the VJP), while the port's models route
+// attention through the forward kernel, so on the card training needs this
+// one.  For q (B, H, Tq, hd), k, v (B, Hk, Tk, hd), the forward's output o
+// and its per-row log-sum-exp lse (B, H, Tq) fp32, and dO = dL/do, it writes
+// dQ, dK and dV of o = softmax(qs k^T + mask) v, qs = q * scale rounded to
+// the input dtype as the forward rounds it, with the forward's masks
+// (causal, window with or without causal, keys past Tk) and GQA (query head
+// h reads kv head h / (H / Hk)).  P is recomputed from lse, never stored:
+// P = exp(qs k^T - lse), masked entries 0.
+//
+// Three launches on one stream, no float atomics, so the result does not
+// depend on the order blocks run in (a resumed training run repeats an
+// uninterrupted one):
+//   1. delta: D = rowsum(dO o) per query row, fp32 (B, H, Tq) scratch;
+//   2. dK, dV: a block per key tile of one (b, kv head) walks every query
+//      tile that can see it, for each of the H / Hk query heads of its
+//      group, in a fixed order:
+//        dV += P^T dO,  dS = P (dO v^T - D),  dK += dS^T qs;
+//   3. dQ: a block per query tile of one (b, h) walks the key tiles it can
+//      see: dQ += dS k, and dQ * scale at the end (the derivative of qs).
+// Each pass recomputes S = qs k^T and dO v^T for its tiles (the second
+// recomputation is the price of writing dQ without atomics).
+//
+// What bounds it: the work is about 2.5 times the forward's operations
+// (five products against two: S recomputed, dO v^T, dV, dK, dQ), 10 hd
+// flops per visible (query, key) pair, against the bytes of q, k, v, o,
+// dO read once and dQ, dK, dV written once.  At qwen2-1.5b's training shape
+// (B 8, H 12 over 2 kv heads, T 2,048, hd 128, causal, bf16) that is 0.26
+// TFLOP against 0.16 GB: the operations bound it (0.26 ms at the bf16
+// tensor-core peak).
+//
+// Design, bf16 at hd 16, 32, 64 and 128 (training's path: qwen2's hd 128,
+// whisper's 64): the FlashAttention-2 backward on tensor cores
+// (`mma.sync.m16n8k16` bf16 -> fp32, fed by `ldmatrix` from bf16 tiles in
+// shared memory, rows padded by 16 B), 4 warps a block and 16 rows a warp.
+// The dK/dV block owns 64 keys and computes S^T = K qs^T and
+// dP^T = V dO^T, so P^T and dS^T come out in the warp's registers in the
+// layout of the next products' A operands (the forward's trick for P V):
+// dV += P^T dO and dK += dS^T qs need no trip through shared memory.  The
+// dQ block owns 64 queries and walks the key tiles as the forward does.
+// P and dS are rounded to bf16 as those operands (the forward rounds P so
+// too); everything else accumulates in fp32.  The inner tile is 64 wide
+// up to hd 64 and 32 at hd 128, where a warp's dK and dV accumulators
+// are 128 registers a thread.  What still separates it from its bound:
+// mma.sync in place of wgmma, tiles loaded without double buffering, and
+// the second recomputation of S and dP.
+//
+// fp32 inputs (and bf16 at hd 8, 80 and 256) take the fp32-FMA kernels:
+// tiles of 32 query rows and 32 keys (16 at hd 256) staged in shared
+// memory in fp32, 256 threads a block, each thread a 2 x 2 block of a
+// 32 x 32 score tile (rows r, r + 16, columns c, c + 16) read as 16-byte
+// pieces along hd from rows padded by 16 bytes (the eight rows a
+// quarter-warp reads fall in distinct banks), and hd / 4 * 32 / 256
+// 16-byte pieces of each accumulated gradient row.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+
+namespace {
+
+constexpr int NT = 256;  // threads a block of the fp32 kernels
+
+struct Strides {  // in elements; hd has stride 1
+  long long b, h, t;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Per head dim: BT query rows and keys a tile, fp32 rows of LD floats in
+// shared memory (hd + 4: 16-byte aligned, neighbouring rows 4 banks apart),
+// and the 16-byte pieces of a row each thread accumulates.
+template <int HD>
+struct BwdTile {
+  static constexpr int BT = HD >= 256 ? 16 : 32;
+  static constexpr int M = BT / 16;        // score rows (and columns) a thread
+  static constexpr int LD = HD + 4;
+  static constexpr int PLD = BT + 1;       // P and dS rows
+  static constexpr int NG = HD / 4;        // 16-byte pieces of a row
+  static constexpr int NPT = (BT * NG + NT - 1) / NT;  // pieces a thread
+  static_assert(HD % 4 == 0, "rows are whole 16-byte pieces");
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)4 * BT * LD + 2 * BT * PLD + 2 * BT);
+};
+
+// rows [row0, row0 + BT) of a (T, HD) slab in the input dtype -> fp32 rows
+// of LD in shared memory, rows at or past `limit` as zeros; `scale` > 0
+// scales and rounds to the input dtype (qs, as the forward makes it)
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          long long st, int row0, int limit,
+                                          float scale) {
+  using TL = BwdTile<HD>;
+  for (int i = threadIdx.x; i < TL::BT * HD; i += NT) {
+    const int r = i / HD, d = i % HD, t = row0 + r;
+    float x = 0.f;
+    if (t < limit) {
+      x = to_f(src[(long long)t * st + d]);
+      if (scale > 0.f) x = to_f(from_f<T>(x * scale));
+    }
+    dst[r * TL::LD + d] = x;
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// The score tile of the staged query rows (qs, dO, lse, D) against the
+// staged keys (k, v): P = exp(qs k^T - lse) and dS = P (dO v^T - D), both
+// zero where the mask hides the pair, into ps and dss (BT x PLD).
+template <int HD>
+__device__ __forceinline__ void score_tile(
+    const float* qs, const float* dos, const float* ks, const float* vs,
+    const float* lse_s, const float* d_s, float* ps, float* dss, int q0,
+    int k0, int Tq, int Tk, int causal, int window) {
+  using TL = BwdTile<HD>;
+  constexpr int M = TL::M, LD = TL::LD;
+  const int ri = threadIdx.x / 16, cj = threadIdx.x % 16;
+  float s[M][M], dp[M][M];
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+#pragma unroll
+    for (int c = 0; c < M; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 qa[M], oa[M], kc[M], vc[M];
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      qa[a] = *reinterpret_cast<const float4*>(qs + (ri + 16 * a) * LD + d);
+      oa[a] = *reinterpret_cast<const float4*>(dos + (ri + 16 * a) * LD + d);
+      kc[a] = *reinterpret_cast<const float4*>(ks + (cj + 16 * a) * LD + d);
+      vc[a] = *reinterpret_cast<const float4*>(vs + (cj + 16 * a) * LD + d);
+    }
+#pragma unroll
+    for (int a = 0; a < M; ++a)
+#pragma unroll
+      for (int c = 0; c < M; ++c) {
+        s[a][c] = dot4(qa[a], kc[c], s[a][c]);
+        dp[a][c] = dot4(oa[a], vc[c], dp[a][c]);
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      const int i = ri + 16 * a, j = cj + 16 * c;
+      const int qi = q0 + i, kp = k0 + j;
+      bool vis = qi < Tq && kp < Tk;
+      if (causal) vis = vis && qi >= kp;
+      if (window > 0) vis = vis && (qi - kp) < window;
+      const float p = vis ? __expf(s[a][c] - lse_s[i]) : 0.f;
+      ps[i * TL::PLD + j] = p;
+      dss[i * TL::PLD + j] = p * (dp[a][c] - d_s[i]);
+    }
+}
+
+// shared memory: qs, dO, k, v (BT x LD each), P, dS (BT x PLD), lse, D
+struct Smem {
+  float *qs, *dos, *ks, *vs, *ps, *dss, *lse, *d;
+};
+
+template <int HD>
+__device__ __forceinline__ Smem carve(float* base) {
+  using TL = BwdTile<HD>;
+  Smem m;
+  m.qs = base;
+  m.dos = m.qs + TL::BT * TL::LD;
+  m.ks = m.dos + TL::BT * TL::LD;
+  m.vs = m.ks + TL::BT * TL::LD;
+  m.ps = m.vs + TL::BT * TL::LD;
+  m.dss = m.ps + TL::BT * TL::PLD;
+  m.lse = m.dss + TL::BT * TL::PLD;
+  m.d = m.lse + TL::BT;
+  return m;
+}
+
+// the query rows' qs, dO, lse and D of (b, h) from row q0
+template <typename T, int HD>
+__device__ __forceinline__ void load_queries(
+    const Smem& m, const T* q, const T* dout, const float* lse,
+    const float* delta, Strides sq, Strides sdo, int b, int h, int H,
+    int q0, int Tq, float scale) {
+  using TL = BwdTile<HD>;
+  load_rows<T, HD>(m.qs, q + b * sq.b + h * sq.h, sq.t, q0, Tq, scale);
+  load_rows<T, HD>(m.dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, Tq, 0.f);
+  const long long row = ((long long)b * H + h) * Tq;
+  for (int i = threadIdx.x; i < TL::BT; i += NT) {
+    const bool ok = q0 + i < Tq;
+    m.lse[i] = ok ? lse[row + q0 + i] : 0.f;
+    m.d[i] = ok ? delta[row + q0 + i] : 0.f;
+  }
+}
+
+// 1. D = rowsum(dO o), one warp a row
+template <typename T>
+__global__ void __launch_bounds__(NT)
+fa_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ delta, Strides so, Strides sdo, int H,
+                    int Tq, int hd) {
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * (NT / 32) + threadIdx.x / 32;
+  if (qi >= Tq) return;
+  const T* orow = o + b * so.b + h * so.h + (long long)qi * so.t;
+  const T* drow = dout + b * sdo.b + h * sdo.h + (long long)qi * sdo.t;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[((long long)b * H + h) * Tq + qi] = acc;
+}
+
+// 2. dK and dV of one key tile of (b, kv head)
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                   Strides sdo, Strides sdk, Strides sdv, int H, int Hk,
+                   int Tq, int Tk, float scale, int causal, int window) {
+  using TL = BwdTile<HD>;
+  constexpr int BT = TL::BT, NG = TL::NG, NPT = TL::NPT, LD = TL::LD;
+  extern __shared__ __align__(16) float bwd_smem[];
+  const Smem m = carve<HD>(bwd_smem);
+  const int b = blockIdx.y / Hk, hk = blockIdx.y % Hk, G = H / Hk;
+  const int k0 = blockIdx.x * BT;
+  load_rows<T, HD>(m.ks, k + b * sk.b + hk * sk.h, sk.t, k0, Tk, 0.f);
+  load_rows<T, HD>(m.vs, v + b * sv.b + hk * sv.h, sv.t, k0, Tk, 0.f);
+
+  float4 gk[NPT], gv[NPT];
+#pragma unroll
+  for (int u = 0; u < NPT; ++u)
+    gk[u] = gv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the queries some key of this tile is visible to
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Tq, k0 + BT - 1 + window) : Tq;
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    for (int q0 = q_lo; q0 < q_hi; q0 += BT) {
+      __syncthreads();  // the previous query tile consumed
+      load_queries<T, HD>(m, q, dout, lse, delta, sq, sdo, b, h, H, q0, Tq,
+                          scale);
+      __syncthreads();
+      score_tile<HD>(m.qs, m.dos, m.ks, m.vs, m.lse, m.d, m.ps, m.dss, q0,
+                     k0, Tq, Tk, causal, window);
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < NPT; ++u) {
+        const int piece = threadIdx.x + NT * u;
+        if (piece >= BT * NG) break;
+        const int j = piece / NG, d = 4 * (piece % NG);
+        float4 av = gv[u], ak = gk[u];
+        for (int i = 0; i < BT; ++i) {
+          const float p = m.ps[i * TL::PLD + j], ds = m.dss[i * TL::PLD + j];
+          const float4 o4 =
+              *reinterpret_cast<const float4*>(m.dos + i * LD + d);
+          const float4 q4 =
+              *reinterpret_cast<const float4*>(m.qs + i * LD + d);
+          av.x = fmaf(p, o4.x, av.x);
+          av.y = fmaf(p, o4.y, av.y);
+          av.z = fmaf(p, o4.z, av.z);
+          av.w = fmaf(p, o4.w, av.w);
+          ak.x = fmaf(ds, q4.x, ak.x);
+          ak.y = fmaf(ds, q4.y, ak.y);
+          ak.z = fmaf(ds, q4.z, ak.z);
+          ak.w = fmaf(ds, q4.w, ak.w);
+        }
+        gv[u] = av;
+        gk[u] = ak;
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NPT; ++u) {
+    const int piece = threadIdx.x + NT * u;
+    if (piece >= BT * NG) break;
+    const int j = piece / NG, d = 4 * (piece % NG), kp = k0 + j;
+    if (kp >= Tk) continue;
+    T* kr = dk + b * sdk.b + hk * sdk.h + (long long)kp * sdk.t + d;
+    T* vr = dv + b * sdv.b + hk * sdv.h + (long long)kp * sdv.t + d;
+    kr[0] = from_f<T>(gk[u].x);
+    kr[1] = from_f<T>(gk[u].y);
+    kr[2] = from_f<T>(gk[u].z);
+    kr[3] = from_f<T>(gk[u].w);
+    vr[0] = from_f<T>(gv[u].x);
+    vr[1] = from_f<T>(gv[u].y);
+    vr[2] = from_f<T>(gv[u].z);
+    vr[3] = from_f<T>(gv[u].w);
+  }
+}
+
+// 3. dQ of one query tile of (b, h)
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq,
+                 Strides sq, Strides sk, Strides sv, Strides sdo,
+                 Strides sdq, int H, int Hk, int Tq, int Tk, float scale,
+                 int causal, int window) {
+  using TL = BwdTile<HD>;
+  constexpr int BT = TL::BT, NG = TL::NG, NPT = TL::NPT, LD = TL::LD;
+  extern __shared__ __align__(16) float bwd_smem[];
+  const Smem m = carve<HD>(bwd_smem);
+  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / (H / Hk);
+  const int q0 = blockIdx.x * BT;
+  load_queries<T, HD>(m, q, dout, lse, delta, sq, sdo, b, h, H, q0, Tq,
+                      scale);
+  float4 gq[NPT];
+#pragma unroll
+  for (int u = 0; u < NPT; ++u) gq[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the keys some row of this tile can see, as the forward walks them
+  const int q_last = min(q0 + BT, Tq) - 1;
+  const int k_hi = causal ? min(Tk, q_last + 1) : Tk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
+  for (int k0 = k_lo; k0 < k_hi; k0 += BT) {
+    __syncthreads();  // the previous key tile consumed
+    load_rows<T, HD>(m.ks, kb, sk.t, k0, Tk, 0.f);
+    load_rows<T, HD>(m.vs, vb, sv.t, k0, Tk, 0.f);
+    __syncthreads();
+    score_tile<HD>(m.qs, m.dos, m.ks, m.vs, m.lse, m.d, m.ps, m.dss, q0, k0,
+                   Tq, Tk, causal, window);
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < NPT; ++u) {
+      const int piece = threadIdx.x + NT * u;
+      if (piece >= BT * NG) break;
+      const int i = piece / NG, d = 4 * (piece % NG);
+      float4 aq = gq[u];
+      for (int j = 0; j < BT; ++j) {
+        const float ds = m.dss[i * TL::PLD + j];
+        const float4 k4 = *reinterpret_cast<const float4*>(m.ks + j * LD + d);
+        aq.x = fmaf(ds, k4.x, aq.x);
+        aq.y = fmaf(ds, k4.y, aq.y);
+        aq.z = fmaf(ds, k4.z, aq.z);
+        aq.w = fmaf(ds, k4.w, aq.w);
+      }
+      gq[u] = aq;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NPT; ++u) {
+    const int piece = threadIdx.x + NT * u;
+    if (piece >= BT * NG) break;
+    const int i = piece / NG, d = 4 * (piece % NG), qi = q0 + i;
+    if (qi >= Tq) continue;
+    T* qr = dq + b * sdq.b + h * sdq.h + (long long)qi * sdq.t + d;
+    qr[0] = from_f<T>(gq[u].x * scale);
+    qr[1] = from_f<T>(gq[u].y * scale);
+    qr[2] = from_f<T>(gq[u].z * scale);
+    qr[3] = from_f<T>(gq[u].w * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores (mma.sync m16n8k16, fp32 accumulators)
+// ---------------------------------------------------------------------------
+
+constexpr int MWARPS = 4;  // warps a block, 16 rows each
+
+// Per head dim: the bf16 shared-memory row (16 B more, against bank
+// conflicts in ldmatrix), 64 rows a block (keys in dK/dV, queries in dQ)
+// and the width of the inner tile each block walks (queries in dK/dV, keys
+// in dQ): 64 up to hd 64, 32 at hd 128, where a warp's two 16 x hd
+// accumulators are 128 registers a thread.
+template <int HD>
+struct MmaTile {
+  static constexpr int ROW = HD + 8;
+  static constexpr int CH = HD / 8;          // 16-byte pieces of a row
+  static constexpr int BM = 16 * MWARPS;     // rows a block owns
+  static constexpr int BN = HD <= 64 ? 64 : 32;  // inner tile
+  static constexpr int NTD = HD / 8;         // n8 tiles over hd
+  static constexpr int NTN = BN / 8;         // n8 tiles over the inner tile
+  static_assert(HD % 16 == 0 && NTD % 2 == 0, "whole k16 steps, n16 pairs");
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (size_t)ROW * (2 * BM + 2 * BN) +
+      sizeof(float) * 2 * (BM > BN ? BM : BN);
+};
+
+// rows [row0, row0 + n) of a (T, HD) bf16 slab into shared memory by
+// cp.async, rows at or past `limit` zero-filled
+template <int HD>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long st, int row0, int n,
+                                           int limit) {
+  constexpr int ROW = MmaTile<HD>::ROW, CH = MmaTile<HD>::CH;
+  for (int i = threadIdx.x; i < n * CH; i += 32 * MWARPS) {
+    const int r = i / CH, c = (i % CH) * 8, t = row0 + r;
+    const bool ok = t < limit;
+    cp_async16(dst + r * ROW + c, src + (long long)(ok ? t : 0) * st + c, ok);
+  }
+}
+
+// q * scale rounded to bf16 in place, as the forward scales it
+template <int HD>
+__device__ __forceinline__ void scale_rows(__nv_bfloat16* qs, int n,
+                                           float scale) {
+  constexpr int ROW = MmaTile<HD>::ROW;
+  for (int i = threadIdx.x; i < n * HD; i += 32 * MWARPS) {
+    __nv_bfloat16* p = qs + (i / HD) * ROW + i % HD;
+    *p = __float2bfloat16(__bfloat162float(*p) * scale);
+  }
+}
+
+// acc (16 x NT8*8, this warp's rows) = A (16 x HD, rows of `a` from row
+// a_row) times the rows of `b` (NT8*8 x HD, from row 0) transposed: the
+// forward's S = Q K^T
+template <int HD, int NT8>
+__device__ __forceinline__ void mma_abT(float (&acc)[NT8][4],
+                                        const __nv_bfloat16* a, int a_row,
+                                        const __nv_bfloat16* b) {
+  constexpr int ROW = MmaTile<HD>::ROW;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < NT8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const __nv_bfloat16* abase =
+      a + (a_row + (lane & 15)) * ROW + (lane >> 4) * 8;
+  const __nv_bfloat16* bbase =
+      b + ((lane & 7) + ((lane >> 4) << 3)) * ROW + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, abase + kk * 16);
+#pragma unroll
+    for (int jp = 0; jp < NT8 / 2; ++jp) {
+      uint32_t bf[4];
+      ldsm_x4(bf, bbase + jp * 16 * ROW + kk * 16);
+      mma_bf16(acc[2 * jp], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * jp + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x HD) += X (16 x NT8*8, this warp's C fragments, rounded to bf16
+// as A fragments) times the rows of `b` (NT8*8 x HD): the forward's P V
+template <int HD, int NT8>
+__device__ __forceinline__ void mma_xb(float (&acc)[HD / 8][4],
+                                       const float (&x)[NT8][4],
+                                       const __nv_bfloat16* b) {
+  constexpr int ROW = MmaTile<HD>::ROW;
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* base = b + (lane & 15) * ROW + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < NT8 / 2; ++kk) {
+    uint32_t xa[4];
+    xa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, base + kk * 16 * ROW + dp * 16);
+      mma_bf16(acc[2 * dp], xa, bf[0], bf[1]);
+      mma_bf16(acc[2 * dp + 1], xa, bf[2], bf[3]);
+    }
+  }
+}
+
+// this warp's 16 x HD fp32 accumulator, times `mul`, to rows row0 + (0..15)
+// of a bf16 slab, rows at or past `limit` skipped
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
+                                           __nv_bfloat16* dst, long long st,
+                                           int row0, int limit, float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    if (r >= limit) continue;
+    __nv_bfloat16* row = dst + (long long)r * st;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
+  }
+}
+
+// 2. dK and dV of 64 keys of (b, kv head), a warp's 16 keys each: S^T =
+// K qs^T and dP^T = V dO^T for each inner tile of queries, so P^T and dS^T
+// sit in the warp's registers as the A operands of dV += P^T dO and
+// dK += dS^T qs (P and dS rounded to bf16 there, as the forward rounds P)
+template <int HD>
+__global__ void __launch_bounds__(32 * MWARPS)
+fa_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, Strides sq,
+                       Strides sk, Strides sv, Strides sdo, Strides sdk,
+                       Strides sdv, int H, int Hk, int Tq, int Tk,
+                       float scale, int causal, int window) {
+  using TL = MmaTile<HD>;
+  constexpr int ROW = TL::ROW, BM = TL::BM, BN = TL::BN, NTN = TL::NTN;
+  extern __shared__ __align__(16) unsigned char bwd_mma_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_mma_smem);
+  __nv_bfloat16* vs = ks + BM * ROW;
+  __nv_bfloat16* qs = vs + BM * ROW;
+  __nv_bfloat16* dos = qs + BN * ROW;
+  float* lse_s = reinterpret_cast<float*>(dos + BN * ROW);
+  float* d_s = lse_s + BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.y / Hk, hk = blockIdx.y % Hk, G = H / Hk;
+  const int k0 = blockIdx.x * BM;
+  stage_rows<HD>(ks, k + b * sk.b + hk * sk.h, sk.t, k0, BM, Tk);
+  stage_rows<HD>(vs, v + b * sv.b + hk * sv.h, sv.t, k0, BM, Tk);
+  cp_async_commit();
+
+  float gk[HD / 8][4], gv[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+    gk[j][0] = gk[j][1] = gk[j][2] = gk[j][3] = gv[j][0] = gv[j][1] =
+        gv[j][2] = gv[j][3] = 0.f;
+  // this thread's keys: kw + g and kw + g + 8
+  const int kw = k0 + warp * 16 + g;
+  // the queries some key of this block is visible to
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Tq, k0 + BM - 1 + window) : Tq;
+  for (int hg = 0; hg < G; ++hg) {
+    const int h = hk * G + hg;
+    const long long row = ((long long)b * H + h) * Tq;
+    for (int q0 = q_lo; q0 < q_hi; q0 += BN) {
+      __syncthreads();  // the previous query tile consumed
+      stage_rows<HD>(qs, q + b * sq.b + h * sq.h, sq.t, q0, BN, Tq);
+      stage_rows<HD>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, BN, Tq);
+      cp_async_commit();
+      for (int i = threadIdx.x; i < BN; i += 32 * MWARPS) {
+        const bool ok = q0 + i < Tq;
+        lse_s[i] = ok ? lse[row + q0 + i] : 0.f;
+        d_s[i] = ok ? delta[row + q0 + i] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      scale_rows<HD>(qs, BN, scale);
+      __syncthreads();
+      float st[NTN][4], dpt[NTN][4];
+      mma_abT<HD, NTN>(st, ks, warp * 16, qs);
+      mma_abT<HD, NTN>(dpt, vs, warp * 16, dos);
+#pragma unroll
+      for (int j = 0; j < NTN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * tq + (e & 1);
+          const int qi = q0 + col, kp = kw + 8 * (e >> 1);
+          bool vis = qi < Tq && kp < Tk;
+          if (causal) vis = vis && qi >= kp;
+          if (window > 0) vis = vis && (qi - kp) < window;
+          const float p = vis ? __expf(st[j][e] - lse_s[col]) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - d_s[col]);
+        }
+      mma_xb<HD, NTN>(gv, st, dos);
+      mma_xb<HD, NTN>(gk, dpt, qs);
+    }
+  }
+  cp_async_wait<0>();
+  store_rows<HD>(gk, dk + b * sdk.b + hk * sdk.h, sdk.t, k0 + warp * 16, Tk,
+                 1.f);
+  store_rows<HD>(gv, dv + b * sdv.b + hk * sdv.h, sdv.t, k0 + warp * 16, Tk,
+                 1.f);
+}
+
+// 3. dQ of 64 queries of (b, h), a warp's 16 each: S = qs K^T and dP =
+// dO V^T a key tile at a time, then dQ += dS K (dS rounded to bf16 as the
+// A operand), and dQ * scale at the end
+template <int HD>
+__global__ void __launch_bounds__(32 * MWARPS)
+fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dq, Strides sq, Strides sk,
+                     Strides sv, Strides sdo, Strides sdq, int H, int Hk,
+                     int Tq, int Tk, float scale, int causal, int window) {
+  using TL = MmaTile<HD>;
+  constexpr int ROW = TL::ROW, BM = TL::BM, BN = TL::BN, NTN = TL::NTN;
+  extern __shared__ __align__(16) unsigned char bwd_mma_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_mma_smem);
+  __nv_bfloat16* dos = qs + BM * ROW;
+  __nv_bfloat16* ks = dos + BM * ROW;
+  __nv_bfloat16* vs = ks + BN * ROW;
+  float* lse_s = reinterpret_cast<float*>(vs + BN * ROW);
+  float* d_s = lse_s + BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / (H / Hk);
+  const int q0 = blockIdx.x * BM;
+  const long long row = ((long long)b * H + h) * Tq;
+  stage_rows<HD>(qs, q + b * sq.b + h * sq.h, sq.t, q0, BM, Tq);
+  stage_rows<HD>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, BM, Tq);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < BM; i += 32 * MWARPS) {
+    const bool ok = q0 + i < Tq;
+    lse_s[i] = ok ? lse[row + q0 + i] : 0.f;
+    d_s[i] = ok ? delta[row + q0 + i] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  scale_rows<HD>(qs, BM, scale);
+
+  float gq[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+    gq[j][0] = gq[j][1] = gq[j][2] = gq[j][3] = 0.f;
+  // this thread's rows: q0 + warp 16 + g and + 8
+  const int r0 = warp * 16 + g;
+  const float lse0 = lse_s[r0], lse1 = lse_s[r0 + 8];
+  const float d0 = d_s[r0], d1 = d_s[r0 + 8];
+  // the keys some row of this block can see, as the forward walks them
+  const int q_last = min(q0 + BM, Tq) - 1;
+  const int k_hi = causal ? min(Tk, q_last + 1) : Tk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
+  for (int kt0 = k_lo; kt0 < k_hi; kt0 += BN) {
+    __syncthreads();  // the previous key tile consumed (and qs scaled)
+    stage_rows<HD>(ks, kb, sk.t, kt0, BN, Tk);
+    stage_rows<HD>(vs, vb, sv.t, kt0, BN, Tk);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float s[NTN][4], dp[NTN][4];
+    mma_abT<HD, NTN>(s, qs, warp * 16, ks);
+    mma_abT<HD, NTN>(dp, dos, warp * 16, vs);
+#pragma unroll
+    for (int j = 0; j < NTN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + r0 + 8 * (e >> 1);
+        const int kp = kt0 + j * 8 + 2 * tq + (e & 1);
+        bool vis = qi < Tq && kp < Tk;
+        if (causal) vis = vis && qi >= kp;
+        if (window > 0) vis = vis && (qi - kp) < window;
+        const float p =
+            vis ? __expf(s[j][e] - ((e >> 1) ? lse1 : lse0)) : 0.f;
+        s[j][e] = p * (dp[j][e] - ((e >> 1) ? d1 : d0));
+      }
+    mma_xb<HD, NTN>(gq, s, ks);
+  }
+  store_rows<HD>(gq, dq + b * sdq.b + h * sdq.h, sdq.t, q0 + warp * 16, Tq,
+                 scale);
+}
+
+// the dynamic shared-memory attribute, per kernel and per device, set once
+template <typename K>
+cudaError_t size_smem(K kernel, size_t bytes, bool* sized) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    sized[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, const long long* st, int B, int H, int Hk,
+           int Tq, int Tk, float scale, int causal, int window,
+           cudaStream_t stream) {
+  using TL = BwdTile<HD>;
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
+      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]},
+      sdo{st[12], st[13], st[14]}, sdq{st[15], st[16], st[17]},
+      sdk{st[18], st[19], st[20]}, sdv{st[21], st[22], st[23]};
+  static bool sized_kv[MAX_DEVICES] = {}, sized_q[MAX_DEVICES] = {};
+  cudaError_t err = size_smem(fa_bwd_dkdv_kernel<T, HD>, TL::SMEM, sized_kv);
+  if (err != cudaSuccess) return (int)err;
+  err = size_smem(fa_bwd_dq_kernel<T, HD>, TL::SMEM, sized_q);
+  if (err != cudaSuccess) return (int)err;
+
+  const dim3 grid_d((Tq + NT / 32 - 1) / (NT / 32), B * H);
+  fa_bwd_delta_kernel<T><<<grid_d, NT, 0, stream>>>(
+      (const T*)o, (const T*)dout, delta, so, sdo, H, Tq, HD);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_kv((Tk + TL::BT - 1) / TL::BT, B * Hk);
+  fa_bwd_dkdv_kernel<T, HD><<<grid_kv, NT, TL::SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dk, (T*)dv, sq, sk, sv, sdo, sdk, sdv, H, Hk, Tq, Tk, scale,
+      causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q((Tq + TL::BT - 1) / TL::BT, B * H);
+  fa_bwd_dq_kernel<T, HD><<<grid_q, NT, TL::SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dq, sq, sk, sv, sdo, sdq, H, Hk, Tq, Tk, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, const long long* st, int B, int H,
+               int Hk, int Tq, int Tk, float scale, int causal, int window,
+               cudaStream_t stream) {
+  using TL = MmaTile<HD>;
+  using bf = __nv_bfloat16;
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
+      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]},
+      sdo{st[12], st[13], st[14]}, sdq{st[15], st[16], st[17]},
+      sdk{st[18], st[19], st[20]}, sdv{st[21], st[22], st[23]};
+  static bool sized_kv[MAX_DEVICES] = {}, sized_q[MAX_DEVICES] = {};
+  cudaError_t err = size_smem(fa_bwd_dkdv_mma_kernel<HD>, TL::SMEM,
+                              sized_kv);
+  if (err != cudaSuccess) return (int)err;
+  err = size_smem(fa_bwd_dq_mma_kernel<HD>, TL::SMEM, sized_q);
+  if (err != cudaSuccess) return (int)err;
+
+  const dim3 grid_d((Tq + NT / 32 - 1) / (NT / 32), B * H);
+  fa_bwd_delta_kernel<bf><<<grid_d, NT, 0, stream>>>(
+      (const bf*)o, (const bf*)dout, delta, so, sdo, H, Tq, HD);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_kv((Tk + TL::BM - 1) / TL::BM, B * Hk);
+  fa_bwd_dkdv_mma_kernel<HD><<<grid_kv, 32 * MWARPS, TL::SMEM, stream>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta,
+      (bf*)dk, (bf*)dv, sq, sk, sv, sdo, sdk, sdv, H, Hk, Tq, Tk, scale,
+      causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q((Tq + TL::BM - 1) / TL::BM, B * H);
+  fa_bwd_dq_mma_kernel<HD><<<grid_q, 32 * MWARPS, TL::SMEM, stream>>>(
+      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta,
+      (bf*)dq, sq, sk, sv, sdo, sdq, H, Hk, Tq, Tk, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const float* lse, float* delta, void* dq,
+             void* dk, void* dv, const long long* st, int B, int H, int Hk,
+             int Tq, int Tk, int hd, float scale, int causal, int window,
+             void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+#define FA_BWD_CASE(HD)                                                     \
+  case HD:                                                                  \
+    return launch<T, HD>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,   \
+                         H, Hk, Tq, Tk, scale, causal, window, s);
+  switch (hd) {
+    FA_BWD_CASE(8)
+    FA_BWD_CASE(16)
+    FA_BWD_CASE(32)
+    FA_BWD_CASE(64)
+    FA_BWD_CASE(80)
+    FA_BWD_CASE(128)
+    FA_BWD_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef FA_BWD_CASE
+}
+
+}  // namespace
+
+// strides: 24 element strides, (b, h, t) of q, k, v, o, dO, dQ, dK and dV in
+// that order (hd contiguous in each); lse (B, H, Tq) fp32 from the forward;
+// delta (B, H, Tq) fp32 scratch.  dQ, dK and dV are written whole.
+extern "C" int flash_attention_bwd_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, const long long* st, int B, int H, int Hk, int Tq, int Tk,
+    int hd, float scale, int causal, int window, void* stream) {
+  return dispatch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B, H,
+                         Hk, Tq, Tk, hd, scale, causal, window, stream);
+}
+
+// bf16: the tensor-core kernels at hd 16, 32, 64 and 128 (pointers of q,
+// k, v and dO 16-byte aligned and their strides multiples of 8 elements),
+// the fp32-FMA ones at hd 8, 80 and 256
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, const long long* st, int B, int H, int Hk, int Tq, int Tk,
+    int hd, float scale, int causal, int window, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+#define FA_BWD_MMA(HD)                                                      \
+  case HD:                                                                  \
+    return launch_mma<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,  \
+                          H, Hk, Tq, Tk, scale, causal, window, s);
+  switch (hd) {
+    FA_BWD_MMA(16)
+    FA_BWD_MMA(32)
+    FA_BWD_MMA(64)
+    FA_BWD_MMA(128)
+    default:
+      return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
+                                     dv, st, B, H, Hk, Tq, Tk, hd, scale,
+                                     causal, window, stream);
+  }
+#undef FA_BWD_MMA
+}

@@ -7,6 +7,15 @@ is the port's counterpart of ``use_pallas()`` "auto" on a TPU.  The port's
 models call :func:`attention` and :func:`ssd` (the reference's models call
 the jnp paths directly and never reach its kernels), so that the serving
 path runs on the kernels.
+
+Gradients: on the CPU autograd differentiates the plain versions.  On a
+CUDA tensor :func:`attention` goes through a ``torch.autograd.Function``
+whenever grad is on and an input requires it: its forward is the
+``flash_attention`` kernel (which then also writes each row's
+log-sum-exp) and its backward the ``flash_attention_bwd`` kernel.
+:func:`ssd` on a CUDA tensor that requires grad raises: ``ssd_scan`` has
+no backward kernel yet (ROADMAP), and nothing falls back to the plain scan
+on the card.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import margin_head as _mh
 from repro_torch.kernels import pairwise_dist as _pd
 from repro_torch.kernels import ref as _ref
@@ -40,18 +50,48 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return _pd.pairwise_sqdist(x.contiguous(), c.contiguous())
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash-attention kernel with the backward kernel as its gradient
+    (head-major q, k, v; the mask settings are not differentiated)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _fa.flash_attention(q, k, v, causal=causal,
+                                       window=window, scale=scale,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = _fab.flash_attention_bwd(q, k, v, out, dout, lse,
+                                              causal=causal, window=window,
+                                              scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               scale: Optional[float] = None,
               kv_chunk: Optional[int] = None) -> torch.Tensor:
     """Model-layout attention (B, T, H, hd) x (B, Tk, Hk, hd).  On the CPU
     the plain version walks kv chunks of ``kv_chunk`` keys (the model's own
-    chunking; default min(1024, Tk))."""
+    chunking; default min(1024, Tk)).  On a CUDA device with grad wanted,
+    the kernel pair as one autograd function."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     if q.device.type == "cpu":
         out = _ref.flash_attention_ref(qh, kh, vh, causal=causal,
                                        window=window, scale=scale,
                                        kv_chunk=kv_chunk)
+    elif _needs_grad(q, k, v):
+        out = _FlashAttention.apply(qh, kh, vh, causal, window, scale)
     else:
         out = _fa.flash_attention(qh, kh, vh, causal=causal, window=window,
                                   scale=scale)
@@ -59,8 +99,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssd(xh, dt, A, Bm, Cm, *, chunk: int = 128):
-    """Chunked SSD scan -> (y (B, T, H, hd), final state (B, H, hd, N))."""
+    """Chunked SSD scan -> (y (B, T, H, hd), final state (B, H, hd, N)).
+    On a CUDA device with grad wanted it raises: the kernel has no
+    backward yet."""
     if xh.device.type == "cpu":
         return _ref.ssd_scan_ref(xh, dt, A, Bm, Cm, chunk=chunk)
+    if _needs_grad(xh, dt, A, Bm, Cm):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet (ROADMAP A: the ssd_scan "
+            "backward, which training an ssm or hybrid model on the card "
+            "needs); on a CUDA device the SSM runs without grad only")
     return _ssd.ssd_scan(*(t.contiguous() for t in (xh, dt, A, Bm, Cm)),
                          chunk=chunk)

@@ -13,10 +13,13 @@ runtime):
 ``--arch`` takes the ported ids (``repro_torch.configs.ARCH_IDS``:
 zamba2-2.7b, the dense qwen2-1.5b, gemma3-4b, qwen1.5-4b and
 phi3-medium-14b, the SSM mamba2-1.3b, the MoE dbrx-132b and
-kimi-k2-1t-a32b, and the VLM internvl2-26b); ``--smoke`` takes the reduced
-config.  A VLM's requests and pool rows carry ``frontend_tokens`` random
-fp32 patch embeddings each, and its cache holds them: ``max_seq`` is
-``frontend_tokens + prompt-len + gen + 8``.
+kimi-k2-1t-a32b, the VLM internvl2-26b and the audio whisper-tiny);
+``--smoke`` takes the reduced config.  A VLM's requests and pool rows carry
+``frontend_tokens`` random fp32 patch embeddings each, and its cache holds
+them: ``max_seq`` is ``frontend_tokens + prompt-len + gen + 8``.  An audio
+model's requests and pool rows carry ``encoder_tokens`` random fp32 frame
+embeddings each (``audio_frames``), which its cross-attention cache holds
+apart: ``max_seq`` is ``prompt-len + gen + 8``.
 """
 from __future__ import annotations
 
@@ -60,6 +63,10 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (args.batch, args.prompt_len))}
+    if cfg.family == "audio":        # whisper's frame embeddings a request
+        batch["audio_frames"] = rng.normal(
+            size=(args.batch, cfg.encoder_tokens,
+                  cfg.d_model)).astype(np.float32)
     patches = cfg.frontend_tokens   # a VLM's patch embeddings a request
     if patches:
         batch["patch_embeds"] = rng.normal(
@@ -78,6 +85,10 @@ def main(argv=None):
         pool = {"tokens": rng.integers(
             0, cfg.vocab_size,
             (args.score_pool, args.prompt_len)).astype(np.int32)}
+        if cfg.family == "audio":
+            pool["audio_frames"] = rng.normal(
+                size=(args.score_pool, cfg.encoder_tokens,
+                      cfg.d_model)).astype(np.float32)
         if patches:
             pool["patch_embeds"] = rng.normal(
                 size=(args.score_pool, patches,

@@ -8,9 +8,12 @@ SwiGLU MLP, one set of weights) runs at the start of each.  Each application
 keeps its own KV cache for decode (weights shared, caches not).
 
 Plain functions over the port's flat ``{path: tensor}`` params (nested on
-entry, as the reference indexes them), inference only.  Attention and the
-SSD scan go through ``kernels.ops``, so on a CUDA device they run the
-``flash_attention`` and ``ssd_scan`` kernels.  ``decode_step`` writes the
+entry, as the reference indexes them).  Attention and the SSD scan go
+through ``kernels.ops``, so on a CUDA device they run the
+``flash_attention`` and ``ssd_scan`` kernels.  ``forward`` is
+differentiable on the CPU, each super-block recomputed in the backward
+under ``cfg.remat``; on a CUDA device ``ops.ssd`` refuses grad (the
+``ssd_scan`` kernel has no backward yet).  ``decode_step`` writes the
 new token's keys, values and states into the cache it is given, in place,
 and returns it (the reference's engine donates the cache to the step, so
 no caller keeps the old one).
@@ -72,33 +75,42 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     positions = torch.arange(x.shape[1], device=x.device)
     na, per = _n_apps(cfg), cfg.shared_attn_every
     attn_caches, ssm_states = [], []
+    if not with_cache:
+        # one application of the shared block and its group of mamba2
+        # blocks, recomputed in the backward under cfg.remat (the
+        # reference's checkpointed scan body)
+        def group(h, a):
+            h = tf._block(cfg, tree["shared"], h, positions=positions,
+                          is_global=True)[0]
+            for j in range(per):
+                h = mamba2.mamba_block(
+                    cfg, tf._layer(tree["mamba_blocks"], a * per + j), h)
+            return h
+        for a in range(na):
+            x = L.remat(cfg, group, x, a)
+        return L.apply_norm(cfg, tree["final_norm"], x), None
     for a in range(na):
         # the shared block is the dense family's block (causal, no
         # window), one set of weights at every application
         x, attn_cache = tf._block(cfg, tree["shared"], x,
                                   positions=positions, is_global=True,
-                                  with_cache=with_cache)
+                                  with_cache=True)
         attn_caches.append(attn_cache)
         for j in range(per):
             p = tf._layer(tree["mamba_blocks"], a * per + j)
-            if with_cache:
-                x, st = _run_mamba_with_state(cfg, p, x)
-                ssm_states.append(st)
-            else:
-                x = mamba2.mamba_block(cfg, p, x)
+            x, st = _run_mamba_with_state(cfg, p, x)
+            ssm_states.append(st)
     hidden = L.apply_norm(cfg, tree["final_norm"], x)
-    if not with_cache:
-        return hidden, None
     attn = {k: torch.stack([c[k] for c in attn_caches]) for k in ("k", "v")}
     ssm = {k: torch.stack([s[k] for s in ssm_states]).unflatten(0, (na, per))
            for k in ("ssm", "conv")}
     return hidden, (attn, ssm)
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: Dict,
             tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, T) -> final hidden states (B, T, D)."""
+    """tokens (B, T) -> final hidden states (B, T, D); differentiable on
+    the CPU (on a CUDA device ``ops.ssd`` refuses grad)."""
     return _forward_impl(cfg, params, tokens, with_cache=False)[0]
 
 

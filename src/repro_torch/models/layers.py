@@ -1,6 +1,6 @@
-"""Shared layers (``repro.models.layers``): norms, rotary embeddings,
-attention, MLPs, the scoring statistics behind MCAL's M(.)/L(.), and the
-classification loss.
+"""Shared layers (``repro.models.layers``): norms, remat, rotary
+embeddings, attention, MLPs, the scoring statistics behind MCAL's
+M(.)/L(.), and the losses (materialized and vocab-chunked cross-entropy).
 
 Tie rule: ``top1`` is ``torch.argmax``, which returns the first maximal
 index — the rule ``lax.top_k`` follows.  ``torch.topk`` promises no order
@@ -18,6 +18,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import ParamSpec
@@ -67,6 +68,22 @@ def norm_specs(cfg: ModelConfig, stacked: int = 0) -> Dict:
         spec["bias"] = ParamSpec(lead + (cfg.d_model,), init="zeros",
                                  dtype=torch.float32)
     return spec
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+
+def remat(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward pass when the config asks
+    for it (``remat`` "layer": ``torch.utils.checkpoint``, the counterpart
+    of the reference's ``jax.checkpoint`` with nothing saveable) and grad
+    is on; a plain call otherwise, so serving is unchanged."""
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -318,9 +335,69 @@ def chunked_score_stats(hidden: torch.Tensor, w_vocab: torch.Tensor,
     return map_stats(lambda a: a.reshape(lead), stats)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy, fp32."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean (token) cross-entropy, fp32; over the ``mask``ed positions
+    where one is given."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - ll)
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, w_vocab: torch.Tensor,
+                          labels: torch.Tensor, chunk: int = 16384,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Cross-entropy without materializing (T, V) logits
+    (``repro.models.layers.chunked_cross_entropy``): the log-sum-exp
+    accumulated over vocab chunks of ``chunk`` columns, the label's logit
+    gathered on the fly, V padded with zero columns to whole chunks (each
+    masked to -1e30).  Each chunk's product is a plain fp32 matmul (the
+    reference's fp32-result einsum, outside any kernel), and under grad
+    each chunk is recomputed in the backward (``torch.utils.checkpoint``,
+    the reference's ``jax.checkpoint``), so no (T, chunk) logits tile is
+    kept for it.  hidden (..., D), w_vocab (D, V), labels (...) ints."""
+    D, V = w_vocab.shape
+    nchunk = max(1, -(-V // chunk))
+    if nchunk * chunk != V:
+        w_vocab = F.pad(w_vocab, (0, nchunk * chunk - V))
+    lead = hidden.shape[:-1]
+    h2 = hidden.reshape(-1, D)
+    lab = labels.reshape(-1).long()
+    T, dev = h2.shape[0], h2.device
+
+    def step(m, s, ll, i: int):
+        wc = w_vocab[:, i * chunk:(i + 1) * chunk]
+        x = h2.float() @ wc.float()
+        col = i * chunk + torch.arange(chunk, device=dev)
+        x = torch.where(col[None, :] < V, x, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(x, dim=-1))
+        s_new = s * torch.exp(m - m_new) + torch.sum(
+            torch.exp(x - m_new[:, None]), dim=-1)
+        # the label's logit where it falls in this chunk (the reference
+        # sums x over a one-hot; a gather gives the same bits)
+        idx = lab - i * chunk
+        inside = (idx >= 0) & (idx < chunk)
+        hit = torch.gather(x, 1, idx.clamp(0, chunk - 1)[:, None])[:, 0]
+        ll_new = ll + torch.where(inside, hit, 0.0)
+        return m_new, s_new, ll_new
+
+    m = torch.full((T,), NEG_INF, device=dev)
+    s = torch.zeros((T,), device=dev)
+    ll = torch.zeros((T,), device=dev)
+    grad = torch.is_grad_enabled() and (hidden.requires_grad
+                                        or w_vocab.requires_grad)
+    for i in range(nchunk):
+        if grad:
+            m, s, ll = torch.utils.checkpoint.checkpoint(
+                step, m, s, ll, i, use_reentrant=False)
+        else:
+            m, s, ll = step(m, s, ll, i)
+    nll = ((m + torch.log(torch.clamp(s, min=1e-30))) - ll).reshape(lead)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -6,8 +6,11 @@ the ``ssd_scan`` kernel and its CPU path.  The blocks call
 ``kernels.ops.ssd``, which runs the kernel on a CUDA tensor, so every
 ``ssm`` forward, prefill and pool pass launches it once a layer.  As in the
 reference, the short causal conv is applied to the x stream only and
-n_groups == 1.  Inference only: no gradients, no remat; the stacked layers
-run as a Python loop.  ``decode_step`` writes the new states into the cache
+n_groups == 1.  The stacked layers run as a Python loop, each recomputed in
+the backward under ``cfg.remat``.  ``forward`` is differentiable where
+``ops.ssd`` is: on the CPU (the plain scan); on a CUDA device the
+``ssd_scan`` kernel has no backward yet and ``ops.ssd`` raises when grad is
+wanted.  ``decode_step`` writes the new states into the cache
 it is given, in place, and returns it (the reference's engine donates the
 cache to the step).
 """
@@ -232,21 +235,24 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     from repro_torch.models import transformer as tf
     tree = P.nest(params)
     x = tf.embed_tokens(cfg, tree, tokens, patch_embeds)
+    if not with_state:
+        for i in range(cfg.num_layers):
+            x = L.remat(cfg, lambda h, p=tf._layer(tree["blocks"], i):
+                        mamba_block(cfg, p, h), x)
+        return L.apply_norm(cfg, tree["final_norm"], x), None
     states = []
     for i in range(cfg.num_layers):
         x, st = mamba_block_with_state(cfg, tf._layer(tree["blocks"], i), x)
         states.append(st)
     hidden = L.apply_norm(cfg, tree["final_norm"], x)
-    if not with_state:
-        return hidden, None
     return hidden, {k: torch.stack([st[k] for st in states])
                     for k in ("ssm", "conv")}
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, T) -> final hidden states (B, T, D)."""
+    """tokens (B, T) -> final hidden states (B, T, D); differentiable on
+    the CPU (on a CUDA device ``ops.ssd`` refuses grad)."""
     return _forward_impl(cfg, params, tokens, patch_embeds, False)[0]
 
 

@@ -1,8 +1,9 @@
 """Family -> implementation registry + uniform model facade
-(``repro.models.registry``).  The ``mlp``, ``hybrid``, ``dense``, ``ssm``,
-``moe`` and ``vlm`` families are ported; ``audio`` is refused."""
+(``repro.models.registry``).  Every family of the reference is ported:
+``mlp``, ``hybrid``, ``dense``, ``ssm``, ``moe``, ``vlm`` and ``audio``."""
 from __future__ import annotations
 
+import math
 import threading
 import time
 from typing import Dict
@@ -11,12 +12,12 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, mamba2, mlp
+from repro_torch.models import encdec, hybrid, mamba2, mlp
 from repro_torch.models import param as P
 from repro_torch.models import transformer as tf
 
 _FAMILIES = {"mlp": mlp, "hybrid": hybrid, "dense": tf, "ssm": mamba2,
-             "moe": tf, "vlm": tf}
+             "moe": tf, "vlm": tf, "audio": encdec}
 
 
 class Model:
@@ -27,10 +28,11 @@ class Model:
     given dict by :meth:`forward`; the batch is ``{"features"}``.
     The token families: plain functions over the dict (``hybrid``:
     ``models.hybrid``; ``ssm``: ``models.mamba2``; ``dense``, ``moe`` and
-    ``vlm``: ``models.transformer``); the batch is ``{"tokens"}``, with
-    ``"patch_embeds"`` (B, P, D) for a VLM, and :meth:`prefill`,
-    :meth:`decode_step`, :meth:`init_cache` and :meth:`logits` serve
-    ``serving.engine``."""
+    ``vlm``: ``models.transformer``; ``audio``: ``models.encdec``); the
+    batch is ``{"tokens"}``, with ``"patch_embeds"`` (B, P, D) for a VLM
+    and ``"audio_frames"`` (B, encoder_tokens, D) for audio, and
+    :meth:`prefill`, :meth:`decode_step`, :meth:`init_cache` and
+    :meth:`logits` serve ``serving.engine``."""
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in _FAMILIES:
@@ -54,9 +56,14 @@ class Model:
         self.init_seconds = time.perf_counter() - t0
         return params
 
+    def param_count(self) -> int:
+        return sum(math.prod(spec.shape)
+                   for _, spec in P.iter_specs(self.specs))
+
     def _frontend(self, batch: Dict):
-        """The batch's frontend input (a VLM's ``patch_embeds``) or None."""
-        return batch.get("patch_embeds")
+        """The batch's frontend input (a VLM's ``patch_embeds``, the audio
+        family's ``audio_frames``) or None."""
+        return batch.get("patch_embeds", batch.get("audio_frames"))
 
     def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
         if self.cfg.family == "mlp":

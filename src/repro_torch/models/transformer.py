@@ -10,16 +10,19 @@ the others windowed) by per-layer flags, the SwiGLU (or GELU) MLP or the
 capacity-routed MoE block (``moe``), and the stub patch-embedding frontend
 (``vlm``: precomputed patch embeddings prepended to the text, positions
 running over both).  Plain functions over the port's flat ``{path:
-tensor}`` params (nested on entry, as the reference indexes them),
-inference only: the stacked layers run as a Python loop, with no remat.
+tensor}`` params (nested on entry, as the reference indexes them): the
+stacked layers run as a Python loop.  ``forward`` is differentiable (the
+LM loss trains through it, each layer recomputed in the backward under
+``cfg.remat``); ``prefill`` and ``decode_step`` run without grad.
 Attention goes through ``kernels.ops.attention``, so on a CUDA device
 every forward, prefill and pool pass runs the ``flash_attention`` kernel
-(one launch a layer), with ``window=0`` on global layers and
-``window=cfg.sliding_window`` on local ones, the choice the reference's
-``jax.lax.cond`` makes.  Decode stays on ``layers.decode_attention``, as
-in the reference.  ``decode_step`` writes the new token's keys and values
-into the cache it is given, in place, and returns it (the reference's
-engine donates the cache to the step).
+(one launch a layer; with grad its backward kernel once a layer too),
+with ``window=0`` on global layers and ``window=cfg.sliding_window`` on
+local ones, the choice the reference's ``jax.lax.cond`` makes.  Decode
+stays on ``layers.decode_attention``, as in the reference.
+``decode_step`` writes the new token's keys and values into the cache it
+is given, in place, and returns it (the reference's engine donates the
+cache to the step).
 
 The MoE block is the reference's single-device path (``_moe_local``):
 fp32 router, top-k experts by probability (ties to the lower index, as
@@ -311,16 +314,21 @@ def _layer(blocks: Dict, i: int) -> Dict:
 
 def _scan_blocks(cfg: ModelConfig, tree: Dict, x: torch.Tensor,
                  positions: torch.Tensor, with_cache: bool = False):
-    """The reference's layer scan as a loop over the stacked layers; with
+    """The reference's layer scan as a loop over the stacked layers, each
+    recomputed in the backward under ``remat`` (``L.remat``); with
     ``with_cache`` also the stacked K/V cache (L, B, T, Hk, hd)."""
+    if not with_cache:
+        for i, flag in enumerate(_layer_flags(cfg)):
+            def body(h, p=_layer(tree["blocks"], i), flag=flag):
+                return _block(cfg, p, h, positions=positions,
+                              is_global=flag)[0]
+            x = L.remat(cfg, body, x)
+        return x, None
     caches = []
     for i, flag in enumerate(_layer_flags(cfg)):
         x, c = _block(cfg, _layer(tree["blocks"], i), x,
-                      positions=positions, is_global=flag,
-                      with_cache=with_cache)
+                      positions=positions, is_global=flag, with_cache=True)
         caches.append(c)
-    if not with_cache:
-        return x, None
     return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
 
 
@@ -333,11 +341,10 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     return L.apply_norm(cfg, tree["final_norm"], x), caches
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, T) [and patch_embeds (B, P, D)] -> final hidden states
-    (B, P + T, D)."""
+    (B, P + T, D); differentiable (the training loss's forward)."""
     return _forward_impl(cfg, params, tokens, patch_embeds,
                          with_cache=False)[0]
 

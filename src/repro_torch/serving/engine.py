@@ -24,7 +24,8 @@ class ServeEngine:
     """Minimal batched generation / scoring loop over a fixed-size cache.
 
     ``params`` live on ``device``; batches (``{"tokens": (B, T) ints}``,
-    with ``"patch_embeds"`` (B, P, D) fp32 for a VLM) are moved there.
+    with ``"patch_embeds"`` (B, P, D) fp32 for a VLM, ``"audio_frames"``
+    (B, encoder_tokens, D) fp32 for audio) are moved there.
     Runs under ``torch.no_grad``; the decode step updates the cache in
     place.  A VLM's cache holds its P patch positions before the prompt's
     T, so ``max_seq`` must cover P + T + the tokens generated."""
@@ -141,7 +142,8 @@ class ServeEngine:
 def _load_cache(cfg: ModelConfig, full: Dict, prefix: Dict) -> Dict:
     """Copy a prefill cache into the zero-initialized max_seq cache: the
     K/V leaves are copied in at position 0 (SSM states are taken as they
-    are: the ``ssm`` family's whole cache, the hybrid's ``ssm`` part); the
+    are: the ``ssm`` family's whole cache, the hybrid's ``ssm`` part; so
+    is the audio family's cross-attention cache ``xk``/``xv``); the
     reference's ``dynamic_update_slice``."""
     if cfg.family == "ssm":
         return prefix
@@ -150,6 +152,10 @@ def _load_cache(cfg: ModelConfig, full: Dict, prefix: Dict) -> Dict:
         prefix = prefix["attn"]
     elif cfg.family in ("dense", "moe", "vlm"):
         kv = out = full
+    elif cfg.family == "audio":
+        kv = full
+        out = {"k": full["k"], "v": full["v"], "xk": prefix["xk"],
+               "xv": prefix["xv"]}
     else:
         raise NotImplementedError(
             f"serving the {cfg.family!r} family is not ported yet")

@@ -282,16 +282,17 @@ def test_bf16_tree_round_trips_bit_exactly(jax_tree):
 
 
 def test_moe_and_vlm_families_stay_refused():
-    """The moe and vlm families are ported now (``test_torch_moe.py``,
-    ``test_torch_vlm.py``); the refusal this test holds is the one family
-    still unported, ``audio`` (whisper-tiny), through the registry, the
-    decoder's specs and the config registry."""
+    """Every family of the reference is ported now (``audio`` in
+    ``test_torch_audio.py``); the refusals this test holds are those of an
+    unknown family and an unknown architecture id, through the registry,
+    the decoder's specs (which take only its own families) and the config
+    registry."""
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(ModelConfig(family="audio"))
+        get_model(ModelConfig(family="speech"))
     with pytest.raises(NotImplementedError, match="not ported"):
         T.specs(ModelConfig(family="audio"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-tiny")
+        get_config("whisper-large")
 
 
 def test_launcher_serves_qwen2_smoke_on_cpu(capsys):

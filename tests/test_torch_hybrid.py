@@ -201,9 +201,10 @@ def test_cache_and_config_registry():
             assert tuple(t.shape) == jab[part][k].shape
             assert str(t.dtype).removeprefix("torch.") == \
                 np.dtype(jab[part][k].dtype).name
-    # mamba2-1.3b is ported now (test_torch_ssm.py); whisper-tiny is not
+    # every reference architecture is ported now (whisper-tiny in
+    # test_torch_audio.py); an unknown id is refused
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-tiny")
+        get_config("whisper-large")
     stats = launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                                "--score-pool", "8"])
     assert tuple(stats.margin.shape) == (8,)

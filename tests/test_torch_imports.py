@@ -69,7 +69,14 @@ def test_every_ported_module_was_imported(probe):
             "repro_torch.obs.export", "repro_torch.obs.slo",
             "repro_torch.obs.health", "repro_torch.obs.profiling",
             "repro_torch.core.tenant", "repro_torch.launch.orchestrator",
-            "repro_torch.launch.report"}
+            "repro_torch.launch.report", "repro_torch.models.encdec",
+            "repro_torch.configs.whisper_tiny",
+            "repro_torch.kernels.flash_attention_bwd",
+            "repro_torch.training.trainer", "repro_torch.training.schedules",
+            "repro_torch.training.optimizer",
+            "repro_torch.distributed.checkpoint",
+            "repro_torch.distributed.straggler", "repro_torch.data.loader",
+            "repro_torch.launch.train"}
     assert want <= set(probe["modules"])
 
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import margin_head as mh
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_dist as pd
@@ -168,7 +169,29 @@ FA_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
            (1, 8, 4, 100, 100, 256, True, 0),
            # dbrx-132b's and internvl2-26b's GQA 48:8 at hd 128, over
            # internvl2's 1,024 patch tokens and 2,048 of text
-           (1, 48, 8, 3072, 3072, 128, True, 0)]
+           (1, 48, 8, 3072, 3072, 128, True, 0),
+           # whisper-tiny's hd 64: the encoder's non-causal T 1,500 (off
+           # every tile), the cross-attention's 2,048 prompt rows over
+           # 1,500 frames, the decoder's causal self-attention, and a
+           # ragged small one
+           (2, 6, 6, 1500, 1500, 64, False, 0),
+           (1, 6, 6, 2048, 1500, 64, False, 0),
+           (1, 6, 6, 2048, 2048, 64, True, 0),
+           (2, 6, 6, 100, 37, 64, False, 0)]
+# the backward kernel: qwen2-1.5b's training attention (GQA 12:2 at hd 128,
+# causal) and a windowed GQA one, whisper-tiny's non-causal ragged hd 64
+# (Tq != Tk both ways), and the other head dims' tiles (the fp32-FMA
+# kernel's hd 256 at 16-row tiles, 80 and 8; the tensor-core kernel's 32
+# with a window and no causal mask, and 16 off its 64-row tiles)
+FA_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
+               (2, 12, 2, 300, 300, 128, True, 100),
+               (2, 6, 6, 200, 150, 64, False, 0),
+               (2, 6, 6, 150, 200, 64, False, 0),
+               (1, 4, 2, 130, 130, 256, True, 0),
+               (1, 4, 4, 100, 100, 80, True, 0),
+               (1, 4, 2, 70, 70, 8, True, 0),
+               (1, 2, 1, 190, 190, 32, False, 70),
+               (2, 4, 2, 77, 99, 16, True, 0)]
 # likewise, then T off the chunk, one chunk (C = T = 100), H off the
 # kernel's group of 8 heads
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
@@ -199,6 +222,70 @@ def test_flash_attention_kernel_matches_plain_on_card(B, H, Hk, Tq, Tk, hd,
     tol = 5e-4 if dtype == "float32" else 3e-2
     assert got.shape == want.shape and got.dtype == td
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window", FA_BWD_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_kernel_matches_plain_autograd_on_card(
+        B, H, Hk, Tq, Tk, hd, causal, window, dtype):
+    """``ops.attention`` with grad on the card (the forward kernel with its
+    log-sum-exp, then the backward kernel) against ``torch.autograd.grad``
+    through the plain version, at the forward's tolerances: fp32 5e-4,
+    bf16 3e-2 (atol = rtol; the two round to bf16 at different places:
+    the plain version its P and the gradients between its ops, the
+    tensor-core kernel P and dS as product operands)."""
+    _need_card()
+    rng = np.random.default_rng(Tq * 3 + Tk)
+    td = getattr(torch, dtype)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                   device="cuda").to(td)
+                   for s in ((B, H, Tq, hd), (B, Hk, Tk, hd),
+                             (B, Hk, Tk, hd), (B, H, Tq, hd)))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before, fwd = fab.launches, fa.launches
+    out = ops.attention(*(t.transpose(1, 2) for t in ins), causal=causal,
+                        window=window).transpose(1, 2)
+    got = torch.autograd.grad(out, ins, do)
+    assert (fab.launches, fa.launches) == (before + 1, fwd + 1)
+    ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        ref.flash_attention_ref(*ref_ins, causal=causal, window=window),
+        ref_ins, do)
+    tol = 5e-4 if dtype == "float32" else 3e-2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == td
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_forward_log_sum_exp_and_ssd_grad_refusal_on_card():
+    """The forward's per-row log-sum-exp against the plain one; and
+    ``ops.ssd`` refuses grad on the card (no ``ssd_scan`` backward yet)
+    rather than fall back to the plain scan."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    B, H, Hk, Tq, Tk, hd = 2, 6, 6, 300, 1500, 64
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                               device="cuda")
+               for s in ((B, H, Tq, hd), (B, Hk, Tk, hd), (B, Hk, Tk, hd)))
+    for dtype in (torch.float32, torch.bfloat16):
+        out, lse = fa.flash_attention(*(t.to(dtype) for t in (q, k, v)),
+                                      causal=False, return_lse=True)
+        qs = (q.to(dtype) * hd ** -0.5).float()
+        want = torch.logsumexp(qs @ k.to(dtype).float().transpose(-1, -2),
+                               dim=-1)
+        assert lse.shape == (B, H, Tq) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    xh = torch.zeros(1, 8, 2, 8, device="cuda", requires_grad=True)
+    rest = (torch.zeros(1, 8, 2, device="cuda"), torch.zeros(2, device="cuda"),
+            torch.zeros(1, 8, 4, device="cuda"),
+            torch.zeros(1, 8, 4, device="cuda"))
+    with pytest.raises(NotImplementedError, match="ssd_scan"):
+        ops.ssd(xh, *rest)
+    with torch.no_grad():
+        y, _ = ops.ssd(xh, *rest)
+    assert y.shape == xh.shape
 
 
 @pytest.mark.cuda
