@@ -8,7 +8,9 @@
 2. Builds every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (one
    nvcc per source, all started together), and counts the tensor-core
    (HMMA) instructions of ``flash_attention`` (forward and backward),
-   ``ssd_scan`` and ``pairwise_dist`` in their SASS: none fails the run.
+   ``ssd_scan`` and ``pairwise_dist`` in their SASS, and the backward's
+   ``wgmma`` (HGMMA) and TMA tensor-load (UTMALDG) instructions: none of
+   any fails the run.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, the JAX package's test grids and the tile edges of
    the kernels, and after the main paths again at every shape they gave
@@ -20,8 +22,11 @@
    a float64 computation of the same distances: its error at most twice
    the plain fp32 version's.  ``flash_attention``'s backward kernel (run
    through ``ops.attention`` with grad) against ``torch.autograd.grad``
-   through the plain version, on ``FLASH_BWD_GRID`` and at every shape
-   the training paths gave it.
+   through the plain version, on its ``wgmma`` route (bf16 at hd 64 and
+   128) also against its arithmetic step by step
+   (``ref.flash_attention_bwd_tiled_ref``, atol = rtol = 1e-2), and two
+   calls on the same inputs bit-equal, on ``FLASH_BWD_GRID`` and at every
+   shape the training paths gave it.
 4. Runs two MCAL campaigns through the port's entry points
    (``run_mcal(LiveTask(...))``), one with the margin M(.) and one with
    k-center, on ``make_classification(50_000, 10 classes, dim 32)`` — the
@@ -104,9 +109,9 @@
    at state N 128, vocab 50,280; full config) and its pool pass as
    qwen2's; dbrx-132b at full width (d_model 6,144, GQA 48:8 at hd 128,
    16 experts top-4 at d_ff 10,752, capacity factor 1.25, vocab 100,352)
-   cut to ``DBRX_LAYERS`` = 2 of its 40 layers (6.5 GB of bf16 weights a
+   cut to ``DBRX_LAYERS`` = 1 of its 40 layers (6.5 GB of bf16 weights a
    layer); internvl2-26b (GQA 48:8 at hd 128, vocab 92,672; full width,
-   cut to ``INTERNVL2_LAYERS`` = 24 of its 48 layers) with 1,024 random
+   cut to ``INTERNVL2_LAYERS`` = 12 of its 48 layers) with 1,024 random
    fp32 patch embeddings a request (seed
    0) before its prompt, so its attention runs over 3,072 positions and
    its cache holds ``1,024 + prompt + gen + 8``; and whisper-tiny (the
@@ -129,7 +134,7 @@
    the fleets, the chaos and instrumented campaigns, each selection run,
    each serving pass and each pool pass: ``flash_attention`` 9 times a
    zamba2 forward, once a layer in the others (28 qwen2-1.5b, 34
-   gemma3-4b, 2 dbrx-132b, 24 internvl2-26b, 12 whisper-tiny: 4 encoder,
+   gemma3-4b, 1 dbrx-132b, 12 internvl2-26b, 12 whisper-tiny: 4 encoder,
    8 decoder), ``ssd_scan`` 54 times a zamba2 forward and 48 a
    mamba2-1.3b one, the backward kernel never when serving and once a
    layer a training step) and read just after it; a kernel of a path that
@@ -179,8 +184,8 @@ HBM_BYTES_PER_S = 3.35e12
 # depths cut to keep the script inside its time limit, every width the
 # config's: host init of random weights is most of these two models' time
 # (6.5 GB of bf16 weights a dbrx-132b layer, 0.8 GB an internvl2-26b one)
-DBRX_LAYERS = 2           # of 40
-INTERNVL2_LAYERS = 24     # of 48
+DBRX_LAYERS = 1           # of 40
+INTERNVL2_LAYERS = 12     # of 48
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 # the card's name and power limit (nvidia-smi), printed beside each rate
@@ -260,15 +265,17 @@ def launch_ms(torch, fn, kernel: str, reps: int = 20) -> dict:
     return out
 
 
-def tensor_core_instructions(nvcc: str, lib: Path) -> int:
-    """How many HMMA (tensor-core) instructions the library's SASS holds,
-    from the toolkit's cuobjdump beside nvcc; -1 where it is missing."""
+def sass_instructions(nvcc: str, lib: Path, ops=("HMMA",)) -> dict:
+    """How many instructions of each opcode in ``ops`` (HMMA: mma.sync;
+    HGMMA: wgmma; UTMALDG: a TMA tensor load) the library's SASS holds,
+    from the toolkit's cuobjdump beside nvcc; -1 each where it is
+    missing."""
     tool = Path(nvcc).with_name("cuobjdump")
     if not tool.exists():
-        return -1
+        return {op: -1 for op in ops}
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+                          text=True, timeout=300).stdout.splitlines()
+    return {op: sum(op in line for line in sass) for op in ops}
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S):
@@ -472,7 +479,11 @@ FLASH_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
 # and the other head dims' tiles; at the forward's tolerances, fp32 5e-4
 # and bf16 3e-2 (atol = rtol: the two round to bf16 at different places,
 # the plain version its P and the gradients between its ops, the
-# tensor-core kernel P and dS as product operands)
+# tensor-core kernel P and dS as product operands).  Then the wgmma
+# route's tile edges at hd 64 and 128: T 127, 128 and 129 about its
+# 128-row blocks and 64-row tiles, whisper's encoder T 1,500 and its
+# cross-attention's 448 x 1,500, Tq != Tk at hd 128, causal H / Hk = 6 at
+# hd 64.
 FLASH_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                   (2, 12, 2, 1024, 1024, 128, True, 256),
                   (2, 6, 6, 150, 200, 64, False, 0),
@@ -480,7 +491,21 @@ FLASH_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                   (1, 4, 2, 130, 130, 256, True, 0),
                   (1, 4, 4, 100, 100, 80, True, 0),
                   (1, 2, 1, 190, 190, 32, False, 70),
-                  (2, 4, 2, 77, 99, 16, True, 0)]
+                  (2, 4, 2, 77, 99, 16, True, 0),
+                  (1, 6, 6, 127, 127, 64, True, 0),
+                  (1, 6, 6, 128, 128, 128, True, 0),
+                  (1, 12, 2, 129, 129, 128, True, 0),
+                  (1, 6, 6, 1500, 1500, 64, False, 0),
+                  (1, 6, 6, 448, 1500, 64, False, 0),
+                  (1, 6, 2, 200, 330, 128, False, 0),
+                  (1, 12, 2, 129, 129, 64, True, 0)]
+# the wgmma route (bf16 at hd 64 and 128) against its arithmetic step by
+# step (``ref.flash_attention_bwd_tiled_ref`` on the kernel's own forward
+# output and lse): atol = rtol = 1e-2, about two bf16 steps (both round P
+# and dS where they become operands and the gradients at the end; an fp32
+# sum taken in another order, or exp2 against exp, can move a rounding by
+# one step)
+FLASH_BWD_TILED_TOL = 1e-2
 
 
 def flash_inputs(torch, np, case, dtype, seed=3):
@@ -522,14 +547,17 @@ def check_flash_bwd(torch, np, mods, ref, cases):
     """``ops.attention`` with grad at each case, fp32 and bf16 (the
     forward kernel with its log-sum-exp, then the backward kernel), against
     ``torch.autograd.grad`` through the plain version on the same inputs
-    and output gradient, at atol = rtol = 5e-4 (fp32) and 3e-2 (bf16);
-    returns the max abs error of dQ, dK and dV in bf16, the training
-    dtype.  Its launches are outside every main path's counts."""
+    and output gradient, at atol = rtol = 5e-4 (fp32) and 3e-2 (bf16); on
+    the wgmma route also against ``ref.flash_attention_bwd_tiled_ref`` at
+    ``FLASH_BWD_TILED_TOL``; and two more backward calls on the same
+    inputs, which must be bit-equal.  Returns the max abs error of dQ, dK
+    and dV against the plain version in bf16, the training dtype.  Its
+    launches are outside every main path's counts."""
     from repro_torch.kernels import ops
     fa, fab = mods["flash_attention"], mods["flash_attention_bwd"]
     worst = 0.0
     for case in cases:
-        causal, window = case[6], case[7]
+        causal, window, hd = case[6], case[7], case[5]
         for dtype, tol in ((torch.float32, 5e-4), (torch.bfloat16, 3e-2)):
             q, k, v = flash_inputs(torch, np, case, dtype)
             dout = flash_inputs(torch, np, case, dtype, seed=5)[0]
@@ -546,21 +574,46 @@ def check_flash_bwd(torch, np, mods, ref, cases):
             want = torch.autograd.grad(
                 ref.flash_attention_ref(*plain, causal=causal,
                                         window=window), plain, dout)
+            o, lse = fa.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+            again = [fab.flash_attention_bwd(q, k, v, o, dout, lse,
+                                             causal=causal, window=window)
+                     for _ in range(2)]
+            wgmma = dtype == torch.bfloat16 and hd in fab.WGMMA_HEAD_DIMS
+            tiled = ref.flash_attention_bwd_tiled_ref(
+                q, k, v, o, dout, lse, causal=causal, window=window) \
+                if wgmma else None
             torch.cuda.synchronize()
-            errs = []
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if not all(torch.equal(a, b) for a, b in zip(*again)):
+                fail(f"flash_attention_bwd at {case} {dtype}: two calls on "
+                     f"the same inputs differ")
+            errs, terrs = [], []
+            for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), got,
+                                                 want)):
                 g, w = g.float(), w.float()
                 errs.append(float((g - w).abs().max()))
                 if g.shape != w.shape or not bool(
                         ((g - w).abs() <= tol + tol * w.abs()).all()):
                     fail(f"flash_attention_bwd {name} at {case} {dtype}: "
                          f"err {errs[-1]} beyond atol = rtol = {tol}")
+                if tiled is None:
+                    continue
+                a, t = again[0][i].float(), tiled[i].float()
+                terrs.append(float((a - t).abs().max()))
+                if not bool(((a - t).abs() <= FLASH_BWD_TILED_TOL
+                             + FLASH_BWD_TILED_TOL * t.abs()).all()):
+                    fail(f"flash_attention_bwd {name} at {case} {dtype}: "
+                         f"err {terrs[-1]} against the tiled version beyond "
+                         f"atol = rtol = {FLASH_BWD_TILED_TOL}")
             if dtype == torch.bfloat16:
                 worst = max(worst, *errs)
             print(f"flash_attention_bwd {case} {str(dtype)[6:]}: max abs "
-                  f"err dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
-                  f"ok", flush=True)
-            del q, k, v, dout, ins, out, got, plain, want
+                  f"err dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}"
+                  + (f", against the tiled version {terrs[0]:.3g} "
+                     f"{terrs[1]:.3g} {terrs[2]:.3g}" if terrs else "")
+                  + ", two calls bit-equal ok", flush=True)
+            del q, k, v, dout, ins, out, got, plain, want, o, lse, again
+            del tiled
     return worst
 
 
@@ -2207,6 +2260,11 @@ def train_whisper_resume(torch, np, mods, seen: dict, steps: int = 4,
     return run
 
 
+# launch names of the port's kernels (csrc/*.cu)
+KERNEL_PREFIXES = ("margin_head_", "pairwise_sqdist_", "flash_attention_",
+                   "fa_bwd_", "ssd_scan_")
+
+
 def profile_pass(torch, label: str, fn, top: int = 10):
     """Where one pass's time goes: the profiler's device time by kernel
     name, and the device's busy share of the pass's wall time."""
@@ -2232,6 +2290,14 @@ def profile_pass(torch, label: str, fn, top: int = 10):
         print(f"serve {label} profile: {ms:10.3f} ms "
               f"{100 * ms / max(busy, 1e-9):6.2f}% x{n:<5d} {key[:90]}",
               flush=True)
+    # the port's own kernels, in or out of the top rows
+    for prefix in KERNEL_PREFIXES:
+        mine = [r for r in rows if prefix in r[2]]
+        if mine:
+            ms = sum(r[0] for r in mine)
+            print(f"serve {label} profile: {prefix}* {ms:.3f} ms "
+                  f"{100 * ms / max(busy, 1e-9):.2f}% "
+                  f"x{sum(r[1] for r in mine)}", flush=True)
 
 
 def timing_row(torch, name, shape, kern, plain, library, nbytes, flops,
@@ -2449,18 +2515,28 @@ def main() -> None:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.LOG.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                # the kernel, by its mangled name from the file hash on
+                at = entry.find("_cu_")
+                short = entry[at + 4:at + 80] if at >= 0 else entry[:76]
+                print(f"ptxas {name} {short}: {line.strip()}", flush=True)
     # the redesigned kernels run on tensor cores: their SASS holds HMMA
-    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
-                 "pairwise_dist"):
-        n = tensor_core_instructions(build.nvcc(), libs[name])
-        print(f"sass {name}: {n} HMMA instructions"
-              + (" (cuobjdump not found: not measured)" if n < 0 else ""),
-              flush=True)
-        if n == 0:
-            fail(f"{name} compiled to no tensor-core instruction")
+    # (mma.sync); the attention backward's also wgmma (HGMMA) fed by TMA
+    # tensor loads (UTMALDG)
+    for name, ops in (("flash_attention", ("HMMA",)),
+                      ("flash_attention_bwd", ("HMMA", "HGMMA", "UTMALDG")),
+                      ("ssd_scan", ("HMMA",)), ("pairwise_dist", ("HMMA",))):
+        counts = sass_instructions(build.nvcc(), libs[name], ops)
+        for op, n in counts.items():
+            print(f"sass {name}: {n} {op} instructions"
+                  + (" (cuobjdump not found: not measured)" if n < 0
+                     else ""), flush=True)
+            if n == 0:
+                fail(f"{name} compiled to no {op} instruction")
 
     check_margin_head(torch, np, mh, ref, MARGIN_GRID)
     check_margin_ties(torch, np, mh, ref, MARGIN_DUP_GRID)

@@ -18,7 +18,8 @@
 // Three launches on one stream, no float atomics, so the result does not
 // depend on the order blocks run in (a resumed training run repeats an
 // uninterrupted one):
-//   1. delta: D = rowsum(dO o) per query row, fp32 (B, H, Tq) scratch;
+//   1. delta: D = rowsum(dO o) per query row, fp32 scratch (on the wgmma
+//      route also qs and lse, see below);
 //   2. dK, dV: a block per key tile of one (b, kv head) walks every query
 //      tile that can see it, for each of the H / Hk query heads of its
 //      group, in a fixed order:
@@ -36,21 +37,41 @@
 // TFLOP against 0.16 GB: the operations bound it (0.26 ms at the bf16
 // tensor-core peak).
 //
-// Design, bf16 at hd 16, 32, 64 and 128 (training's path: qwen2's hd 128,
-// whisper's 64): the FlashAttention-2 backward on tensor cores
-// (`mma.sync.m16n8k16` bf16 -> fp32, fed by `ldmatrix` from bf16 tiles in
-// shared memory, rows padded by 16 B), 4 warps a block and 16 rows a warp.
-// The dK/dV block owns 64 keys and computes S^T = K qs^T and
-// dP^T = V dO^T, so P^T and dS^T come out in the warp's registers in the
-// layout of the next products' A operands (the forward's trick for P V):
-// dV += P^T dO and dK += dS^T qs need no trip through shared memory.  The
-// dQ block owns 64 queries and walks the key tiles as the forward does.
-// P and dS are rounded to bf16 as those operands (the forward rounds P so
-// too); everything else accumulates in fp32.  The inner tile is 64 wide
-// up to hd 64 and 32 at hd 128, where a warp's dK and dV accumulators
-// are 128 registers a thread.  What still separates it from its bound:
-// mma.sync in place of wgmma, tiles loaded without double buffering, and
-// the second recomputation of S and dP.
+// Design, bf16 at hd 64 and 128 (every shape training gives it: qwen2's
+// hd 128, whisper's 64): warp-specialized blocks on Hopper's `wgmma` with
+// tiles fed by TMA (csrc/sm90.cuh).  A block is two consumer warpgroups
+// of 64 rows each and one producer warpgroup, whose first thread keeps a
+// ring of stages in flight (TMA boxes of 64 x 64 bf16 with 128-byte
+// swizzle, completed on mbarriers; setmaxnreg gives the consumers 240
+// registers and the producer 24).  A prep launch writes qs = q * scale in
+// bf16 and 64-row tiles of lse (times log2 e) and D, so every operand is
+// a TMA load.  The dK/dV block owns 128 keys, loads its K and V once, and
+// streams the query tiles (qs, dO, lse, D) of every query head of its
+// group; each consumer computes S^T = K qs^T and dP^T = V dO^T with both
+// operands in shared memory, so P^T and dS^T land in its registers in the
+// layout of the A operand of dV += P^T dO and dK += dS^T qs, whose B
+// operands dO and qs are the same tiles read through wgmma's transpose
+// bit.  The dQ block owns 128 queries and streams the key tiles.  Blocks
+// and warpgroup blocks of 64 x 64 that the mask hides are skipped; only
+// those it cuts are masked.  P and dS are rounded to bf16 as product
+// operands (the forward rounds P so too); everything else accumulates in
+// fp32.  Within a stage each warpgroup computes P while dP's product
+// runs and dS while dV's runs (wgmma.wait_group 1), into registers of
+// their own, and retires all its products before the next stage; the
+// other warpgroup fills the tensor cores meanwhile.  What still separates
+// it from its bound: that wait at the end of each stage (carrying a
+// product across it made ptxas serialize every wgmma, its note C7515, and
+// cost 1.2x), the second recomputation of S and dP, and the exp and mask
+// work, which at hd 64 costs as much as the products.  The code generated
+// for these loops is fragile: the same arithmetic with P's mask written
+// as a conditional expression and no wait after the loop ran 1.6x slower
+// with no note from ptxas (tools/time_attention_bwd.py times a change
+// against the last build).
+//
+// bf16 at hd 16 and 32: the FlashAttention-2 backward on `mma.sync`
+// (m16n8k16 bf16 -> fp32, fed by `ldmatrix` from bf16 tiles in shared
+// memory, rows padded by 16 B), 4 warps a block and 16 rows a warp, the
+// same products as above with P^T and dS^T in the warp's registers.
 //
 // fp32 inputs (and bf16 at hd 8, 80 and 256) take the fp32-FMA kernels:
 // tiles of 32 query rows and 32 keys (16 at hd 256) staged in shared
@@ -64,6 +85,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -389,17 +411,16 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int MWARPS = 4;  // warps a block, 16 rows each
 
-// Per head dim: the bf16 shared-memory row (16 B more, against bank
-// conflicts in ldmatrix), 64 rows a block (keys in dK/dV, queries in dQ)
-// and the width of the inner tile each block walks (queries in dK/dV, keys
-// in dQ): 64 up to hd 64, 32 at hd 128, where a warp's two 16 x hd
-// accumulators are 128 registers a thread.
+// Per head dim (16 and 32): the bf16 shared-memory row (16 B more, against
+// bank conflicts in ldmatrix), 64 rows a block (keys in dK/dV, queries in
+// dQ) and 64 in the inner tile each block walks (queries in dK/dV, keys
+// in dQ).
 template <int HD>
 struct MmaTile {
   static constexpr int ROW = HD + 8;
   static constexpr int CH = HD / 8;          // 16-byte pieces of a row
   static constexpr int BM = 16 * MWARPS;     // rows a block owns
-  static constexpr int BN = HD <= 64 ? 64 : 32;  // inner tile
+  static constexpr int BN = 64;              // inner tile
   static constexpr int NTD = HD / 8;         // n8 tiles over hd
   static constexpr int NTN = BN / 8;         // n8 tiles over the inner tile
   static_assert(HD % 16 == 0 && NTD % 2 == 0, "whole k16 steps, n16 pairs");
@@ -680,6 +701,463 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  scale);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at hd 64 and 128: wgmma on TMA-fed tiles (sm90.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int WG = 128;         // threads of a warpgroup
+constexpr int WG_BLOCK = 3 * WG;  // two consumer warpgroups, one producer
+constexpr int QT = 64;          // query rows of a ring stage and of a row tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory layout (byte offsets) of the two passes.  A tile of R rows
+// is HD / 64 panels of R x 64 bf16, each written by TMA with 128-byte
+// swizzle (sm90.cuh); every tile starts on 1024 bytes.
+template <int HD>
+struct WgTile {
+  static constexpr int T64 = 64 * HD * 2;  // bytes of a 64-row tile
+  static constexpr int STAGES = 2;  // ring depth of both passes
+  // dK/dV: K and V of the block's 128 keys, then the ring of stages, each
+  // a query tile's qs and dO (64 rows) and its lse and D (2 x 64 fp32)
+  static constexpr int KV_K = 0, KV_V = 2 * T64, KV_RING = 4 * T64;
+  static constexpr int KV_STAGE = 2 * T64 + 1024;
+  static constexpr int KV_BAR = KV_RING + STAGES * KV_STAGE;
+  // dQ: qs and dO of the block's 128 queries, then the ring of stages, each
+  // a key tile's K and V (64 rows)
+  static constexpr int Q_QS = 0, Q_DO = 2 * T64, Q_RING = 4 * T64;
+  static constexpr int Q_STAGE = 2 * T64;
+  static constexpr int Q_BAR = Q_RING + STAGES * Q_STAGE;
+  // + the barriers (kv or q, full, empty) + slack to align the base
+  static constexpr size_t KV_SMEM = KV_BAR + 8 * (1 + 2 * STAGES) + 1024;
+  static constexpr size_t Q_SMEM = Q_BAR + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(HD % 64 == 0, "whole 64-column panels");
+};
+
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return (unsigned char*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
+}
+
+__device__ __forceinline__ bool visible(int qi, int kp, int Tq, int Tk,
+                                        int causal, int window) {
+  bool vis = qi < Tq && kp < Tk;
+  if (causal) vis = vis && qi >= kp;
+  if (window > 0) vis = vis && (qi - kp) < window;
+  return vis;
+}
+
+// some pair of queries [q0, q0 + 64) and keys [k0, k0 + 64) is visible
+__device__ __forceinline__ bool block_any(int q0, int k0, int Tq, int Tk,
+                                          int causal, int window) {
+  return q0 < Tq && k0 < Tk && !(causal && q0 + 63 < k0) &&
+         !(window > 0 && q0 - (k0 + 63) >= window);
+}
+// some pair of that block is hidden (its P needs the mask)
+__device__ __forceinline__ bool block_edge(int q0, int k0, int Tq, int Tk,
+                                           int causal, int window) {
+  return q0 + 64 > Tq || k0 + 64 > Tk || (causal && q0 < k0 + 63) ||
+         (window > 0 && q0 + 63 - k0 >= window);
+}
+
+// d (64 x HD) += A (64 x 16 registers) B (16 x HD, MN-major)
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[HD / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (HD == 64)
+    sm90::wgmma_rs_n64_t(d, a, db);
+  else
+    sm90::wgmma_rs_n128_t(d, a, db);
+}
+
+// 1. D = rowsum(dO o) and lse * log2(e) into 64-row tiles (B H, nqt, 2,
+// 64) (zeros past Tq), and qs = q * scale rounded to bf16 into a
+// contiguous (B H, Tq, HD) scratch, as the forward scales q: one warp a row
+template <int HD>
+__global__ void __launch_bounds__(NT)
+fa_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   __nv_bfloat16* __restrict__ qs, float* __restrict__ rows,
+                   Strides sq, Strides so, Strides sdo, int H, int Tq,
+                   int nqt, float scale) {
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * (NT / 32) + threadIdx.x / 32;
+  if (qi >= nqt * QT) return;
+  float dsum = 0.f, l2 = 0.f;
+  if (qi < Tq) {
+    const __nv_bfloat16* orow = o + b * so.b + h * so.h + (long long)qi * so.t;
+    const __nv_bfloat16* drow =
+        dout + b * sdo.b + h * sdo.h + (long long)qi * sdo.t;
+    const __nv_bfloat16* qrow = q + b * sq.b + h * sq.h + (long long)qi * sq.t;
+    __nv_bfloat16* srow = qs + ((long long)bh * Tq + qi) * HD;
+    using bf2 = __nv_bfloat162;
+#pragma unroll
+    for (int d = 2 * lane; d < HD; d += 64) {
+      const float2 of = __bfloat1622float2(*(const bf2*)(orow + d));
+      const float2 df = __bfloat1622float2(*(const bf2*)(drow + d));
+      const float2 qf = __bfloat1622float2(*(const bf2*)(qrow + d));
+      dsum += of.x * df.x + of.y * df.y;
+      *reinterpret_cast<__nv_bfloat162*>(srow + d) =
+          __floats2bfloat162_rn(qf.x * scale, qf.y * scale);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
+    l2 = lse[(long long)bh * Tq + qi] * LOG2E;
+  }
+  if (lane == 0) {
+    float* tile = rows + ((long long)bh * nqt + qi / QT) * 2 * QT;
+    tile[qi % QT] = l2;
+    tile[QT + qi % QT] = dsum;
+  }
+}
+
+// 2. dK and dV of 128 keys of (b, kv head): warpgroups 0 and 1 own 64 keys
+// each, warpgroup 2's first thread streams the query tiles of every query
+// head of the group through a ring of STAGES stages (TMA, mbarriers).  Per
+// stage each consumer computes S^T = K qs^T and dP^T = V dO^T (both
+// operands from shared memory), P^T = exp(S^T - lse) and dS^T = P^T (dP^T
+// - D) in registers, then dV += P^T dO and dK += dS^T qs with P^T and dS^T
+// as bf16 register A operands and dO, qs read transposed.
+template <int HD>
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const float* __restrict__ rows,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, Strides sdk,
+                         Strides sdv, int H, int Hk, int Tq, int Tk, int nqt,
+                         int causal, int window) {
+  using TL = WgTile<HD>;
+  using bf = __nv_bfloat16;
+  constexpr int P = HD / 64, STAGES = TL::STAGES;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = align1k(wg_smem_raw);
+  bf* ks = reinterpret_cast<bf*>(smem + TL::KV_K);
+  bf* vs = reinterpret_cast<bf*>(smem + TL::KV_V);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + TL::KV_BAR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  const int b = blockIdx.x / Hk, hk = blockIdx.x % Hk, G = H / Hk;
+  // key tiles in order of launch: under a causal mask the low ones see the
+  // most queries and go first
+  const int k0 = blockIdx.y * 128;
+  // the queries some key of this block is visible to, in 64-row tiles
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Tq, k0 + 127 + window) : Tq;
+  const int n_q = q_hi > q_lo ? (q_hi - q_lo + QT - 1) / QT : 0;
+  const int n_it = G * n_q;  // stages: head g outer, query tiles inner
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2 * WG);
+    }
+    sm90::fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {  // producer
+    sm90::regs_dec<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(kv_full, 4 * TL::T64);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int off = (p * 128 + half * 64) * 64;
+          sm90::tma_load_4d(ks + off, &tm_k, kv_full, 64 * p, k0 + 64 * half,
+                            hk, b);
+          sm90::tma_load_4d(vs + off, &tm_v, kv_full, 64 * p, k0 + 64 * half,
+                            hk, b);
+        }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        const int g = it / n_q, q0 = q_lo + (it % n_q) * QT, h = hk * G + g;
+        sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        unsigned char* st = smem + TL::KV_RING + s * TL::KV_STAGE;
+        bf* qs_s = reinterpret_cast<bf*>(st);
+        bf* do_s = qs_s + 64 * HD;
+        sm90::mbar_expect_tx(&full[s], 2 * TL::T64 + 2 * QT * 4);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          sm90::tma_load_4d(qs_s + p * 64 * 64, &tm_qs, &full[s], 64 * p, q0,
+                            h, b);
+          sm90::tma_load_4d(do_s + p * 64 * 64, &tm_do, &full[s], 64 * p, q0,
+                            h, b);
+        }
+        const long long tile = (long long)(b * H + h) * nqt + q0 / QT;
+        sm90::bulk_load(st + 2 * TL::T64, rows + tile * 2 * QT, 2 * QT * 4,
+                        &full[s]);
+      }
+    }
+  } else {  // consumers
+    sm90::regs_inc<240>();
+    const int t = threadIdx.x % WG, warp = t / 32, g8 = (t % 32) / 4,
+              q4 = t % 4;
+    const int kw0 = k0 + 64 * wg;  // this warpgroup's first key
+    const bf* kw = ks + wg * 64 * 64;  // its rows within each 128-row panel
+    const bf* vw = vs + wg * 64 * 64;
+    float gk[HD / 2], gv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) gk[i] = gv[i] = 0.f;
+    sm90::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES;
+      const int q0 = q_lo + (it % n_q) * QT;
+      const unsigned char* st = smem + TL::KV_RING + s * TL::KV_STAGE;
+      const bf* qs_s = reinterpret_cast<const bf*>(st);
+      const bf* do_s = qs_s + 64 * HD;
+      const float* lse_s = reinterpret_cast<const float*>(st + 2 * TL::T64);
+      const float* d_s = lse_s + QT;
+      sm90::mbar_wait(&full[s], (it / STAGES) & 1);
+      if (!block_any(q0, kw0, Tq, Tk, causal, window)) {
+        sm90::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const bool edge = block_edge(q0, kw0, Tq, Tk, causal, window);
+      float sc[32], dp[32];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        sm90::wgmma_ss_n64(sc, sm90::desc_k(kw, 128, kk),
+                           sm90::desc_k(qs_s, 64, kk), kk);
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        sm90::wgmma_ss_n64(dp, sm90::desc_k(vw, 128, kk),
+                           sm90::desc_k(do_s, 64, kk), kk);
+      sm90::wgmma_commit();
+      // S^T retired; P^T while dP^T runs
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sc);
+      float p[32];
+      // row: key kw0 + 16 warp + g8 (+ 8); column: query q0 + 8 j + 2 q4
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + 2 * q4 + (i & 1);
+        const int kp = kw0 + 16 * warp + g8 + 8 * ((i / 2) & 1);
+        p[i] = exp2f(fmaf(sc[i], LOG2E, -lse_s[col]));
+        if (edge && !visible(q0 + col, kp, Tq, Tk, causal, window)) p[i] = 0.f;
+      }
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = sm90::pack2(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t<HD>(gv, pa[kk], sm90::desc_mn(do_s, 64, kk));
+      sm90::wgmma_commit();
+      // dP^T retired; dS^T while dV runs
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(dp);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r, col = 8 * (i / 4) + 2 * q4;
+          da[kk][r] = sm90::pack2(p[i] * (dp[i] - d_s[col]),
+                                  p[i + 1] * (dp[i + 1] - d_s[col + 1]));
+        }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t<HD>(gk, da[kk], sm90::desc_mn(qs_s, 64, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::mbar_arrive(&empty[s]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(gv);
+    sm90::fence_regs(gk);
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 2) {
+      const int kp = kw0 + 16 * warp + g8 + 8 * ((i / 2) & 1);
+      const int col = 8 * (i / 4) + 2 * q4;
+      if (kp >= Tk) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dk + b * sdk.b + hk * sdk.h +
+                                         (long long)kp * sdk.t + col) =
+          __floats2bfloat162_rn(gk[i], gk[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + b * sdv.b + hk * sdv.h +
+                                         (long long)kp * sdv.t + col) =
+          __floats2bfloat162_rn(gv[i], gv[i + 1]);
+    }
+  }
+}
+
+// 3. dQ of 128 queries of (b, h): warpgroups 0 and 1 own 64 queries each,
+// warpgroup 2's first thread streams the visible key tiles (64 keys) of kv
+// head h / (H / Hk).  Per stage: S = qs K^T and dP = dO V^T from shared
+// memory, dS = P (dP - D) in registers, dQ += dS K with dS as the bf16 A
+// operand and K read transposed; dQ * scale at the end.
+template <int HD>
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const float* __restrict__ rows,
+                       __nv_bfloat16* __restrict__ dq, Strides sdq, int H,
+                       int Hk, int Tq, int Tk, int nqt, float scale,
+                       int causal, int window) {
+  using TL = WgTile<HD>;
+  using bf = __nv_bfloat16;
+  constexpr int P = HD / 64, STAGES = TL::STAGES;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = align1k(wg_smem_raw);
+  bf* qs = reinterpret_cast<bf*>(smem + TL::Q_QS);
+  bf* dos = reinterpret_cast<bf*>(smem + TL::Q_DO);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + TL::Q_BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hk);
+  // query tiles in order of launch: under a causal mask the high ones see
+  // the most keys and go first
+  const int n_qt = (Tq + 127) / 128;
+  const int q0 = 128 * (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y);
+  // the keys some query of this block sees, in 64-key tiles
+  const int k_hi = causal ? min(Tk, min(q0 + 128, Tq)) : Tk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) / 64 * 64 : 0;
+  const int n_it = k_hi > k_lo ? (k_hi - k_lo + 63) / 64 : 0;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2 * WG);
+    }
+    sm90::fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {  // producer
+    sm90::regs_dec<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(q_full, 4 * TL::T64);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int off = (p * 128 + half * 64) * 64;
+          sm90::tma_load_4d(qs + off, &tm_qs, q_full, 64 * p, q0 + 64 * half,
+                            h, b);
+          sm90::tma_load_4d(dos + off, &tm_do, q_full, 64 * p,
+                            q0 + 64 * half, h, b);
+        }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES, kt0 = k_lo + 64 * it;
+        sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        bf* k_s = reinterpret_cast<bf*>(smem + TL::Q_RING + s * TL::Q_STAGE);
+        bf* v_s = k_s + 64 * HD;
+        sm90::mbar_expect_tx(&full[s], 2 * TL::T64);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          sm90::tma_load_4d(k_s + p * 64 * 64, &tm_k, &full[s], 64 * p, kt0,
+                            hk, b);
+          sm90::tma_load_4d(v_s + p * 64 * 64, &tm_v, &full[s], 64 * p, kt0,
+                            hk, b);
+        }
+      }
+    }
+  } else {  // consumers
+    sm90::regs_inc<240>();
+    const int t = threadIdx.x % WG, warp = t / 32, g8 = (t % 32) / 4,
+              q4 = t % 4;
+    const int qw0 = q0 + 64 * wg;  // this warpgroup's first query
+    const bf* qw = qs + wg * 64 * 64;  // its rows within each 128-row panel
+    const bf* dw = dos + wg * 64 * 64;
+    // this thread's rows: qw0 + 16 warp + g8 and + 8
+    const int r0 = 16 * warp + g8;
+    float l0 = 0.f, l1 = 0.f, d0 = 0.f, d1 = 0.f;
+    if (qw0 < Tq) {
+      const float* tile = rows + ((long long)bh * nqt + qw0 / QT) * 2 * QT;
+      l0 = tile[r0];
+      l1 = tile[r0 + 8];
+      d0 = tile[QT + r0];
+      d1 = tile[QT + r0 + 8];
+    }
+    float gq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) gq[i] = 0.f;
+    sm90::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES, kt0 = k_lo + 64 * it;
+      const bf* k_s =
+          reinterpret_cast<const bf*>(smem + TL::Q_RING + s * TL::Q_STAGE);
+      const bf* v_s = k_s + 64 * HD;
+      sm90::mbar_wait(&full[s], (it / STAGES) & 1);
+      if (!block_any(qw0, kt0, Tq, Tk, causal, window)) {
+        sm90::mbar_arrive(&empty[s]);
+        continue;
+      }
+      const bool edge = block_edge(qw0, kt0, Tq, Tk, causal, window);
+      float sc[32], dp[32];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        sm90::wgmma_ss_n64(sc, sm90::desc_k(qw, 128, kk),
+                           sm90::desc_k(k_s, 64, kk), kk);
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        sm90::wgmma_ss_n64(dp, sm90::desc_k(dw, 128, kk),
+                           sm90::desc_k(v_s, 64, kk), kk);
+      sm90::wgmma_commit();
+      // S retired; P while dP runs
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sc);
+      float p[32];
+      // row: query qw0 + r0 (+ 8); column: key kt0 + 8 j + 2 q4
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = (i / 2) & 1;
+        const int col = 8 * (i / 4) + 2 * q4 + (i & 1);
+        p[i] = exp2f(fmaf(sc[i], LOG2E, -(hi ? l1 : l0)));
+        if (edge && !visible(qw0 + r0 + 8 * hi, kt0 + col, Tq, Tk, causal,
+                             window))
+          p[i] = 0.f;
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dp);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const float d = ((i / 2) & 1) ? d1 : d0;
+          da[kk][r] =
+              sm90::pack2(p[i] * (dp[i] - d), p[i + 1] * (dp[i + 1] - d));
+        }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t<HD>(gq, da[kk], sm90::desc_mn(k_s, 64, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::mbar_arrive(&empty[s]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(gq);
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 2) {
+      const int qi = qw0 + r0 + 8 * ((i / 2) & 1);
+      const int col = 8 * (i / 4) + 2 * q4;
+      if (qi >= Tq) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dq + b * sdq.b + h * sdq.h +
+                                         (long long)qi * sdq.t + col) =
+          __floats2bfloat162_rn(gq[i] * scale, gq[i + 1] * scale);
+    }
+  }
+}
+
 // the dynamic shared-memory attribute, per kernel and per device, set once
 template <typename K>
 cudaError_t size_smem(K kernel, size_t bytes, bool* sized) {
@@ -770,6 +1248,62 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// bf16 at hd 64 and 128: the prep launch, then the dK/dV and dQ passes on
+// wgmma.  `work` holds qs (B H Tq HD bf16) and then the row tiles
+// (B H, nqt, 2, 64) fp32.
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, void* work, void* dq,
+                 void* dk, void* dv, const long long* st, int B, int H,
+                 int Hk, int Tq, int Tk, float scale, int causal, int window,
+                 cudaStream_t stream) {
+  using TL = WgTile<HD>;
+  using bf = __nv_bfloat16;
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
+      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]},
+      sdo{st[12], st[13], st[14]}, sdq{st[15], st[16], st[17]},
+      sdk{st[18], st[19], st[20]}, sdv{st[21], st[22], st[23]};
+  static bool sized_kv[MAX_DEVICES] = {}, sized_q[MAX_DEVICES] = {};
+  cudaError_t err = size_smem(fa_bwd_dkdv_wgmma_kernel<HD>, TL::KV_SMEM,
+                              sized_kv);
+  if (err != cudaSuccess) return (int)err;
+  err = size_smem(fa_bwd_dq_wgmma_kernel<HD>, TL::Q_SMEM, sized_q);
+  if (err != cudaSuccess) return (int)err;
+
+  const int nqt = (Tq + QT - 1) / QT;
+  bf* qs = (bf*)work;
+  float* rows = (float*)(qs + (size_t)B * H * Tq * HD);
+  const dim3 grid_p((nqt * QT + NT / 32 - 1) / (NT / 32), B * H);
+  fa_bwd_prep_kernel<HD><<<grid_p, NT, 0, stream>>>(
+      (const bf*)q, (const bf*)o, (const bf*)dout, lse, qs, rows, sq, so,
+      sdo, H, Tq, nqt, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // byte strides of (t, head, b); qs is contiguous
+  CUtensorMap m_qs, m_do, m_k, m_v;
+  const long long e = sizeof(bf);
+  if ((err = sm90::tile_map(&m_qs, qs, HD, Tq, H, B, HD * e, Tq * HD * e,
+                            (long long)H * Tq * HD * e, 64)) != cudaSuccess ||
+      (err = sm90::tile_map(&m_do, dout, HD, Tq, H, B, sdo.t * e, sdo.h * e,
+                            sdo.b * e, 64)) != cudaSuccess ||
+      (err = sm90::tile_map(&m_k, k, HD, Tk, Hk, B, sk.t * e, sk.h * e,
+                            sk.b * e, 64)) != cudaSuccess ||
+      (err = sm90::tile_map(&m_v, v, HD, Tk, Hk, B, sv.t * e, sv.h * e,
+                            sv.b * e, 64)) != cudaSuccess)
+    return (int)err;
+  const dim3 grid_kv(B * Hk, (Tk + 127) / 128);
+  fa_bwd_dkdv_wgmma_kernel<HD><<<grid_kv, WG_BLOCK, TL::KV_SMEM, stream>>>(
+      m_qs, m_do, m_k, m_v, rows, (bf*)dk, (bf*)dv, sdk, sdv, H, Hk, Tq, Tk,
+      nqt, causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q(B * H, (Tq + 127) / 128);
+  fa_bwd_dq_wgmma_kernel<HD><<<grid_q, WG_BLOCK, TL::Q_SMEM, stream>>>(
+      m_qs, m_do, m_k, m_v, rows, (bf*)dq, sdq, H, Hk, Tq, Tk, nqt, scale,
+      causal, window);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* delta, void* dq,
@@ -809,28 +1343,33 @@ extern "C" int flash_attention_bwd_f32(
                          Hk, Tq, Tk, hd, scale, causal, window, stream);
 }
 
-// bf16: the tensor-core kernels at hd 16, 32, 64 and 128 (pointers of q,
-// k, v and dO 16-byte aligned and their strides multiples of 8 elements),
-// the fp32-FMA ones at hd 8, 80 and 256
+// bf16: the wgmma kernels at hd 64 and 128 (`delta` then points at their
+// workspace: qs, B H Tq hd bf16, then B H ceil(Tq / 64) 128 fp32), the
+// mma.sync ones at hd 16 and 32 (pointers of q, k, v, o and dO 16-byte
+// aligned and their strides multiples of 8 elements, in both), the
+// fp32-FMA ones at hd 8, 80 and 256
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, const long long* st, int B, int H, int Hk, int Tq, int Tk,
     int hd, float scale, int causal, int window, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-#define FA_BWD_MMA(HD)                                                      \
-  case HD:                                                                  \
-    return launch_mma<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,  \
-                          H, Hk, Tq, Tk, scale, causal, window, s);
   switch (hd) {
-    FA_BWD_MMA(16)
-    FA_BWD_MMA(32)
-    FA_BWD_MMA(64)
-    FA_BWD_MMA(128)
+    case 16:
+      return launch_mma<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,
+                            H, Hk, Tq, Tk, scale, causal, window, s);
+    case 32:
+      return launch_mma<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,
+                            H, Hk, Tq, Tk, scale, causal, window, s);
+    case 64:
+      return launch_wgmma<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
+                              B, H, Hk, Tq, Tk, scale, causal, window, s);
+    case 128:
+      return launch_wgmma<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
+                               B, H, Hk, Tq, Tk, scale, causal, window, s);
     default:
       return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
                                      dv, st, B, H, Hk, Tq, Tk, hd, scale,
                                      causal, window, stream);
   }
-#undef FA_BWD_MMA
 }

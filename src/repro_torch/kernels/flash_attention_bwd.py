@@ -7,13 +7,16 @@ the TPU: the reference differentiates its jnp attention instead).
 tensors and raises on anything it does not take (the forward's dtypes,
 head dims and masks); ``lse`` is the forward's per-row log-sum-exp
 (``flash_attention(..., return_lse=True)``).  It runs three launches on one
-stream: D = rowsum(dO o), then dK and dV a key tile a block, then dQ a
-query tile a block, with no atomics, so its result does not depend on the
-order blocks run in.  bf16 inputs at hd 16, 32, 64 and 128 run on the
-tensor cores (``mma.sync``); fp32 inputs, and bf16 at hd 8, 80 and 256,
-on fp32 FMAs.  ``torch.autograd.grad`` through
-:func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version.
-``launches`` counts calls.
+stream: D = rowsum(dO o) (and, on the wgmma route, qs = q * scale in bf16),
+then dK and dV a key tile a block, then dQ a query tile a block, with no
+atomics, so its result does not depend on the order blocks run in.  bf16
+inputs at hd 64 and 128 (every shape training gives it) run on Hopper's
+``wgmma`` with TMA-fed tiles (``csrc/sm90.cuh``), at hd 16 and 32 on
+``mma.sync``; fp32 inputs, and bf16 at hd 8, 80 and 256, on fp32 FMAs.
+``torch.autograd.grad`` through
+:func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version,
+:func:`repro_torch.kernels.ref.flash_attention_bwd_tiled_ref` the wgmma
+route's arithmetic step by step.  ``launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ launches = 0
 
 _SYMBOLS = {torch.float32: "flash_attention_bwd_f32",
             torch.bfloat16: "flash_attention_bwd_bf16"}
+# bf16 head dims of the wgmma route, whose kernels take a workspace of qs
+# (B H Tq hd bf16) and 64-row tiles of lse and D (B H ceil(Tq / 64) 128
+# fp32); every other route takes D alone (B H Tq fp32)
+WGMMA_HEAD_DIMS = (64, 128)
 _fns = {}
 
 
@@ -71,11 +78,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  else t.clone(memory_format=torch.contiguous_format)
                  for t in (out, dout))
     if q.dtype == torch.bfloat16:
-        # the tensor-core kernels copy 16-byte pieces of each row
-        q, k, v, dout = (t if t.data_ptr() % 16 == 0
-                         and all(s % 8 == 0 for s in t.stride()[:3])
-                         else t.clone(memory_format=torch.contiguous_format)
-                         for t in (q, k, v, dout))
+        # the tensor-core kernels copy 16-byte pieces of each row (TMA
+        # takes byte strides that are positive multiples of 16)
+        q, k, v, out, dout = (
+            t if t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 and s > 0 for s in t.stride()[:3])
+            else t.clone(memory_format=torch.contiguous_format)
+            for t in (q, k, v, out, dout))
     if lse.shape != (B, H, Tq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
@@ -86,14 +95,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device).transpose(1, 2) for _ in range(2))
     if B * H * Tq == 0 or Tk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        words = B * H * Tq * hd // 2 + B * H * -(-Tq // 64) * 128
+    else:
+        words = B * H * Tq
+    work = torch.empty(words, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, out, dout, dq, dk, dv)
           for s in t.stride()[:3]))
     scale = hd ** -0.5 if scale is None else float(scale)
     err = build.call(_fn(q.dtype), q.device, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                     lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
                      dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides),
                      B, H, Hk, Tq, Tk, hd, scale, int(causal), int(window))
     if err != 0:

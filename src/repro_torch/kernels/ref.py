@@ -153,6 +153,72 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
+def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  dout: torch.Tensor, lse: torch.Tensor, *,
+                                  causal: bool = True, window: int = 0,
+                                  scale: Optional[float] = None):
+    """The backward kernel's arithmetic on its wgmma route (bf16 at hd 64
+    and 128), step by step, on head-major tensors as
+    ``flash_attention_bwd`` takes them (``lse`` the forward's (B, H, Tq)).
+
+    qs = q * scale rounded to q's dtype (fp32 rounds nothing), D =
+    rowsum(dO o) in fp32.  dK and dV: fp32 sums over query tiles of 64
+    rows, the query heads of a kv group outer and the tiles inner, as each
+    key block of the kernel walks them: S^T = K qs^T, P = exp(S - lse) (0
+    where the forward's mask hides the pair), dP^T = V dO^T,
+    dS = P (dP - D), then dV += P^T dO and dK += dS^T qs with P and dS
+    rounded to q's dtype as the products' operands.  dQ in its own pass
+    over key tiles of 64: dQ += dS K, times scale at the end.  Products of
+    such operands are exact in fp32; the order of the sums within a tile
+    is the matmul's.  Returns (dq, dk, dv) in q's dtype.  The main path
+    never calls it."""
+    od, tile = q.dtype, 64
+    B, H, Tq, hd = q.shape
+    Hk, Tk = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = hd ** -0.5 if scale is None else float(scale)
+
+    def rnd(t):
+        return t.to(od).float()
+    qs = rnd(q.float() * scale)
+    kf, vf, dof = (rnd(t.float()) for t in (k, v, dout))
+    D = (dout.float() * out.float()).sum(-1)
+    lse = lse.float()
+    qp = torch.arange(Tq, device=q.device)[:, None]
+    kp = torch.arange(Tk, device=q.device)[None, :]
+    vis = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        vis = vis & (qp >= kp)
+    if window > 0:
+        vis = vis & ((qp - kp) < window)
+
+    def grads(qs_t, do_t, lse_t, d_t, k_t, v_t, vis_t):
+        p = torch.where(vis_t, torch.exp(qs_t @ k_t.transpose(-1, -2)
+                                         - lse_t[..., None]), 0.0)
+        return p, p * (do_t @ v_t.transpose(-1, -2) - d_t[..., None])
+
+    def by_group(t):   # (B, H, ...) -> (B, Hk, G, ...)
+        return t.reshape(B, Hk, G, *t.shape[2:])
+    qs_g, do_g, lse_g, d_g = (by_group(t) for t in (qs, dof, lse, D))
+    dk = torch.zeros((B, Hk, Tk, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for g in range(G):
+        for q0 in range(0, Tq, tile):
+            r = slice(q0, q0 + tile)
+            p, ds = grads(qs_g[:, :, g, r], do_g[:, :, g, r],
+                          lse_g[:, :, g, r], d_g[:, :, g, r], kf, vf, vis[r])
+            dv = dv + rnd(p).transpose(-1, -2) @ do_g[:, :, g, r]
+            dk = dk + rnd(ds).transpose(-1, -2) @ qs_g[:, :, g, r]
+    kh, vh = (t.repeat_interleave(G, dim=1) for t in (kf, vf))
+    dq = torch.zeros((B, H, Tq, hd), dtype=torch.float32, device=q.device)
+    for k0 in range(0, Tk, tile):
+        c = slice(k0, k0 + tile)
+        _, ds = grads(qs, dof, lse, D, kh[:, :, c], vh[:, :, c], vis[:, c])
+        dq = dq + rnd(ds) @ kh[:, :, c]
+    return (dq * scale).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def ssd_scan_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
     """The chunked SSD scan: ``mamba2.ssd_chunked`` (the kernel's oracle in
     the reference)."""

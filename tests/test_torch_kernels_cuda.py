@@ -181,8 +181,11 @@ FA_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
 # the backward kernel: qwen2-1.5b's training attention (GQA 12:2 at hd 128,
 # causal) and a windowed GQA one, whisper-tiny's non-causal ragged hd 64
 # (Tq != Tk both ways), and the other head dims' tiles (the fp32-FMA
-# kernel's hd 256 at 16-row tiles, 80 and 8; the tensor-core kernel's 32
-# with a window and no causal mask, and 16 off its 64-row tiles)
+# kernel's hd 256 at 16-row tiles, 80 and 8; the mma.sync kernel's 32
+# with a window and no causal mask, and 16 off its 64-row tiles); then the
+# wgmma route's tile edges at hd 64 and 128 (T 127, 128 and 129 about its
+# 128-row blocks and 64-row tiles, whisper's encoder T 1,500 and its
+# cross-attention's 448 x 1,500, Tq != Tk at hd 128, causal H / Hk = 6)
 FA_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                (2, 12, 2, 300, 300, 128, True, 100),
                (2, 6, 6, 200, 150, 64, False, 0),
@@ -191,7 +194,19 @@ FA_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                (1, 4, 4, 100, 100, 80, True, 0),
                (1, 4, 2, 70, 70, 8, True, 0),
                (1, 2, 1, 190, 190, 32, False, 70),
-               (2, 4, 2, 77, 99, 16, True, 0)]
+               (2, 4, 2, 77, 99, 16, True, 0),
+               (1, 6, 6, 127, 127, 64, True, 0),
+               (1, 6, 6, 128, 128, 128, True, 0),
+               (1, 12, 2, 129, 129, 128, True, 0),
+               (2, 6, 6, 129, 129, 64, False, 0),
+               (1, 6, 6, 1500, 1500, 64, False, 0),
+               (1, 6, 6, 448, 1500, 64, False, 0),
+               (1, 6, 2, 200, 330, 128, False, 0),
+               (1, 12, 2, 300, 200, 128, False, 0),
+               (1, 12, 2, 129, 129, 64, True, 0)]
+# the training paths' shapes: qwen2-1.5b's, whisper-tiny's encoder
+FA_BWD_TRAIN = [(8, 12, 2, 2048, 2048, 128, True, 0),
+                (8, 6, 6, 1500, 1500, 64, False, 0)]
 # likewise, then T off the chunk, one chunk (C = T = 100), H off the
 # kernel's group of 8 heads
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
@@ -256,6 +271,56 @@ def test_flash_attention_backward_kernel_matches_plain_autograd_on_card(
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == td
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+def _bwd_inputs(B, H, Hk, Tq, Tk, hd, causal, window):
+    """bf16 q, k, v, dO from a seed, and the forward kernel's out, lse."""
+    rng = np.random.default_rng(Tq * 5 + Tk)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                   device="cuda").bfloat16()
+                   for s in ((B, H, Tq, hd), (B, Hk, Tk, hd),
+                             (B, Hk, Tk, hd), (B, H, Tq, hd)))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    return q, k, v, out, do, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window",
+                         [c for c in FA_BWD_GRID if c[5] in (64, 128)])
+def test_flash_attention_backward_wgmma_matches_tiled_plain_on_card(
+        B, H, Hk, Tq, Tk, hd, causal, window):
+    """The wgmma route (bf16 at hd 64 and 128) against its arithmetic step
+    by step (``ref.flash_attention_bwd_tiled_ref``: qs, P and dS rounded to
+    bf16 where the kernel rounds them, fp32 sums over its tiles) on the
+    same forward output and lse: atol = rtol = 1e-2, about two bf16 steps
+    (an fp32 sum in another order, or exp2 against exp, can move one
+    rounding by a step)."""
+    _need_card()
+    q, k, v, out, do, lse = _bwd_inputs(B, H, Hk, Tq, Tk, hd, causal, window)
+    got = fab.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                  window=window)
+    want = ref.flash_attention_bwd_tiled_ref(q, k, v, out, do, lse,
+                                             causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window", FA_BWD_TRAIN)
+def test_flash_attention_backward_is_deterministic_on_card(
+        B, H, Hk, Tq, Tk, hd, causal, window):
+    """Two backward calls on the same inputs give the same bits (no float
+    atomics; every sum in a fixed order), at the training shapes."""
+    _need_card()
+    q, k, v, out, do, lse = _bwd_inputs(B, H, Hk, Tq, Tk, hd, causal, window)
+    first, second = (fab.flash_attention_bwd(q, k, v, out, do, lse,
+                                             causal=causal, window=window)
+                     for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
