@@ -8,7 +8,9 @@
 2. Builds every kernel from ``src/repro_torch/kernels/csrc`` with nvcc (one
    nvcc per source, all started together), and counts the tensor-core
    (HMMA) instructions of ``flash_attention`` (forward and backward),
-   ``ssd_scan`` and ``pairwise_dist`` in their SASS, and the backward's
+   ``ssd_scan`` (forward and backward) and ``pairwise_dist`` in their
+   SASS, prints the shared memory of each of the SSD backward's launches,
+   and counts the attention backward's
    ``wgmma`` (HGMMA) and TMA tensor-load (UTMALDG) instructions: none of
    any fails the run.
 3. Holds each kernel against its plain PyTorch version on the card, at the
@@ -26,7 +28,13 @@
    128) also against its arithmetic step by step
    (``ref.flash_attention_bwd_tiled_ref``, atol = rtol = 1e-2), and two
    calls on the same inputs bit-equal, on ``FLASH_BWD_GRID`` and at every
-   shape the training paths gave it.
+   shape the training paths gave it.  ``ssd_scan``'s backward kernel on the
+   forward kernel's per-chunk states against its split plain version
+   (``ref.ssd_scan_bwd_passes_ref``) and against ``torch.autograd.grad``
+   through the plain scan, with a final-state gradient and without, and
+   two calls bit-equal, on ``SSD_BWD_GRID`` (the forward's grid but its
+   largest case, and N 8) and at every shape the training paths gave it
+   (mamba2-1.3b's and zamba2-2.7b's).
 4. Runs two MCAL campaigns through the port's entry points
    (``run_mcal(LiveTask(...))``), one with the margin M(.) and one with
    k-center, on ``make_classification(50_000, 10 classes, dim 32)`` — the
@@ -111,7 +119,7 @@
    16 experts top-4 at d_ff 10,752, capacity factor 1.25, vocab 100,352)
    cut to ``DBRX_LAYERS`` = 1 of its 40 layers (6.5 GB of bf16 weights a
    layer); internvl2-26b (GQA 48:8 at hd 128, vocab 92,672; full width,
-   cut to ``INTERNVL2_LAYERS`` = 12 of its 48 layers) with 1,024 random
+   cut to ``INTERNVL2_LAYERS`` = 6 of its 48 layers) with 1,024 random
    fp32 patch embeddings a request (seed
    0) before its prompt, so its attention runs over 3,072 positions and
    its cache holds ``1,024 + prompt + gen + 8``; and whisper-tiny (the
@@ -119,14 +127,19 @@
    vocab 51,872; full config) with 1,500 random fp32 frame embeddings a
    request and a pool row (seed 0), its attention the encoder's T 1,500,
    the decoder's and the cross-attention's 2,048 x 1,500.
-   Training, each from the served bf16 weights through ``Trainer``: after
-   its pool pass, qwen2-1.5b at its full config (``remat="layer"``,
-   ``logits_chunk`` 16,384) for 6 steps of 8 x 2,048 tokens of
-   ``make_lm_tokens`` through ``ShardedLoader``, ``paper_steps``, no
-   checkpoint: the losses finite and falling, the backward kernel once a
-   layer a step; and whisper-tiny on batches of tokens, labels and 1,500
-   fp32 frames a row, 4 steps checkpointed every 2, then a fresh
-   ``Trainer`` resumed from step 4 to 6 on the same batch generator: the
+   Training, each from the served bf16 weights through ``Trainer``
+   (``train_lm``): zamba2-2.7b at full width and depth with bf16 first
+   moments, after its serving passes; after their pool passes, qwen2-1.5b
+   and mamba2-1.3b at their full configs (``remat="layer"``,
+   ``logits_chunk`` 16,384): 6 steps of 8 x 2,048 tokens of
+   ``make_lm_tokens`` through ``ShardedLoader``, ``paper_steps`` from lr
+   1e-4, no checkpoint: the losses finite and falling, each backward kernel
+   once a step for each launch of its forward in a forward pass (the SSD
+   scan's once a Mamba2 layer, attention's once a layer or a zamba2
+   shared-block application); and whisper-tiny on batches of tokens,
+   labels and 1,500 fp32 frames a row, 4 steps checkpointed every 2, then
+   a fresh ``Trainer`` resumed from step 4 to 6 on the same batch
+   generator: the
    restored state bit-equal to the saved one and the resumed losses
    bit-equal to an uninterrupted run's over the same batches.
    The kernels' launch counts are zeroed just before each main-path pass
@@ -134,10 +147,11 @@
    the fleets, the chaos and instrumented campaigns, each selection run,
    each serving pass and each pool pass: ``flash_attention`` 9 times a
    zamba2 forward, once a layer in the others (28 qwen2-1.5b, 34
-   gemma3-4b, 1 dbrx-132b, 12 internvl2-26b, 12 whisper-tiny: 4 encoder,
+   gemma3-4b, 1 dbrx-132b, 6 internvl2-26b, 12 whisper-tiny: 4 encoder,
    8 decoder), ``ssd_scan`` 54 times a zamba2 forward and 48 a
-   mamba2-1.3b one, the backward kernel never when serving and once a
-   layer a training step) and read just after it; a kernel of a path that
+   mamba2-1.3b one, the backward kernels never when serving and once a
+   step for each launch of their forwards in a forward pass when training)
+   and read just after it; a kernel of a path that
    was never launched there fails the run.  Each phase's seconds are
    printed.
 9. Times each kernel at the largest shape each main path gave it
@@ -160,7 +174,11 @@
    bf16 products), H100 SXM data-sheet peaks.  The backward kernel at
    whisper's and qwen2's training shapes, beside autograd's backward
    through the plain version and SDPA's backward, bound by 2.5 times the
-   forward's operations or its bytes.
+   forward's operations or its bytes; at zamba2's (hd 80, its fp32-FMA
+   route) too.  The SSD backward at zamba2's and mamba2's training
+   shapes, beside autograd's backward through the plain scan (no library
+   call computes it), bound by its products at the bf16 peak or its bytes
+   (the forward's per-chunk states included).
 10. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
@@ -185,7 +203,7 @@ HBM_BYTES_PER_S = 3.35e12
 # config's: host init of random weights is most of these two models' time
 # (6.5 GB of bf16 weights a dbrx-132b layer, 0.8 GB an internvl2-26b one)
 DBRX_LAYERS = 1           # of 40
-INTERNVL2_LAYERS = 12     # of 48
+INTERNVL2_LAYERS = 6      # of 48 (12 before the ssm and hybrid training)
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 # the card's name and power limit (nvidia-smi), printed beside each rate
@@ -686,6 +704,108 @@ def check_ssd_states(torch, np, ssd, ref, case):
           f"{err:.3g} ok", flush=True)
 
 
+# the backward kernel: the forward's grid but its largest case (ragged T,
+# one chunk, N 16 to 128, H off the group of 8 heads) and N 8 at a ragged
+# T over chunks of 16; then, after the training paths, at every shape they
+# gave it (mamba2-1.3b's and zamba2-2.7b's, B 8 x T 2,048 at C 128: N 128
+# over 64 heads, N 64 over 80)
+SSD_BWD_GRID = [c for c in SSD_GRID if c[0] * c[1] * c[2] < 2 ** 17] + [
+    (2, 50, 3, 16, 8, 16)]
+# against the split plain version (``ref.ssd_scan_bwd_passes_ref``) on the
+# kernel's own per-chunk states: atol 1e-4 x each gradient's largest
+# magnitude + rtol 1e-4 (both fp32; the kernel's fp32 operands are bf16 hi
+# + lo, about 2^-16 relative a product), bf16 dxh at rtol 2^-7 (one bf16
+# step: both round it once); against autograd through ``ref.ssd_scan_ref``
+# at the forward's bf16 tolerance scaled by each gradient's largest
+# magnitude, atol 2e-3 x max + rtol 2e-3 + 2^-7 (the plain scan rounds W,
+# the end decays and B to xh's dtype inside its products; dA and dB sum
+# 2^14-2^17 terms at the training shapes)
+SSD_BWD_SPLIT_TOL = 1e-4
+SSD_BWD_PLAIN_TOL = 2e-3
+
+
+def ssd_bwd_inputs(torch, np, case, dtype, seed=6):
+    """The forward's inputs (``ssd_inputs``), and dy in xh's dtype and an
+    fp32 final-state gradient."""
+    B, T, H, hd, N = case[:5]
+    ins = ssd_inputs(torch, np, case, dtype, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.as_tensor(rng.normal(size=(B, T, H, hd)).astype(np.float32),
+                         device="cuda").to(dtype)
+    dh = torch.as_tensor(rng.normal(size=(B, H, hd, N)).astype(np.float32),
+                         device="cuda")
+    return ins, dy, dh
+
+
+def _ssd_bwd_err(got, want, atol_of_max, rtols):
+    """The largest |got - want| of each gradient, and whether each is
+    within atol_of_max x max|want| + rtol |want|."""
+    errs, ok = [], True
+    for g, w, rtol in zip(got, want, rtols):
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        errs.append(float(d.max()))
+        ok &= g.shape == w.shape and bool(
+            (d <= atol_of_max * w.abs().max() + rtol * w.abs()).all())
+    return errs, ok
+
+
+def check_ssd_bwd(torch, np, ssd, ssdb, ref, cases):
+    """The backward kernel on the forward kernel's per-chunk states, at
+    each case, xh in fp32 and bf16, with a final-state gradient and
+    without (None, as training gives it): against the split plain version
+    and against autograd through the plain scan (the tolerances above), and
+    two calls bit-equal.  Returns the max abs error against the plain
+    version in bf16, the training dtype.  Its launches are outside every
+    main path's counts."""
+    worst = 0.0
+    names = ("dxh", "ddt", "dA", "dBm", "dCm")
+    for case in cases:
+        C = case[5]
+        for dtype in (torch.float32, torch.bfloat16):
+            for final in (True, False):
+                ins, dy, dh = ssd_bwd_inputs(torch, np, case, dtype)
+                dh = dh if final else None
+                _, _, states = ssd.ssd_scan_with_states(*ins, chunk=C)
+                got = ssdb.ssd_scan_bwd(*ins, states, dy, dh, chunk=C)
+                again = ssdb.ssd_scan_bwd(*ins, states, dy, dh, chunk=C)
+                split = ref.ssd_scan_bwd_passes_ref(*ins, states, dy, dh,
+                                                    chunk=C)
+                rt = SSD_BWD_SPLIT_TOL
+                serr, sok = _ssd_bwd_err(
+                    got, split, rt,
+                    (rt if dtype == torch.float32 else 2 ** -7,) + (rt,) * 4)
+                del split
+                plain_in = [t.clone().requires_grad_(True) for t in ins]
+                y, h = ref.ssd_scan_ref(*plain_in, chunk=C)
+                loss = (y.float() * dy.float()).sum()
+                if dh is not None:
+                    loss = loss + (h * dh).sum()
+                plain = torch.autograd.grad(loss, plain_in)
+                del y, h, loss
+                pt = SSD_BWD_PLAIN_TOL
+                perr, pok = _ssd_bwd_err(got, plain, pt, (pt + 2 ** -7,) * 5)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                label = (f"ssd_scan_bwd {case} {str(dtype)[6:]} "
+                         f"{'dh_final' if final else 'no dh_final'}")
+                if not (sok and pok and same) or got[0].dtype != dtype:
+                    fail(f"{label}: against the split version "
+                         f"{dict(zip(names, serr))}, against the plain "
+                         f"{dict(zip(names, perr))}, two calls bit-equal "
+                         f"{same}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, *perr)
+                print(f"{label}: max abs err against the split version "
+                      + " ".join(f"{n} {e:.3g}" for n, e in zip(names, serr))
+                      + ", against the plain " + " ".join(
+                          f"{n} {e:.3g}" for n, e in zip(names, perr))
+                      + ", two calls bit-equal ok", flush=True)
+                del ins, dy, dh, states, got, again, plain_in, plain
+        torch.cuda.empty_cache()
+    return worst
+
+
 def record_shapes(mod, name: str, seen: set, key):
     """Wrap the kernel wrapper ``mod.<name>`` (which ``kernels.ops`` looks
     up at each call) so every call adds ``key(*args, **kw)`` to ``seen``;
@@ -721,6 +841,10 @@ def flash_bwd_key(q, k, v, out, dout, lse, *, causal=True, window=0,
 def ssd_key(xh, dt, A, Bm, Cm, *, chunk=128):
     B, T, H, hd = xh.shape
     return (B, T, H, hd, Bm.shape[-1], chunk)
+
+
+def ssd_bwd_key(xh, dt, A, Bm, Cm, h_in, dy, dh_final=None, *, chunk=128):
+    return ssd_key(xh, dt, A, Bm, Cm, chunk=chunk)
 
 
 PHASES = ("train", "score", "eval_correct", "topk_candidates",
@@ -1720,7 +1844,8 @@ def per_forward(cfg) -> dict:
              "ssd_scan": 0}
     else:
         n = {"flash_attention": cfg.num_layers, "ssd_scan": 0}
-    return dict(n, flash_attention_bwd=0)   # serving takes no gradient
+    # serving takes no gradient
+    return dict(n, flash_attention_bwd=0, ssd_scan_bwd=0)
 
 
 def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
@@ -2073,20 +2198,24 @@ def _zero(torch, mods):
         m.launches = 0
 
 
-def train_qwen2(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
-                seq: int = 2048, lr: float = 1e-4):
-    """A hook for ``run_serving``: train the served model (qwen2-1.5b at its
-    full config, the served bf16 weights from ``Model.init(seed 0)``) for
-    ``steps`` steps through ``Trainer``: ``paper_steps`` over ``steps``
-    from ``lr`` (at 3e-4 and 1e-3 the first steps' losses spiked on
-    these random weights before falling back, on the card),
-    ``batch`` sequences of ``seq`` tokens a step from ``make_lm_tokens``
-    (seed 0) through ``ShardedLoader``, no checkpoint, the config's
-    ``remat="layer"`` and ``logits_chunk``.  Prints each step's loss,
-    seconds and tokens/s, the peak device memory and the profile of one
-    more step (its result dropped); fails unless every
-    loss is finite, the last is below the first and the backward kernel ran
-    once a layer a step.  Returns the launch counts."""
+def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
+             seq: int = 2048, lr: float = 1e-4,
+             moment_dtype: str = "float32"):
+    """A hook for ``run_serving``: train the served model (a token family at
+    its full config or width, the served bf16 weights from ``Model.init(seed
+    0)``: qwen2-1.5b, mamba2-1.3b, zamba2-2.7b) for ``steps`` steps through
+    ``Trainer``: ``paper_steps`` over ``steps`` from ``lr`` (at 3e-4 and
+    1e-3 the first steps' losses spiked on qwen2's random weights before
+    falling back, on the card), ``batch`` sequences of ``seq`` tokens a step
+    from ``make_lm_tokens`` (seed 0) through ``ShardedLoader``, no
+    checkpoint, the config's ``remat="layer"`` and ``logits_chunk``, the
+    optimizer's first moments in ``moment_dtype``.  Prints each step's
+    loss, seconds and tokens/s, the peak device memory and the profile of
+    one more step (its result dropped); fails unless every loss is finite,
+    the last is below the first and each backward kernel ran once a step
+    for each launch of its forward in a served forward pass (attention's
+    once a layer, or once a shared-block application in zamba2; the SSD
+    scan's once a Mamba2 layer).  Returns the launch counts."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.synth import make_lm_tokens
@@ -2104,12 +2233,14 @@ def train_qwen2(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
               f"{time.perf_counter() - t0:.3f} s; remat {cfg.remat}, "
               f"logits_chunk {cfg.logits_chunk}", flush=True)
         tc = TrainConfig(learning_rate=lr, schedule="paper_steps",
-                         total_steps=steps)
+                         total_steps=steps, moment_dtype=moment_dtype)
         restore = [record_shapes(mods["flash_attention_bwd"],
                                  "flash_attention_bwd",
                                  seen["flash_attention_bwd"], flash_bwd_key),
                    record_shapes(mods["flash_attention"], "flash_attention",
-                                 seen["flash_attention"], flash_key)]
+                                 seen["flash_attention"], flash_key),
+                   record_shapes(mods["ssd_scan_bwd"], "ssd_scan_bwd",
+                                 seen["ssd_scan_bwd"], ssd_bwd_key)]
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2134,16 +2265,19 @@ def train_qwen2(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
               f"{batch * seq * steps / wall:.1f} tokens/s overall, steps "
               f"2-{steps} {batch * seq * (steps - 1) / sum(secs[1:]):.1f} "
               f"tokens/s; max_memory_allocated bytes "
-              f"{torch.cuda.max_memory_allocated()}; launches {got} "
-              f"({CARD})", flush=True)
+              f"{torch.cuda.max_memory_allocated()}; {cfg.num_layers} "
+              f"layers, moments {moment_dtype}; launches {got} ({CARD})",
+              flush=True)
         if len(losses) != steps or not all(np.isfinite(losses)) or \
                 not losses[-1] < losses[0]:
             fail(f"train {cfg.name}: losses {losses} are not finite and "
                  f"falling")
-        if got["flash_attention_bwd"] != cfg.num_layers * steps or \
-                got["flash_attention"] < got["flash_attention_bwd"]:
-            fail(f"train {cfg.name}: launches {got}, want the backward "
-                 f"kernel {cfg.num_layers * steps} times")
+        per_pass = per_forward(cfg)
+        for fwd in ("flash_attention", "ssd_scan"):
+            want = per_pass[fwd] * steps
+            if got[fwd + "_bwd"] != want or got[fwd] < want:
+                fail(f"train {cfg.name}: launches {got}, want {fwd}_bwd "
+                     f"{want} times")
         # where a step's time goes: one more step, profiled, its result
         # dropped
         step = make_train_step(model, tc)
@@ -2262,7 +2396,7 @@ def train_whisper_resume(torch, np, mods, seen: dict, steps: int = 4,
 
 # launch names of the port's kernels (csrc/*.cu)
 KERNEL_PREFIXES = ("margin_head_", "pairwise_sqdist_", "flash_attention_",
-                   "fa_bwd_", "ssd_scan_")
+                   "fa_bwd_", "ssd_scan_", "ssd_bwd_")
 
 
 def profile_pass(torch, label: str, fn, top: int = 10):
@@ -2403,6 +2537,40 @@ def time_flash_bwd(torch, np, mods, ref, case):
     return row
 
 
+def time_ssd_bwd(torch, np, mods, ref, case):
+    """The SSD scan's backward kernel at one (B, T, H, hd, N, C), xh and dy
+    in bf16, no final-state gradient (as training gives it), beside the
+    backward of autograd through the plain scan over a graph kept for
+    repeated backwards; no single PyTorch call computes it (library none).
+    Bound: the bytes of xh, dy, dt, A, B, C and the forward's per-chunk
+    states read and of dxh, ddt, dA, dB and dC written, or its products at
+    the bf16 tensor-core peak (G = C B^T a chunk; a head's four causal
+    triangles, dy x^T, W^T dy, dS B and dS^T C, and four C x hd x N
+    products), whichever is larger."""
+    ssd, ssdb = mods["ssd_scan"], mods["ssd_scan_bwd"]
+    B, T, H, hd, N, C = case
+    ins, dy, _ = ssd_bwd_inputs(torch, np, case, torch.bfloat16)
+    C = min(C, T)
+    nc = -(-T // C)
+    _, _, states = ssd.ssd_scan_with_states(*ins, chunk=C)
+    plain_in = [t.clone().requires_grad_(True) for t in ins]
+    plain_y, _ = ref.ssd_scan_ref(*plain_in, chunk=C)
+    nbytes = 2 * 3 * B * T * H * hd + 4 * (2 * B * T * H + 2 * H
+                                           + 4 * B * T * N
+                                           + B * nc * H * hd * N)
+    flops = B * nc * (2 * C * C * N + H * (C * (C + 1) * (2 * hd + 2 * N)
+                                           + 8 * C * hd * N))
+    row = timing_row(
+        torch, "ssd_scan_bwd", case,
+        lambda: ssdb.ssd_scan_bwd(*ins, states, dy, None, chunk=C),
+        lambda: torch.autograd.grad(plain_y, plain_in, dy,
+                                    retain_graph=True),
+        None, nbytes, flops, BF16_FLOPS_PER_S, "ssd_bwd_")
+    del ins, dy, states, plain_in, plain_y
+    torch.cuda.empty_cache()
+    return row
+
+
 def time_kernels(torch, np, mods, ref, shapes):
     """Each kernel at its largest main-path shape."""
     rng = np.random.default_rng(2)
@@ -2461,6 +2629,8 @@ def time_kernels(torch, np, mods, ref, shapes):
             BF16_FLOPS_PER_S, "ssd_scan_"))
         del ins
         torch.cuda.empty_cache()
+    for case in shapes["ssd_scan_bwd"]:
+        rows.append(time_ssd_bwd(torch, np, mods, ref, case))
     return rows
 
 
@@ -2491,12 +2661,13 @@ def main() -> None:
     from repro_torch.kernels import margin_head as mh
     from repro_torch.kernels import pairwise_dist as pd
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ssd_scan_bwd as ssdb
     from repro_torch.serving import engine  # noqa: F401 (the serving path)
     if any(m == "jax" or m.startswith(("jax.", "repro."))
            for m in sys.modules) or "repro" in sys.modules:
         fail("JAX or the JAX package was imported")
     mods = {"margin_head": mh, "pairwise_sqdist": pd, "flash_attention": fa,
-            "ssd_scan": ssd, "flash_attention_bwd": fab}
+            "ssd_scan": ssd, "flash_attention_bwd": fab, "ssd_scan_bwd": ssdb}
 
     global CARD
     CARD = card_line()
@@ -2529,7 +2700,8 @@ def main() -> None:
     # tensor loads (UTMALDG)
     for name, ops in (("flash_attention", ("HMMA",)),
                       ("flash_attention_bwd", ("HMMA", "HGMMA", "UTMALDG")),
-                      ("ssd_scan", ("HMMA",)), ("pairwise_dist", ("HMMA",))):
+                      ("ssd_scan", ("HMMA",)), ("ssd_scan_bwd", ("HMMA",)),
+                      ("pairwise_dist", ("HMMA",))):
         counts = sass_instructions(build.nvcc(), libs[name], ops)
         for op, n in counts.items():
             print(f"sass {name}: {n} {op} instructions"
@@ -2546,6 +2718,12 @@ def main() -> None:
     check_flash_bwd(torch, np, mods, ref, FLASH_BWD_GRID)
     check_ssd(torch, np, ssd, ref, SSD_GRID)
     check_ssd_states(torch, np, ssd, ref, SSD_GRID[4])
+    for C, N, hd in ((128, 128, 64), (128, 64, 64)):
+        for f32 in (False, True):
+            print(f"ssd_scan_bwd shared memory bytes at C {C}, N {N}, hd "
+                  f"{hd}, xh {'fp32' if f32 else 'bf16'}: "
+                  f"{ssdb.smem_bytes(C, N, hd, f32)}", flush=True)
+    check_ssd_bwd(torch, np, ssd, ssdb, ref, SSD_BWD_GRID)
     phase("build and kernel checks")
 
     # the shapes each main path gave each kernel
@@ -2555,7 +2733,8 @@ def main() -> None:
                          "serving_gemma3", "serving_mamba2",
                          "pool_pass_mamba2", "serving_dbrx",
                          "serving_internvl2", "training_qwen2",
-                         "serving_whisper", "training_whisper")}
+                         "serving_whisper", "training_whisper",
+                         "training_mamba2", "training_zamba2")}
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -2589,9 +2768,16 @@ def main() -> None:
     launches = camps["launches"]
     del camps
     phase("aggregator, retrain graphs, paged sinks")
-    served, _ = run_serving(torch, np, mods, "zamba2-2.7b", args.serve_batch,
-                            args.prompt_len, args.gen, seen_by["serving"])
-    phase("serving zamba2-2.7b")
+    # zamba2-2.7b served, then trained from the served weights at full depth
+    # with bf16 first moments (the reference's lever for large models:
+    # fp32 ones put the update's two copies of the slots near the card's 80
+    # GB)
+    served, _, trained_zamba2 = run_serving(
+        torch, np, mods, "zamba2-2.7b", args.serve_batch, args.prompt_len,
+        args.gen, seen_by["serving"],
+        train=train_lm(torch, np, mods, seen_by["training_zamba2"],
+                       moment_dtype="bfloat16"))
+    phase("serving and training zamba2-2.7b")
     # the dense LM labeler: qwen2-1.5b served, then its token-pool pass,
     # then trained from the served weights; gemma3-4b (hd 256,
     # local:global windows, tied 262k head) served
@@ -2599,7 +2785,7 @@ def main() -> None:
         torch, np, mods, "qwen2-1.5b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_qwen2"],
         pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass"]),
-        train=train_qwen2(torch, np, mods, seen_by["training_qwen2"]))
+        train=train_lm(torch, np, mods, seen_by["training_qwen2"]))
     phase("serving, pool pass and training qwen2-1.5b")
     served_gemma3, _ = run_serving(
         torch, np, mods, "gemma3-4b", args.serve_batch, args.prompt_len,
@@ -2613,11 +2799,12 @@ def main() -> None:
     # layers (the MoE block, GQA 48:8 at hd 128); internvl2-26b, cut to
     # INTERNVL2_LAYERS, with its 1,024 patch tokens before the prompt
     phase("serving gemma3-4b")
-    served_mamba2, pooled_mamba2 = run_serving(
+    served_mamba2, pooled_mamba2, trained_mamba2 = run_serving(
         torch, np, mods, "mamba2-1.3b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_mamba2"],
-        pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass_mamba2"]))
-    phase("serving and pool pass mamba2-1.3b")
+        pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass_mamba2"]),
+        train=train_lm(torch, np, mods, seen_by["training_mamba2"]))
+    phase("serving, pool pass and training mamba2-1.3b")
     served_dbrx, _ = run_serving(
         torch, np, mods, "dbrx-132b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_dbrx"], layers=DBRX_LAYERS)
@@ -2667,7 +2854,9 @@ def main() -> None:
                    "serving_internvl2": served_internvl2[k],
                    "training_qwen2": trained_qwen2[k],
                    "serving_whisper": served_whisper[k],
-                   "training_whisper": trained_whisper[k]} for k in mods}
+                   "training_whisper": trained_whisper[k],
+                   "training_mamba2": trained_mamba2[k],
+                   "training_zamba2": trained_zamba2[k]} for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain
     # version again; max_abs_err is the worst of these
@@ -2684,7 +2873,9 @@ def main() -> None:
             "ssd_scan": check_ssd(torch, np, ssd, ref,
                                   sorted(seen["ssd_scan"])),
             "flash_attention_bwd": check_flash_bwd(
-                torch, np, mods, ref, sorted(seen["flash_attention_bwd"]))}
+                torch, np, mods, ref, sorted(seen["flash_attention_bwd"])),
+            "ssd_scan_bwd": check_ssd_bwd(
+                torch, np, ssd, ssdb, ref, sorted(seen["ssd_scan_bwd"]))}
     phase("kernel checks at the main paths' shapes")
     # timed at the largest main-path shape of each (margin_head at the
     # largest of each path: the campaigns', the selection's other widths
@@ -2734,7 +2925,11 @@ def main() -> None:
         "flash_attention_bwd": [
             max(seen_by[p]["flash_attention_bwd"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
-            for p in ("training_whisper", "training_qwen2")],
+            for p in ("training_whisper", "training_zamba2",
+                      "training_qwen2")],
+        "ssd_scan_bwd": [max(seen_by[p]["ssd_scan_bwd"],
+                             key=lambda s: (s[0] * s[1] * s[2], s))
+                         for p in ("training_zamba2", "training_mamba2")],
         "ssd_scan": [max(seen_by[p]["ssd_scan"],
                          key=lambda s: (s[0] * s[1] * s[2], s))
                      for p in ("serving", "pool_pass_mamba2",
@@ -2753,6 +2948,9 @@ def main() -> None:
         "flash_attention_bwd": (
             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention.py:69"),
+        # its gradient: the TPU kernel has none
+        "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                         "src/repro/kernels/ssd_scan.py:86"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the kernels that use them
-// (flash_attention.cu, ssd_scan.cu, pairwise_dist.cu): cp.async copies into
-// shared memory, ldmatrix fragment loads, and the bf16 mma.sync.m16n8k16
-// with fp32 accumulators.  sm_80 and later; the port builds for sm_90a.
+// (flash_attention.cu, ssd_scan.cu, ssd_scan_bwd.cu, pairwise_dist.cu):
+// cp.async copies into shared memory, ldmatrix fragment loads, and the bf16
+// mma.sync.m16n8k16 with fp32 accumulators.  sm_80 and later; the port
+// builds for sm_90a.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>

@@ -13,9 +13,9 @@ CUDA tensor :func:`attention` goes through a ``torch.autograd.Function``
 whenever grad is on and an input requires it: its forward is the
 ``flash_attention`` kernel (which then also writes each row's
 log-sum-exp) and its backward the ``flash_attention_bwd`` kernel.
-:func:`ssd` on a CUDA tensor that requires grad raises: ``ssd_scan`` has
-no backward kernel yet (ROADMAP), and nothing falls back to the plain scan
-on the card.
+:func:`ssd` likewise: its forward is the ``ssd_scan`` kernel (keeping
+each chunk's incoming state) and its backward the ``ssd_scan_bwd`` kernel.
+Nothing falls back to the plain versions on the card.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from repro_torch.kernels import margin_head as _mh
 from repro_torch.kernels import pairwise_dist as _pd
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_scan_bwd as _ssdb
 from repro_torch.models.layers import ScoreStats
 
 
@@ -98,16 +99,39 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
+class _SSDScan(torch.autograd.Function):
+    """The ``ssd_scan`` kernel with the ``ssd_scan_bwd`` kernel as its
+    gradient (contiguous inputs; ``chunk`` is not differentiated).  The
+    forward keeps each chunk's incoming state for the backward: (B, nc, H,
+    hd, N) fp32, 268 MB at mamba2-1.3b's training batch of 8 x 2,048."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, chunk):
+        y, hfin, states = _ssd.ssd_scan_with_states(xh, dt, A, Bm, Cm,
+                                                    chunk=chunk)
+        ctx.save_for_backward(xh, dt, A, Bm, Cm, states)
+        ctx.chunk = chunk
+        # an unused output's gradient comes as None, not as zeros
+        ctx.set_materialize_grads(False)
+        return y, hfin
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        xh, dt, A, Bm, Cm, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xh)
+        grads = _ssdb.ssd_scan_bwd(xh, dt, A, Bm, Cm, states, dy, dh_final,
+                                   chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def ssd(xh, dt, A, Bm, Cm, *, chunk: int = 128):
     """Chunked SSD scan -> (y (B, T, H, hd), final state (B, H, hd, N)).
-    On a CUDA device with grad wanted it raises: the kernel has no
-    backward yet."""
+    On a CUDA device with grad wanted, the kernel pair as one autograd
+    function."""
     if xh.device.type == "cpu":
         return _ref.ssd_scan_ref(xh, dt, A, Bm, Cm, chunk=chunk)
-    if _needs_grad(xh, dt, A, Bm, Cm):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet (ROADMAP A: the ssd_scan "
-            "backward, which training an ssm or hybrid model on the card "
-            "needs); on a CUDA device the SSM runs without grad only")
-    return _ssd.ssd_scan(*(t.contiguous() for t in (xh, dt, A, Bm, Cm)),
-                         chunk=chunk)
+    ins = tuple(t.contiguous() for t in (xh, dt, A, Bm, Cm))
+    if _needs_grad(*ins):
+        return _SSDScan.apply(*ins, chunk)
+    return _ssd.ssd_scan(*ins, chunk=chunk)

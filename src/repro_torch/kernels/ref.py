@@ -268,3 +268,81 @@ def ssd_scan_passes_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
         "bcth,bctn,bchdn->bcthd", torch.exp(cum), Cc, h_in)
     y = y.reshape(Bsz, nc * C, H, hd)[:, :T]
     return y.to(xh.dtype), h, h_in
+
+
+def ssd_scan_bwd_passes_ref(xh, dt, A, Bm, Cm, h_in, dy, dh_final=None, *,
+                            chunk: int = 128):
+    """The gradient of the chunked SSD scan split as the CUDA kernel
+    ``ssd_scan_bwd`` splits it, all in fp32 (the model's ``ssd_chunked``
+    rounds W, the end decays and B to xh's dtype inside its products; this
+    does not, as neither kernel does).  ``h_in`` is each chunk's incoming
+    state (B, nc, H, hd, N), as the forward leaves it
+    (``ssd_scan_passes_ref``); ``dy`` the output's gradient and
+    ``dh_final`` the final state's (None for zeros).  Per chunk, with l the
+    cumsum of -dt A, L its last value and G = C B^T:
+
+    U_c = sum_t exp(l_t) dy_t (x) C_t; the walk from the last chunk, each
+    chunk's g the gradient at its outgoing state (dh_final for the last),
+    g_prev = exp(L) g + U; dS_ts = (dy_t . x_s) dt_s exp(l_t - l_s) for
+    s <= t; dxd_s = sum_t G_ts exp(l_t - l_s) dy_t + exp(L - l_s) g B_s;
+    dC = dS B + exp(l) dy h_in; dB = dS^T C + dt exp(L - l) x g; dl from
+    the row and column sums of Z = dS o G, Q_t = C_t . exp(l_t) h_in^T dy_t
+    and R_s = dt_s x_s . g B_s, with sum_s exp(L - l_s) R_s + exp(L) <g,
+    h_in> on the last position; dla its reverse cumsum; dx = dxd dt, ddt =
+    -A dla + dxd . x, dA = -sum dt dla.
+
+    Returns (dxh in xh's dtype, ddt (B, T, H), dA (H,), dBm, dCm (B, T, N)),
+    fp32 but dxh.  The main path never calls it."""
+    Bsz, T, H, hd = xh.shape
+    N = Bm.shape[-1]
+    C = min(chunk, T)
+    nc = -(-T // C)
+    pad = nc * C - T   # exact: padded positions carry no data
+
+    def chunks(t):   # (B, T, ...) -> (B, nc, C, ...), fp32, zero-padded
+        t = t.float()
+        t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+        return t.reshape(Bsz, nc, C, *t.shape[2:])
+    x, dyc, dtc, Bc, Cc = (chunks(t) for t in (xh, dy, dt, Bm, Cm))
+    A = A.float()
+    h_in = h_in.float()
+    cum = torch.cumsum(-(dtc * A), dim=2)                  # (B, nc, C, H)
+    last = cum[:, :, -1]                                   # (B, nc, H)
+    el, eL = torch.exp(cum), torch.exp(last[:, :, None] - cum)
+    # U, then the reverse walk
+    U = torch.einsum("bcth,bcthd,bctn->bchdn", el, dyc, Cc)
+    g = torch.zeros_like(h_in[:, 0]) if dh_final is None else \
+        dh_final.float()
+    gout = [None] * nc
+    for c in reversed(range(nc)):
+        gout[c] = g
+        g = torch.exp(last[:, c])[..., None, None] * g + U[:, c]
+    gout = torch.stack(gout, dim=1)                        # (B, nc, H, hd, N)
+    # the gradient pass
+    G = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    tril = torch.tril(torch.ones((C, C), dtype=torch.bool, device=xh.device))
+    E = torch.exp(torch.where(tril[None, None, :, :, None],
+                              cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                              -torch.inf))                 # (B, nc, t, s, H)
+    gB = torch.einsum("bchdn,bcsn->bcshd", gout, Bc)        # (g B_s)[d]
+    dxd = torch.einsum("bcts,bctsh,bcthd->bcshd", G, E, dyc) + \
+        eL[..., None] * gB
+    dS = E * dtc[:, :, None] * torch.einsum("bcthd,bcshd->bctsh", dyc, x)
+    Z = dS * G[..., None]
+    inter = el[..., None] * torch.einsum("bcthd,bchdn->bcthn", dyc, h_in)
+    dC = torch.einsum("bctsh,bcsn->bctn", dS, Bc) + inter.sum(3)
+    dB = torch.einsum("bctsh,bctn->bcsn", dS, Cc) + torch.einsum(
+        "bcsh,bcshd,bchdn->bcsn", dtc * eL, x, gout)
+    Q = torch.einsum("bcthn,bctn->bcth", inter, Cc)
+    R = dtc * (x * gB).sum(-1)                             # (B, nc, C, H)
+    dl = Z.sum(3) - Z.sum(2) + Q - eL * R
+    dl[:, :, -1] = dl[:, :, -1] + (eL * R).sum(2) + torch.exp(last) * (
+        gout * h_in).sum((-1, -2))
+    dla = torch.flip(torch.cumsum(torch.flip(dl, (2,)), 2), (2,))
+    ddt = -A * dla + (dxd * x).sum(-1)
+    dA = -(dtc * dla).sum((0, 1, 2))
+
+    def unchunk(t):
+        return t.reshape(Bsz, nc * C, *t.shape[3:])[:, :T]
+    return ((unchunk(dxd) * dt.float()[..., None]).to(xh.dtype), unchunk(ddt),
+            dA, unchunk(dB), unchunk(dC))

@@ -35,6 +35,36 @@ def _fn(dtype: torch.dtype):
         return _fns[dtype]
 
 
+def check_inputs(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, name: str,
+                 chunk: int) -> None:
+    """Raise on inputs the kernels (``name``: the forward or its gradient)
+    do not take: devices, dtypes, shapes, contiguity, hd % 8 and N % 4."""
+    ins = (xh, dt, A, Bm, Cm)
+    if not (xh.is_cuda and all(t.device == xh.device for t in ins)):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                         f"got {[str(t.device) for t in ins]}")
+    if xh.dtype not in _SYMBOLS or any(t.dtype != torch.float32
+                                       for t in ins[1:]):
+        raise TypeError(f"{name} takes xh in fp32 or bf16 and dt, A, Bm, "
+                        f"Cm in fp32, got {[t.dtype for t in ins]}")
+    if xh.ndim != 4:
+        raise ValueError(f"{name}: bad xh shape {tuple(xh.shape)}")
+    B, T, H, hd = xh.shape
+    N = Bm.shape[-1] if Bm.ndim == 3 else -1
+    if dt.shape != (B, T, H) or A.shape != (H,) or \
+            Bm.shape != (B, T, N) or Cm.shape != (B, T, N) or chunk < 1:
+        raise ValueError(f"{name}: bad shapes {[tuple(t.shape) for t in ins]}"
+                         f" or chunk {chunk}")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError(f"{name} takes contiguous inputs")
+    if hd % 8 or N % 4:
+        # the kernel copies 16-byte pieces of x rows and 4-float pieces of
+        # the state
+        raise ValueError(f"{name} takes hd % 8 == 0 and N % 4 == 0, got "
+                         f"hd {hd}, N {N}")
+
+
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,31 +84,12 @@ def ssd_scan_with_states(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     chunk's incoming state (B, nc, H, hd, N) fp32 (168 MB at zamba2-2.7b's
     prefill of 8 x 2,048 tokens, allocated per call)."""
     global launches
-    ins = (xh, dt, A, Bm, Cm)
-    if not (xh.is_cuda and all(t.device == xh.device for t in ins)):
-        raise ValueError("ssd_scan: all inputs must be on one CUDA device, "
-                         f"got {[str(t.device) for t in ins]}")
-    if xh.dtype not in _SYMBOLS or any(t.dtype != torch.float32
-                                       for t in ins[1:]):
-        raise TypeError("ssd_scan takes xh in fp32 or bf16 and dt, A, Bm, "
-                        f"Cm in fp32, got {[t.dtype for t in ins]}")
-    if xh.ndim != 4:
-        raise ValueError(f"ssd_scan: bad xh shape {tuple(xh.shape)}")
+    check_inputs(xh, dt, A, Bm, Cm, "ssd_scan", chunk)
     B, T, H, hd = xh.shape
-    N = Bm.shape[-1] if Bm.ndim == 3 else -1
-    if dt.shape != (B, T, H) or A.shape != (H,) or \
-            Bm.shape != (B, T, N) or Cm.shape != (B, T, N) or chunk < 1:
-        raise ValueError(f"ssd_scan: bad shapes {[tuple(t.shape) for t in ins]}"
-                         f" or chunk {chunk}")
-    if not all(t.is_contiguous() for t in ins):
-        raise ValueError("ssd_scan takes contiguous inputs")
-    if hd % 8 or N % 4:
-        # the kernel copies 16-byte pieces of x rows and 4-float pieces of
-        # the state
-        raise ValueError(f"ssd_scan takes hd % 8 == 0 and N % 4 == 0, got "
-                         f"hd {hd}, N {N}")
+    N = Bm.shape[-1]
     xh, dt, A, Bm, Cm = ins = tuple(
-        t if t.data_ptr() % 16 == 0 else t.clone() for t in ins)
+        t if t.data_ptr() % 16 == 0 else t.clone()
+        for t in (xh, dt, A, Bm, Cm))
     C = min(chunk, T)
     nc = -(-T // C) if T else 0
     if B > 65535 or nc > 65535 or B * T * H * hd >= 2**62:

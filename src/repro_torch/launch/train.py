@@ -11,9 +11,10 @@ A): the full config trains on one device.  Like the reference's launcher
 it builds ``{"tokens", "labels"}`` batches only, which the audio and vlm
 architectures cannot train on (the reference's launcher fails on them:
 ROADMAP C.6), so it refuses those; ``Trainer`` itself takes their
-``audio_frames`` / ``patch_embeds`` batches.  On a CUDA device an ``ssm``
-or ``hybrid`` architecture raises at its first step: the ``ssd_scan``
-kernel has no backward yet.
+``audio_frames`` / ``patch_embeds`` batches.  On a CUDA device every
+token family trains on the kernels: attention's gradient is the
+``flash_attention_bwd`` kernel, the SSD scan's the ``ssd_scan_bwd`` one
+(``--arch mamba2-1.3b`` and ``zamba2-2.7b`` included).
 """
 from __future__ import annotations
 

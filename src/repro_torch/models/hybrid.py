@@ -11,9 +11,10 @@ Plain functions over the port's flat ``{path: tensor}`` params (nested on
 entry, as the reference indexes them).  Attention and the SSD scan go
 through ``kernels.ops``, so on a CUDA device they run the
 ``flash_attention`` and ``ssd_scan`` kernels.  ``forward`` is
-differentiable on the CPU, each super-block recomputed in the backward
-under ``cfg.remat``; on a CUDA device ``ops.ssd`` refuses grad (the
-``ssd_scan`` kernel has no backward yet).  ``decode_step`` writes the
+differentiable, each super-block recomputed in the backward under
+``cfg.remat``: on the CPU through the plain versions, on a CUDA device
+through the kernels' backward kernels (``flash_attention_bwd``,
+``ssd_scan_bwd``).  ``decode_step`` writes the
 new token's keys, values and states into the cache it is given, in place,
 and returns it (the reference's engine donates the cache to the step, so
 no caller keeps the old one).
@@ -109,8 +110,8 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: Dict,
             tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, T) -> final hidden states (B, T, D); differentiable on
-    the CPU (on a CUDA device ``ops.ssd`` refuses grad)."""
+    """tokens (B, T) -> final hidden states (B, T, D); differentiable
+    (on a CUDA device through the backward kernels)."""
     return _forward_impl(cfg, params, tokens, with_cache=False)[0]
 
 

@@ -7,12 +7,11 @@ the ``ssd_scan`` kernel and its CPU path.  The blocks call
 ``ssm`` forward, prefill and pool pass launches it once a layer.  As in the
 reference, the short causal conv is applied to the x stream only and
 n_groups == 1.  The stacked layers run as a Python loop, each recomputed in
-the backward under ``cfg.remat``.  ``forward`` is differentiable where
-``ops.ssd`` is: on the CPU (the plain scan); on a CUDA device the
-``ssd_scan`` kernel has no backward yet and ``ops.ssd`` raises when grad is
-wanted.  ``decode_step`` writes the new states into the cache
-it is given, in place, and returns it (the reference's engine donates the
-cache to the step).
+the backward under ``cfg.remat``.  ``forward`` is differentiable: on the
+CPU through the plain scan, on a CUDA device through the ``ssd_scan_bwd``
+kernel (``ops.ssd``'s autograd function).  ``decode_step`` writes the new
+states into the cache it is given, in place, and returns it (the
+reference's engine donates the cache to the step).
 """
 from __future__ import annotations
 
@@ -251,8 +250,8 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, T) -> final hidden states (B, T, D); differentiable on
-    the CPU (on a CUDA device ``ops.ssd`` refuses grad)."""
+    """tokens (B, T) -> final hidden states (B, T, D); differentiable
+    (on a CUDA device through the ``ssd_scan_bwd`` kernel)."""
     return _forward_impl(cfg, params, tokens, patch_embeds, False)[0]
 
 

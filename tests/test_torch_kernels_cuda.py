@@ -15,6 +15,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_dist as pd
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels import ssd_scan_bwd as ssdb
 
 # the campaigns' shape, the JAX package's grid, the LM head at 8 and 64
 # requests, then the kernel's slice edges (V = 32000 +- 1, off the
@@ -324,10 +325,8 @@ def test_flash_attention_backward_is_deterministic_on_card(
 
 
 @pytest.mark.cuda
-def test_forward_log_sum_exp_and_ssd_grad_refusal_on_card():
-    """The forward's per-row log-sum-exp against the plain one; and
-    ``ops.ssd`` refuses grad on the card (no ``ssd_scan`` backward yet)
-    rather than fall back to the plain scan."""
+def test_forward_log_sum_exp_on_card():
+    """The forward's per-row log-sum-exp against the plain one."""
     _need_card()
     rng = np.random.default_rng(0)
     B, H, Hk, Tq, Tk, hd = 2, 6, 6, 300, 1500, 64
@@ -342,15 +341,6 @@ def test_forward_log_sum_exp_and_ssd_grad_refusal_on_card():
                                dim=-1)
         assert lse.shape == (B, H, Tq) and lse.dtype == torch.float32
         torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
-    xh = torch.zeros(1, 8, 2, 8, device="cuda", requires_grad=True)
-    rest = (torch.zeros(1, 8, 2, device="cuda"), torch.zeros(2, device="cuda"),
-            torch.zeros(1, 8, 4, device="cuda"),
-            torch.zeros(1, 8, 4, device="cuda"))
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        ops.ssd(xh, *rest)
-    with torch.no_grad():
-        y, _ = ops.ssd(xh, *rest)
-    assert y.shape == xh.shape
 
 
 @pytest.mark.cuda
@@ -423,3 +413,124 @@ def test_kernel_wrappers_refuse_what_they_do_not_take_on_card():
     # the kernel copies 16-byte pieces of each row of x
     with pytest.raises(ValueError, match="hd"):
         ssd.ssd_scan(torch.zeros(1, 8, 2, 12, device="cuda"), *rest)
+
+
+# the backward kernel: the forward's grid (ragged T, one chunk, N 8 to 128,
+# H off the group of 8 heads), then mamba2-1.3b's and zamba2-2.7b's
+# training shapes (B 8 x T 2,048 at C 128; N 128 over 64 heads, N 64 over
+# 80)
+SSD_BWD_GRID = [c for c in SSD_GRID if c[0] * c[1] * c[2] < 2 ** 17] + [
+    (8, 2048, 64, 64, 128, 128), (8, 2048, 80, 64, 64, 128)]
+
+
+def _ssd_bwd_inputs(B, T, H, hd, N, dtype, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device="cuda")
+    ins = (t(rng.normal(size=(B, T, H, hd))).to(dtype),
+           t(np.abs(rng.normal(size=(B, T, H))) * 0.5 + 0.01),
+           t(np.abs(rng.normal(size=(H,))) * 0.5 + 0.1),
+           t(rng.normal(size=(B, T, N))), t(rng.normal(size=(B, T, N))))
+    return ins, t(rng.normal(size=(B, T, H, hd))).to(dtype), \
+        t(rng.normal(size=(B, H, hd, N)))
+
+
+def _within(got, want, atol_of_max, rtol):
+    """|got - want| <= atol_of_max * max|want| + rtol |want|, each
+    gradient."""
+    for name, g, w in zip(("dxh", "ddt", "dA", "dBm", "dCm"), got, want):
+        g, w = g.float(), w.float()
+        assert g.shape == w.shape, name
+        bound = atol_of_max * w.abs().max() + rtol * w.abs()
+        assert bool(((g - w).abs() <= bound).all()), (
+            name, float((g - w).abs().max()), float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,N,C", SSD_BWD_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("final", [True, False])
+def test_ssd_scan_backward_kernel_matches_both_plain_versions_on_card(
+        B, T, H, hd, N, C, dtype, final):
+    """The kernel against the split plain version on the same per-chunk
+    states (``ref.ssd_scan_bwd_passes_ref``), tightly: atol 1e-4 x the
+    gradient's largest magnitude + rtol 1e-4, since both are fp32 and the
+    kernel's products take fp32 operands as bf16 hi + lo (about 2^-16
+    relative each); bf16 dxh at rtol 2^-7, one bf16 step, as both round it
+    once.  Against ``torch.autograd.grad`` through ``ref.ssd_scan_ref`` at
+    the forward's bf16 tolerance, scaled by each gradient's largest
+    magnitude: atol 2e-3 x max + rtol 2e-3 + 2^-7 (the plain scan rounds
+    W, the end decays and B to xh's dtype inside its products; dA and dB
+    sum 2^14 to 2^17 terms at the training shapes).  Two calls give the
+    same bits."""
+    _need_card()
+    td = getattr(torch, dtype)
+    ins, dy, dh = _ssd_bwd_inputs(B, T, H, hd, N, td, T + H + N)
+    dh = dh if final else None
+    _, _, states = ssd.ssd_scan_with_states(*ins, chunk=C)
+    got = ssdb.ssd_scan_bwd(*ins, states, dy, dh, chunk=C)
+    again = ssdb.ssd_scan_bwd(*ins, states, dy, dh, chunk=C)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert got[0].dtype == td and all(g.dtype == torch.float32
+                                      for g in got[1:])
+    split = ref.ssd_scan_bwd_passes_ref(*ins, states, dy, dh, chunk=C)
+    _within(got[1:], split[1:], 1e-4, 1e-4)
+    _within(got[:1], split[:1], 1e-4, 1e-4 if dtype == "float32" else 2 ** -7)
+    del split
+    plain_in = [t.clone().requires_grad_(True) for t in ins]
+    y, h = ref.ssd_scan_ref(*plain_in, chunk=C)
+    loss = (y.float() * dy.float()).sum()
+    if dh is not None:
+        loss = loss + (h * dh).sum()
+    plain = torch.autograd.grad(loss, plain_in)
+    _within(got, plain, 2e-3, 2e-3 + 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_ssd_with_grad_runs_both_kernels_and_matches_cpu_on_card(dtype):
+    """``ops.ssd`` with grad on the card: the forward kernel, then the
+    backward kernel (one launch each), no plain scan; its gradients
+    against CPU autograd through the plain scan on the same inputs, at the
+    forward's tolerance scaled by each gradient's largest magnitude."""
+    _need_card()
+    td = getattr(torch, dtype)
+    B, T, H, hd, N, C = 2, 300, 12, 32, 64, 128
+    ins, dy, _ = _ssd_bwd_inputs(B, T, H, hd, N, td, 7)
+    req = [t.clone().requires_grad_(True) for t in ins]
+    before = (ssd.launches, ssdb.launches)
+    y, _ = ops.ssd(*req, chunk=C)
+    got = torch.autograd.grad(y, req, dy)
+    assert (ssd.launches, ssdb.launches) == (before[0] + 1, before[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in ins]
+    yc, _ = ops.ssd(*cpu, chunk=C)
+    want = torch.autograd.grad(yc, cpu, dy.cpu())
+    _within([g.cpu() for g in got], want, 2e-3, 2e-3 + 2 ** -7)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_wrapper_refuses_what_it_does_not_take_on_card():
+    _need_card()
+    B, T, H, hd, N = 1, 64, 2, 8, 16
+    ins, dy, dh = _ssd_bwd_inputs(B, T, H, hd, N, torch.float32, 0)
+    _, _, states = ssd.ssd_scan_with_states(*ins, chunk=32)
+    with pytest.raises(TypeError):
+        ssdb.ssd_scan_bwd(ins[0].half(), *ins[1:], states, dy, chunk=32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssdb.ssd_scan_bwd(*(t.cpu() for t in ins), states, dy, chunk=32)
+    with pytest.raises(ValueError, match="hd"):
+        x12 = torch.zeros(B, T, H, 12, device="cuda")
+        ssdb.ssd_scan_bwd(x12, *ins[1:], states, x12, chunk=32)
+    with pytest.raises(ValueError, match="N % 4"):
+        b6 = torch.zeros(B, T, 6, device="cuda")
+        ssdb.ssd_scan_bwd(ins[0], ins[1], ins[2], b6, b6, states, dy,
+                          chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssdb.ssd_scan_bwd(ins[0].transpose(1, 2).contiguous().transpose(
+            1, 2), *ins[1:], states, dy, chunk=32)
+    with pytest.raises(ValueError, match="h_in"):
+        ssdb.ssd_scan_bwd(*ins, states[:, :1], dy, chunk=32)
+    with pytest.raises(ValueError, match="dh_final"):
+        ssdb.ssd_scan_bwd(*ins, states, dy, dh[:, :1], chunk=32)

@@ -143,7 +143,7 @@ def test_chunked_cross_entropy_matches_jax(masked):
 
 
 LOSS_ARCHS = [("qwen2-1.5b", 0), ("qwen2-1.5b", 64), ("internvl2-26b", 0),
-              ("mamba2-1.3b", 0), ("whisper-tiny", 0)]
+              ("mamba2-1.3b", 0), ("whisper-tiny", 0), ("zamba2-2.7b", 0)]
 
 
 def _batch(cfg, seed, n=2, t=12):
@@ -533,9 +533,10 @@ def test_trainer_checkpoints_and_resumes(tmp_path):
         assert (a == b) if isinstance(a, int) else torch.equal(a, b), k
 
 
-def test_launcher_trains_qwen2_smoke_on_cpu(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"])
+def test_launcher_trains_qwen2_smoke_on_cpu(tmp_path, capsys, arch):
     trainer, metrics = launch_train.main(
-        ["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu", "--steps",
+        ["--arch", arch, "--smoke", "--device", "cpu", "--steps",
          "4", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
     assert trainer.step == 4 and np.isfinite(metrics["loss"])
     assert ckpt.latest_step(str(tmp_path)) == 4
