@@ -10,9 +10,8 @@
    (HMMA) instructions of ``flash_attention`` (forward and backward),
    ``ssd_scan`` (forward and backward) and ``pairwise_dist`` in their
    SASS, prints the shared memory of each of the SSD backward's launches,
-   and counts the attention backward's
-   ``wgmma`` (HGMMA) and TMA tensor-load (UTMALDG) instructions: none of
-   any fails the run.
+   and counts the two backwards' ``wgmma`` (HGMMA) and TMA tensor-load
+   (UTMALDG) instructions: none of any fails the run.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, the JAX package's test grids and the tile edges of
    the kernels, and after the main paths again at every shape they gave
@@ -174,11 +173,11 @@
    bf16 products), H100 SXM data-sheet peaks.  The backward kernel at
    whisper's and qwen2's training shapes, beside autograd's backward
    through the plain version and SDPA's backward, bound by 2.5 times the
-   forward's operations or its bytes; at zamba2's (hd 80, its fp32-FMA
-   route) too.  The SSD backward at zamba2's and mamba2's training
-   shapes, beside autograd's backward through the plain scan (no library
-   call computes it), bound by its products at the bf16 peak or its bytes
-   (the forward's per-chunk states included).
+   forward's operations or its bytes; at zamba2's (hd 80, on the wgmma
+   route at two padded panels) too.  The SSD backward at zamba2's and
+   mamba2's training shapes, beside autograd's backward through the plain
+   scan (no library call computes it), bound by its products at the bf16
+   peak or its bytes (the forward's per-chunk states included).
 10. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
@@ -190,6 +189,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -208,6 +208,17 @@ FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 # the card's name and power limit (nvidia-smi), printed beside each rate
 CARD = "card not read"
+# readings of the backwards' previous routes on an NVIDIA H100 80GB HBM3 at
+# 700 W (the attention backward at hd 80 on fp32 FMAs, the SSD backward as
+# seven mma.sync launches), printed beside this run's at the same shapes:
+# device ms of the kernels at the training shapes, and per trained model
+# its s a step (steps 2-6), tokens/s and step 1's loss
+BEFORE_DEVICE_MS = {
+    ("flash_attention_bwd", (8, 32, 32, 2048, 2048, 80, True, 0)): 44.659201,
+    ("ssd_scan_bwd", (8, 2048, 64, 64, 128, 128)): 6.464378,
+    ("ssd_scan_bwd", (8, 2048, 80, 64, 64, 128)): 3.294274}
+BEFORE_TRAINING = {"mamba2-1.3b": ("2.466-2.474", 6633.5, 11.318),
+                   "zamba2-2.7b": ("3.748-3.783", 4362.7, 10.877)}
 
 
 def fail(msg: str) -> None:
@@ -498,7 +509,8 @@ FLASH_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
 # and bf16 3e-2 (atol = rtol: the two round to bf16 at different places,
 # the plain version its P and the gradients between its ops, the
 # tensor-core kernel P and dS as product operands).  Then the wgmma
-# route's tile edges at hd 64 and 128: T 127, 128 and 129 about its
+# route's tile edges at hd 64 and 128 (hd 80, padded to two panels, is on
+# that route too): T 127, 128 and 129 about its
 # 128-row blocks and 64-row tiles, whisper's encoder T 1,500 and its
 # cross-attention's 448 x 1,500, Tq != Tk at hd 128, causal H / Hk = 6 at
 # hd 64.
@@ -517,7 +529,7 @@ FLASH_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                   (1, 6, 6, 448, 1500, 64, False, 0),
                   (1, 6, 2, 200, 330, 128, False, 0),
                   (1, 12, 2, 129, 129, 64, True, 0)]
-# the wgmma route (bf16 at hd 64 and 128) against its arithmetic step by
+# the wgmma route (bf16 at hd 64, 80 and 128) against its arithmetic step by
 # step (``ref.flash_attention_bwd_tiled_ref`` on the kernel's own forward
 # output and lse): atol = rtol = 1e-2, about two bf16 steps (both round P
 # and dS where they become operands and the gradients at the end; an fp32
@@ -706,11 +718,15 @@ def check_ssd_states(torch, np, ssd, ref, case):
 
 # the backward kernel: the forward's grid but its largest case (ragged T,
 # one chunk, N 16 to 128, H off the group of 8 heads) and N 8 at a ragged
-# T over chunks of 16; then, after the training paths, at every shape they
-# gave it (mamba2-1.3b's and zamba2-2.7b's, B 8 x T 2,048 at C 128: N 128
-# over 64 heads, N 64 over 80)
+# T over chunks of 16; the edges of the bf16 wgmma route (hd 64, C 128, N
+# 64 and 128 in 64-column blocks): T off the chunk and H off the head
+# group at N 128, fewer heads than a group at N 64; then, after the
+# training paths, at every shape they gave it (mamba2-1.3b's and
+# zamba2-2.7b's, B 8 x T 2,048 at C 128: N 128 over 64 heads, N 64 over
+# 80)
 SSD_BWD_GRID = [c for c in SSD_GRID if c[0] * c[1] * c[2] < 2 ** 17] + [
-    (2, 50, 3, 16, 8, 16)]
+    (2, 50, 3, 16, 8, 16), (2, 300, 12, 64, 128, 128),
+    (1, 330, 5, 64, 64, 128)]
 # against the split plain version (``ref.ssd_scan_bwd_passes_ref``) on the
 # kernel's own per-chunk states: atol 1e-4 x each gradient's largest
 # magnitude + rtol 1e-4 (both fp32; the kernel's fp32 operands are bf16 hi
@@ -2268,6 +2284,14 @@ def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
               f"{torch.cuda.max_memory_allocated()}; {cfg.num_layers} "
               f"layers, moments {moment_dtype}; launches {got} ({CARD})",
               flush=True)
+        if cfg.name in BEFORE_TRAINING:
+            b_step, b_rate, b_loss = BEFORE_TRAINING[cfg.name]
+            print(f"train {cfg.name}: steps 2-{steps} "
+                  f"{min(secs[1:]):.3f}-{max(secs[1:]):.3f} s a step, "
+                  f"{batch * seq * (steps - 1) / sum(secs[1:]):.1f} "
+                  f"tokens/s, step 1 loss {losses[0]:.3f} beside "
+                  f"{b_step} s, {b_rate} tokens/s and {b_loss} before",
+                  flush=True)
         if len(losses) != steps or not all(np.isfinite(losses)) or \
                 not losses[-1] < losses[0]:
             fail(f"train {cfg.name}: losses {losses} are not finite and "
@@ -2532,9 +2556,33 @@ def time_flash_bwd(torch, np, mods, ref, case):
                                     retain_graph=True),
         2 * (4 * B * H * Tq * hd + 4 * B * Hk * Tk * hd) + 4 * B * H * Tq,
         2.5 * 4 * hd * pairs, BF16_FLOPS_PER_S, "fa_bwd_")
+    before = BEFORE_DEVICE_MS.get(("flash_attention_bwd", tuple(case)))
+    if before is not None:
+        print(f"time flash_attention_bwd {list(case)}: device "
+              f"{row['device_ms']:.4f} ms beside {before} ms before and "
+              f"SDPA's backward {row['library_device_ms']:.4f} ms ({CARD})",
+              flush=True)
     del q, k, v, dout, out, lse, plain_in, plain_out, lib_in, lib_out
     torch.cuda.empty_cache()
     return row
+
+
+def ssd_bwd_work(case):
+    """The SSD backward's bytes and flops at one (B, T, H, hd, N, C), xh
+    and dy in bf16, no final-state gradient: the bytes of xh, dy, dt, A, B,
+    C and the forward's per-chunk states read and of dxh, ddt, dA, dB and
+    dC written; the products (G = C B^T a chunk; a head's four causal
+    triangles, dy x^T, W^T dy, dS B and dS^T C, and four C x hd x N
+    products)."""
+    B, T, H, hd, N, C = case
+    C = min(C, T)
+    nc = -(-T // C)
+    nbytes = 2 * 3 * B * T * H * hd + 4 * (2 * B * T * H + 2 * H
+                                           + 4 * B * T * N
+                                           + B * nc * H * hd * N)
+    flops = B * nc * (2 * C * C * N + H * (C * (C + 1) * (2 * hd + 2 * N)
+                                           + 8 * C * hd * N))
+    return nbytes, flops
 
 
 def time_ssd_bwd(torch, np, mods, ref, case):
@@ -2542,30 +2590,30 @@ def time_ssd_bwd(torch, np, mods, ref, case):
     in bf16, no final-state gradient (as training gives it), beside the
     backward of autograd through the plain scan over a graph kept for
     repeated backwards; no single PyTorch call computes it (library none).
-    Bound: the bytes of xh, dy, dt, A, B, C and the forward's per-chunk
-    states read and of dxh, ddt, dA, dB and dC written, or its products at
-    the bf16 tensor-core peak (G = C B^T a chunk; a head's four causal
-    triangles, dy x^T, W^T dy, dS B and dS^T C, and four C x hd x N
-    products), whichever is larger."""
+    Bound: ``ssd_bwd_work``'s bytes over the memory rate or its products
+    at the bf16 tensor-core peak, whichever is larger."""
     ssd, ssdb = mods["ssd_scan"], mods["ssd_scan_bwd"]
     B, T, H, hd, N, C = case
     ins, dy, _ = ssd_bwd_inputs(torch, np, case, torch.bfloat16)
     C = min(C, T)
-    nc = -(-T // C)
     _, _, states = ssd.ssd_scan_with_states(*ins, chunk=C)
     plain_in = [t.clone().requires_grad_(True) for t in ins]
     plain_y, _ = ref.ssd_scan_ref(*plain_in, chunk=C)
-    nbytes = 2 * 3 * B * T * H * hd + 4 * (2 * B * T * H + 2 * H
-                                           + 4 * B * T * N
-                                           + B * nc * H * hd * N)
-    flops = B * nc * (2 * C * C * N + H * (C * (C + 1) * (2 * hd + 2 * N)
-                                           + 8 * C * hd * N))
+    nbytes, flops = ssd_bwd_work(case)
     row = timing_row(
         torch, "ssd_scan_bwd", case,
         lambda: ssdb.ssd_scan_bwd(*ins, states, dy, None, chunk=C),
         lambda: torch.autograd.grad(plain_y, plain_in, dy,
                                     retain_graph=True),
         None, nbytes, flops, BF16_FLOPS_PER_S, "ssd_bwd_")
+    before = BEFORE_DEVICE_MS.get(("ssd_scan_bwd", tuple(case)))
+    if before is not None:
+        by = row["device_ms_by_launch"]
+        print(f"time ssd_scan_bwd {list(case)}: device {row['device_ms']:.4f}"
+              f" ms (by launch " + ", ".join(
+                  f"{re.search(r'ssd_bwd_[a-z_]+', k).group(0)} {v}"
+                  for k, v in by.items()) + f") beside {before} ms before "
+              f"({CARD})", flush=True)
     del ins, dy, states, plain_in, plain_y
     torch.cuda.empty_cache()
     return row
@@ -2696,11 +2744,12 @@ def main() -> None:
                 short = entry[at + 4:at + 80] if at >= 0 else entry[:76]
                 print(f"ptxas {name} {short}: {line.strip()}", flush=True)
     # the redesigned kernels run on tensor cores: their SASS holds HMMA
-    # (mma.sync); the attention backward's also wgmma (HGMMA) fed by TMA
-    # tensor loads (UTMALDG)
+    # (mma.sync); the two backwards' also wgmma (HGMMA) fed by TMA tensor
+    # loads (UTMALDG)
     for name, ops in (("flash_attention", ("HMMA",)),
                       ("flash_attention_bwd", ("HMMA", "HGMMA", "UTMALDG")),
-                      ("ssd_scan", ("HMMA",)), ("ssd_scan_bwd", ("HMMA",)),
+                      ("ssd_scan", ("HMMA",)),
+                      ("ssd_scan_bwd", ("HMMA", "HGMMA", "UTMALDG")),
                       ("pairwise_dist", ("HMMA",))):
         counts = sass_instructions(build.nvcc(), libs[name], ops)
         for op, n in counts.items():

@@ -37,43 +37,46 @@
 // TFLOP against 0.16 GB: the operations bound it (0.26 ms at the bf16
 // tensor-core peak).
 //
-// Design, bf16 at hd 64 and 128 (every shape training gives it: qwen2's
-// hd 128, whisper's 64): warp-specialized blocks on Hopper's `wgmma` with
-// tiles fed by TMA (csrc/sm90.cuh).  A block is two consumer warpgroups
-// of 64 rows each and one producer warpgroup, whose first thread keeps a
-// ring of stages in flight (TMA boxes of 64 x 64 bf16 with 128-byte
+// Design, bf16 at hd 64, 80 and 128 (every shape training gives it: qwen2's
+// hd 128, whisper's 64, zamba2's 80): warp-specialized blocks on Hopper's
+// `wgmma` with tiles fed by TMA (csrc/sm90.cuh).  A block is two consumer
+// warpgroups of 64 rows each and one producer warpgroup, whose first thread
+// keeps a ring of stages in flight (TMA boxes of 64 x 64 bf16 with 128-byte
 // swizzle, completed on mbarriers; setmaxnreg gives the consumers 240
-// registers and the producer 24).  A prep launch writes qs = q * scale in
-// bf16 and 64-row tiles of lse (times log2 e) and D, so every operand is
-// a TMA load.  The dK/dV block owns 128 keys, loads its K and V once, and
-// streams the query tiles (qs, dO, lse, D) of every query head of its
-// group; each consumer computes S^T = K qs^T and dP^T = V dO^T with both
-// operands in shared memory, so P^T and dS^T land in its registers in the
-// layout of the A operand of dV += P^T dO and dK += dS^T qs, whose B
-// operands dO and qs are the same tiles read through wgmma's transpose
-// bit.  The dQ block owns 128 queries and streams the key tiles.  Blocks
-// and warpgroup blocks of 64 x 64 that the mask hides are skipped; only
-// those it cuts are masked.  P and dS are rounded to bf16 as product
-// operands (the forward rounds P so too); everything else accumulates in
-// fp32.  Within a stage each warpgroup computes P while dP's product
-// runs and dS while dV's runs (wgmma.wait_group 1), into registers of
-// their own, and retires all its products before the next stage; the
-// other warpgroup fills the tensor cores meanwhile.  What still separates
-// it from its bound: that wait at the end of each stage (carrying a
-// product across it made ptxas serialize every wgmma, its note C7515, and
-// cost 1.2x), the second recomputation of S and dP, and the exp and mask
-// work, which at hd 64 costs as much as the products.  The code generated
-// for these loops is fragile: the same arithmetic with P's mask written
-// as a conditional expression and no wait after the loop ran 1.6x slower
-// with no note from ptxas (tools/time_attention_bwd.py times a change
-// against the last build).
+// registers and the producer 24).  hd 80 runs at the width of two whole
+// panels (128): the tensor maps zero-fill the columns past hd, which add
+// exact zeros to S and dP, products of depth hd take ceil(hd / 16) k16
+// slices, and the padded columns of dK, dV and dQ are never stored.  A prep
+// launch writes qs = q * scale in bf16 and 64-row tiles of lse (times log2
+// e) and D, so every operand is a TMA load.  The dK/dV block owns 128 keys,
+// loads its K and V once, and streams the query tiles (qs, dO, lse, D) of
+// every query head of its group; each consumer computes S^T = K qs^T and
+// dP^T = V dO^T with both operands in shared memory, so P^T and dS^T land in
+// its registers in the layout of the A operand of dV += P^T dO and dK +=
+// dS^T qs, whose B operands dO and qs are the same tiles read through
+// wgmma's transpose bit.  The dQ block owns 128 queries and streams the key
+// tiles.  Blocks and warpgroup blocks of 64 x 64 that the mask hides are
+// skipped; only those it cuts are masked.  P and dS are rounded to bf16 as
+// product operands (the forward rounds P so too); everything else
+// accumulates in fp32.  Within a stage each warpgroup computes P while dP's
+// product runs and dS while dV's runs (wgmma.wait_group 1), into registers
+// of their own, and retires all its products before the next stage; the
+// other warpgroup fills the tensor cores meanwhile.  What still separates it
+// from its bound: that wait at the end of each stage (carrying a product
+// across it made ptxas serialize every wgmma, its note C7515, and cost
+// 1.2x), the second recomputation of S and dP, and the exp and mask work,
+// which at hd 64 costs as much as the products.  The code generated for these
+// loops is fragile: the same arithmetic with P's mask written as a
+// conditional expression and no wait after the loop ran 1.6x slower with no
+// note from ptxas (tools/time_attention_bwd.py times a change against the
+// last build).
 //
 // bf16 at hd 16 and 32: the FlashAttention-2 backward on `mma.sync`
 // (m16n8k16 bf16 -> fp32, fed by `ldmatrix` from bf16 tiles in shared
 // memory, rows padded by 16 B), 4 warps a block and 16 rows a warp, the
 // same products as above with P^T and dS^T in the warp's registers.
 //
-// fp32 inputs (and bf16 at hd 8, 80 and 256) take the fp32-FMA kernels:
+// fp32 inputs (and bf16 at hd 8 and 256) take the fp32-FMA kernels:
 // tiles of 32 query rows and 32 keys (16 at hd 256) staged in shared
 // memory in fp32, 256 threads a block, each thread a 2 x 2 block of a
 // 32 x 32 score tile (rows r, r + 16, columns c, c + 16) read as 16-byte
@@ -702,7 +705,7 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 64 and 128: wgmma on TMA-fed tiles (sm90.cuh)
+// bf16 at hd 64, 80 and 128: wgmma on TMA-fed tiles (sm90.cuh)
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;         // threads of a warpgroup
@@ -711,11 +714,14 @@ constexpr int QT = 64;          // query rows of a ring stage and of a row tile
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory layout (byte offsets) of the two passes.  A tile of R rows
-// is HD / 64 panels of R x 64 bf16, each written by TMA with 128-byte
-// swizzle (sm90.cuh); every tile starts on 1024 bytes.
+// is HDP / 64 panels of R x 64 bf16 (HDP: hd rounded up to whole panels,
+// the columns past hd zero), each written by TMA with 128-byte swizzle
+// (sm90.cuh); every tile starts on 1024 bytes.
 template <int HD>
 struct WgTile {
-  static constexpr int T64 = 64 * HD * 2;  // bytes of a 64-row tile
+  static constexpr int HDP = (HD + 63) / 64 * 64;  // padded width
+  static constexpr int KK = (HD + 15) / 16;  // k16 slices of depth hd
+  static constexpr int T64 = 64 * HDP * 2;  // bytes of a 64-row tile
   static constexpr int STAGES = 2;  // ring depth of both passes
   // dK/dV: K and V of the block's 128 keys, then the ring of stages, each
   // a query tile's qs and dO (64 rows) and its lse and D (2 x 64 fp32)
@@ -730,7 +736,7 @@ struct WgTile {
   // + the barriers (kv or q, full, empty) + slack to align the base
   static constexpr size_t KV_SMEM = KV_BAR + 8 * (1 + 2 * STAGES) + 1024;
   static constexpr size_t Q_SMEM = Q_BAR + 8 * (1 + 2 * STAGES) + 1024;
-  static_assert(HD % 64 == 0, "whole 64-column panels");
+  static_assert(HD % 16 == 0 && HDP <= 128, "k16 slices, n128 at most");
 };
 
 __device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
@@ -834,7 +840,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
                          int causal, int window) {
   using TL = WgTile<HD>;
   using bf = __nv_bfloat16;
-  constexpr int P = HD / 64, STAGES = TL::STAGES;
+  constexpr int HDP = TL::HDP, P = HDP / 64, STAGES = TL::STAGES;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
   unsigned char* smem = align1k(wg_smem_raw);
   bf* ks = reinterpret_cast<bf*>(smem + TL::KV_K);
@@ -881,7 +887,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
         sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         unsigned char* st = smem + TL::KV_RING + s * TL::KV_STAGE;
         bf* qs_s = reinterpret_cast<bf*>(st);
-        bf* do_s = qs_s + 64 * HD;
+        bf* do_s = qs_s + 64 * HDP;
         sm90::mbar_expect_tx(&full[s], 2 * TL::T64 + 2 * QT * 4);
 #pragma unroll
         for (int p = 0; p < P; ++p) {
@@ -902,16 +908,16 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
     const int kw0 = k0 + 64 * wg;  // this warpgroup's first key
     const bf* kw = ks + wg * 64 * 64;  // its rows within each 128-row panel
     const bf* vw = vs + wg * 64 * 64;
-    float gk[HD / 2], gv[HD / 2];
+    float gk[HDP / 2], gv[HDP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) gk[i] = gv[i] = 0.f;
+    for (int i = 0; i < HDP / 2; ++i) gk[i] = gv[i] = 0.f;
     sm90::mbar_wait(kv_full, 0);
     for (int it = 0; it < n_it; ++it) {
       const int s = it % STAGES;
       const int q0 = q_lo + (it % n_q) * QT;
       const unsigned char* st = smem + TL::KV_RING + s * TL::KV_STAGE;
       const bf* qs_s = reinterpret_cast<const bf*>(st);
-      const bf* do_s = qs_s + 64 * HD;
+      const bf* do_s = qs_s + 64 * HDP;
       const float* lse_s = reinterpret_cast<const float*>(st + 2 * TL::T64);
       const float* d_s = lse_s + QT;
       sm90::mbar_wait(&full[s], (it / STAGES) & 1);
@@ -923,12 +929,12 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       float sc[32], dp[32];
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < TL::KK; ++kk)
         sm90::wgmma_ss_n64(sc, sm90::desc_k(kw, 128, kk),
                            sm90::desc_k(qs_s, 64, kk), kk);
       sm90::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < TL::KK; ++kk)
         sm90::wgmma_ss_n64(dp, sm90::desc_k(vw, 128, kk),
                            sm90::desc_k(do_s, 64, kk), kk);
       sm90::wgmma_commit();
@@ -953,7 +959,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t<HD>(gv, pa[kk], sm90::desc_mn(do_s, 64, kk));
+        wgmma_rs_t<HDP>(gv, pa[kk], sm90::desc_mn(do_s, 64, kk));
       sm90::wgmma_commit();
       // dP^T retired; dS^T while dV runs
       sm90::wgmma_wait<1>();
@@ -970,7 +976,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t<HD>(gk, da[kk], sm90::desc_mn(qs_s, 64, kk));
+        wgmma_rs_t<HDP>(gk, da[kk], sm90::desc_mn(qs_s, 64, kk));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::mbar_arrive(&empty[s]);
@@ -979,10 +985,10 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
     sm90::fence_regs(gv);
     sm90::fence_regs(gk);
 #pragma unroll
-    for (int i = 0; i < HD / 2; i += 2) {
+    for (int i = 0; i < HDP / 2; i += 2) {
       const int kp = kw0 + 16 * warp + g8 + 8 * ((i / 2) & 1);
       const int col = 8 * (i / 4) + 2 * q4;
-      if (kp >= Tk) continue;
+      if (kp >= Tk || col >= HD) continue;
       *reinterpret_cast<__nv_bfloat162*>(dk + b * sdk.b + hk * sdk.h +
                                          (long long)kp * sdk.t + col) =
           __floats2bfloat162_rn(gk[i], gk[i + 1]);
@@ -1010,7 +1016,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
                        int causal, int window) {
   using TL = WgTile<HD>;
   using bf = __nv_bfloat16;
-  constexpr int P = HD / 64, STAGES = TL::STAGES;
+  constexpr int HDP = TL::HDP, P = HDP / 64, STAGES = TL::STAGES;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
   unsigned char* smem = align1k(wg_smem_raw);
   bf* qs = reinterpret_cast<bf*>(smem + TL::Q_QS);
@@ -1055,7 +1061,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
         const int s = it % STAGES, kt0 = k_lo + 64 * it;
         sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         bf* k_s = reinterpret_cast<bf*>(smem + TL::Q_RING + s * TL::Q_STAGE);
-        bf* v_s = k_s + 64 * HD;
+        bf* v_s = k_s + 64 * HDP;
         sm90::mbar_expect_tx(&full[s], 2 * TL::T64);
 #pragma unroll
         for (int p = 0; p < P; ++p) {
@@ -1083,15 +1089,15 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       d0 = tile[QT + r0];
       d1 = tile[QT + r0 + 8];
     }
-    float gq[HD / 2];
+    float gq[HDP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) gq[i] = 0.f;
+    for (int i = 0; i < HDP / 2; ++i) gq[i] = 0.f;
     sm90::mbar_wait(q_full, 0);
     for (int it = 0; it < n_it; ++it) {
       const int s = it % STAGES, kt0 = k_lo + 64 * it;
       const bf* k_s =
           reinterpret_cast<const bf*>(smem + TL::Q_RING + s * TL::Q_STAGE);
-      const bf* v_s = k_s + 64 * HD;
+      const bf* v_s = k_s + 64 * HDP;
       sm90::mbar_wait(&full[s], (it / STAGES) & 1);
       if (!block_any(qw0, kt0, Tq, Tk, causal, window)) {
         sm90::mbar_arrive(&empty[s]);
@@ -1101,12 +1107,12 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       float sc[32], dp[32];
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < TL::KK; ++kk)
         sm90::wgmma_ss_n64(sc, sm90::desc_k(qw, 128, kk),
                            sm90::desc_k(k_s, 64, kk), kk);
       sm90::wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < TL::KK; ++kk)
         sm90::wgmma_ss_n64(dp, sm90::desc_k(dw, 128, kk),
                            sm90::desc_k(v_s, 64, kk), kk);
       sm90::wgmma_commit();
@@ -1139,7 +1145,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t<HD>(gq, da[kk], sm90::desc_mn(k_s, 64, kk));
+        wgmma_rs_t<HDP>(gq, da[kk], sm90::desc_mn(k_s, 64, kk));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::mbar_arrive(&empty[s]);
@@ -1147,10 +1153,10 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
     sm90::wgmma_wait<0>();
     sm90::fence_regs(gq);
 #pragma unroll
-    for (int i = 0; i < HD / 2; i += 2) {
+    for (int i = 0; i < HDP / 2; i += 2) {
       const int qi = qw0 + r0 + 8 * ((i / 2) & 1);
       const int col = 8 * (i / 4) + 2 * q4;
-      if (qi >= Tq) continue;
+      if (qi >= Tq || col >= HD) continue;
       *reinterpret_cast<__nv_bfloat162*>(dq + b * sdq.b + h * sdq.h +
                                          (long long)qi * sdq.t + col) =
           __floats2bfloat162_rn(gq[i] * scale, gq[i + 1] * scale);
@@ -1248,9 +1254,9 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// bf16 at hd 64 and 128: the prep launch, then the dK/dV and dQ passes on
-// wgmma.  `work` holds qs (B H Tq HD bf16) and then the row tiles
-// (B H, nqt, 2, 64) fp32.
+// bf16 at hd 64, 80 and 128: the prep launch, then the dK/dV and dQ passes
+// on wgmma.  `work` holds qs (B H Tq HD bf16, rows hd wide) and then the
+// row tiles (B H, nqt, 2, 64) fp32.
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, void* work, void* dq,
@@ -1343,11 +1349,11 @@ extern "C" int flash_attention_bwd_f32(
                          Hk, Tq, Tk, hd, scale, causal, window, stream);
 }
 
-// bf16: the wgmma kernels at hd 64 and 128 (`delta` then points at their
-// workspace: qs, B H Tq hd bf16, then B H ceil(Tq / 64) 128 fp32), the
-// mma.sync ones at hd 16 and 32 (pointers of q, k, v, o and dO 16-byte
+// bf16: the wgmma kernels at hd 64, 80 and 128 (`delta` then points at
+// their workspace: qs, B H Tq hd bf16, then B H ceil(Tq / 64) 128 fp32),
+// the mma.sync ones at hd 16 and 32 (pointers of q, k, v, o and dO 16-byte
 // aligned and their strides multiples of 8 elements, in both), the
-// fp32-FMA ones at hd 8, 80 and 256
+// fp32-FMA ones at hd 8 and 256
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -1363,6 +1369,9 @@ extern "C" int flash_attention_bwd_bf16(
                             H, Hk, Tq, Tk, scale, causal, window, s);
     case 64:
       return launch_wgmma<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
+                              B, H, Hk, Tq, Tk, scale, causal, window, s);
+    case 80:
+      return launch_wgmma<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
                               B, H, Hk, Tq, Tk, scale, causal, window, s);
     case 128:
       return launch_wgmma<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,

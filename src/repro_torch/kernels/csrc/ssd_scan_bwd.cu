@@ -64,10 +64,39 @@
 // 128, N 128, hd 64: gram 136 KB, chunk 158 KB (176), dx 130 KB (148), dc
 // and db 148 KB (184); `ssd_scan_bwd_smem` gives them for any shape.  hd
 // must be a multiple of 8 and N of 4.
+//
+// bf16 xh at hd 64, C 128 and N 64 or 128 (what training sends: mamba2's N
+// 128, zamba2's 64) replaces dx, dc and db by two warp-specialized launches
+// on Hopper's `wgmma` with TMA-fed tiles (csrc/sm90.cuh): two consumer
+// warpgroups of 64 rows each and a producer warpgroup, whose first thread
+// keeps a two-stage ring of each head's x and dy tiles in flight (TMA,
+// 128-byte swizzle, mbarriers) and whose warps 1-3 split the head's fp32
+// states into bf16 hi + lo tiles in shared memory (the states are never
+// rewritten whole; four pieces' loads in flight a thread) and write its dt
+// and l.  setmaxnreg gives the consumers 208 registers and the producer
+// 88: the splitting loop spilled at 56 and both passes ran 10-20% slower,
+// and the three must fit the launch's 3 x 168.  gram then writes G^T = B
+// C^T and B and C split into bf16 hi and lo planes once a call (16.8 MB at
+// mamba2's shape), which both launches load by TMA:
+//   dx     B resident (both planes, all of N), G^T's tiles of the
+//          warpgroup's rows in registers, loaded once a block; per head
+//          (B g^T) in three products, W^T dy with W^T formed in registers
+//          (two: dy is exact), dx, R, D and Z's column sum (dt D - exp(L -
+//          l) R: sum_t dS_ts G_ts = dt_s x_s . (W^T dy)_s).
+//   dcdb   one block per 64 columns of N: B and C resident for them; per
+//          head dS = dy x^T and dS^T = x dy^T formed once a tile (dS twice
+//          a call at N 128, once per column block), masked, scaled and
+//          split in registers as the A operands of dC += dS B and dB +=
+//          dS^T C; the heads summed in the accumulators, written once.  Z's
+//          row sum and Q come from C_t . (the head's share of dC)_t, since
+//          sum_s dS_ts G_ts = C_t . (dS B)_t, so G is not needed here.
+// Shared memory: dx 195 KB at N 128 (131 at 64), dcdb 195 KB; no atomics,
+// the same bits twice.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
 #include "ssd_common.cuh"
 
 namespace {
@@ -290,10 +319,14 @@ __device__ __forceinline__ void head_logs(float* l2s, const float* dts,
   }
 }
 
-// gram: G[b, c] = C_c B_c^T, (CP, CP) fp32, zero past the chunk and T
+// gram: G[b, c] = C_c B_c^T, (CP, CP) fp32, zero past the chunk and T.
+// With `planes` (the wgmma route) it writes G^T = B_c C_c^T instead, and B
+// and C split into bf16 hi and lo planes (4, B, nc, CP, N): B hi, B lo,
+// C hi, C lo, the tiles the wgmma passes load by TMA.
 __global__ void __launch_bounds__(THREADS)
 ssd_bwd_gram_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
-                    float* __restrict__ G, int T_len, int N, int C) {
+                    float* __restrict__ G, __nv_bfloat16* __restrict__ planes,
+                    int T_len, int N, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   const BGeo geo(C, N, 8);
   const int CP = geo.CP, nw = geo.nw;
@@ -311,9 +344,21 @@ ssd_bwd_gram_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
       return (s < C && t < T_len) ? M + ((size_t)b * T_len + t) * N : nullptr;
     };
   };
-  stage_split(ch, cl, nw, CP, geo.NP, N, rows(Cm));
-  stage_split(bh, bl, nw, CP, geo.NP, N, rows(Bm));
+  // rows of G (C; B for G^T) in ch, cl; its columns in bh, bl
+  stage_split(ch, cl, nw, CP, geo.NP, N, rows(planes ? Bm : Cm));
+  stage_split(bh, bl, nw, CP, geo.NP, N, rows(planes ? Cm : Bm));
   __syncthreads();
+  if (planes) {
+    const size_t plane = (size_t)gridDim.y * gridDim.x * CP * N;
+    const size_t at = ((size_t)b * gridDim.x + c) * CP * N;
+    const int per = N / 8;  // 16-byte pieces of a row
+    for (int i = threadIdx.x; i < 4 * CP * per; i += THREADS) {
+      const int p = i / (CP * per), r = (i / per) % CP, n = 8 * (i % per);
+      const __nv_bfloat16* src = p == 0 ? ch : p == 1 ? cl : p == 2 ? bh : bl;
+      *reinterpret_cast<uint4*>(planes + p * plane + at + (size_t)r * N + n) =
+          *reinterpret_cast<const uint4*>(src + r * nw + n);
+    }
+  }
   float* Gc = G + ((size_t)b * gridDim.x + c) * CP * CP;
   const Op Cs{ch, cl, nw}, Bs{bh, bl, nw};
   const int ntr = CP / 16;
@@ -889,12 +934,643 @@ ssd_bwd_final_kernel(const float* __restrict__ dt, const float* __restrict__ A,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 xh at hd 64, C 128, N 64 or 128 (what training sends): dx, and dC
+// with dB in one launch, on wgmma with TMA-fed tiles (sm90.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int WG = 128;             // threads of a warpgroup
+constexpr int WG_BLOCK = 3 * WG;    // two consumer warpgroups, one producer
+constexpr int WHD = 64;             // the route's head dim
+constexpr int WCH = 128;            // the route's chunk
+constexpr int TILE = WCH * 64 * 2;  // bytes of a 128 x 64 bf16 tile
+constexpr int PANEL = 64 * 64 * 2;  // bytes of a 64 x 64 bf16 tile
+constexpr int SPLITTERS = 3 * 32;   // producer threads that split fp32 states
+constexpr int VEC = 1024;           // a stage's dt and l log2(e), 2 x 128 fp32
+
+constexpr bool wgmma_route(bool f32, int hd, int N, int C) {
+  return !f32 && hd == WHD && C == WCH && (N == 64 || N == 128);
+}
+
+// Shared memory (byte offsets; every tile on 1024 bytes, 128-byte swizzle).
+// dcdb: B hi, B lo, C hi, C lo (128 rows, the block's 64 columns of N),
+// then a ring of two stages, each a head's x and dy (128 x 64), its
+// incoming state h and outgoing gradient g split hi and lo (64 x 64, the
+// block's columns), its dt and l.
+struct DcdbSmem {
+  static constexpr int BC = 0, RING = 4 * TILE;
+  static constexpr int X = 0, DY = TILE, HH = 2 * TILE, HL = HH + PANEL,
+                       GH = HL + PANEL, GL = GH + PANEL, V = GL + PANEL;
+  static constexpr int STAGE = V + VEC;
+  static constexpr int BAR = RING + 2 * STAGE;
+  static constexpr size_t BYTES = BAR + 8 * 5 + 1024;
+};
+// dx: B hi, B lo (128 rows, all NP columns), then a ring of two stages,
+// each a head's x and dy and its g split hi and lo (64 x NP), its dt and l.
+template <int NP>
+struct DxSmem {
+  static constexpr int PN = NP / 64;  // 64-column panels of N
+  static constexpr int BH = 0, BL = PN * TILE, RING = 2 * PN * TILE;
+  static constexpr int X = 0, DY = TILE, GH = 2 * TILE, GL = GH + PN * PANEL,
+                       V = GL + PN * PANEL;
+  static constexpr int STAGE = V + VEC;
+  static constexpr int BAR = RING + 2 * STAGE;
+  static constexpr size_t BYTES = BAR + 8 * 5 + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return (unsigned char*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
+}
+
+// the byte offset of (row r, column col) in a 64-column swizzled panel
+__device__ __forceinline__ int swz(int r, int col) {
+  return r * 128 + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1));
+}
+__device__ __forceinline__ float2 bf_pair(const unsigned char* tile, int r,
+                                          int col) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(tile + swz(r, col)));
+}
+
+// 8 fp32 values (a, e) of row r, columns 8 c16.. of a panel -> its hi and
+// lo tiles (one 16-byte piece each)
+__device__ __forceinline__ void split_piece(unsigned char* hi,
+                                            unsigned char* lo, float4 a,
+                                            float4 e, int r, int c16) {
+  uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
+  split(a.x, a.y, h0, l0);
+  split(a.z, a.w, h1, l1);
+  split(e.x, e.y, h2, l2);
+  split(e.z, e.w, h3, l3);
+  const int off = swz(r, 8 * c16);
+  *reinterpret_cast<uint4*>(hi + off) = make_uint4(h0, h1, h2, h3);
+  *reinterpret_cast<uint4*>(lo + off) = make_uint4(l0, l1, l2, l3);
+}
+
+// pieces u, u + SPLITTERS, ... < n of 8 fp32 values each (`src(i)`) split
+// into bf16 hi and lo tiles (`put(i, a, e)`): four pieces' loads in flight
+// before any is split
+template <typename Src, typename Put>
+__device__ __forceinline__ void split_pieces(int n, int u, Src src, Put put) {
+  for (int i0 = u; i0 < n; i0 += 4 * SPLITTERS) {
+    float4 v[4][2];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * SPLITTERS;
+      if (i < n) {
+        const float* p = src(i);
+        v[k][0] = __ldg(reinterpret_cast<const float4*>(p));
+        v[k][1] = __ldg(reinterpret_cast<const float4*>(p + 4));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (i0 + k * SPLITTERS < n) put(i0 + k * SPLITTERS, v[k][0], v[k][1]);
+  }
+}
+
+// one warp: the head's dt (0 past T) and l log2(e) into a stage's vectors
+__device__ __forceinline__ void head_vecs(float* v, const float* dt,
+                                          const float* A, int b, int t0,
+                                          int T_len, int H, int h) {
+  const int lane = threadIdx.x & 31;
+  float* l2 = v + WCH;
+  for (int s = lane; s < WCH; s += 32) {
+    const int t = t0 + s;
+    v[s] = t < T_len ? dt[((size_t)b * T_len + t) * H + h] : 0.f;
+  }
+  __syncwarp();
+  warp_cumsum(l2, v, A[h], WCH);
+  __syncwarp();
+  for (int s = lane; s < WCH; s += 32) l2[s] *= LOG2E;
+}
+
+// The producer warpgroup of both passes: its first thread loads the
+// resident B / C planes once (`planes`: which of the four, `panels` of 64
+// columns from column c0 each) and then each head's x and dy tiles by TMA;
+// warps 1-3 split the head's fp32 states (`split(st, h)`) and warp 1 writes
+// its dt and l; all of them arrive on the stage's `full` barrier.
+template <typename Split>
+__device__ __forceinline__ void produce(
+    unsigned char* smem, int ring, int stage, int v_off, uint64_t* bc_full,
+    uint64_t* full, uint64_t* empty, const CUtensorMap* tm_x,
+    const CUtensorMap* tm_dy, const CUtensorMap* tm_bc, int planes,
+    int panels, int c0, int bc_row, const float* dt, const float* A, int b,
+    int t0, int T_len, int H, int h0, int nh, Split split) {
+  sm90::regs_dec<88>();
+  if (threadIdx.x == 2 * WG) {
+    sm90::mbar_expect_tx(bc_full, planes * panels * TILE);
+    for (int p = 0; p < planes; ++p)
+      for (int q = 0; q < panels; ++q)
+        sm90::tma_load_4d(smem + (p * panels + q) * TILE, tm_bc, bc_full,
+                          c0 + 64 * q, 0, bc_row, p);
+    for (int it = 0; it < nh; ++it) {
+      const int s = it & 1;
+      sm90::mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
+      unsigned char* st = smem + ring + s * stage;
+      sm90::mbar_expect_tx(&full[s], 2 * TILE);
+      sm90::tma_load_4d(st, tm_x, &full[s], 0, t0, h0 + it, b);
+      sm90::tma_load_4d(st + TILE, tm_dy, &full[s], 0, t0, h0 + it, b);
+    }
+  } else if (threadIdx.x >= 2 * WG + 32) {
+    for (int it = 0; it < nh; ++it) {
+      const int s = it & 1;
+      sm90::mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
+      unsigned char* st = smem + ring + s * stage;
+      split(st, h0 + it, (int)threadIdx.x - (2 * WG + 32));
+      if (threadIdx.x < 2 * WG + 64)
+        head_vecs(reinterpret_cast<float*>(st + v_off), dt, A, b, t0, T_len,
+                  H, h0 + it);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&full[s]);
+    }
+  }
+}
+
+__device__ __forceinline__ void init_bars(uint64_t* bc_full, uint64_t* full,
+                                          uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bc_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&full[s], 1 + SPLITTERS);
+      sm90::mbar_init(&empty[s], 2 * WG);
+    }
+    sm90::fence_init();
+  }
+  __syncthreads();
+}
+
+// accumulator entry i of a 64 x 64 wgmma tile, thread t of the warpgroup:
+// row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) & 1), column 8 (i / 4) +
+// 2 (t % 4) + (i & 1) (sm90.cuh)
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i / 4) + 2 * (threadIdx.x % 4) + (i & 1);
+}
+__device__ __forceinline__ bool frag_hi(int i) { return (i / 2) & 1; }
+
+// dx on wgmma: one block per (batch, chunk, group of HG heads), warpgroup w
+// the rows s in [64 w, 64 w + 64).  Per head: (B g^T) over N in three
+// products (B and g split hi + lo), R_s = dt_s x_s . (g B_s), then dxd =
+// exp(L - l_s) (B g^T) + W^T dy with W^T_st = G^T_st exp(l_t - l_s) for
+// t >= s formed in registers from G^T (loaded once a block) and split hi +
+// lo against dy, exact (two products); dx = dxd dt, D_s = dxd_s . x_s and
+// Z's column sum dt_s D_s - exp(L - l_s) R_s into `terms`.
+template <int NP>
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+ssd_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_dy,
+                        const __grid_constant__ CUtensorMap tm_bc,
+                        const float* __restrict__ dt,
+                        const float* __restrict__ A,
+                        const float* __restrict__ GT,
+                        const float* __restrict__ Gout,
+                        __nv_bfloat16* __restrict__ dx,
+                        float* __restrict__ terms, int T_len, int H) {
+  using L = DxSmem<NP>;
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = align1k(wg_smem_raw);
+  uint64_t* bc_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = bc_full + 1;
+  uint64_t* empty = full + 2;
+  const int c = blockIdx.y, nc = gridDim.y, b = blockIdx.z;
+  const int h0 = blockIdx.x * HG, nh = min(H - h0, HG), t0 = c * WCH;
+  init_bars(bc_full, full, empty);
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {
+    produce(smem, L::RING, L::STAGE, L::V, bc_full, full, empty, &tm_x,
+            &tm_dy, &tm_bc, 2, L::PN, 0, b * nc + c, dt, A, b, t0, T_len, H,
+            h0, nh, [&](unsigned char* st, int h, int u) {
+              const float* g = Gout + (((size_t)b * nc + c) * H + h) * WHD * NP;
+              split_pieces(
+                  WHD * NP / 8, u, [&](int i) { return g + 8 * i; },
+                  [&](int i, float4 a, float4 e) {
+                    const int r = i / (NP / 8), cc = i % (NP / 8);
+                    split_piece(st + L::GH + (cc / 8) * PANEL,
+                                st + L::GL + (cc / 8) * PANEL, a, e, r,
+                                cc % 8);
+                  });
+            });
+    return;
+  }
+  sm90::regs_inc<208>();
+  const int t = threadIdx.x % WG, warp = t / 32, q4 = t % 4;
+  const int R0 = 64 * wg, ra = R0 + 16 * warp + (t % 32) / 4, rb = ra + 8;
+  const bf* Bh = reinterpret_cast<const bf*>(smem + L::BH);
+  const bf* Bl = reinterpret_cast<const bf*>(smem + L::BL);
+  // G^T's tiles of this warpgroup's rows s and the key tiles t >= them
+  float gt[2][32];
+  const float* gtc = GT + ((size_t)b * nc + c) * WCH * WCH;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int j = wg + jj, r = frag_hi(i) ? rb : ra;
+      float2 v = make_float2(0.f, 0.f);
+      if (j < 2)
+        v = *reinterpret_cast<const float2*>(gtc + (size_t)r * WCH + 64 * j +
+                                             frag_col(i));
+      gt[jj][i] = v.x;
+      gt[jj][i + 1] = v.y;
+    }
+  sm90::mbar_wait(bc_full, 0);
+  for (int it = 0; it < nh; ++it) {
+    const int s = it & 1, h = h0 + it;
+    const unsigned char* st = smem + L::RING + s * L::STAGE;
+    const bf* X = reinterpret_cast<const bf*>(st + L::X);
+    const bf* DY = reinterpret_cast<const bf*>(st + L::DY);
+    const bf* GH = reinterpret_cast<const bf*>(st + L::GH);
+    const bf* GL = reinterpret_cast<const bf*>(st + L::GL);
+    const float* dts = reinterpret_cast<const float*>(st + L::V);
+    const float* l2 = dts + WCH;
+    sm90::mbar_wait(&full[s], (it >> 1) & 1);
+    float acc[32];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk)
+      sm90::wgmma_ss_n64(acc, sm90::desc_k(Bh + R0 * 64, WCH, kk),
+                         sm90::desc_k(GH, 64, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk)
+      sm90::wgmma_ss_n64(acc, sm90::desc_k(Bh + R0 * 64, WCH, kk),
+                         sm90::desc_k(GL, 64, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk)
+      sm90::wgmma_ss_n64(acc, sm90::desc_k(Bl + R0 * 64, WCH, kk),
+                         sm90::desc_k(GH, 64, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    const float la = l2[ra], lb = l2[rb], lL = l2[WCH - 1];
+    const float ea = ex2(lL - la), eb = ex2(lL - lb);
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float2 xv = bf_pair(st + L::X, frag_hi(i) ? rb : ra, frag_col(i));
+      rs[frag_hi(i)] += xv.x * acc[i] + xv.y * acc[i + 1];
+      const float e = frag_hi(i) ? eb : ea;
+      acc[i] *= e;
+      acc[i + 1] *= e;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = wg + jj;
+      if (j >= 2) break;
+      uint32_t wh[4][4], wl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 8 * kk + 2 * q, r = frag_hi(i) ? rb : ra;
+          const int tj = 64 * j + frag_col(i);
+          const float lr = frag_hi(i) ? lb : la;
+          const float w0 =
+              (j > wg || tj >= r) ? gt[jj][i] * ex2(l2[tj] - lr) : 0.f;
+          const float w1 = (j > wg || tj + 1 >= r)
+                               ? gt[jj][i + 1] * ex2(l2[tj + 1] - lr)
+                               : 0.f;
+          split(w0, w1, wh[kk][q], wl[kk][q]);
+        }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n64_t(acc, wh[kk], sm90::desc_mn(DY + 64 * j * 64,
+                                                        WCH, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n64_t(acc, wl[kk], sm90::desc_mn(DY + 64 * j * 64,
+                                                        WCH, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_regs(acc);
+    float ds[2] = {0.f, 0.f};
+    const float dta = dts[ra], dtb = dts[rb];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = frag_hi(i) ? rb : ra, col = frag_col(i);
+      const float2 xv = bf_pair(st + L::X, r, col);
+      ds[frag_hi(i)] += xv.x * acc[i] + xv.y * acc[i + 1];
+      const float d = frag_hi(i) ? dtb : dta;
+      if (t0 + r < T_len)
+        store2(dx + (((size_t)b * T_len + t0 + r) * H + h) * WHD + col,
+               acc[i] * d, acc[i + 1] * d);
+    }
+    float* tb = terms + (((size_t)b * nc + c) * H + h) * NTERMS * WCH;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float r = quad_sum(rs[e]) * (e ? dtb : dta);
+      const float d = quad_sum(ds[e]);
+      if (q4 == 0) {
+        const int row = e ? rb : ra;
+        tb[TERM_R * WCH + row] = r;
+        tb[TERM_D * WCH + row] = d;
+        tb[TERM_COLZ * WCH + row] = (e ? dtb : dta) * d - (e ? eb : ea) * r;
+      }
+    }
+    sm90::mbar_arrive(&empty[s]);
+  }
+}
+
+// dC and dB on wgmma: one block per (64 columns of N, batch, chunk, group of
+// HG heads), warpgroup w the rows [64 w, 64 w + 64) of both.  Per head,
+// its share of dC, exp(l_t) (dy h)_t + sum_{s<=t} dS_ts B_s, in a
+// temporary (h split hi + lo against dy, exact: two products; dS = dy x^T,
+// masked and scaled in registers, split hi + lo against B: three), whose
+// row dot with C_t is Z's row sum plus Q_t (C_t . (dS B)_t = sum_s dS_ts
+// G_ts) into `terms`; then added into dC's accumulator.  dB's share,
+// dt_s exp(L - l_s) (x g)_s into the accumulator through a temporary, and
+// sum_{t>=s} dS_ts C_t with dS^T = x dy^T straight into it.  dS and dS^T
+// are formed once a head and tile; the heads are summed in the
+// accumulators in head order, written once into the block's slice of the
+// (groups, B, nc C, N) scratches.  ptxas serializes this kernel's products
+// (its note C7514: the temporary is scaled while the next product runs);
+// retiring every product first removed the note and ran 7% slower.
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_dy,
+                          const __grid_constant__ CUtensorMap tm_bc,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ A,
+                          const float* __restrict__ Hin,
+                          const float* __restrict__ Gout,
+                          float* __restrict__ dBp, float* __restrict__ dCp,
+                          float* __restrict__ terms, int T_len, int H,
+                          int N) {
+  using L = DcdbSmem;
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = align1k(wg_smem_raw);
+  uint64_t* bc_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = bc_full + 1;
+  uint64_t* empty = full + 2;
+  const int nnb = N / 64, nb = blockIdx.x % nnb, grp = blockIdx.x / nnb;
+  const int c = blockIdx.y, nc = gridDim.y, b = blockIdx.z;
+  const int h0 = grp * HG, nh = min(H - h0, HG), t0 = c * WCH;
+  init_bars(bc_full, full, empty);
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {
+    produce(smem, L::RING, L::STAGE, L::V, bc_full, full, empty, &tm_x,
+            &tm_dy, &tm_bc, 4, 1, 64 * nb, b * nc + c, dt, A, b, t0, T_len,
+            H, h0, nh, [&](unsigned char* st, int h, int u) {
+              const size_t at =
+                  (((size_t)b * nc + c) * H + h) * WHD * N + 64 * nb;
+              split_pieces(
+                  2 * WHD * 8, u,
+                  [&](int i) {
+                    return (i >= WHD * 8 ? Gout : Hin) + at +
+                           (size_t)((i / 8) % WHD) * N + 8 * (i % 8);
+                  },
+                  [&](int i, float4 a, float4 e) {
+                    const bool m = i >= WHD * 8;
+                    split_piece(st + (m ? L::GH : L::HH),
+                                st + (m ? L::GL : L::HL), a, e,
+                                (i / 8) % WHD, i % 8);
+                  });
+            });
+    return;
+  }
+  sm90::regs_inc<208>();
+  const int t = threadIdx.x % WG, warp = t / 32, q4 = t % 4;
+  const int R0 = 64 * wg, ra = R0 + 16 * warp + (t % 32) / 4, rb = ra + 8;
+  const bf* Bh = reinterpret_cast<const bf*>(smem + L::BC);
+  const bf* Bl = reinterpret_cast<const bf*>(smem + L::BC + TILE);
+  const bf* Ch = reinterpret_cast<const bf*>(smem + L::BC + 2 * TILE);
+  const bf* Cl = reinterpret_cast<const bf*>(smem + L::BC + 3 * TILE);
+  float dCs[32], dBs[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dCs[i] = dBs[i] = 0.f;
+  sm90::mbar_wait(bc_full, 0);
+  for (int it = 0; it < nh; ++it) {
+    const int s = it & 1, h = h0 + it;
+    const unsigned char* st = smem + L::RING + s * L::STAGE;
+    const bf* X = reinterpret_cast<const bf*>(st + L::X);
+    const bf* DY = reinterpret_cast<const bf*>(st + L::DY);
+    const float* dts = reinterpret_cast<const float*>(st + L::V);
+    const float* l2 = dts + WCH;
+    sm90::mbar_wait(&full[s], (it >> 1) & 1);
+    const float la = l2[ra], lb = l2[rb], lL = l2[WCH - 1];
+    float tmp[32], sv[32];
+    uint32_t ah[4][4], al[4][4];
+    // dC's share: exp(l_t) (dy h)_t, then + dS B tile by tile (s <= t)
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_ss_n64_t(tmp, sm90::desc_k(DY + R0 * 64, WCH, kk),
+                           sm90::desc_mn(reinterpret_cast<const bf*>(
+                                             st + L::HH), 64, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_ss_n64_t(tmp, sm90::desc_k(DY + R0 * 64, WCH, kk),
+                           sm90::desc_mn(reinterpret_cast<const bf*>(
+                                             st + L::HL), 64, kk), 1);
+    sm90::wgmma_commit();
+    for (int j = 0; j <= wg; ++j) {
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_ss_n64(sv, sm90::desc_k(DY + R0 * 64, WCH, kk),
+                           sm90::desc_k(X + 64 * j * 64, WCH, kk), kk);
+      sm90::wgmma_commit();
+      if (j == 0) {
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(tmp);
+        const float ea = ex2(la), eb = ex2(lb);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) tmp[i] *= frag_hi(i) ? eb : ea;
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sv);
+      // dS_ts = (dy_t . x_s) dt_s exp(l_t - l_s), s <= t
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int sj = 64 * j + frag_col(i), r = frag_hi(i) ? rb : ra;
+        sv[i] = (j < wg || sj <= r)
+                    ? sv[i] * dts[sj] * ex2((frag_hi(i) ? lb : la) - l2[sj])
+                    : 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split(sv[8 * kk + 2 * q], sv[8 * kk + 2 * q + 1], ah[kk][q],
+                al[kk][q]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n64_t(tmp, ah[kk],
+                             sm90::desc_mn(Bh + 64 * j * 64, WCH, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n64_t(tmp, ah[kk],
+                             sm90::desc_mn(Bl + 64 * j * 64, WCH, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n64_t(tmp, al[kk],
+                             sm90::desc_mn(Bh + 64 * j * 64, WCH, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_regs(tmp);
+    sm90::fence_regs(dCs);
+    // Z's row sum + Q over this block's columns: C_t . (the share)_t
+    float zq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = frag_hi(i) ? rb : ra, col = frag_col(i);
+      const float2 h2 = bf_pair(smem + L::BC + 2 * TILE, r, col);
+      const float2 l2c = bf_pair(smem + L::BC + 3 * TILE, r, col);
+      zq[frag_hi(i)] += (h2.x + l2c.x) * tmp[i] + (h2.y + l2c.y) * tmp[i + 1];
+      dCs[i] += tmp[i];
+      dCs[i + 1] += tmp[i + 1];
+    }
+    float* tb = terms + (((size_t)b * nc + c) * H + h) * NTERMS * WCH;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float z = quad_sum(zq[e]);
+      if (q4 == 0) {
+        const int row = e ? rb : ra;
+        tb[(nb ? TERM_ROWZ : TERM_Q) * WCH + row] = z;
+        if (nnb == 1) tb[TERM_ROWZ * WCH + row] = 0.f;
+      }
+    }
+    // dB's share: dt_s exp(L - l_s) (x g)_s, then + dS^T C tile by tile
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_ss_n64_t(tmp, sm90::desc_k(X + R0 * 64, WCH, kk),
+                           sm90::desc_mn(reinterpret_cast<const bf*>(
+                                             st + L::GH), 64, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_ss_n64_t(tmp, sm90::desc_k(X + R0 * 64, WCH, kk),
+                           sm90::desc_mn(reinterpret_cast<const bf*>(
+                                             st + L::GL), 64, kk), 1);
+    sm90::wgmma_commit();
+    for (int j = wg; j < 2; ++j) {
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_ss_n64(sv, sm90::desc_k(X + R0 * 64, WCH, kk),
+                           sm90::desc_k(DY + 64 * j * 64, WCH, kk), kk);
+      sm90::wgmma_commit();
+      if (j == wg) {
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(tmp);
+        sm90::fence_regs(dBs);
+        const float fa = dts[ra] * ex2(lL - la), fb = dts[rb] * ex2(lL - lb);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dBs[i] += tmp[i] * (frag_hi(i) ? fb : fa);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sv);
+      // dS^T_st = (x_s . dy_t) dt_s exp(l_t - l_s), t >= s
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int tj = 64 * j + frag_col(i), r = frag_hi(i) ? rb : ra;
+        sv[i] = (j > wg || tj >= r)
+                    ? sv[i] * dts[r] * ex2(l2[tj] - (frag_hi(i) ? lb : la))
+                    : 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split(sv[8 * kk + 2 * q], sv[8 * kk + 2 * q + 1], ah[kk][q],
+                al[kk][q]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n64_t(dBs, ah[kk],
+                             sm90::desc_mn(Ch + 64 * j * 64, WCH, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n64_t(dBs, ah[kk],
+                             sm90::desc_mn(Cl + 64 * j * 64, WCH, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n64_t(dBs, al[kk],
+                             sm90::desc_mn(Ch + 64 * j * 64, WCH, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+    }
+    sm90::mbar_arrive(&empty[s]);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dCs);
+  sm90::fence_regs(dBs);
+  const size_t slice =
+      (((size_t)grp * gridDim.z + b) * nc + c) * (size_t)WCH * N + 64 * nb;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const size_t at =
+        slice + (size_t)(frag_hi(i) ? rb : ra) * N + frag_col(i);
+    store2(dCp + at, dCs[i], dCs[i + 1]);
+    store2(dBp + at, dBs[i], dBs[i + 1]);
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, int max_smem) {
   if (bytes > (size_t)max_smem) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// the wgmma route's dx and merged dC / dB launches, after gram (which left
+// G^T and the B / C planes), chunk and state
+int launch_wgmma(const void* xh, const void* dt, const void* A,
+                 const void* dy, void* dx, void* dBp, void* dCp,
+                 const void* hin, const void* gram, const void* gout,
+                 void* terms, int B, int T_len, int H, int N, int nc,
+                 int max_smem, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const size_t s_dx = N == 64 ? DxSmem<64>::BYTES : DxSmem<128>::BYTES;
+  cudaError_t err;
+  if ((err = allow_smem(ssd_bwd_dx_wgmma_kernel<64>, DxSmem<64>::BYTES,
+                        max_smem)) != cudaSuccess ||
+      (err = allow_smem(ssd_bwd_dx_wgmma_kernel<128>, DxSmem<128>::BYTES,
+                        max_smem)) != cudaSuccess ||
+      (err = allow_smem(ssd_bwd_dcdb_wgmma_kernel, DcdbSmem::BYTES,
+                        max_smem)) != cudaSuccess)
+    return (int)err;
+  // byte strides: x and dy (hd, T, H, B); the planes (N, CP, B nc, 4)
+  const long long e = sizeof(bf);
+  const bf* planes = reinterpret_cast<const bf*>(
+      (const float*)gram + (size_t)B * nc * WCH * WCH);
+  CUtensorMap m_x, m_dy, m_bc;
+  if ((err = sm90::tile_map(&m_x, xh, WHD, T_len, H, B, (long long)H * WHD * e,
+                            WHD * e, (long long)T_len * H * WHD * e, WCH)) !=
+          cudaSuccess ||
+      (err = sm90::tile_map(&m_dy, dy, WHD, T_len, H, B,
+                            (long long)H * WHD * e, WHD * e,
+                            (long long)T_len * H * WHD * e, WCH)) !=
+          cudaSuccess ||
+      (err = sm90::tile_map(&m_bc, planes, N, WCH, (long long)B * nc, 4,
+                            N * e, (long long)WCH * N * e,
+                            (long long)B * nc * WCH * N * e, WCH)) !=
+          cudaSuccess)
+    return (int)err;
+  const int groups = (H + HG - 1) / HG;
+  const dim3 grid(groups, nc, B);
+  if (N == 64)
+    ssd_bwd_dx_wgmma_kernel<64><<<grid, WG_BLOCK, s_dx, s>>>(
+        m_x, m_dy, m_bc, (const float*)dt, (const float*)A,
+        (const float*)gram, (const float*)gout, (bf*)dx, (float*)terms,
+        T_len, H);
+  else
+    ssd_bwd_dx_wgmma_kernel<128><<<grid, WG_BLOCK, s_dx, s>>>(
+        m_x, m_dy, m_bc, (const float*)dt, (const float*)A,
+        (const float*)gram, (const float*)gout, (bf*)dx, (float*)terms,
+        T_len, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_bwd_dcdb_wgmma_kernel<<<dim3(groups * (N / 64), nc, B), WG_BLOCK,
+                              DcdbSmem::BYTES, s>>>(
+      m_x, m_dy, m_bc, (const float*)dt, (const float*)A, (const float*)hin,
+      (const float*)gout, (float*)dBp, (float*)dCp, (float*)terms, T_len, H,
+      N);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -907,6 +1583,7 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
   // 16-byte pieces of x and dy rows, float2 pairs of B and C, float4s of
   // the states
   if (hd % 8 || N % 4) return (int)cudaErrorInvalidValue;
+  const bool wg = wgmma_route(F32, hd, N, C);
   const BGeo geo(C, N, hd);
   const size_t s_gram = geo.gram_bytes(), s_chunk = geo.chunk_bytes(F32),
                s_dx = geo.dx_bytes(F32), s_dbc = geo.dbc_bytes(F32),
@@ -921,20 +1598,26 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
           cudaSuccess ||
       (err = allow_smem(ssd_bwd_chunk_kernel<T>, s_chunk, max_smem)) !=
           cudaSuccess ||
-      (err = allow_smem(ssd_bwd_dx_kernel<T>, s_dx, max_smem)) !=
-          cudaSuccess ||
-      (err = allow_smem(ssd_bwd_dc_kernel<T>, s_dbc, max_smem)) !=
-          cudaSuccess ||
-      (err = allow_smem(ssd_bwd_db_kernel<T>, s_dbc, max_smem)) !=
-          cudaSuccess ||
       (err = allow_smem(ssd_bwd_final_kernel, s_final, max_smem)) !=
           cudaSuccess)
+    return (int)err;
+  if (!wg &&
+      ((err = allow_smem(ssd_bwd_dx_kernel<T>, s_dx, max_smem)) !=
+           cudaSuccess ||
+       (err = allow_smem(ssd_bwd_dc_kernel<T>, s_dbc, max_smem)) !=
+           cudaSuccess ||
+       (err = allow_smem(ssd_bwd_db_kernel<T>, s_dbc, max_smem)) !=
+           cudaSuccess))
     return (int)err;
   const int nc = (T_len + C - 1) / C;
   const cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((H + HG - 1) / HG, nc, B);
+  __nv_bfloat16* planes =
+      wg ? reinterpret_cast<__nv_bfloat16*>((float*)gram +
+                                            (size_t)B * nc * WCH * WCH)
+         : nullptr;
   ssd_bwd_gram_kernel<<<dim3(nc, B), THREADS, s_gram, s>>>(
-      (const float*)Bm, (const float*)Cm, (float*)gram, T_len, N, C);
+      (const float*)Bm, (const float*)Cm, (float*)gram, planes, T_len, N, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ssd_bwd_chunk_kernel<T><<<grid, THREADS, s_chunk, s>>>(
       (const T*)dy, (const float*)dt, (const float*)A, (const float*)Cm,
@@ -945,21 +1628,31 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
       (float4*)gout, (const float*)last, (const float4*)dhfin, B, nc, H,
       hd * N / 4);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_dx_kernel<T><<<grid, THREADS, s_dx, s>>>(
-      (const T*)xh, (const T*)dy, (const float*)dt, (const float*)A,
-      (const float*)Bm, (const float*)gram, (const float*)gout, (T*)dx,
-      (float*)terms, T_len, H, hd, N, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_dc_kernel<T><<<grid, THREADS, s_dbc, s>>>(
-      (const T*)xh, (const T*)dy, (const float*)dt, (const float*)A,
-      (const float*)Bm, (const float*)Cm, (const float*)gram,
-      (const float*)hin, (float*)dCp, (float*)terms, T_len, H, hd, N, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_db_kernel<T><<<grid, THREADS, s_dbc, s>>>(
-      (const T*)xh, (const T*)dy, (const float*)dt, (const float*)A,
-      (const float*)Cm, (const float*)gram, (const float*)gout, (float*)dBp,
-      (float*)terms, T_len, H, hd, N, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (!F32) {
+    if (wg) {
+      const int r = launch_wgmma(xh, dt, A, dy, dx, dBp, dCp, hin, gram,
+                                 gout, terms, B, T_len, H, N, nc, max_smem,
+                                 s);
+      if (r != 0) return r;
+    }
+  }
+  if (!wg) {
+    ssd_bwd_dx_kernel<T><<<grid, THREADS, s_dx, s>>>(
+        (const T*)xh, (const T*)dy, (const float*)dt, (const float*)A,
+        (const float*)Bm, (const float*)gram, (const float*)gout, (T*)dx,
+        (float*)terms, T_len, H, hd, N, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_dc_kernel<T><<<grid, THREADS, s_dbc, s>>>(
+        (const T*)xh, (const T*)dy, (const float*)dt, (const float*)A,
+        (const float*)Bm, (const float*)Cm, (const float*)gram,
+        (const float*)hin, (float*)dCp, (float*)terms, T_len, H, hd, N, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_db_kernel<T><<<grid, THREADS, s_dbc, s>>>(
+        (const T*)xh, (const T*)dy, (const float*)dt, (const float*)A,
+        (const float*)Cm, (const float*)gram, (const float*)gout,
+        (float*)dBp, (float*)terms, T_len, H, hd, N, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   ssd_bwd_final_kernel<<<dim3(nc, B), THREADS, s_final, s>>>(
       (const float*)dt, (const float*)A, (const float*)hin,
       (const float*)gout, (const float*)terms, (float*)ddt, (float*)dAp,
@@ -973,10 +1666,11 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
 // dhfin: the final state's gradient (B, H, hd, N) fp32, or null for zeros.
 // Outputs: dx in xh's dtype, ddt (B, T, H), dAp (B, nc, H) the chunks'
 // shares of dA, dBp and dCp (groups of HG heads, B, nc C, N) the groups'
-// shares of dB and dC, all fp32.  Scratch, fp32: gram (B, nc, CP, CP), gout
-// (B, nc, H, hd, N), terms (B, nc, H, 5, CP), last (B, nc, H), with CP the
-// chunk rounded up to 32.  hd % 8 == 0, N % 4 == 0, every pointer 16-byte
-// aligned.
+// shares of dB and dC, all fp32.  Scratch, fp32: gram (B, nc, CP, CP), for
+// bf16 xh followed by room for 4 (B, nc, CP, N) bf16 planes (the wgmma
+// route's split B and C), gout (B, nc, H, hd, N), terms (B, nc, H, 5, CP),
+// last (B, nc, H), with CP the chunk rounded up to 32.  hd % 8 == 0, N % 4
+// == 0, every pointer 16-byte aligned.
 extern "C" int ssd_scan_bwd_f32(
     const void* xh, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* hin, const void* dy, const void* dhfin,
@@ -1000,14 +1694,18 @@ extern "C" int ssd_scan_bwd_bf16(
 }
 
 // the dynamic shared memory of each launch at (C, N, hd), xh in fp32 or
-// not: gram, chunk, dx, dc and db, final (bytes, into out[0..5])
-extern "C" void ssd_scan_bwd_smem(int C, int N, int hd, int f32,
-                                  unsigned long long* out) {
+// not, into out[0..5]: gram, chunk, dx, dc, db, final (bytes); on the
+// wgmma route (returns 1) dc is the merged dC and dB launch and db 0
+extern "C" int ssd_scan_bwd_smem(int C, int N, int hd, int f32,
+                                 unsigned long long* out) {
   const BGeo geo(C, N, hd);
+  const bool wg = wgmma_route(f32, hd, N, C);
   out[0] = geo.gram_bytes();
   out[1] = geo.chunk_bytes(f32);
-  out[2] = geo.dx_bytes(f32);
-  out[3] = geo.dbc_bytes(f32);
-  out[4] = geo.dbc_bytes(f32);
+  out[2] = !wg ? geo.dx_bytes(f32)
+               : N == 64 ? DxSmem<64>::BYTES : DxSmem<128>::BYTES;
+  out[3] = wg ? DcdbSmem::BYTES : geo.dbc_bytes(f32);
+  out[4] = wg ? 0 : geo.dbc_bytes(f32);
   out[5] = 2 * (size_t)WARPS * geo.CP * 4;
+  return wg;
 }

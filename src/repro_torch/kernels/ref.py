@@ -158,8 +158,8 @@ def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
                                   dout: torch.Tensor, lse: torch.Tensor, *,
                                   causal: bool = True, window: int = 0,
                                   scale: Optional[float] = None):
-    """The backward kernel's arithmetic on its wgmma route (bf16 at hd 64
-    and 128), step by step, on head-major tensors as
+    """The backward kernel's arithmetic on its wgmma route (bf16 at hd 64,
+    80 and 128), step by step, on head-major tensors as
     ``flash_attention_bwd`` takes them (``lse`` the forward's (B, H, Tq)).
 
     qs = q * scale rounded to q's dtype (fp32 rounds nothing), D =

@@ -6,12 +6,15 @@ differentiates its jnp ``ssd_chunked`` instead).
 ``ssd_scan_bwd(xh, dt, A, Bm, Cm, h_in, dy, dh_final)`` launches it on CUDA
 tensors and raises on anything it does not take (the forward's dtypes and
 shapes); ``h_in`` is each chunk's incoming state, which the forward leaves
-behind (``ssd_scan_with_states``).  It runs seven launches on one stream
+behind (``ssd_scan_with_states``).  It runs its launches on one stream
 (G = C B^T, the chunk summaries of dy, the reverse walk over the chunks,
-then dx, dC, dB and the per-position dt and A terms) with no atomics, so
-its result does not depend on the order blocks run in; the groups' shares
-of dB and dC and the chunks' shares of dA are summed here, in a fixed
-order.  ``torch.autograd.grad`` through
+then dx, dC and dB, and the per-position dt and A terms) with no atomics,
+so its result does not depend on the order blocks run in; the groups'
+shares of dB and dC and the chunks' shares of dA are summed here, in a
+fixed order.  bf16 xh at hd 64, chunk 128 and N 64 or 128 (what training
+sends) runs dx and one merged dC + dB launch on Hopper's ``wgmma`` with
+TMA-fed tiles (``csrc/sm90.cuh``); every other shape, and fp32 xh, runs a
+dx, a dC and a dB launch on ``mma.sync``.  ``torch.autograd.grad`` through
 :func:`repro_torch.kernels.ref.ssd_scan_ref` is its plain version,
 :func:`repro_torch.kernels.ref.ssd_scan_bwd_passes_ref` the same split as
 the kernel splits it.  ``launches`` counts calls.
@@ -56,12 +59,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def smem_bytes(C: int, N: int, hd: int, f32: bool) -> dict:
-    """The dynamic shared memory of each launch at chunk ``C`` (bytes)."""
+    """The dynamic shared memory of each launch at chunk ``C`` (bytes),
+    keyed by launch: gram, chunk, dx, dc, db, final, or on the wgmma route
+    gram, chunk, dx, dcdb (the merged dC and dB launch), final."""
     fn = build.load("ssd_scan_bwd").ssd_scan_bwd_smem
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = None
+    fn.restype = ctypes.c_int
     out = (ctypes.c_ulonglong * 6)()
-    fn(C, N, hd, int(f32), ctypes.addressof(out))
+    if fn(C, N, hd, int(f32), ctypes.addressof(out)):
+        return dict(zip(("gram", "chunk", "dx", "dcdb", "final"),
+                        (*out[:4], out[5])))
     return dict(zip(("gram", "chunk", "dx", "dc", "db", "final"), out))
 
 
@@ -109,7 +116,10 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 torch.zeros((B, T, N), **f32), torch.zeros((B, T, N), **f32))
     dAp = torch.empty((B, nc, H), **f32)
     dBp, dCp = (torch.empty((groups, B, nc * C, N), **f32) for _ in range(2))
-    gram = torch.empty((B, nc, CP, CP), **f32)
+    # G (or G^T), then for bf16 xh room for B and C split into bf16 hi and
+    # lo planes (4, B, nc, CP, N), which the wgmma route's passes load
+    planes = 2 * B * nc * CP * N if xh.dtype == torch.bfloat16 else 0
+    gram = torch.empty(B * nc * CP * CP + planes, **f32)
     gout = torch.empty((B, nc, H, hd, N), **f32)
     terms = torch.empty((B, nc, H, 5, CP), **f32)
     last = torch.empty((B, nc, H), **f32)

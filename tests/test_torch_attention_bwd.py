@@ -33,7 +33,10 @@ CASES = [(1, 12, 2, 200, 200, 128, True, 0),
          (1, 4, 2, 190, 190, 64, True, 70),
          (2, 6, 6, 150, 200, 64, False, 0),
          (2, 6, 6, 300, 130, 64, False, 0),
-         (1, 6, 6, 129, 129, 128, True, 0)]
+         (1, 6, 6, 129, 129, 128, True, 0),
+         # hd 80 (zamba2's), padded to two 64-column panels on the card
+         (1, 4, 4, 200, 200, 80, True, 0),
+         (2, 4, 2, 150, 130, 80, False, 0)]
 
 
 def _mask(Tq, Tk, causal, window):

@@ -186,7 +186,8 @@ FA_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
 # with a window and no causal mask, and 16 off its 64-row tiles); then the
 # wgmma route's tile edges at hd 64 and 128 (T 127, 128 and 129 about its
 # 128-row blocks and 64-row tiles, whisper's encoder T 1,500 and its
-# cross-attention's 448 x 1,500, Tq != Tk at hd 128, causal H / Hk = 6)
+# cross-attention's 448 x 1,500, Tq != Tk at hd 128, causal H / Hk = 6);
+# hd 80 is on the wgmma route too (two panels, zero past hd)
 FA_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                (2, 12, 2, 300, 300, 128, True, 100),
                (2, 6, 6, 200, 150, 64, False, 0),
@@ -205,9 +206,11 @@ FA_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                (1, 6, 2, 200, 330, 128, False, 0),
                (1, 12, 2, 300, 200, 128, False, 0),
                (1, 12, 2, 129, 129, 64, True, 0)]
-# the training paths' shapes: qwen2-1.5b's, whisper-tiny's encoder
+# the training paths' shapes: qwen2-1.5b's, whisper-tiny's encoder,
+# zamba2-2.7b's shared attention (hd 80)
 FA_BWD_TRAIN = [(8, 12, 2, 2048, 2048, 128, True, 0),
-                (8, 6, 6, 1500, 1500, 64, False, 0)]
+                (8, 6, 6, 1500, 1500, 64, False, 0),
+                (8, 32, 32, 2048, 2048, 80, True, 0)]
 # likewise, then T off the chunk, one chunk (C = T = 100), H off the
 # kernel's group of 8 heads
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
@@ -288,10 +291,11 @@ def _bwd_inputs(B, H, Hk, Tq, Tk, hd, causal, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window",
-                         [c for c in FA_BWD_GRID if c[5] in (64, 128)])
+                         [c for c in FA_BWD_GRID
+                          if c[5] in fab.WGMMA_HEAD_DIMS])
 def test_flash_attention_backward_wgmma_matches_tiled_plain_on_card(
         B, H, Hk, Tq, Tk, hd, causal, window):
-    """The wgmma route (bf16 at hd 64 and 128) against its arithmetic step
+    """The wgmma route (bf16 at hd 64, 80 and 128) against its arithmetic step
     by step (``ref.flash_attention_bwd_tiled_ref``: qs, P and dS rounded to
     bf16 where the kernel rounds them, fp32 sums over its tiles) on the
     same forward output and lse: atol = rtol = 1e-2, about two bf16 steps
@@ -416,10 +420,13 @@ def test_kernel_wrappers_refuse_what_they_do_not_take_on_card():
 
 
 # the backward kernel: the forward's grid (ragged T, one chunk, N 8 to 128,
-# H off the group of 8 heads), then mamba2-1.3b's and zamba2-2.7b's
-# training shapes (B 8 x T 2,048 at C 128; N 128 over 64 heads, N 64 over
-# 80)
+# H off the group of 8 heads); the edges of the bf16 wgmma route (hd 64, C
+# 128, N 64 and 128 in 64-column blocks): T off the chunk and H off the
+# head group at N 128, fewer heads than a group at N 64; then mamba2-1.3b's
+# and zamba2-2.7b's training shapes (B 8 x T 2,048 at C 128; N 128 over 64
+# heads, N 64 over 80)
 SSD_BWD_GRID = [c for c in SSD_GRID if c[0] * c[1] * c[2] < 2 ** 17] + [
+    (2, 300, 12, 64, 128, 128), (1, 330, 5, 64, 64, 128),
     (8, 2048, 64, 64, 128, 128), (8, 2048, 80, 64, 64, 128)]
 
 

@@ -39,7 +39,8 @@ sys.path.insert(0, str(ROOT))
 SHAPES = {"qwen2": (8, 12, 2, 2048, 2048, 128, True, 0),
           "whisper_enc": (8, 6, 6, 1500, 1500, 64, False, 0),
           "whisper_dec": (8, 6, 6, 448, 448, 64, True, 0),
-          "whisper_cross": (8, 6, 6, 448, 1500, 64, False, 0)}
+          "whisper_cross": (8, 6, 6, 448, 1500, 64, False, 0),
+          "zamba2": (8, 32, 32, 2048, 2048, 80, True, 0)}
 
 
 def load_variant(path: Path):
