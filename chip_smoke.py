@@ -162,10 +162,10 @@
    single-call timings after a warm-up, host launch gaps included.
    ``device_ms`` (``plain_device_ms``, ``library_device_ms``) times calls
    queued back to back between two CUDA events, with no host wait
-   between them; the profiler's CUDA trace gives each launch's own
-   device time (``ssd_scan``'s three passes, ``margin_head``'s slice and
-   merge passes, ``device_ms_by_launch``), None for a launch whose
-   records the trace lost.
+   between them; ``device_ms_by_launch`` stays empty (each launch's own
+   time: ``tools/time_attention_bwd.py`` and ``tools/time_ssd_bwd.py``).
+   Every check's and timing row's wall seconds are printed; their random
+   inputs are drawn on the card (seeded ``torch.Generator``s).
    The bound is the larger of the bytes the function must move over 3.35
    TB/s and its flops over the peak for the work's type: 67 TFLOP/s for
    fp32 on the CUDA cores, 989 TFLOP/s for bf16 on the tensor cores
@@ -178,7 +178,20 @@
    mamba2's training shapes, beside autograd's backward through the plain
    scan (no library call computes it), bound by its products at the bf16
    peak or its bytes (the forward's per-chunk states included).
-10. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
+10. The mesh phase, on a one-rank NCCL group (one card): (a) the
+   launcher campaign of step 5 over ``--mesh data=1`` in a child process
+   of this script, after the same campaign unmeshed in that process: its
+   result equal to the unmeshed ones, its trace clean against the
+   synchronous campaign's, its seconds by phase beside the unmeshed
+   run's; (b) dbrx-132b's layer 0 at full width through every sharded MoE
+   route (replicate + psum with the gather route in bf16 and int8 and
+   the psum FFN mode, a2a with both gathers), 8 x 256 tokens at capacity
+   factor 8, against the local block; (c) two int8 error-feedback
+   data-parallel steps of qwen2-1.5b at its full config from the served
+   weights, step 1's loss against a plain step's, every residual within
+   half its scale, the peak memory; (d) halo attention at gemma3-4b's
+   local layers' shape against the windowed blockwise attention.
+11. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
 
@@ -187,9 +200,9 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -208,22 +221,30 @@ FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 # the card's name and power limit (nvidia-smi), printed beside each rate
 CARD = "card not read"
-# readings of the backwards' previous routes on an NVIDIA H100 80GB HBM3 at
-# 700 W (the attention backward at hd 80 on fp32 FMAs, the SSD backward as
-# seven mma.sync launches), printed beside this run's at the same shapes:
-# device ms of the kernels at the training shapes, and per trained model
-# its s a step (steps 2-6), tokens/s and step 1's loss
-BEFORE_DEVICE_MS = {
-    ("flash_attention_bwd", (8, 32, 32, 2048, 2048, 80, True, 0)): 44.659201,
-    ("ssd_scan_bwd", (8, 2048, 64, 64, 128, 128)): 6.464378,
-    ("ssd_scan_bwd", (8, 2048, 80, 64, 64, 128)): 3.294274}
-BEFORE_TRAINING = {"mamba2-1.3b": ("2.466-2.474", 6633.5, 11.318),
-                   "zamba2-2.7b": ("3.748-3.783", 4362.7, 10.877)}
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def normal(torch, shape, g, scale: float = 1.0):
+    """Normal fp32 values drawn on the card from the generator ``g`` (a
+    host draw of a full LM head took seconds a matrix)."""
+    return torch.randn(shape, generator=g, device="cuda") * scale
+
+
+def card_generator(torch, seed: int):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def timed(label: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"seconds {label}: {time.perf_counter() - t0:.1f} ({CARD})",
+          flush=True)
+    return out
 
 
 def card_line() -> str:
@@ -267,33 +288,6 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def launch_ms(torch, fn, kernel: str, reps: int = 20) -> dict:
-    """Device time per call of each launch whose name carries ``kernel``
-    (``ssd_scan``'s three passes, ``margin_head``'s slice and merge
-    passes), from the profiler's CUDA trace.  Late in a long process the
-    trace can lose records: a name whose count is not a whole multiple of
-    ``reps`` is None, and printed."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if kernel not in e.key or t <= 0:
-            continue
-        out[e.key] = None if e.count % reps else t / reps / 1e3
-        if out[e.key] is None:
-            print(f"launch_ms {kernel}: the trace kept {e.count} records "
-                  f"of {e.key[:60]} over {reps} calls", flush=True)
-    return out
-
-
 def sass_instructions(nvcc: str, lib: Path, ops=("HMMA",)) -> dict:
     """How many instructions of each opcode in ``ops`` (HMMA: mma.sync;
     HGMMA: wgmma; UTMALDG: a TMA tensor load) the library's SASS holds,
@@ -333,15 +327,14 @@ MARGIN_DUP_GRID = [(8, 2560, 32000, 7, 20000), (8, 2560, 32000, 127, 128),
 def check_margin_head(torch, np, mh, ref, cases):
     """Kernel vs plain at each (T, D, V), fp32 and bf16; returns the max
     abs error in fp32."""
-    rng = np.random.default_rng(0)
+    gen = card_generator(torch, 0)
     worst = 0.0
     dtypes = [(torch.float32, 5e-5), (torch.bfloat16, 5e-2)]
     for T, D, V in cases:
-        h32 = rng.normal(size=(T, D)).astype(np.float32)
-        w32 = (rng.normal(size=(D, V)) * 0.1).astype(np.float32)
+        h32 = normal(torch, (T, D), gen)
+        w32 = normal(torch, (D, V), gen, 0.1)
         for dtype, tol in dtypes:
-            h = torch.as_tensor(h32, device="cuda").to(dtype)
-            w = torch.as_tensor(w32, device="cuda").to(dtype)
+            h, w = h32.to(dtype), w32.to(dtype)
             got = mh.margin_head(h, w)
             want = ref.margin_head_ref(h, w)
             torch.cuda.synchronize()
@@ -370,17 +363,18 @@ def check_margin_ties(torch, np, mh, ref, cases):
     the margin 0 (normal inputs); on integer inputs every logit is exact
     and the plain version ties the same way."""
     for T, D, V, first, copy in cases:
-        rng = np.random.default_rng(V + first)
+        g = card_generator(torch, V + first)
         for kind in ("normal", "integer"):
             if kind == "integer":
-                h = rng.integers(1, 4, size=(T, D)).astype(np.float32)
-                w = rng.integers(-2, 3, size=(D, V)).astype(np.float32)
+                h = torch.randint(1, 4, (T, D), generator=g,
+                                  device="cuda").float()
+                w = torch.randint(-2, 3, (D, V), generator=g,
+                                  device="cuda").float()
                 w[:, first] = w[:, copy] = 3.0
             else:
-                h = np.abs(rng.normal(size=(T, D))).astype(np.float32)
-                w = (rng.normal(size=(D, V)) * 0.1).astype(np.float32)
+                h = normal(torch, (T, D), g).abs()
+                w = normal(torch, (D, V), g, 0.1)
                 w[:, first] = w[:, copy] = 1.0
-            h, w = (torch.as_tensor(a, device="cuda") for a in (h, w))
             got, want = mh.margin_head(h, w), ref.margin_head_ref(h, w)
             torch.cuda.synchronize()
             if not (bool((got[3] == first).all())
@@ -540,9 +534,8 @@ FLASH_BWD_TILED_TOL = 1e-2
 
 def flash_inputs(torch, np, case, dtype, seed=3):
     B, H, Hk, Tq, Tk, hd = case[:6]
-    rng = np.random.default_rng(seed)
-    return [torch.as_tensor(rng.normal(size=s).astype(np.float32),
-                            device="cuda").to(dtype)
+    g = card_generator(torch, seed)
+    return [normal(torch, s, g).to(dtype)
             for s in ((B, H, Tq, hd), (B, Hk, Tk, hd), (B, Hk, Tk, hd))]
 
 
@@ -658,14 +651,11 @@ SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
 
 def ssd_inputs(torch, np, case, dtype, seed=4):
     B, T, H, hd, N = case[:5]
-    rng = np.random.default_rng(seed)
-
-    def t(a):
-        return torch.as_tensor(a.astype(np.float32), device="cuda")
-    return (t(rng.normal(size=(B, T, H, hd))).to(dtype),
-            t(np.abs(rng.normal(size=(B, T, H))) * 0.5 + 0.01),
-            t(np.abs(rng.normal(size=(H,))) * 0.5 + 0.1),
-            t(rng.normal(size=(B, T, N))), t(rng.normal(size=(B, T, N))))
+    g = card_generator(torch, seed)
+    return (normal(torch, (B, T, H, hd), g).to(dtype),
+            normal(torch, (B, T, H), g).abs() * 0.5 + 0.01,
+            normal(torch, (H,), g).abs() * 0.5 + 0.1,
+            normal(torch, (B, T, N), g), normal(torch, (B, T, N), g))
 
 
 def check_ssd(torch, np, ssd, ref, cases):
@@ -745,12 +735,9 @@ def ssd_bwd_inputs(torch, np, case, dtype, seed=6):
     fp32 final-state gradient."""
     B, T, H, hd, N = case[:5]
     ins = ssd_inputs(torch, np, case, dtype, seed=seed)
-    rng = np.random.default_rng(seed + 1)
-    dy = torch.as_tensor(rng.normal(size=(B, T, H, hd)).astype(np.float32),
-                         device="cuda").to(dtype)
-    dh = torch.as_tensor(rng.normal(size=(B, H, hd, N)).astype(np.float32),
-                         device="cuda")
-    return ins, dy, dh
+    g = card_generator(torch, seed + 1)
+    return ins, normal(torch, (B, T, H, hd), g).to(dtype), \
+        normal(torch, (B, H, hd, N), g)
 
 
 def _ssd_bwd_err(got, want, atol_of_max, rtols):
@@ -986,37 +973,52 @@ def run_campaigns(torch, np, mh, pd, pool: int, max_iters: int, seen: dict,
     return out
 
 
-def run_launcher_campaign(torch, mh, x, y, sync, trace_dir: Path,
-                          max_iters: int):
+def launcher_campaign(torch, mh, x, y, trace_dir: Path, max_iters: int,
+                      mesh=None, tag: str = "async"):
     """The margin campaign through ``repro_torch.launch.label.run_campaign``
     with ``sweep_async``, ``fit_async``, ``fit_resident`` and a trace,
-    preempted every two iterations and resumed from its state file; its
-    trace must diff clean against the synchronous campaign's and its result
-    equal it.  Returns margin_head's launches over all its runs."""
+    preempted every two iterations and resumed from its state file, over
+    ``mesh`` where given.  Returns its result, runs, wall seconds, seconds
+    by phase (summed over the runs), margin_head's launches and the trace's
+    path."""
     from repro_torch.core import AMAZON, LiveTask, MCALConfig
     from repro_torch.launch.label import run_campaign
-    from repro_torch.trace import diff
 
-    sync_path, sync_res = sync
-    state, path = trace_dir / "state.json", trace_dir / "async.jsonl"
+    state, path = trace_dir / f"state-{tag}.json", trace_dir / f"{tag}.jsonl"
     cfg = MCALConfig(eps_target=0.05, seed=0, metric="margin",
                      max_iters=max_iters, sweep_async=True, fit_async=True)
+    spent = dict.fromkeys(PHASES, 0.0)
     torch.cuda.synchronize()
     mh.launches = 0
     t0 = time.perf_counter()
     res, hops = None, 0
     while res is None:
         task = LiveTask(features=x, groundtruth=y, num_classes=10,
-                        fit_resident=True)
+                        fit_resident=True, mesh=mesh)
+        hop = time_phases(torch, task)
         res, camp = run_campaign(task, AMAZON, cfg, state_path=str(state),
                                  iters_per_run=2, trace_path=str(path),
                                  campaign_id="live-mlp-s0")
+        for k, v in hop.items():
+            spent[k] += v
         hops += 1
         if hops > 20:
-            fail("the launcher campaign never finished")
+            fail(f"the {tag} launcher campaign never finished")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = mh.launches
+    return (res, hops, time.perf_counter() - t0, spent, mh.launches, path)
+
+
+def run_launcher_campaign(torch, mh, x, y, sync, trace_dir: Path,
+                          max_iters: int):
+    """``launcher_campaign`` on this process's device: its trace must diff
+    clean against the synchronous campaign's and its result equal it.
+    Returns margin_head's launches over all its runs, its result and its
+    seconds by phase."""
+    from repro_torch.trace import diff
+
+    sync_path, sync_res = sync
+    res, hops, wall, spent, launches, path = launcher_campaign(
+        torch, mh, x, y, trace_dir, max_iters)
     d = diff(str(sync_path), str(path))
     print(f"launcher campaign (sweep_async, fit_async, fit_resident, "
           f"iters_per_run 2): {hops} runs, {summary(res)}, wall {wall:.2f} s "
@@ -1033,7 +1035,109 @@ def run_launcher_campaign(torch, mh, x, y, sync, trace_dir: Path,
              f"{summary(sync_res)}")
     if launches == 0:
         fail("margin_head never launched in the launcher campaign")
-    return launches
+    return launches, res, dict(spent, wall=wall)
+
+
+def mesh_campaign_child(pool: int, max_iters: int, trace_dir: str) -> None:
+    """The child process of the mesh phase's campaign: the data
+    ``run_campaigns`` makes, ``launcher_campaign`` unmeshed (which also
+    warms this process: its CUDA context, kernels, cuBLAS) and then over a
+    one-rank NCCL group (``--mesh data=1``); prints one JSON line."""
+    import zlib
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data.synth import make_classification
+    from repro_torch.kernels import margin_head as mh
+    from repro_torch.launch.label import build_mesh
+    from repro_torch.launch.mesh import CAMPAIGN_THREADS, thread_groups
+    x, y = make_classification(pool, num_classes=10, dim=32,
+                               difficulty=0.3, seed=0)
+    plain = launcher_campaign(torch, mh, x, y, Path(trace_dir), max_iters,
+                              tag="child")
+    t0 = time.perf_counter()
+    mesh = build_mesh("data=1", "cuda")
+    setup = time.perf_counter() - t0
+    # what each scoring engine pays on a mesh before its first pass: its
+    # thread groups, and a first collective on each (NCCL makes its
+    # communicator there)
+    t0 = time.perf_counter()
+    groups = thread_groups(mesh, "data", CAMPAIGN_THREADS)
+    made = time.perf_counter() - t0
+    probe = torch.zeros(1, device="cuda")
+    t0 = time.perf_counter()
+    for g in groups.values():
+        torch.distributed.all_reduce(probe, group=g)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    res, hops, wall, spent, launches, path = launcher_campaign(
+        torch, mh, x, y, Path(trace_dir), max_iters, mesh=mesh, tag="mesh")
+    print(json.dumps({
+        "summary": summary(res), "runs": hops, "wall": wall,
+        "spent": spent, "launches": launches, "trace": str(path),
+        "plain_summary": summary(plain[0]), "plain_wall": plain[2],
+        "plain_spent": plain[3],
+        "labels_crc": zlib.crc32(res.labels.tobytes()),
+        "backend": torch.distributed.get_backend(),
+        "world": torch.distributed.get_world_size(),
+        "mesh_seconds": setup, "groups_seconds": made,
+        "first_collectives_seconds": first}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def run_mesh_campaign(torch, trace_dir: Path, pool: int, max_iters: int,
+                      sync_path: Path, unmeshed):
+    """Mesh phase (a): ``launcher_campaign`` over ``--mesh data=1``, a
+    one-rank NCCL group, in a child process (``mesh_campaign_child``): its
+    result must equal the unmeshed launcher campaign's (this process's
+    and the child's own, run first) and its trace diff clean against the
+    synchronous campaign's.  Prints its seconds by phase beside the
+    child's unmeshed run's.  Returns the meshed run's margin_head
+    launches."""
+    import zlib
+
+    from repro_torch.launch.mesh import CAMPAIGN_THREADS
+    from repro_torch.trace import diff
+    res, spent = unmeshed
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-campaign",
+         str(trace_dir), "--pool", str(pool), "--max-iters",
+         str(max_iters)], capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"the mesh campaign's child exited {out.returncode}: "
+             f"{out.stderr[-3000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    d = diff(str(sync_path), got["trace"])
+    print(f"mesh campaign (--mesh data=1 on a {got['world']}-rank "
+          f"{got['backend']} group, child process {secs:.1f} s, group "
+          f"set-up {got['mesh_seconds']:.2f} s; an engine's "
+          f"{len(CAMPAIGN_THREADS)} thread groups "
+          f"{got['groups_seconds']:.2f} s and their first collectives "
+          f"{got['first_collectives_seconds']:.2f} s): {got['runs']} runs, "
+          f"{got['summary']}, wall {got['wall']:.2f} s against "
+          f"{got['plain_wall']:.2f} s unmeshed in the same process "
+          f"({spent['wall']:.2f} s in this one), margin_head launches "
+          f"{got['launches']}, trace diff against the synchronous "
+          f"campaign: {'clean' if d is None else d.describe()} ({CARD})",
+          flush=True)
+    plain = got["plain_spent"]
+    print("mesh campaign seconds by phase, meshed | unmeshed: " + ", ".join(
+        f"{k} {got['spent'][k]:.3f} | {plain[k]:.3f}" for k in PHASES
+        if got["spent"][k] or plain[k]) + f" ({CARD})", flush=True)
+    if got["backend"] != "nccl" or got["world"] != 1:
+        fail(f"the mesh campaign ran on {got['backend']} x {got['world']}")
+    if got["summary"] != summary(res) or \
+            got["plain_summary"] != summary(res) or \
+            got["labels_crc"] != zlib.crc32(res.labels.tobytes()):
+        fail(f"the mesh campaign ended {got['summary']}, the unmeshed one "
+             f"{summary(res)}")
+    if d is not None:
+        fail(f"mesh campaign trace: {d.describe()}")
+    if got["launches"] == 0:
+        fail("margin_head never launched in the mesh campaign")
+    return got["launches"]
 
 
 def run_kcenter_plain_distances(torch, x, y, max_iters: int, kernel_end):
@@ -1866,12 +1970,13 @@ def per_forward(cfg) -> dict:
 
 def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
                 gen: int, seen: dict, pool_pass=None, layers: int = 0,
-                train=None):
+                train=None, extra=None):
     """``arch``'s full config, bf16, through ServeEngine; returns the
     serving path's launch counts.  ``seen`` collects kernel shapes.
-    ``pool_pass`` and ``train``, where given, are called in that order
-    with (model, params) before the model is freed, and each returns its
-    own launch counts (so a training phase reuses the served weights).
+    ``pool_pass``, ``extra`` and ``train``, where given, are called in
+    that order with (model, params) before the model is freed; the first
+    and the last each return their own launch counts (so a training phase
+    reuses the served weights), ``extra`` (a mesh check) keeps its own.
     ``layers``, where given, cuts the depth (every width stays the
     config's).  A VLM's requests carry ``frontend_tokens`` random fp32
     patch embeddings each (seed 0), which its cache holds before the
@@ -2057,6 +2162,8 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     pooled_launches = trained_launches = None
     if pool_pass is not None:
         pooled_launches = pool_pass(model, params)
+    if extra is not None:
+        extra(model, params)
     if train is not None:
         trained_launches = train(model, params)
     del params, engine, w_head, cast, stats, pooled, out, last, want_first
@@ -2284,14 +2391,6 @@ def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
               f"{torch.cuda.max_memory_allocated()}; {cfg.num_layers} "
               f"layers, moments {moment_dtype}; launches {got} ({CARD})",
               flush=True)
-        if cfg.name in BEFORE_TRAINING:
-            b_step, b_rate, b_loss = BEFORE_TRAINING[cfg.name]
-            print(f"train {cfg.name}: steps 2-{steps} "
-                  f"{min(secs[1:]):.3f}-{max(secs[1:]):.3f} s a step, "
-                  f"{batch * seq * (steps - 1) / sum(secs[1:]):.1f} "
-                  f"tokens/s, step 1 loss {losses[0]:.3f} beside "
-                  f"{b_step} s, {b_rate} tokens/s and {b_loss} before",
-                  flush=True)
         if len(losses) != steps or not all(np.isfinite(losses)) or \
                 not losses[-1] < losses[0]:
             fail(f"train {cfg.name}: losses {losses} are not finite and "
@@ -2423,6 +2522,199 @@ KERNEL_PREFIXES = ("margin_head_", "pairwise_sqdist_", "flash_attention_",
                    "fa_bwd_", "ssd_scan_", "ssd_bwd_")
 
 
+# the MoE's routes of the mesh phase (b): the replicate + psum route with
+# the expert FFN gathered in the weights' dtype and in int8 and with its
+# psum mode, and the token-routing a2a route gathered both ways
+MOE_ROUTES = {
+    "replicate_gather": dict(moe_route="replicate_psum", moe_ffn_mode="gather",
+                             moe_gather_dtype="bf16"),
+    "replicate_gather_int8": dict(moe_route="replicate_psum",
+                                  moe_ffn_mode="gather",
+                                  moe_gather_dtype="int8"),
+    "replicate_psum_ffn": dict(moe_route="replicate_psum",
+                               moe_ffn_mode="psum", moe_gather_dtype="bf16"),
+    "a2a_gather": dict(moe_route="a2a", moe_ffn_mode="gather",
+                       moe_gather_dtype="bf16"),
+    "a2a_gather_int8": dict(moe_route="a2a", moe_ffn_mode="gather",
+                            moe_gather_dtype="int8")}
+MOE_TOL = 0.1      # the port's bf16 MoE checks' atol = rtol
+EF_BOUND = 0.5 + 127 * 2.0 ** -24   # a residual over its scale
+
+
+def moe_routes(torch, mesh, secs: dict, tokens=(8, 256)):
+    """Mesh phase (b), a hook for ``run_serving`` (dbrx-132b): layer 0's
+    routed MoE weights at full width through every sharded route
+    (``transformer.moe_sharded(force=True)``: every collective of the
+    route over the one-rank NCCL mesh), 8 x 256 random bf16 tokens (seed
+    0), capacity factor 8 so no copy drops, each held against the local
+    block (``_moe_local``): within atol = rtol = ``MOE_TOL``, 50 times
+    that for int8."""
+    from repro_torch.models import transformer as T
+
+    def run(model, params):
+        t0 = time.perf_counter()
+        cfg = model.cfg.replace(moe_capacity_factor=8.0)
+        p = {k: params[f"blocks.mlp.{k}"][0]
+             for k in ("router", "w_gate", "w_up", "w_down")}
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(*tokens, cfg.d_model, generator=g).to(
+            "cuda", torch.bfloat16)
+        with torch.no_grad():
+            want = T._moe_local(cfg, p, x.reshape(-1, cfg.d_model)) \
+                .reshape(x.shape).float()
+            for name, kw in MOE_ROUTES.items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got = T.moe_sharded(cfg.replace(**kw), p, x, mesh,
+                                    force=True).float()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+                tol = MOE_TOL * (50 if kw["moe_gather_dtype"] == "int8"
+                                 else 1)
+                err = (got - want).abs()
+                worst = float((err - tol * want.abs()).max())
+                print(f"mesh moe {name} at {tuple(x.shape)} tokens, "
+                      f"d_model {cfg.d_model}, {cfg.num_experts} experts top "
+                      f"{cfg.experts_per_token}, d_ff {cfg.d_ff}: max abs "
+                      f"err {float(err.max()):.6g} against the local "
+                      f"block, {ms:.2f} ms ({CARD})", flush=True)
+                if not torch.isfinite(got).all() or worst > tol:
+                    fail(f"mesh moe {name}: error {float(err.max())} "
+                         f"beyond atol = rtol = {tol}")
+                del got, err
+        del x, want, p
+        secs["b"] = time.perf_counter() - t0
+    return run
+
+
+def compressed_dp(torch, np, mods, mesh, seen: dict, secs: dict,
+                  launches: dict, steps: int = 2, batch: int = 8,
+                  seq: int = 2048, lr: float = 1e-4):
+    """Mesh phase (c), a hook for ``run_serving`` (qwen2-1.5b at its full
+    config, before its training): from the served weights, one plain train
+    step (``train_loop.make_train_step``) and then ``steps`` steps of
+    ``grad_compression="int8_ef"`` (``compressed_dp``'s step over the
+    one-rank NCCL mesh's "data" axis) on the same batch of ``batch`` x
+    ``seq`` tokens (``make_lm_tokens`` seed 1): step 1's loss must meet the
+    plain step's within 1e-3 relative (the loss precedes the update), and
+    every residual the quantizer leaves be within half its scale (and the
+    fp32 rounding of q * scale).  Prints the peak device memory."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synth import make_lm_tokens
+    from repro_torch.distributed import compression
+    from repro_torch.training.compressed_dp import (
+        init_ef_state, make_compressed_dp_train_step)
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    def run(model, params):
+        t0 = time.perf_counter()
+        cfg = model.cfg
+        toks = torch.as_tensor(make_lm_tokens(batch, seq + 1,
+                                              cfg.vocab_size, seed=1),
+                               device="cuda")
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        tc = TrainConfig(learning_rate=lr, schedule="paper_steps",
+                         total_steps=steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, m = make_train_step(model, tc)(init_train_state(model, tc,
+                                                           params), b)
+        plain = float(m["loss"])
+        plain_peak = torch.cuda.max_memory_allocated()
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        quantize, ratios = compression.quantize_ef, []
+
+        def recording(g, residual):
+            q, scale, left = quantize(g, residual)
+            ratios.append(torch.amax(torch.abs(left)) / scale)
+            return q, scale, left
+
+        compression.quantize_ef = recording
+        restore = [record_shapes(mods["flash_attention_bwd"],
+                                 "flash_attention_bwd",
+                                 seen["flash_attention_bwd"], flash_bwd_key),
+                   record_shapes(mods["flash_attention"], "flash_attention",
+                                 seen["flash_attention"], flash_key)]
+        try:
+            step = make_compressed_dp_train_step(
+                model, dataclasses.replace(tc, grad_compression="int8_ef"),
+                mesh, "data")
+            carry = (init_train_state(model, tc, params),
+                     init_ef_state(params))
+            _zero(torch, mods)
+            losses, walls = [], []
+            for _ in range(steps):
+                t1 = time.perf_counter()
+                carry, m = step(carry, b)
+                losses.append(float(m["loss"]))
+                walls.append(time.perf_counter() - t1)
+            got = {k: mod.launches for k, mod in mods.items()}
+        finally:
+            compression.quantize_ef = quantize
+            for r in restore:
+                r()
+        worst = float(torch.stack(ratios).max())
+        peak = torch.cuda.max_memory_allocated()
+        print(f"mesh compressed DP {cfg.name} (int8_ef over a one-rank "
+              f"NCCL data axis, {len(ratios) // steps} leaves): losses "
+              f"{losses}, plain step 1 loss {plain!r}, step seconds "
+              f"{[round(w, 3) for w in walls]}, worst residual / scale "
+              f"{worst:.7f}, max_memory_allocated bytes {peak} (plain step "
+              f"{plain_peak}), launches {got} ({CARD})", flush=True)
+        if not all(np.isfinite(losses)) or \
+                abs(losses[0] - plain) > 1e-3 * abs(plain):
+            fail(f"compressed DP: step 1 loss {losses[0]} against the plain "
+                 f"step's {plain}")
+        if worst > EF_BOUND:
+            fail(f"compressed DP: a residual reached {worst} of its scale")
+        if got["flash_attention_bwd"] == 0:
+            fail("compressed DP never launched the attention backward")
+        launches["compressed_dp"] = got
+        del carry, step, b, toks, ratios
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["c"] = time.perf_counter() - t0
+    return run
+
+
+def check_halo(torch, mesh, secs: dict, B=8, T=2048, H=8, Hk=4, hd=256,
+               window=1024):
+    """Mesh phase (d): ``halo_window_attention`` on the one-rank NCCL
+    mesh's "model" axis at gemma3-4b's local-layer shape (B 8, T 2,048, H
+    8 over 4 kv heads, hd 256, window 1,024; fp32, seed 0) against the
+    port's windowed ``blockwise_attention``: within 2e-5, the reference's
+    halo tolerance."""
+    from repro_torch.models.layers import blockwise_attention
+    from repro_torch.serving.halo_attention import halo_window_attention
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(B, T, H, hd, generator=g).cuda()
+    k, v = (torch.randn(B, T, Hk, hd, generator=g).cuda() for _ in "kv")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = halo_window_attention(q, k, v, window=window, mesh=mesh,
+                                    axis="model")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        want = blockwise_attention(q, k, v, causal=True, window=window,
+                                   kv_chunk=1024)
+        err = float((got - want).abs().max())
+    print(f"mesh halo attention at (B {B}, T {T}, H {H}/{Hk}, hd {hd}, "
+          f"window {window}): max abs err {err:.3g} against the windowed "
+          f"blockwise attention, {ms:.1f} ms ({CARD})", flush=True)
+    if not err <= 2e-5:
+        fail(f"halo attention: error {err} > 2e-5")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    secs["d"] = time.perf_counter() - t0
+
+
 def profile_pass(torch, label: str, fn, top: int = 10):
     """Where one pass's time goes: the profiler's device time by kernel
     name, and the device's busy share of the pass's wall time."""
@@ -2459,8 +2751,9 @@ def profile_pass(torch, label: str, fn, top: int = 10):
 
 
 def timing_row(torch, name, shape, kern, plain, library, nbytes, flops,
-               peak, own):
+               peak):
     b_ms, b_by = bound(nbytes, flops, peak)
+    t0 = time.perf_counter()
     row = {"name": name, "shape": list(shape),
            "ms": median_ms(torch, kern), "plain_ms": median_ms(torch, plain),
            "library_ms": None if library is None
@@ -2470,15 +2763,16 @@ def timing_row(torch, name, shape, kern, plain, library, nbytes, flops,
            "plain_device_ms": device_ms(torch, plain, reps=5),
            "library_device_ms": None if library is None
            else device_ms(torch, library),
-           "device_ms_by_launch": launch_ms(torch, kern, own)}
+           # by launch: tools/time_{attention,ssd}_bwd.py (the profiler
+           # pass here gave nothing in PR 24's last run)
+           "device_ms_by_launch": {}}
+    print(f"seconds time {name} {list(shape)}: "
+          f"{time.perf_counter() - t0:.1f} ({CARD})", flush=True)
     print(f"time {name} {row['shape']}: kernel {row['ms']:.4f} ms "
           f"(device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms "
           f"(device {row['plain_device_ms']:.4f}), library "
           f"{row['library_ms']} ms (device {row['library_device_ms']}), "
           f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    for key, ms in row["device_ms_by_launch"].items():
-        print(f"time {name} {row['shape']} device ms by launch: {ms} "
-              f"{key[:100]}", flush=True)
     return row
 
 
@@ -2511,7 +2805,7 @@ def time_flash(torch, np, fa, ref, case):
         lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window), library,
         2 * (2 * B * H * Tq * hd + 2 * B * Hk * Tk * hd), 4 * hd * pairs,
-        BF16_FLOPS_PER_S, "flash_attention_")
+        BF16_FLOPS_PER_S)
     del q, k, v
     torch.cuda.empty_cache()
     return row
@@ -2555,13 +2849,7 @@ def time_flash_bwd(torch, np, mods, ref, case):
         lambda: torch.autograd.grad(lib_out, lib_in, dout,
                                     retain_graph=True),
         2 * (4 * B * H * Tq * hd + 4 * B * Hk * Tk * hd) + 4 * B * H * Tq,
-        2.5 * 4 * hd * pairs, BF16_FLOPS_PER_S, "fa_bwd_")
-    before = BEFORE_DEVICE_MS.get(("flash_attention_bwd", tuple(case)))
-    if before is not None:
-        print(f"time flash_attention_bwd {list(case)}: device "
-              f"{row['device_ms']:.4f} ms beside {before} ms before and "
-              f"SDPA's backward {row['library_device_ms']:.4f} ms ({CARD})",
-              flush=True)
+        2.5 * 4 * hd * pairs, BF16_FLOPS_PER_S)
     del q, k, v, dout, out, lse, plain_in, plain_out, lib_in, lib_out
     torch.cuda.empty_cache()
     return row
@@ -2605,15 +2893,7 @@ def time_ssd_bwd(torch, np, mods, ref, case):
         lambda: ssdb.ssd_scan_bwd(*ins, states, dy, None, chunk=C),
         lambda: torch.autograd.grad(plain_y, plain_in, dy,
                                     retain_graph=True),
-        None, nbytes, flops, BF16_FLOPS_PER_S, "ssd_bwd_")
-    before = BEFORE_DEVICE_MS.get(("ssd_scan_bwd", tuple(case)))
-    if before is not None:
-        by = row["device_ms_by_launch"]
-        print(f"time ssd_scan_bwd {list(case)}: device {row['device_ms']:.4f}"
-              f" ms (by launch " + ", ".join(
-                  f"{re.search(r'ssd_bwd_[a-z_]+', k).group(0)} {v}"
-                  for k, v in by.items()) + f") beside {before} ms before "
-              f"({CARD})", flush=True)
+        None, nbytes, flops, BF16_FLOPS_PER_S)
     del ins, dy, states, plain_in, plain_y
     torch.cuda.empty_cache()
     return row
@@ -2621,28 +2901,24 @@ def time_ssd_bwd(torch, np, mods, ref, case):
 
 def time_kernels(torch, np, mods, ref, shapes):
     """Each kernel at its largest main-path shape."""
-    rng = np.random.default_rng(2)
     mh, pd, fa, ssd = (mods[k] for k in ("margin_head", "pairwise_sqdist",
                                          "flash_attention", "ssd_scan"))
     rows = []
+    g = card_generator(torch, 2)
     for T, D, V in shapes["margin_head"]:
-        h = torch.as_tensor(rng.normal(size=(T, D)).astype(np.float32),
-                            device="cuda")
-        w = torch.as_tensor((rng.normal(size=(D, V)) * 0.1)
-                            .astype(np.float32), device="cuda")
+        h = normal(torch, (T, D), g)
+        w = normal(torch, (D, V), g, 0.1)
         # fp32 in, 4 fp32 outputs per row; the product and ~6 flops per
         # logit for the online statistics
         rows.append(timing_row(
             torch, "margin_head", (T, D, V), lambda: mh.margin_head(h, w),
             lambda: ref.margin_head_ref(h, w), None,
             4 * (T * D + D * V) + 16 * T, 2 * T * D * V + 6 * T * V,
-            FP32_FLOPS_PER_S, "margin_head_"))
+            FP32_FLOPS_PER_S))
         del h, w
     for N, M, D in shapes["pairwise_sqdist"]:
-        x = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
-                            device="cuda")
-        c = torch.as_tensor(rng.normal(size=(M, D)).astype(np.float32),
-                            device="cuda")
+        x = normal(torch, (N, D), g)
+        c = normal(torch, (M, D), g)
         # the bound's operations: x.c as six bf16 products on the tensor
         # cores (the norms and the epilogue, O(N M + (N + M) D), are noise)
         rows.append(timing_row(
@@ -2651,7 +2927,7 @@ def time_kernels(torch, np, mods, ref, shapes):
             lambda: ref.pairwise_sqdist_ref(x, c),
             lambda: torch.cdist(x, c).square(),
             4 * (N * D + M * D + N * M), 6 * 2 * N * M * D,
-            BF16_FLOPS_PER_S, "pairwise_sqdist_kernel"))
+            BF16_FLOPS_PER_S))
         del x, c
         torch.cuda.empty_cache()
     for case in shapes["flash_attention"]:
@@ -2674,7 +2950,7 @@ def time_kernels(torch, np, mods, ref, shapes):
         rows.append(timing_row(
             torch, "ssd_scan", case, lambda: ssd.ssd_scan(*ins, chunk=C),
             lambda: ref.ssd_scan_ref(*ins, chunk=C), None, nbytes, flops,
-            BF16_FLOPS_PER_S, "ssd_scan_"))
+            BF16_FLOPS_PER_S))
         del ins
         torch.cuda.empty_cache()
     for case in shapes["ssd_scan_bwd"]:
@@ -2689,7 +2965,12 @@ def main() -> None:
     ap.add_argument("--serve-batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--gen", type=int, default=32)
+    # the mesh phase's campaign runs in a child process of this script
+    ap.add_argument("--mesh-campaign", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_campaign:
+        mesh_campaign_child(args.pool, args.max_iters, args.mesh_campaign)
+        return
 
     t_start = time.perf_counter()
     import numpy as np
@@ -2759,20 +3040,26 @@ def main() -> None:
             if n == 0:
                 fail(f"{name} compiled to no {op} instruction")
 
-    check_margin_head(torch, np, mh, ref, MARGIN_GRID)
-    check_margin_ties(torch, np, mh, ref, MARGIN_DUP_GRID)
-    check_pairwise(torch, np, pd, ref, PAIRWISE_GRID, PAIRWISE_INT_GRID,
-                   PAIRWISE_REF_GRID)
-    check_flash(torch, np, fa, ref, FLASH_GRID)
-    check_flash_bwd(torch, np, mods, ref, FLASH_BWD_GRID)
-    check_ssd(torch, np, ssd, ref, SSD_GRID)
-    check_ssd_states(torch, np, ssd, ref, SSD_GRID[4])
+    timed("check margin_head grid", check_margin_head, torch, np, mh, ref,
+          MARGIN_GRID)
+    timed("check margin_head ties", check_margin_ties, torch, np, mh, ref,
+          MARGIN_DUP_GRID)
+    timed("check pairwise_sqdist grids", check_pairwise, torch, np, pd, ref,
+          PAIRWISE_GRID, PAIRWISE_INT_GRID, PAIRWISE_REF_GRID)
+    timed("check flash_attention grid", check_flash, torch, np, fa, ref,
+          FLASH_GRID)
+    timed("check flash_attention_bwd grid", check_flash_bwd, torch, np,
+          mods, ref, FLASH_BWD_GRID)
+    timed("check ssd_scan grid", check_ssd, torch, np, ssd, ref, SSD_GRID)
+    timed("check ssd_scan states", check_ssd_states, torch, np, ssd, ref,
+          SSD_GRID[4])
     for C, N, hd in ((128, 128, 64), (128, 64, 64)):
         for f32 in (False, True):
             print(f"ssd_scan_bwd shared memory bytes at C {C}, N {N}, hd "
                   f"{hd}, xh {'fp32' if f32 else 'bf16'}: "
                   f"{ssdb.smem_bytes(C, N, hd, f32)}", flush=True)
-    check_ssd_bwd(torch, np, ssd, ssdb, ref, SSD_BWD_GRID)
+    timed("check ssd_scan_bwd grid", check_ssd_bwd, torch, np, ssd, ssdb,
+          ref, SSD_BWD_GRID)
     phase("build and kernel checks")
 
     # the shapes each main path gave each kernel
@@ -2783,7 +3070,9 @@ def main() -> None:
                          "pool_pass_mamba2", "serving_dbrx",
                          "serving_internvl2", "training_qwen2",
                          "serving_whisper", "training_whisper",
-                         "training_mamba2", "training_zamba2")}
+                         "training_mamba2", "training_zamba2",
+                         "mesh_compressed_dp")}
+    mesh_secs: dict = {}     # the mesh phase's parts: (a) .. (d)
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -2791,9 +3080,14 @@ def main() -> None:
         restore = record_shapes(mh, "margin_head",
                                 seen_by["campaigns"]["margin_head"],
                                 margin_key)
-        launcher = run_launcher_campaign(torch, mh, x, y, camps["sync"],
-                                         Path(tmp), args.max_iters)
+        launcher, unmeshed, spent = run_launcher_campaign(
+            torch, mh, x, y, camps["sync"], Path(tmp), args.max_iters)
         restore()
+        t_mesh = time.perf_counter()
+        mesh_launches = {"campaign": run_mesh_campaign(
+            torch, Path(tmp), args.pool, args.max_iters, camps["sync"][0],
+            (unmeshed, spent))}
+        mesh_secs["a"] = time.perf_counter() - t_mesh
         run_kcenter_plain_distances(torch, x, y, args.max_iters,
                                     camps["kcenter_end"])
         replay = run_replay_campaigns(torch, pd,
@@ -2830,10 +3124,18 @@ def main() -> None:
     # the dense LM labeler: qwen2-1.5b served, then its token-pool pass,
     # then trained from the served weights; gemma3-4b (hd 256,
     # local:global windows, tied 262k head) served
+    # the mesh phase's one-rank NCCL group, ("data", "model") = (1, 1)
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mesh_secs["group"] = time.perf_counter() - t0
     served_qwen2, pooled, trained_qwen2 = run_serving(
         torch, np, mods, "qwen2-1.5b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_qwen2"],
         pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass"]),
+        extra=compressed_dp(torch, np, mods, mesh,
+                            seen_by["mesh_compressed_dp"], mesh_secs,
+                            mesh_launches),
         train=train_lm(torch, np, mods, seen_by["training_qwen2"]))
     phase("serving, pool pass and training qwen2-1.5b")
     served_gemma3, _ = run_serving(
@@ -2856,7 +3158,8 @@ def main() -> None:
     phase("serving, pool pass and training mamba2-1.3b")
     served_dbrx, _ = run_serving(
         torch, np, mods, "dbrx-132b", args.serve_batch, args.prompt_len,
-        args.gen, seen_by["serving_dbrx"], layers=DBRX_LAYERS)
+        args.gen, seen_by["serving_dbrx"], layers=DBRX_LAYERS,
+        extra=moe_routes(torch, mesh, mesh_secs))
     phase("serving dbrx-132b")
     served_internvl2, _ = run_serving(
         torch, np, mods, "internvl2-26b", args.serve_batch, args.prompt_len,
@@ -2870,6 +3173,11 @@ def main() -> None:
         train=train_whisper_resume(torch, np, mods,
                                    seen_by["training_whisper"]))
     phase("serving and training whisper-tiny")
+    check_halo(torch, mesh, mesh_secs)
+    torch.distributed.destroy_process_group()
+    print(f"phase mesh seconds: {sum(mesh_secs.values()):.1f} (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in mesh_secs.items()) + f"; {CARD})",
+        flush=True)
     from repro_torch.configs import get_config
     states = {s[4] for s in seen_by["serving_mamba2"]["ssd_scan"]}
     if states != {get_config("mamba2-1.3b").ssm_state}:
@@ -2905,7 +3213,11 @@ def main() -> None:
                    "serving_whisper": served_whisper[k],
                    "training_whisper": trained_whisper[k],
                    "training_mamba2": trained_mamba2[k],
-                   "training_zamba2": trained_zamba2[k]} for k in mods}
+                   "training_zamba2": trained_zamba2[k],
+                   "mesh_campaign": mesh_launches["campaign"]
+                   if k == "margin_head" else 0,
+                   "mesh_compressed_dp":
+                   mesh_launches["compressed_dp"][k]} for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain
     # version again; max_abs_err is the worst of these
@@ -2913,17 +3225,24 @@ def main() -> None:
         print(f"main-path shapes of {name}: {sorted(shapes)}", flush=True)
         if not shapes:
             fail(f"{name} was given no shape on the main paths")
-    errs = {"margin_head": check_margin_head(
+    errs = {"margin_head": timed(
+                "check margin_head main-path shapes", check_margin_head,
                 torch, np, mh, ref, sorted(seen["margin_head"])),
-            "pairwise_sqdist": check_pairwise(
+            "pairwise_sqdist": timed(
+                "check pairwise_sqdist main-path shapes", check_pairwise,
                 torch, np, pd, ref, sorted(seen["pairwise_sqdist"])),
-            "flash_attention": check_flash(
+            "flash_attention": timed(
+                "check flash_attention main-path shapes", check_flash,
                 torch, np, fa, ref, sorted(seen["flash_attention"])),
-            "ssd_scan": check_ssd(torch, np, ssd, ref,
-                                  sorted(seen["ssd_scan"])),
-            "flash_attention_bwd": check_flash_bwd(
-                torch, np, mods, ref, sorted(seen["flash_attention_bwd"])),
-            "ssd_scan_bwd": check_ssd_bwd(
+            "ssd_scan": timed(
+                "check ssd_scan main-path shapes", check_ssd, torch, np,
+                ssd, ref, sorted(seen["ssd_scan"])),
+            "flash_attention_bwd": timed(
+                "check flash_attention_bwd main-path shapes",
+                check_flash_bwd, torch, np, mods, ref,
+                sorted(seen["flash_attention_bwd"])),
+            "ssd_scan_bwd": timed(
+                "check ssd_scan_bwd main-path shapes", check_ssd_bwd,
                 torch, np, ssd, ssdb, ref, sorted(seen["ssd_scan_bwd"]))}
     phase("kernel checks at the main paths' shapes")
     # timed at the largest main-path shape of each (margin_head at the
@@ -2933,9 +3252,10 @@ def main() -> None:
     # pairwise_sqdist at the live k-center's, the fleet's, the selection's
     # other widths and the replay k-center's, that last; flash_attention
     # at zamba2's, qwen2's, the pool pass's, dbrx's, gemma3's local and
-    # global layers' and internvl2's, that last; ssd_scan at zamba2's state
-    # N 64, mamba2's pool pass's and mamba2's serving shape, N 128, that
-    # last)
+    # global layers' and internvl2's, that last; its backward at each of
+    # whisper's training shapes (encoder, decoder, cross-attention), then
+    # zamba2's and qwen2's, that last; ssd_scan at zamba2's state N 64,
+    # mamba2's pool pass's and mamba2's serving shape, N 128, that last)
     def widest(shapes, size, width):
         return [max((s for s in shapes if width(s) == w),
                     key=lambda s: (size(s), s))
@@ -2971,11 +3291,11 @@ def main() -> None:
             seen_by["serving_whisper"]["flash_attention"]) + [
             max(seen_by["serving_internvl2"]["flash_attention"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))],
-        "flash_attention_bwd": [
+        "flash_attention_bwd": sorted(
+            seen_by["training_whisper"]["flash_attention_bwd"]) + [
             max(seen_by[p]["flash_attention_bwd"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
-            for p in ("training_whisper", "training_zamba2",
-                      "training_qwen2")],
+            for p in ("training_zamba2", "training_qwen2")],
         "ssd_scan_bwd": [max(seen_by[p]["ssd_scan_bwd"],
                              key=lambda s: (s[0] * s[1] * s[2], s))
                          for p in ("training_zamba2", "training_mamba2")],

@@ -1,9 +1,11 @@
 """Model and training configs (the ``repro.configs.base`` dataclasses).
 
-Only the fields the ported families read are kept, with the reference's
-defaults, except ``family``, which defaults to the port's first family,
-``mlp``.  Dtype strings map to torch dtypes.  The reference's
-``sharding`` settings wait for the mesh (ROADMAP A).
+Only the fields the ported families and the mesh read are kept, with the
+reference's defaults, except ``family``, which defaults to the port's
+first family, ``mlp``.  Dtype strings map to torch dtypes.  ``sharding``
+names the policy ``distributed.sharding`` maps the logical axes with;
+the MoE's ``moe_route``, ``moe_ffn_mode`` and ``moe_gather_dtype`` pick
+its routes over a mesh.
 """
 from __future__ import annotations
 
@@ -56,6 +58,10 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
     num_shared_experts: int = 0  # kimi-style always-on shared expert(s)
+    moe_gather_dtype: str = "bf16"  # "int8" halves the expert-shard
+                                    # all-gather (lossy)
+    moe_route: str = "replicate_psum"  # | "a2a" (token-routing EP)
+    moe_ffn_mode: str = "gather"       # | "psum" (local-F partial sums)
     # enc-dec (whisper; stub frontend: precomputed frame embeddings) -------
     encoder_layers: int = 0
     encoder_tokens: int = 0      # stub frontend output length (whisper 1500)
@@ -67,6 +73,8 @@ class ModelConfig:
     remat: str = "layer"         # none | layer: recompute each layer in the
                                  # backward (torch.utils.checkpoint)
     logits_chunk: int = 0        # 0 -> materialize logits; else chunked
+    # sharding --------------------------------------------------------------
+    sharding: str = "fsdp_tp"    # a distributed.sharding.POLICIES key
     # classifier head for MCAL labeling tasks --------------------------------
     num_classes: int = 0         # 0 -> plain LM head over vocab
     input_dim: int = 0           # mlp family: feature-vector input width
@@ -93,8 +101,9 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimizer / schedule knobs (defaults as in the JAX package; its
-    ``grad_compression`` waits for the mesh)."""
+    """Optimizer / schedule knobs (defaults as in the JAX package).
+    ``grad_compression="int8_ef"`` is honoured by
+    ``training.compressed_dp``'s step alone."""
 
     learning_rate: float = 3e-4
     weight_decay: float = 0.01
@@ -109,5 +118,7 @@ class TrainConfig:
     schedule: str = "paper_steps"     # paper_steps | cosine | constant
     warmup_steps: int = 0
     total_steps: int = 1000
+    # distributed tricks
+    grad_compression: str = "none"    # none | int8_ef
     grad_accum: int = 1
     accum_dtype: str = "float32"      # grad-accumulation carry dtype

@@ -2,8 +2,8 @@
 [hf:databricks/dbrx-base; unverified]  40L d_model=6144 48H (kv=8)
 d_ff=10752 (per expert) vocab=100352.
 
-The reference's ``sharding`` and ``seq_shard_train`` settings are left
-out: the port runs on one card."""
+The reference's ``seq_shard_train`` setting is left out: the port's
+training step does not shard activations yet."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -20,6 +20,7 @@ CONFIG = ModelConfig(
     experts_per_token=4,
     moe_capacity_factor=1.25,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

@@ -1,10 +1,7 @@
 """gemma3-4b — dense GQA, 5:1 local:global attention, 128k context.
 [hf:google/gemma-3-1b-pt; unverified]  34L d_model=2560 8H (kv=4)
 d_ff=10240 vocab=262144.  Every 6th layer is global; local layers use a
-1024-token sliding window.  Tied embeddings (the 262k vocab dominates).
-
-The reference's ``sharding`` setting is left out: the port runs on one
-card."""
+1024-token sliding window.  Tied embeddings (the 262k vocab dominates)."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -22,6 +19,7 @@ CONFIG = ModelConfig(
     local_global_ratio=5,
     rope_theta=1_000_000.0,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

@@ -3,10 +3,7 @@
 The ViT frontend is a stub: the batch carries precomputed patch
 embeddings ``patch_embeds`` (B, 1024, d_model), prepended to the text.
 Vocab padded 92553 -> 92672 (multiple of 256) for even sharding; padding
-ids are never produced.
-
-The reference's ``sharding`` setting is left out: the port runs on one
-card."""
+ids are never produced."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -22,6 +19,7 @@ CONFIG = ModelConfig(
     frontend="vit_stub",
     frontend_tokens=1024,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

@@ -8,8 +8,8 @@ about 2 TB of bf16 expert weights the full config needs the sharded MoE
 routes, which the port does not have yet; its smoke config (with the shared
 expert) runs on one device.
 
-The reference's ``sharding`` and ``seq_shard_train`` settings are left
-out: the port runs on one card."""
+The reference's ``seq_shard_train`` setting is left out: the port's
+training step does not shard activations yet."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -27,6 +27,7 @@ CONFIG = ModelConfig(
     num_shared_experts=1,
     moe_capacity_factor=1.25,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

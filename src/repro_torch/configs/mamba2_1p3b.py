@@ -1,9 +1,6 @@
 """mamba2-1.3b — attention-free SSD (state-space duality).
 [arXiv:2405.21060; unverified]  48L d_model=2048 vocab=50280, ssm_state=128.
-d_inner = 2*d_model = 4096, head_dim 64 -> 64 ssm heads.
-
-The reference's ``sharding`` setting is left out: the port runs on one
-card."""
+d_inner = 2*d_model = 4096, head_dim 64 -> 64 ssm heads."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -20,6 +17,7 @@ CONFIG = ModelConfig(
     ssm_head_dim=64,
     ssm_conv_kernel=4,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

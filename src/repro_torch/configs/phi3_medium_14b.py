@@ -1,9 +1,6 @@
 """phi3-medium-14b — dense, RoPE SwiGLU GQA.
 [arXiv:2404.14219; unverified]  40L d_model=5120 40H (kv=10) d_ff=17920
-vocab=100352.
-
-The reference's ``sharding`` setting is left out: the port runs on one
-card."""
+vocab=100352."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -17,6 +14,7 @@ CONFIG = ModelConfig(
     d_ff=17920,
     vocab_size=100352,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

@@ -1,9 +1,6 @@
 """qwen1.5-4b — dense, QKV bias, kv == heads (MHA).
 [hf:Qwen/Qwen1.5-0.5B; hf]  40L d_model=2560 20H (kv=20) d_ff=6912
-vocab=151936.
-
-The reference's ``sharding`` setting is left out: the port runs on one
-card."""
+vocab=151936."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -18,6 +15,7 @@ CONFIG = ModelConfig(
     vocab_size=151936,
     qkv_bias=True,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

@@ -1,8 +1,5 @@
 """qwen2-1.5b — dense GQA with QKV bias.
-[arXiv:2407.10671; hf]  28L d_model=1536 12H (kv=2) d_ff=8960 vocab=151936.
-
-The reference's ``sharding`` setting is left out: the port runs on one
-card."""
+[arXiv:2407.10671; hf]  28L d_model=1536 12H (kv=2) d_ff=8960 vocab=151936."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -17,6 +14,7 @@ CONFIG = ModelConfig(
     vocab_size=151936,
     qkv_bias=True,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

@@ -3,10 +3,7 @@
 vocab=51865.  LayerNorm + GELU + learned positions.  The batch carries
 precomputed frame embeddings ``audio_frames`` (B, 1500, 384).  Vocab padded
 51865 -> 51872 (a multiple of 16).  max_seq_len covers the reference's
-decode_32k cell (beyond Whisper's native 448-token decoder).
-
-The reference's ``sharding`` setting is left out: the port runs on one
-card."""
+decode_32k cell (beyond Whisper's native 448-token decoder)."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -27,6 +24,7 @@ CONFIG = ModelConfig(
     max_seq_len=32768,
     remat="layer",
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

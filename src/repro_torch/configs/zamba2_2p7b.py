@@ -1,10 +1,7 @@
 """zamba2-2.7b — Mamba2 backbone + shared attention blocks
 (``repro.configs.zamba2_2p7b``).
 [arXiv:2411.15242; hf]  54L d_model=2560 32H (kv=32) d_ff=10240 vocab=32000,
-ssm_state=64.  Shared transformer block applied every 6 mamba layers.
-
-The reference's ``sharding`` setting is left out: the port runs on one
-card."""
+ssm_state=64.  Shared transformer block applied every 6 mamba layers."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -23,6 +20,7 @@ CONFIG = ModelConfig(
     ssm_conv_kernel=4,
     shared_attn_every=6,
     logits_chunk=16384,
+    sharding="fsdp_tp",
 )
 
 SMOKE = ModelConfig(

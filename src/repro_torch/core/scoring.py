@@ -18,6 +18,19 @@ keys the reference's compile cache holds, persisted in campaign state
 files); :meth:`warm` runs one page of each, so the kernels are built and
 cuBLAS has chosen its algorithms before a campaign's loop.
 
+With a ``mesh`` (a ``DeviceMesh`` with a "data" axis) the ``data`` ranks
+split every packed pass: each scores its block of whole microbatches and
+the per-row statistics and features are all-gathered back in row order,
+so every sink sees the unmeshed pass's rows, bit for bit.  Whole
+microbatches, not rows of each (the reference's ``P(None, "data")``):
+a GEMM over a subset of rows may round differently from one over the
+whole microbatch, and the MoE's capacity routing couples a forward's
+rows, so only a microbatch scored whole is the unmeshed one.  Ranks that
+share a "data" index are replicas along "model", as the reference's
+replicated parameters make them.  Each thread that runs passes (the
+caller's, the sweep and fit workers, a fleet's tenant threads) gathers
+over its own copy of the data group (``launch.mesh.thread_groups``).
+
 :func:`score_pool_reference` keeps the host loop the reference validates
 its engine against.
 """
@@ -132,7 +145,7 @@ class PoolScoringEngine:
     pools (last-position statistics)."""
 
     def __init__(self, model, cfg: ScoringConfig = ScoringConfig(),
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if model.cfg.family == "audio":
             # the reference's engine passes {"tokens": x} alone, so its
             # encoder gets no audio_frames and fails (ROADMAP C.5)
@@ -154,6 +167,18 @@ class PoolScoringEngine:
         # runtime metrics (repro_torch.obs.MetricsRegistry); None = free
         # no-op
         self.metrics = None
+        self.mesh = mesh
+        self._groups = {}
+        if mesh is not None and "data" in mesh.mesh_dim_names:
+            from repro_torch.launch.mesh import CAMPAIGN_THREADS
+            self.add_threads(CAMPAIGN_THREADS)
+
+    def add_threads(self, names) -> None:
+        """Give each thread name in ``names`` its own copy of the mesh's
+        data group (collective: every rank calls it alike)."""
+        from repro_torch.launch.mesh import thread_groups
+        self._groups.update(thread_groups(
+            self.mesh, "data", [n for n in names if n not in self._groups]))
 
     def _note_pack(self, key: Tuple[int, int]) -> None:
         """Record a pack-bucket touch: a cache hit when the bucket was
@@ -198,6 +223,11 @@ class PoolScoringEngine:
 
     @torch.no_grad()
     def _score_packed(self, params, xs) -> Tuple[ScoreStats, torch.Tensor]:
+        if self._groups:
+            return self._score_shared(params, xs)
+        return self._score_local(params, xs)
+
+    def _score_local(self, params, xs) -> Tuple[ScoreStats, torch.Tensor]:
         stats, feats = [], []
         for x in xs:
             s, h = self._microbatch_stats(params, x)
@@ -205,6 +235,34 @@ class PoolScoringEngine:
             feats.append(h)
         return (ScoreStats(*(torch.cat(f) for f in zip(*stats))),
                 torch.cat(feats))
+
+    def _score_shared(self, params, xs) -> Tuple[ScoreStats, torch.Tensor]:
+        """This data rank's block of ``ceil(n_mb / ranks)`` whole
+        microbatches, then every rank's rows gathered in order."""
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import group_of_thread
+        group = group_of_thread(self._groups)
+        d = dist.get_world_size(group)
+        r = dist.get_rank(group)
+        n_mb, mb = xs.shape[:2]
+        per = -(-n_mb // d)
+        lo, hi = min(r * per, n_mb), min((r + 1) * per, n_mb)
+        rows = per * mb
+        f32, dev = torch.float32, xs.device
+        mine = [torch.zeros(rows, dtype=f32, device=dev) for _ in range(3)]
+        mine += [torch.zeros(rows, dtype=torch.int32, device=dev),
+                 torch.zeros((rows, self.model.cfg.d_model), dtype=f32,
+                             device=dev)]
+        if hi > lo:
+            stats, feats = self._score_local(params, xs[lo:hi])
+            for buf, got in zip(mine, (*stats, feats)):
+                buf[:got.shape[0]] = got
+        out = []
+        for buf in mine:
+            parts = [torch.empty_like(buf) for _ in range(d)]
+            dist.all_gather(parts, buf, group=group)
+            out.append(torch.cat(parts)[:n_mb * mb])
+        return ScoreStats(*out[:4]), out[4]
 
     def cache_keys(self):
         """Sorted (n_mb, mb) pack buckets this engine has swept."""

@@ -69,6 +69,9 @@ class LiveTask:
                                      # ones.  Requires matching model/data
                                      # shapes and device; the fleet owns
                                      # the engines' lifecycle.
+    mesh: Optional[object] = None    # DeviceMesh: every pool pass splits
+                                     # its microbatches over the "data"
+                                     # ranks; the retrain runs on each
 
     def __post_init__(self):
         from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -97,6 +100,7 @@ class LiveTask:
             assert b.fit.device == torch.device(self.device), \
                 "shared engines were built for another device"
             self.cfg = b.cfg
+            self.mesh = b.mesh
             self.model = b.model
             self.tc = b.tc
             self._engine = b.scoring
@@ -117,14 +121,14 @@ class LiveTask:
         self._params = None
         self._engine = PoolScoringEngine(
             self.model, ScoringConfig(microbatch=self.score_microbatch),
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         self._sweep = PoolSweepRunner(
             EngineSweepAdapter(self._engine),
             SweepConfig(page_rows=self.sweep_page))
         self._fit = FitEngine(self.model, self.tc,
                               FitConfig(epochs=self.epochs,
                                         batch_size=self.batch_size),
-                              device=self.device)
+                              device=self.device, mesh=self.mesh)
         self._res_idx = np.zeros((0,), np.int64)  # resident-set row ledger
 
     def attach_trace(self, trace) -> None:

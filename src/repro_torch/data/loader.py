@@ -7,8 +7,8 @@ wrapped around) and delivers each as device tensors.  On a CUDA device
 each batch is copied from pinned host memory on a side stream, one batch
 ahead of the one being consumed (the reference's one-deep prefetch): the
 consumer's stream waits on the copy's event and the tensors are recorded
-on that stream.  There is no mesh: the reference's sharded placement
-(``mesh`` given) waits for ROADMAP A's mesh and is refused.
+on that stream.  The reference's sharded placement (``mesh`` given) is
+the next slice of ROADMAP A.4 and is refused.
 """
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ class ShardedLoader:
                  prefetch: int = 1, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
-                "ShardedLoader over a mesh is not ported (ROADMAP A: the "
-                "mesh); it runs with mesh=None on one device")
+                "ShardedLoader over a mesh is not ported (ROADMAP A.4, its "
+                "second half); it runs with mesh=None on one device")
         sizes = {k: len(v) for k, v in data.items()}
         assert len(set(sizes.values())) == 1, sizes
         self.data = data

@@ -1,2 +1,3 @@
-"""Checkpoints and straggler detection (``repro.distributed``), on one
-device; the sharding rules and gradient compression wait for the mesh."""
+"""Checkpoints, straggler detection, the sharding rules, int8
+error-feedback gradient compression (``repro.distributed``), and the
+differentiable collectives the sharded islands call (port-only)."""

@@ -44,12 +44,19 @@ one iteration's kernels with ``torch.profiler``:
         --pool 2000 --chaos --trace t.jsonl --metrics t.jsonl
     PYTHONPATH=src python -m repro_torch.launch.report t.jsonl --metrics
 
-The reference's ``--mesh`` is not ported.
+``--mesh data=N`` shards every pool pass's microbatches over N ranks
+and runs the same retrain on each (live mode): with N > 1 the launcher
+spawns N ranks on this host (one card each on ``cuda``, gloo processes on
+the CPU), rank 0 alone writes the report, trace, state file and sweep
+cursor; ``--mesh data=1`` is a one-rank group in this process:
+    PYTHONPATH=src python -m repro_torch.launch.label --live --device cpu \
+        --pool 2000 --mesh data=4
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 
 # the reference's literal (the launcher must not import torch until
@@ -132,6 +139,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run at most N iterations this invocation, then "
                          "save --state and exit resumable (0 = run to "
                          "completion)")
+    ap.add_argument("--mesh", default="",
+                    help="host/device mesh spec, e.g. 'data=4': every "
+                         "pool pass splits its microbatches over the data "
+                         "ranks and each rank runs the retrain (live "
+                         "mode; N > 1 spawns N ranks on this host, one "
+                         "card each on cuda)")
     # -- annotation service (noisy multi-annotator oracle) -----------------
     ap.add_argument("--annotator-noise", type=float, default=0.0,
                     help="per-vote error rate of the noisy annotator "
@@ -227,6 +240,26 @@ def build_annotation(args, num_classes: int, service):
         pricing=service, seed=args.seed, device=args.device)
 
 
+def parse_mesh(spec: str):
+    """``"data=2,model=2"`` -> ``((2, 2), ("data", "model"))``."""
+    axes, shape = [], []
+    for part in spec.split(","):
+        name, _, n = part.partition("=")
+        axes.append(name.strip())
+        shape.append(int(n))
+    return tuple(shape), tuple(axes)
+
+
+def build_mesh(spec: str, device="cuda"):
+    """``--mesh data=4`` -> a ``DeviceMesh`` with those axes over this
+    process's world (a one-rank world is initialized when there is none);
+    None for ''."""
+    if not spec:
+        return None
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(*parse_mesh(spec), device=device)
+
+
 def _save_state(path: str, campaign=None, cursor=None, campaign_blob=None):
     """State write by rename: the campaign loop state + an optional
     mid-sweep cursor.  ``campaign_blob`` reuses a serialized campaign dict
@@ -248,7 +281,7 @@ def run_campaign(task, service, cfg, *, state_path: str = "",
                  profile_dir: str = "", profile_iter: int = 1,
                  autosave_path: str = "", sweep_timeout=None,
                  fit_timeout=None, faults=None, retry=None,
-                 slo_path: str = ""):
+                 slo_path: str = "", writer: bool = True):
     """Drive one campaign with optional ``--state`` preemption and an
     optional ``--trace`` event log.  Returns (MCALResult | None,
     campaign): None when ``iters_per_run`` stopped the loop first.  A
@@ -264,7 +297,12 @@ def run_campaign(task, service, cfg, *, state_path: str = "",
     brackets iteration ``profile_iter`` with ``torch.profiler``.
     ``faults``/``retry`` run the campaign under a fault plan, and
     ``autosave_path`` keeps a resumable sidecar when anything unwinds the
-    loop past bootstrap (an injected kill included)."""
+    loop past bootstrap (an injected kill included).
+
+    ``writer=False`` (a mesh's ranks other than 0) reads ``state_path``
+    and ``autosave_path`` but never writes or removes them; on a mesh
+    every rank reads before any goes on (a barrier), so rank 0's first
+    save cannot reach another rank's read."""
     from repro_torch.core import MCALCampaign
     from repro_torch.serving.sweep import SweepCheckpoint
     from repro_torch.trace import TraceStore
@@ -282,6 +320,11 @@ def run_campaign(task, service, cfg, *, state_path: str = "",
         # least as recent, saved every iteration)
         with open(autosave_path) as f:
             blob = json.load(f)
+    if getattr(task, "mesh", None) is not None:
+        import torch.distributed as dist
+        dist.barrier()
+    if not writer:
+        state_path = autosave_path = ""
 
     trace = None
     if trace_path:
@@ -428,6 +471,36 @@ def main(argv=None):
             with open(args.out, "w") as f:
                 json.dump(report, f)
         return
+    mesh, owned = None, False
+    if args.mesh:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import run_ranks
+        shape, _ = parse_mesh(args.mesh)
+        if math.prod(shape) > 1:
+            run_ranks(_rank_main, math.prod(shape), args.device,
+                      args=(args,))
+            return
+        owned = not dist.is_initialized()   # a one-rank group made here
+        mesh = build_mesh(args.mesh, args.device)
+    try:
+        _campaign(args, 0, mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _rank_main(rank: int, world: int, args) -> None:
+    """One spawned rank of a ``--mesh`` campaign."""
+    _campaign(args, rank, build_mesh(args.mesh, args.device))
+
+
+def _campaign(args, rank: int, mesh) -> None:
+    """Build and run the campaign the flags describe; rank 0 alone prints
+    the report and writes files."""
+    if rank:
+        args = argparse.Namespace(**{**vars(args), "trace": "",
+                                     "metrics": "", "prom": "",
+                                     "profile": "", "out": ""})
     from repro_torch.core import (DATASETS, SERVICES, LiveTask, MCALConfig,
                                   make_emulated_task)
     from repro_torch.data.synth import make_classification
@@ -452,7 +525,7 @@ def main(argv=None):
                         seed=args.seed, sweep_page=args.sweep_page,
                         fit_fused=args.fit_fused,
                         fit_resident=args.fit_resident, device=args.device,
-                        annotation=annotation)
+                        annotation=annotation, mesh=mesh)
     else:
         task = make_emulated_task(args.dataset, args.arch, seed=args.seed,
                                   sweep_page=args.sweep_page,
@@ -482,7 +555,9 @@ def main(argv=None):
                              sweep_timeout=args.sweep_timeout,
                              fit_timeout=args.fit_timeout,
                              faults=faults, retry=retry,
-                             slo_path=args.slo)
+                             slo_path=args.slo, writer=rank == 0)
+    if rank:
+        return
     if res is None:
         report = {"resumable": True, "state": args.state,
                   "iterations": len(camp.history),

@@ -81,16 +81,17 @@ class SharedEngines:
     service: Optional[object] = None   # shared AnnotationService
     input_dim: int = 0
     num_classes: int = 0
+    mesh: Optional[object] = None      # the engines' DeviceMesh
 
     @classmethod
     def build(cls, input_dim: int, num_classes: int, *,
               arch_name: str = "mlp", hidden: int = 64, depth: int = 2,
               epochs: int = 40, batch_size: int = 256,
               learning_rate: float = 1e-2, score_microbatch: int = 2048,
-              sweep_page: int = 8192, device="cuda",
+              sweep_page: int = 8192, device="cuda", mesh=None,
               service=None) -> "SharedEngines":
         """One engine family set for a fleet of matched-shape tenants on
-        ``device`` — the same construction
+        ``device`` (over ``mesh`` when given) — the same construction
         :class:`~repro_torch.core.task.LiveTask` does privately, hoisted to
         fleet scope."""
         from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -107,15 +108,16 @@ class SharedEngines:
         tc = TrainConfig(learning_rate=learning_rate, schedule="constant",
                          weight_decay=1e-4, grad_clip=1.0)
         scoring = PoolScoringEngine(
-            model, ScoringConfig(microbatch=score_microbatch), device=device)
+            model, ScoringConfig(microbatch=score_microbatch), device=device,
+            mesh=mesh)
         sweep = PoolSweepRunner(EngineSweepAdapter(scoring),
                                 SweepConfig(page_rows=sweep_page))
         fit = FitEngine(model, tc, FitConfig(epochs=epochs,
                                              batch_size=batch_size),
-                        device=device)
+                        device=device, mesh=mesh)
         return cls(cfg=cfg, model=model, tc=tc, scoring=scoring,
                    sweep=sweep, fit=fit, service=service,
-                   input_dim=input_dim, num_classes=num_classes)
+                   input_dim=input_dim, num_classes=num_classes, mesh=mesh)
 
     def cache_keys(self) -> Dict:
         """The pow2 buckets run so far, per engine: the scoring engine's
@@ -311,7 +313,8 @@ def build_fleet(features, groundtruth, specs, *, service,
                 fit_timeout: Optional[float] = None,
                 health=None,
                 slo_enforce: bool = False, device="cuda",
-                fit_sources: Optional[Dict] = None) -> CampaignOrchestrator:
+                fit_sources: Optional[Dict] = None,
+                mesh=None) -> CampaignOrchestrator:
     """Wire a whole fleet: one :class:`SharedEngines` bundle, one
     :class:`~repro_torch.core.task.LiveTask` + campaign +
     :class:`~repro_torch.core.tenant.Tenant` per spec (per-tenant
@@ -333,7 +336,12 @@ def build_fleet(features, groundtruth, specs, *, service,
     downgrade cascade.
 
     ``device`` places the engines (and the annotation aggregation is the
-    service's own); ``fit_sources`` maps a tenant id to its task's
+    service's own), over ``mesh`` when given: every tenant's passes then
+    gather over the data group copy of the thread that runs them (its
+    ``tenant-<id>`` thread, or the caller's in serial mode).  A meshed
+    fleet refuses ``sweep_async`` and ``fit_async``: the shared workers
+    would take the tenants' jobs in a different order on each rank.
+    ``fit_sources`` maps a tenant id to its task's
     ``fit_source`` (the test seam that feeds a retrain the JAX package's
     init and epoch orders)."""
     import numpy as np
@@ -345,9 +353,19 @@ def build_fleet(features, groundtruth, specs, *, service,
     features = np.asarray(features, np.float32)
     groundtruth = np.asarray(groundtruth, np.int64)
     num_classes = int(groundtruth.max()) + 1
+    if mesh is not None and any(s.cfg.sweep_async or s.cfg.fit_async
+                                for s in specs):
+        raise ValueError(
+            "a fleet over a mesh runs its tenants' passes synchronously: "
+            "the shared sweep and fit workers would order the tenants' "
+            "jobs differently on each rank")
     engines = SharedEngines.build(features.shape[1], num_classes,
                                   service=annotation_service, device=device,
-                                  **(engine_kw or {}))
+                                  mesh=mesh, **(engine_kw or {}))
+    if mesh is not None:
+        # the tenant threads' own groups, created alike on every rank
+        engines.scoring.add_threads([f"tenant-{s.tenant_id}"
+                                     for s in specs])
     fleet_trace = None
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)

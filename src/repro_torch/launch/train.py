@@ -6,8 +6,8 @@ unless ``--device cpu``.
 
 The reference's flags and schedule (``paper_steps`` over ``--steps``),
 the ``Trainer`` (resume, checkpoints, straggler monitor), LM batches of
-``make_lm_tokens`` through ``ShardedLoader``.  There is no mesh (ROADMAP
-A): the full config trains on one device.  Like the reference's launcher
+``make_lm_tokens`` through ``ShardedLoader``.  The full config trains on
+one device: training over a mesh is the next slice of ROADMAP A.4.  Like the reference's launcher
 it builds ``{"tokens", "labels"}`` batches only, which the audio and vlm
 architectures cannot train on (the reference's launcher fails on them:
 ROADMAP C.6), so it refuses those; ``Trainer`` itself takes their

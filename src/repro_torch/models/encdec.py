@@ -44,10 +44,14 @@ def _xattn_specs(cfg: ModelConfig, nl: int) -> Dict:
     bf16 = torch.bfloat16
     return {
         "norm": L.norm_specs(cfg, stacked=nl),
-        "wq": ParamSpec((nl, cfg.d_model, cfg.num_heads, hd), dtype=bf16),
-        "wk": ParamSpec((nl, cfg.d_model, cfg.num_kv_heads, hd), dtype=bf16),
-        "wv": ParamSpec((nl, cfg.d_model, cfg.num_kv_heads, hd), dtype=bf16),
-        "wo": ParamSpec((nl, cfg.num_heads, hd, cfg.d_model), dtype=bf16),
+        "wq": ParamSpec((nl, cfg.d_model, cfg.num_heads, hd), dtype=bf16,
+                        logical=("layers", "embed", "heads", None)),
+        "wk": ParamSpec((nl, cfg.d_model, cfg.num_kv_heads, hd), dtype=bf16,
+                        logical=("layers", "embed", "kv", None)),
+        "wv": ParamSpec((nl, cfg.d_model, cfg.num_kv_heads, hd), dtype=bf16,
+                        logical=("layers", "embed", "kv", None)),
+        "wo": ParamSpec((nl, cfg.num_heads, hd, cfg.d_model), dtype=bf16,
+                        logical=("layers", "heads", None, "embed")),
     }
 
 
@@ -59,11 +63,11 @@ def specs(cfg: ModelConfig) -> Dict:
     bf16 = torch.bfloat16
     sp = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), scale=1.0,
-                           dtype=bf16),
+                           dtype=bf16, logical=("vocab", "embed")),
         "enc_pos": ParamSpec((cfg.encoder_tokens, cfg.d_model), scale=0.02,
-                             dtype=bf16),
+                             dtype=bf16, logical=("seq", "embed")),
         "dec_pos": ParamSpec((cfg.max_seq_len, cfg.d_model), scale=0.02,
-                             dtype=bf16),
+                             dtype=bf16, logical=("seq", "embed")),
         "encoder": {
             "attn": tf.attention_specs(cfg, ne),
             "mlp_norm": L.norm_specs(cfg, stacked=ne),
@@ -79,10 +83,11 @@ def specs(cfg: ModelConfig) -> Dict:
         "final_norm": L.norm_specs(cfg),
     }
     if not cfg.tie_embeddings:
-        sp["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dtype=bf16)
+        sp["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dtype=bf16,
+                                  logical=("embed", "vocab"))
     if cfg.num_classes:
         sp["cls_head"] = ParamSpec((cfg.d_model, cfg.num_classes),
-                                   dtype=bf16)
+                                   dtype=bf16, logical=("embed", None))
     return sp
 
 

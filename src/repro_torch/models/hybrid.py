@@ -45,7 +45,7 @@ def _n_apps(cfg: ModelConfig) -> int:
 def specs(cfg: ModelConfig) -> Dict:
     sp = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), scale=1.0,
-                           dtype=torch.bfloat16),
+                           dtype=torch.bfloat16, logical=("vocab", "embed")),
         "mamba_blocks": mamba2.block_specs(cfg, cfg.num_layers),
         "shared": {
             "attn": tf.attention_specs(cfg, 0),
@@ -56,10 +56,12 @@ def specs(cfg: ModelConfig) -> Dict:
     }
     if not cfg.tie_embeddings:
         sp["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
-                                  dtype=torch.bfloat16)
+                                  dtype=torch.bfloat16,
+                                  logical=("embed", "vocab"))
     if cfg.num_classes:
         sp["cls_head"] = ParamSpec((cfg.d_model, cfg.num_classes),
-                                   dtype=torch.bfloat16)
+                                   dtype=torch.bfloat16,
+                                   logical=("embed", None))
     return sp
 
 

@@ -60,13 +60,15 @@ def apply_norm(cfg: ModelConfig, params: Dict, x: torch.Tensor
 
 def norm_specs(cfg: ModelConfig, stacked: int = 0) -> Dict:
     # rmsnorm multiplies by (1 + scale), so its scale starts at zero
-    lead = (stacked,) if stacked else ()
+    lead, ax = ((stacked,), ("layers",)) if stacked else ((), ())
     spec = {"scale": ParamSpec(lead + (cfg.d_model,),
                                init="zeros" if cfg.norm == "rmsnorm"
-                               else "ones", dtype=torch.float32)}
+                               else "ones", dtype=torch.float32,
+                               logical=ax + ("act_embed",))}
     if cfg.norm == "layernorm":
         spec["bias"] = ParamSpec(lead + (cfg.d_model,), init="zeros",
-                                 dtype=torch.float32)
+                                 dtype=torch.float32,
+                                 logical=ax + ("act_embed",))
     return spec
 
 
@@ -231,19 +233,26 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def mlp_specs(cfg: ModelConfig, stacked: int = 0,
               d_ff: Optional[int] = None) -> Dict:
     d_ff = d_ff or cfg.d_ff
-    lead = (stacked,) if stacked else ()
+    lead, ax = ((stacked,), ("layers",)) if stacked else ((), ())
     bf16 = torch.bfloat16
     if cfg.act == "swiglu":
         return {
-            "w_gate": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16),
-            "w_up": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16),
-            "w_down": ParamSpec(lead + (d_ff, cfg.d_model), dtype=bf16),
+            "w_gate": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16,
+                                logical=ax + ("embed", "mlp")),
+            "w_up": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16,
+                              logical=ax + ("embed", "mlp")),
+            "w_down": ParamSpec(lead + (d_ff, cfg.d_model), dtype=bf16,
+                                logical=ax + ("mlp", "embed")),
         }
     return {
-        "w_up": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16),
-        "b_up": ParamSpec(lead + (d_ff,), init="zeros", dtype=bf16),
-        "w_down": ParamSpec(lead + (d_ff, cfg.d_model), dtype=bf16),
-        "b_down": ParamSpec(lead + (cfg.d_model,), init="zeros", dtype=bf16),
+        "w_up": ParamSpec(lead + (cfg.d_model, d_ff), dtype=bf16,
+                          logical=ax + ("embed", "mlp")),
+        "b_up": ParamSpec(lead + (d_ff,), init="zeros", dtype=bf16,
+                          logical=ax + ("mlp",)),
+        "w_down": ParamSpec(lead + (d_ff, cfg.d_model), dtype=bf16,
+                            logical=ax + ("mlp", "embed")),
+        "b_down": ParamSpec(lead + (cfg.d_model,), init="zeros", dtype=bf16,
+                            logical=ax + ("embed",)),
     }
 
 

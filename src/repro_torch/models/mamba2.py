@@ -125,17 +125,28 @@ def block_specs(cfg: ModelConfig, nl: int) -> Dict:
     bf16, f32 = torch.bfloat16, torch.float32
     return {
         "norm": L.norm_specs(cfg, stacked=nl),
-        "w_z": ParamSpec((nl, D, di), dtype=bf16),
-        "w_x": ParamSpec((nl, D, di), dtype=bf16),
-        "w_B": ParamSpec((nl, D, N), dtype=bf16),
-        "w_C": ParamSpec((nl, D, N), dtype=bf16),
-        "w_dt": ParamSpec((nl, D, H), dtype=bf16),
-        "conv_w": ParamSpec((nl, K, di), dtype=bf16, scale=0.5),
-        "A_log": ParamSpec((nl, H), init="zeros", dtype=f32),
-        "dt_bias": ParamSpec((nl, H), init="zeros", dtype=f32),
-        "D_skip": ParamSpec((nl, H), init="ones", dtype=f32),
-        "gate_norm": ParamSpec((nl, di), init="zeros", dtype=f32),
-        "w_out": ParamSpec((nl, di, D), dtype=bf16),
+        "w_z": ParamSpec((nl, D, di), dtype=bf16,
+                         logical=("layers", "embed", "mlp")),
+        "w_x": ParamSpec((nl, D, di), dtype=bf16,
+                         logical=("layers", "embed", "mlp")),
+        "w_B": ParamSpec((nl, D, N), dtype=bf16,
+                         logical=("layers", "embed", "state")),
+        "w_C": ParamSpec((nl, D, N), dtype=bf16,
+                         logical=("layers", "embed", "state")),
+        "w_dt": ParamSpec((nl, D, H), dtype=bf16,
+                          logical=("layers", "embed", "ssm_heads")),
+        "conv_w": ParamSpec((nl, K, di), dtype=bf16, scale=0.5,
+                            logical=("layers", "conv", "mlp")),
+        "A_log": ParamSpec((nl, H), init="zeros", dtype=f32,
+                           logical=("layers", "ssm_heads")),
+        "dt_bias": ParamSpec((nl, H), init="zeros", dtype=f32,
+                             logical=("layers", "ssm_heads")),
+        "D_skip": ParamSpec((nl, H), init="ones", dtype=f32,
+                            logical=("layers", "ssm_heads")),
+        "gate_norm": ParamSpec((nl, di), init="zeros", dtype=f32,
+                               logical=("layers", "mlp")),
+        "w_out": ParamSpec((nl, di, D), dtype=bf16,
+                           logical=("layers", "mlp", "embed")),
     }
 
 
@@ -217,15 +228,16 @@ def specs(cfg: ModelConfig) -> Dict:
     bf16 = torch.bfloat16
     sp = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), scale=1.0,
-                           dtype=bf16),
+                           dtype=bf16, logical=("vocab", "embed")),
         "blocks": block_specs(cfg, cfg.num_layers),
         "final_norm": L.norm_specs(cfg),
     }
     if not cfg.tie_embeddings:
-        sp["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dtype=bf16)
+        sp["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), dtype=bf16,
+                                  logical=("embed", "vocab"))
     if cfg.num_classes:
         sp["cls_head"] = ParamSpec((cfg.d_model, cfg.num_classes),
-                                   dtype=bf16)
+                                   dtype=bf16, logical=("embed", None))
     return sp
 
 

@@ -23,14 +23,18 @@ from repro_torch.models.param import ParamSpec, init_params
 def specs(cfg: ModelConfig) -> Dict:
     assert cfg.input_dim > 0 and cfg.num_classes > 0
     return {
-        "w_in": ParamSpec((cfg.input_dim, cfg.d_model)),
-        "b_in": ParamSpec((cfg.d_model,), init="zeros"),
+        "w_in": ParamSpec((cfg.input_dim, cfg.d_model),
+                          logical=("embed", "mlp")),
+        "b_in": ParamSpec((cfg.d_model,), init="zeros", logical=("mlp",)),
         "blocks": {
-            "w": ParamSpec((cfg.num_layers, cfg.d_model, cfg.d_model)),
-            "b": ParamSpec((cfg.num_layers, cfg.d_model), init="zeros"),
+            "w": ParamSpec((cfg.num_layers, cfg.d_model, cfg.d_model),
+                           logical=("layers", "embed", "mlp")),
+            "b": ParamSpec((cfg.num_layers, cfg.d_model), init="zeros",
+                           logical=("layers", "mlp")),
         },
         "final_norm": L.norm_specs(cfg),
-        "cls_head": ParamSpec((cfg.d_model, cfg.num_classes)),
+        "cls_head": ParamSpec((cfg.d_model, cfg.num_classes),
+                              logical=("embed", None)),
     }
 
 

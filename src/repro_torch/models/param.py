@@ -3,6 +3,8 @@
 Models declare their parameters as nested dicts of :class:`ParamSpec`;
 :func:`init_params` materializes them into a FLAT dict keyed by the dotted
 path (``"blocks.w"``), the naming ``nn.Module.named_parameters`` uses.
+Each spec carries the reference's logical axis names (``logical``, one
+per dim), which ``distributed.sharding`` maps onto a mesh.
 Initialization is deterministic per path: each leaf draws from its own
 ``torch.Generator`` seeded from (seed, crc32 of the leaf's path), on the
 CPU, so the same seed gives the same weights on every device.  The draws
@@ -25,6 +27,11 @@ class ParamSpec:
     init: str = "normal"        # normal | zeros | ones
     dtype: Any = torch.float32
     scale: Optional[float] = None  # stddev; None -> 1/sqrt(fan_in)
+    logical: Tuple[Optional[str], ...] = ()  # logical axis per dim
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape,
+                                                      self.logical)
 
 
 def _stddev(spec: ParamSpec) -> float:
@@ -47,6 +54,12 @@ def iter_specs(specs: Dict, prefix: str = "") -> Iterator[Tuple[str, ParamSpec]]
             yield path, v
         else:
             yield from iter_specs(v, path)
+
+
+def logical_axes(specs: Dict) -> Dict[str, Tuple[Optional[str], ...]]:
+    """``{dotted path: logical axes}`` of a spec tree, the key set
+    :func:`init_params` returns."""
+    return {path: spec.logical for path, spec in iter_specs(specs)}
 
 
 def derive_seed(*parts: int) -> int:

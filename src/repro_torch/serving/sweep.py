@@ -101,8 +101,9 @@ class SweepFuture:
     job's host-side results, mapped once by ``map_result``."""
 
     def __init__(self, future, map_result: Optional[Callable] = None,
-                 label: str = ""):
+                 label: str = "", cancellable: bool = True):
         self._future = future
+        self._cancellable = cancellable
         self._map = map_result
         self._label = label
         self._done_value: Any = None
@@ -112,7 +113,12 @@ class SweepFuture:
         return self._future.done()
 
     def cancel(self) -> bool:
-        return self._future.cancel()
+        """Cancel the job if it has not started.  A job whose passes run
+        collectives over a mesh is never cancelled (False): one rank's
+        cancel could land before the job starts and another's after, and
+        the rank that ran it would wait on collectives the other never
+        issues.  It runs to its end and its result is dropped."""
+        return self._cancellable and self._future.cancel()
 
     def result(self, timeout: Optional[float] = None):
         """The fold.  With a ``timeout`` (seconds) the wait is a wall
@@ -594,13 +600,20 @@ class PoolSweepRunner:
         return SweepFuture(
             self._executor().submit(self.run, params, pool, sink,
                                     checkpoint=checkpoint),
-            map_result, label=f"sweep[{sink.kind}]")
+            map_result, label=f"sweep[{sink.kind}]",
+            cancellable=self._cancellable())
 
     def submit_call(self, fn: Callable, *args, **kw) -> SweepFuture:
         """Run any callable on the sweep worker (composite jobs that end in
         a sweep, like features + device k-center)."""
         return SweepFuture(self._executor().submit(fn, *args, **kw),
-                           label="sweep[call]")
+                           label="sweep[call]",
+                           cancellable=self._cancellable())
+
+    def _cancellable(self) -> bool:
+        """False when the engine's passes run collectives over a mesh."""
+        engine = getattr(self.adapter, "engine", None)
+        return getattr(engine, "mesh", None) is None
 
     # -- lifecycle -----------------------------------------------------------
 

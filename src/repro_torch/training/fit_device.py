@@ -203,11 +203,26 @@ class FitEngine:
     training loss, ``(epochs * steps_per_epoch,)``, on the device."""
 
     def __init__(self, model, tc: TrainConfig, cfg: FitConfig = FitConfig(),
-                 device="cuda"):
+                 device="cuda", mesh=None, policy: str = "tp"):
         self.model = model
         self.tc = tc
         self.cfg = cfg
         self.device = torch.device(device)
+        # on a mesh every rank runs the same retrain (what GSPMD makes of
+        # the reference's sharded program: equal to the unmeshed fit);
+        # the policy's DTensor placements are kept for the sharded
+        # layers of a later slice
+        self.mesh = mesh
+        self.policy = policy
+        self.placements = None
+        if mesh is not None:
+            from repro_torch.distributed import sharding as shd
+            from repro_torch.models.param import iter_specs, logical_axes
+            specs = dict(iter_specs(model.specs))
+            self.placements = {
+                k: shd.to_placements(spec, mesh) for k, spec in
+                shd.tree_pspecs(specs, logical_axes(model.specs), mesh,
+                                policy).items()}
         self._step = make_train_step(model, tc)
         self._keys: set = set()          # fit_plan buckets run or warmed
         self._graphs: Dict[Tuple[int, int, int], _RetrainGraph] = {}
@@ -447,13 +462,14 @@ class FitEngine:
         its own work and synchronizes at ``result()``."""
         return FitFuture(self._executor().submit(
             self._traced(self.fit, "fit"), seed, x, y, **kw),
-            label="fit")
+            label="fit", cancellable=self.mesh is None)
 
     def submit_call(self, fn: Callable, *args, **kw) -> FitFuture:
         """Run any callable on the fit worker (composite jobs such as a
         retrain and its measurement)."""
         return FitFuture(self._executor().submit(
-            self._traced(fn, "call"), *args, **kw), label="fit[call]")
+            self._traced(fn, "call"), *args, **kw), label="fit[call]",
+            cancellable=self.mesh is None)
 
     # -- bucket bookkeeping --------------------------------------------------
 

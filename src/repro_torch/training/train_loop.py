@@ -7,8 +7,10 @@ step count lives on the host, so the schedule and bias corrections need
 no device round trip.  Gradients come from ``torch.autograd``.  A step
 given ``consts`` (``lr`` and the bias corrections' reciprocals as 0-dim
 device tensors) reads no host step count: the form a CUDA graph captures.
-There is no mesh (the reference's ``make_sharded_train_step`` waits for
-ROADMAP A's mesh): the step runs on the params' device.
+The step runs on the params' device: the reference's
+``make_sharded_train_step`` (a step sharded by policy over a mesh) is the
+next slice of ROADMAP A.4; ``training.compressed_dp`` holds the
+replicated-parameter data-parallel step.
 """
 from __future__ import annotations
 

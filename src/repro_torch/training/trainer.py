@@ -2,7 +2,9 @@
 straggler monitor, on one device.
 
 * builds the train step (``train_loop.make_train_step``; no mesh: the
-  reference's sharded step waits for ROADMAP A's mesh);
+  reference's sharded step, ``Trainer(mesh=...)``, is the next slice of
+  ROADMAP A.4; ``grad_compression="int8_ef"`` trains through
+  ``training.compressed_dp``'s step alone);
 * resumes from the latest published checkpoint if one exists;
 * checkpoints every ``ckpt_every`` steps, atomically, and once at the end;
 * times each step through the StragglerMonitor, reading the loss back once
@@ -43,8 +45,13 @@ class Trainer:
                  params: Optional[Dict] = None):
         if mesh is not None:
             raise NotImplementedError(
-                "Trainer over a mesh is not ported (ROADMAP A: the mesh); "
-                "it trains with mesh=None on one device")
+                "Trainer over a mesh is not ported (ROADMAP A.4, its "
+                "second half); it trains with mesh=None on one device")
+        if tc.grad_compression != "none":
+            raise NotImplementedError(
+                f"grad_compression={tc.grad_compression!r} trains through "
+                f"training.compressed_dp.make_compressed_dp_train_step on "
+                f"a mesh; Trainer trains uncompressed on one device")
         self.model = model
         self.tc = tc
         self.tcfg = tcfg

@@ -35,8 +35,8 @@ def test_shared_flags_have_the_reference_defaults_and_choices():
             "repeat_confidence", "seed", "out", "trace", "trace_replay",
             "trace_diff", "autosave", "sweep_timeout", "fit_timeout",
             "chaos", "chaos_seed", "metrics", "slo", "prom", "profile",
-            "profile_iter"} == shared
-    assert set(ref) - shared == {"mesh"}
+            "profile_iter", "mesh"} == shared
+    assert set(ref) - shared == set()
     for dest in shared:
         assert mine[dest].default == ref[dest].default, dest
         assert mine[dest].choices == ref[dest].choices, dest

@@ -11,8 +11,11 @@ expert index.  Held at the tolerances of ``test_torch_dense.py``:
 ``moe_block`` and ``_moe_local``, ``forward``, ``prefill`` and
 ``decode_step`` (fp32 1e-4; bf16 atol = rtol = 0.1, the bf16 K/V cache
 within one more bf16 step, 2^-7 relative); greedy tokens and ``score``
-in fp32 (tokens equal, statistics 1e-4).  ``moe_block`` raises on a mesh
-of more than one device, where the reference shards the experts."""
+in fp32 (tokens equal, statistics 1e-4).  A mesh of one device is the
+local block, bit for bit; a mesh of more than one device, where the
+reference shards the experts, needs ranks (``moe_block`` raises on a mesh
+that is only a description; the sharded routes on four ranks are
+``test_torch_moe_mesh.py``'s)."""
 import dataclasses
 import types
 
@@ -168,6 +171,8 @@ def test_router_tie_goes_to_the_lower_expert():
 
 
 def test_moe_block_raises_where_the_reference_shards():
+    """Bit-equal on a one-device mesh; on a larger mesh given only as a
+    description (no ranks to shard over) it raises."""
     cfg = get_smoke("dbrx-132b")
     p = _to_torch(_layer0(cast_tree(make_jax_tree("dbrx-132b"), "float32")))
     x = torch.randn(1, 4, cfg.d_model)
@@ -178,7 +183,7 @@ def test_moe_block_raises_where_the_reference_shards():
     for shape in ((1, 2), (2, 1), (2, 2)):
         mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                      devices=np.empty(shape, object))
-        with pytest.raises(NotImplementedError, match="sharded MoE"):
+        with pytest.raises(ValueError, match="sharded MoE routes"):
             T.moe_block(cfg, p, x, mesh=mesh)
 
 
