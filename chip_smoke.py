@@ -191,6 +191,21 @@
    weights, step 1's loss against a plain step's, every residual within
    half its scale, the peak memory; (d) halo attention at gemma3-4b's
    local layers' shape against the windowed blockwise attention.
+   The ``sharded`` phase, on the same group, every collective of the
+   policy taken over its axes of one rank (``force``): (a) two steps of
+   ``make_sharded_train_step`` at qwen2-1.5b's full config under
+   ``fsdp_tp`` from the served weights (8 x 2,048 tokens), step 1's loss
+   against two plain steps' from the same weights, seconds, tokens/s and
+   peak memory beside theirs, the attention kernel and its backward
+   launched; (b) ``Trainer`` and ``ShardedLoader`` on the mesh at
+   whisper-tiny's full config, four steps checkpointed at step 2, a second
+   run stopped at step 2 and a fresh ``Trainer`` resumed from it through
+   ``restore(shardings=)``: bit-equal to the uninterrupted meshed run;
+   (c) ``ServeEngine(mesh=, policy="tp")`` at qwen2-1.5b's full config:
+   ``score`` and a ``score_pool`` top-k on 64 rows and ``generate`` for 8
+   prompts of 128 tokens, 16 steps, against the unmeshed engine's (stats
+   at the pool pass's tolerance, top1, top-k and tokens exactly), each
+   pass's seconds beside the unmeshed one's, ``margin_head`` launched.
 11. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
@@ -2715,6 +2730,288 @@ def check_halo(torch, mesh, secs: dict, B=8, T=2048, H=8, Hk=4, hd=256,
     secs["d"] = time.perf_counter() - t0
 
 
+def _hooks(*fns):
+    """One ``run_serving`` hook that calls each of ``fns`` in turn."""
+    def run(model, params):
+        for fn in fns:
+            fn(model, params)
+    return run
+
+
+def _sharded_batch_pspecs(mesh, batch):
+    """Each batch leaf's rows over "data", kept though the axis has one
+    rank, so the step takes the batch axis's collectives too."""
+    from repro_torch.distributed import sharding as shd
+    return {k: shd.P("data", *(None,) * (v.ndim - 1)) for k, v in batch.items()}
+
+
+def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
+                  launches: dict, steps: int = 2, batch: int = 8,
+                  seq: int = 2048, lr: float = 1e-4):
+    """Sharded phase (a), a hook for ``run_serving`` (qwen2-1.5b at its
+    full config): ``steps`` plain train steps from the served weights,
+    then ``steps`` of ``make_sharded_train_step`` under ``fsdp_tp`` over
+    the one-rank NCCL mesh (``force``: every weight gathered over its
+    axes, every gradient reduced over theirs, in the layer's recomputed
+    body), both on one batch of ``batch`` x ``seq`` tokens
+    (``make_lm_tokens`` seed 2): step 1's loss must meet the plain step's
+    within 1e-3 relative (the loss precedes the update), and the
+    sharded steps launch the attention kernel and its backward.  Prints
+    each step's seconds and tokens/s and each run's peak memory."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synth import make_lm_tokens
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_sharded_train_step,
+                                                 make_train_step)
+
+    def run(model, params):
+        t0 = time.perf_counter()
+        cfg = model.cfg
+        toks = torch.as_tensor(make_lm_tokens(batch, seq + 1,
+                                              cfg.vocab_size, seed=2),
+                               device="cuda")
+        b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        tc = TrainConfig(learning_rate=lr, schedule="paper_steps",
+                         total_steps=steps)
+        out = {}
+        for name in ("plain", "sharded"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "plain":
+                step = make_train_step(model, tc)
+                state = init_train_state(model, tc, params)
+            else:
+                step, _, sh = make_sharded_train_step(
+                    model, tc, mesh, "fsdp_tp",
+                    _sharded_batch_pspecs(mesh, b), force=True)
+                state = shd.shard_tree(init_train_state(model, tc, params),
+                                       sh)
+                restore = [record_shapes(mods[k], k, seen[k], key)
+                           for k, key in (("flash_attention", flash_key),
+                                          ("flash_attention_bwd",
+                                           flash_bwd_key))]
+                _zero(torch, mods)
+            losses, walls = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                walls.append(time.perf_counter() - t1)
+            if name == "sharded":
+                got = {k: mod.launches for k, mod in mods.items()}
+                for r in restore:
+                    r()
+            out[name] = (losses, walls, torch.cuda.max_memory_allocated())
+            del state, step, m
+        for name, (losses, walls, peak) in out.items():
+            print(f"sharded train {cfg.name} {name}: losses {losses}, step "
+                  f"seconds {walls}, tokens/s "
+                  f"{[round(batch * seq / w, 1) for w in walls]}, "
+                  f"max_memory_allocated bytes {peak} ({CARD})", flush=True)
+        print(f"sharded train {cfg.name}: launches {got} ({CARD})",
+              flush=True)
+        plain, sharded = out["plain"][0][0], out["sharded"][0][0]
+        if not all(np.isfinite(out["sharded"][0])) or \
+                abs(sharded - plain) > 1e-3 * abs(plain):
+            fail(f"sharded train: step 1 loss {sharded} against the plain "
+                 f"step's {plain}")
+        for k in ("flash_attention", "flash_attention_bwd"):
+            if got[k] == 0:
+                fail(f"sharded train never launched {k}")
+        launches["sharded_train"] = got
+        del b, toks, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["a"] = time.perf_counter() - t0
+    return run
+
+
+def sharded_serve(torch, np, mods, mesh, seen: dict, secs: dict,
+                  launches: dict, rows: int = 64, batch: int = 8,
+                  prompt: int = 128, gen: int = 16):
+    """Sharded phase (c), a hook for ``run_serving`` (qwen2-1.5b at its
+    full config): the served weights behind ``ServeEngine(mesh=,
+    policy="tp", force=True)`` on the one-rank NCCL mesh (stored as
+    DTensors, each layer gathered over "model" at its use, the rows over
+    "data", the stats and logits gathered back) and behind the unmeshed
+    engine: ``score`` on ``rows`` rows of ``prompt`` tokens, a
+    ``score_pool`` top-10 over them in pages of 16, and ``generate`` for
+    ``batch`` prompts, ``gen`` steps (random tokens, seed 3).  The meshed
+    engine's stats must meet the unmeshed ones' at the pool pass's
+    tolerance (atol = rtol = 5e-5 on margin and max log-prob, 5e-4 on
+    entropy), its top1, top-k and tokens exactly; ``margin_head`` must
+    run in the meshed passes.  ``score`` runs twice, the first paying the
+    engine's thread groups' first collectives."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.sweep import TopKSink
+
+    def run(model, params):
+        t0 = time.perf_counter()
+        cfg = model.cfg
+        rng = np.random.default_rng(3)
+        pool = {"tokens": rng.integers(0, cfg.vocab_size, (rows, prompt))}
+        req = {"tokens": pool["tokens"][:batch]}
+        out = {}
+        for name, kw in (("unmeshed", {}),
+                         ("meshed", dict(mesh=mesh, policy="tp",
+                                         force=True))):
+            eng = ServeEngine(model, params, prompt + gen + 8, batch,
+                              device="cuda", **kw)
+            if name == "meshed":
+                restore = [record_shapes(mh_mod, k, seen[k], key)
+                           for k, key, mh_mod in (
+                               ("margin_head", margin_key,
+                                mods["margin_head"]),
+                               ("flash_attention", flash_key,
+                                mods["flash_attention"]))]
+                _zero(torch, mods)
+            res, walls = {}, {}
+            # the first score pays the groups' first collectives
+            for label, fn in (
+                    ("score", lambda: eng.score(pool)),
+                    ("score again", lambda: eng.score(pool)),
+                    ("score_pool", lambda: eng.score_pool(
+                        pool, page_rows=16, sink=TopKSink(10))),
+                    ("generate", lambda: eng.generate(req, gen))):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res[label] = fn()
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t1
+            if name == "meshed":
+                got = {k: m.launches for k, m in mods.items()}
+                for r in restore:
+                    r()
+            eng.close()
+            out[name] = (res, walls)
+            del eng
+        for name, (_, walls) in out.items():
+            print(f"sharded serve {cfg.name} {name}: seconds "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+                  + f" ({rows} rows of {prompt} tokens; generate {batch} x "
+                  f"{gen}; {CARD})", flush=True)
+        print(f"sharded serve {cfg.name}: launches {got} ({CARD})",
+              flush=True)
+        a, b = out["meshed"][0], out["unmeshed"][0]
+        for k, tol in (("margin", 5e-5), ("entropy", 5e-4),
+                       ("max_logprob", 5e-5)):
+            g, w = getattr(a["score"], k), getattr(b["score"], k)
+            err = float((g - w).abs().max())
+            if not bool(((g - w).abs() <= tol + tol * w.abs()).all()):
+                fail(f"sharded serve score {k}: max err {err} beyond "
+                     f"atol = rtol = {tol}")
+        if not torch.equal(a["score"].top1, b["score"].top1) or not all(
+                torch.equal(x, y) for x, y in zip(a["score again"],
+                                                  a["score"])):
+            fail("sharded serve score: top1 differs from the unmeshed, or "
+                 "a second score from the first")
+        if not np.array_equal(a["score_pool"], b["score_pool"]):
+            fail(f"sharded serve score_pool top-k {a['score_pool']} against "
+                 f"{b['score_pool']}")
+        if not torch.equal(a["generate"], b["generate"]):
+            fail("sharded serve generate: tokens differ from the unmeshed")
+        if got["margin_head"] == 0:
+            fail("sharded serve never launched margin_head")
+        print(f"sharded serve {cfg.name}: score, score_pool and generate "
+              f"agree with the unmeshed engine", flush=True)
+        launches["sharded_serve"] = got
+        del out, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["c"] = time.perf_counter() - t0
+    return run
+
+
+def sharded_trainer(torch, np, mods, mesh, seen: dict, secs: dict,
+                    launches: dict, steps: int = 4, batch: int = 8,
+                    seq: int = 448):
+    """Sharded phase (b), a hook for ``run_serving`` (whisper-tiny at its
+    full config): ``Trainer(mesh=, policy="fsdp_tp", batch_pspecs=,
+    force=True)`` over batches from ``ShardedLoader(mesh=)`` (tokens,
+    labels and 1,500 fp32 frames a row, seed 4) for ``steps`` steps,
+    checkpointing every 2; a second run stops at step 2, and a fresh
+    ``Trainer`` resumes from its checkpoint (``restore(shardings=)``) and
+    runs the last steps on the same batches.  Fails unless the resumed
+    run's state equals the uninterrupted run's bit for bit."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.synth import make_lm_tokens
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    def run(model, params):
+        t0 = time.perf_counter()
+        cfg = model.cfg
+        n = batch * steps
+        toks = make_lm_tokens(n, seq + 1, cfg.vocab_size, seed=4)
+        frames = np.random.default_rng(4).normal(
+            size=(n, cfg.encoder_tokens, cfg.d_model)).astype(np.float32)
+        loader = ShardedLoader({"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                                "audio_frames": frames}, batch, mesh=mesh,
+                               seed=4, device="cuda")
+        batches = list(loader.epoch())
+        bp = _sharded_batch_pspecs(mesh, batches[0])
+        tc = TrainConfig(learning_rate=1e-3, schedule="paper_steps",
+                         total_steps=steps)
+        restore = [record_shapes(mods[k], k, seen[k], key)
+                   for k, key in (("flash_attention", flash_key),
+                                  ("flash_attention_bwd", flash_bwd_key))]
+        _zero(torch, mods)
+        walls = {}
+        with tempfile.TemporaryDirectory() as d:
+            def trainer(sub, max_steps):
+                return Trainer(model, tc, TrainerConfig(
+                    ckpt_dir=str(Path(d) / sub), ckpt_every=2, log_every=0,
+                    max_steps=max_steps), mesh=mesh, policy="fsdp_tp",
+                    batch_pspecs=bp, device="cuda", params=params,
+                    force=True, log_fn=lambda m: None)
+            t1 = time.perf_counter()
+            full = trainer("full", steps)
+            full.fit(batches)
+            torch.cuda.synchronize()
+            walls["uninterrupted"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            cut = trainer("cut", 2)
+            cut.fit(batches[:2])
+            del cut
+            resumed = trainer("cut", steps)
+            if resumed.step != 2:
+                fail(f"sharded trainer resumed at step {resumed.step}, "
+                     f"want 2")
+            resumed.fit(batches[2:])
+            torch.cuda.synchronize()
+            walls["stopped and resumed"] = time.perf_counter() - t1
+        got = {k: m.launches for k, m in mods.items()}
+        for r in restore:
+            r()
+        a, b = shd.full_tree(full.state), shd.full_tree(resumed.state)
+        same = a["step"] == b["step"] == steps and all(
+            torch.equal(a["params"][k], b["params"][k]) for k in a["params"]
+        ) and all(torch.equal(x[s], y[s]) for x, y in zip(a["opt"], b["opt"])
+                  for s in x)
+        placed = all(shd.is_placed(v) for v in resumed.state["params"]
+                     .values())
+        print(f"sharded trainer {cfg.name}: {steps} steps uninterrupted and "
+              f"stopped at 2 then resumed: seconds " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in walls.items())
+              + f"; resumed state bit-equal {same}, placed {placed}; "
+              f"launches {got} ({CARD})", flush=True)
+        if not same or not placed:
+            fail("sharded trainer: the resumed run's state is not the "
+                 "uninterrupted run's")
+        if got["flash_attention_bwd"] == 0:
+            fail("sharded trainer never launched the attention backward")
+        launches["sharded_trainer"] = got
+        del full, resumed, a, b, batches, loader
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["b"] = time.perf_counter() - t0
+    return run
+
+
 def profile_pass(torch, label: str, fn, top: int = 10):
     """Where one pass's time goes: the profiler's device time by kernel
     name, and the device's busy share of the pass's wall time."""
@@ -3071,8 +3368,10 @@ def main() -> None:
                          "serving_internvl2", "training_qwen2",
                          "serving_whisper", "training_whisper",
                          "training_mamba2", "training_zamba2",
-                         "mesh_compressed_dp")}
+                         "mesh_compressed_dp", "sharded_train",
+                         "sharded_serve", "sharded_trainer")}
     mesh_secs: dict = {}     # the mesh phase's parts: (a) .. (d)
+    sharded_secs: dict = {}  # the sharded phase's parts: (a) .. (c)
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -3133,9 +3432,14 @@ def main() -> None:
         torch, np, mods, "qwen2-1.5b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_qwen2"],
         pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass"]),
-        extra=compressed_dp(torch, np, mods, mesh,
-                            seen_by["mesh_compressed_dp"], mesh_secs,
-                            mesh_launches),
+        extra=_hooks(
+            compressed_dp(torch, np, mods, mesh,
+                          seen_by["mesh_compressed_dp"], mesh_secs,
+                          mesh_launches),
+            sharded_serve(torch, np, mods, mesh, seen_by["sharded_serve"],
+                          sharded_secs, mesh_launches),
+            sharded_train(torch, np, mods, mesh, seen_by["sharded_train"],
+                          sharded_secs, mesh_launches)),
         train=train_lm(torch, np, mods, seen_by["training_qwen2"]))
     phase("serving, pool pass and training qwen2-1.5b")
     served_gemma3, _ = run_serving(
@@ -3170,6 +3474,9 @@ def main() -> None:
     served_whisper, _, trained_whisper = run_serving(
         torch, np, mods, "whisper-tiny", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_whisper"],
+        extra=sharded_trainer(torch, np, mods, mesh,
+                              seen_by["sharded_trainer"], sharded_secs,
+                              mesh_launches),
         train=train_whisper_resume(torch, np, mods,
                                    seen_by["training_whisper"]))
     phase("serving and training whisper-tiny")
@@ -3178,6 +3485,12 @@ def main() -> None:
     print(f"phase mesh seconds: {sum(mesh_secs.values()):.1f} (" + ", ".join(
         f"{k} {v:.1f}" for k, v in mesh_secs.items()) + f"; {CARD})",
         flush=True)
+    print(f"phase sharded seconds: {sum(sharded_secs.values()):.1f} ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(sharded_secs.items()))
+          + f"; {CARD})", flush=True)
+    if sum(sharded_secs.values()) > 90:
+        print(f"phase sharded took {sum(sharded_secs.values()):.1f} s, "
+              f"over its 90 s", flush=True)
     from repro_torch.configs import get_config
     states = {s[4] for s in seen_by["serving_mamba2"]["ssd_scan"]}
     if states != {get_config("mamba2-1.3b").ssm_state}:
@@ -3217,7 +3530,11 @@ def main() -> None:
                    "mesh_campaign": mesh_launches["campaign"]
                    if k == "margin_head" else 0,
                    "mesh_compressed_dp":
-                   mesh_launches["compressed_dp"][k]} for k in mods}
+                   mesh_launches["compressed_dp"][k],
+                   "sharded_train": mesh_launches["sharded_train"][k],
+                   "sharded_trainer": mesh_launches["sharded_trainer"][k],
+                   "sharded_serve": mesh_launches["sharded_serve"][k]}
+               for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain
     # version again; max_abs_err is the worst of these

@@ -1,4 +1,4 @@
-"""Batching + host->device pipeline (``repro.data.loader``), on one device.
+"""Batching + host->device pipeline (``repro.data.loader``).
 
 ``ShardedLoader`` cuts host numpy arrays into global batches in the
 reference's order (one ``numpy.random.default_rng(seed)`` permutation an
@@ -7,8 +7,13 @@ wrapped around) and delivers each as device tensors.  On a CUDA device
 each batch is copied from pinned host memory on a side stream, one batch
 ahead of the one being consumed (the reference's one-deep prefetch): the
 consumer's stream waits on the copy's event and the tensors are recorded
-on that stream.  The reference's sharded placement (``mesh`` given) is
-the next slice of ROADMAP A.4 and is refused.
+on that stream.
+
+Over a ``mesh`` (a ``DeviceMesh`` of the process group) every rank cuts
+the same global batch and copies only its own rows of the batch dim's
+split over ("pod", "data") (:func:`batch_sharding`), delivered as a
+``DTensor`` of the global batch (:func:`device_put_global`), so the host
+never copies a whole batch to the device.
 """
 from __future__ import annotations
 
@@ -18,15 +23,32 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as shd
+
+
+def batch_sharding(mesh, ndim: int) -> "shd.NamedSharding":
+    """The batch dim over the mesh's ("pod", "data") axes, the rest
+    whole."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    first = axes if len(axes) > 1 else (axes[0] if axes else None)
+    return shd.named(mesh, (first,) + (None,) * (ndim - 1))
+
+
+def device_put_global(array: np.ndarray, mesh=None, device="cuda"):
+    """A host array on the device: whole without a mesh, else a
+    ``DTensor`` of the global array holding this rank's rows only."""
+    if mesh is None:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+    sh = batch_sharding(mesh, array.ndim)
+    rows = np.ascontiguousarray(array[shd.slices(array.shape, sh.spec,
+                                                 mesh)])
+    return shd.place(torch.from_numpy(rows).to(device), sh, array.shape)
+
 
 class ShardedLoader:
     def __init__(self, data: Dict[str, np.ndarray], global_batch: int,
                  mesh=None, seed: int = 0, drop_last: bool = True,
                  prefetch: int = 1, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedLoader over a mesh is not ported (ROADMAP A.4, its "
-                "second half); it runs with mesh=None on one device")
         sizes = {k: len(v) for k, v in data.items()}
         assert len(set(sizes.values())) == 1, sizes
         self.data = data
@@ -51,7 +73,18 @@ class ShardedLoader:
             yield {k: v[sel] for k, v in self.data.items()}
 
     def _put(self, host_batch: Dict[str, np.ndarray]):
-        """Start one batch's copy: (tensors, the copy's event or None)."""
+        """Start one batch's copy (this rank's rows over a mesh): (tensors,
+        the copy's event or None, the global shapes or None)."""
+        shapes = None
+        if self.mesh is not None:
+            shapes = {k: v.shape for k, v in host_batch.items()}
+            host_batch = {k: v[shd.slices(v.shape, batch_sharding(
+                self.mesh, v.ndim).spec, self.mesh)]
+                for k, v in host_batch.items()}
+        out, event = self._copy(host_batch)
+        return out, event, shapes
+
+    def _copy(self, host_batch: Dict[str, np.ndarray]):
         if self.device.type != "cuda":
             return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                 self.device) for k, v in host_batch.items()}, None
@@ -67,16 +100,20 @@ class ShardedLoader:
         return out, event
 
     def _ready(self, item) -> Dict[str, torch.Tensor]:
-        out, event = item
+        out, event, shapes = item
         if event is not None:
             current = torch.cuda.current_stream(self.device)
             current.wait_event(event)
             for t in out.values():
                 t.record_stream(current)
+        if shapes is not None:
+            out = {k: shd.place(t, batch_sharding(self.mesh, t.ndim),
+                                shapes[k]) for k, t in out.items()}
         return out
 
     def epoch(self) -> Iterator[Dict[str, torch.Tensor]]:
-        """One epoch of device-resident global batches (1-deep prefetch)."""
+        """One epoch of device-resident global batches (1-deep prefetch);
+        over a mesh, DTensors of this rank's rows."""
         queue = collections.deque()
         for host_batch in self._host_batches():
             queue.append(self._put(host_batch))

@@ -7,8 +7,11 @@ unless ``--device cpu``.
 The reference's flags and schedule (``paper_steps`` over ``--steps``),
 the ``Trainer`` (resume, checkpoints, straggler monitor), LM batches of
 ``make_lm_tokens`` through ``ShardedLoader``.  The full config trains on
-one device: training over a mesh is the next slice of ROADMAP A.4.  Like the reference's launcher
-it builds ``{"tokens", "labels"}`` batches only, which the audio and vlm
+one device.  The reference's launcher builds its 256-device production
+mesh for every full-config run and then trains through the unsharded
+step anyway (its ``Trainer`` gets no ``batch_pspecs``: ROADMAP C.8); this
+one builds no mesh.  The sharded route is ``Trainer(mesh=, policy=,
+batch_pspecs=)``.  Like the reference's launcher it builds ``{"tokens", "labels"}`` batches only, which the audio and vlm
 architectures cannot train on (the reference's launcher fails on them:
 ROADMAP C.6), so it refuses those; ``Trainer`` itself takes their
 ``audio_frames`` / ``patch_embeds`` batches.  On a CUDA device every

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import whole, whole_tree
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import param as P
@@ -122,17 +123,19 @@ def _enc_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
                            L.apply_norm(cfg, p["mlp_norm"], h))
 
 
-def encode(cfg: ModelConfig, params: Dict,
-           audio_frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: Dict, audio_frames: torch.Tensor,
+           mesh=None) -> torch.Tensor:
     """audio_frames (B, encoder_tokens, D) stub frame embeddings -> the
     encoder output (B, encoder_tokens, D) in the config's dtype.
-    ``params`` is the nested tree."""
+    ``params`` is the nested tree; over a ``mesh`` its sharded leaves are
+    gathered at their use."""
     dt = cfg.torch_dtype
-    x = audio_frames.to(dt) + params["enc_pos"].to(dt)
+    x = audio_frames.to(dt) + whole(params["enc_pos"], mesh).to(dt)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.encoder_layers):
-        x = _enc_layer(cfg, tf._layer(params["encoder"], i), x, positions)
-    return L.apply_norm(cfg, params["enc_final_norm"], x)
+        x = _enc_layer(cfg, tf._layer(params["encoder"], i, mesh), x,
+                       positions)
+    return L.apply_norm(cfg, whole_tree(params["enc_final_norm"], mesh), x)
 
 
 def _dec_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
@@ -155,58 +158,66 @@ def _dec_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
 
 def _decode_blocks(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                    enc_out: torch.Tensor, positions: torch.Tensor,
-                   with_cache: bool = False):
+                   with_cache: bool = False, mesh=None):
     """The decoder layers over x; with ``with_cache`` also the stacked
     caches {"k", "v"} (L, B, T, Hk, hd) and {"xk", "xv"} (L, B,
-    encoder_tokens, Hk, hd)."""
+    encoder_tokens, Hk, hd).  A layer's weights are gathered inside its
+    recomputed body."""
     if not with_cache:
         for i in range(cfg.num_layers):
-            def body(h, p=tf._layer(params["decoder"], i)):
-                return _dec_layer(cfg, p, h, enc_out, positions)[0]
+            def body(h, i=i):
+                return _dec_layer(cfg, tf._layer(params["decoder"], i, mesh),
+                                  h, enc_out, positions)[0]
             x = L.remat(cfg, body, x)
         return x, None
     caches = []
     for i in range(cfg.num_layers):
-        x, c = _dec_layer(cfg, tf._layer(params["decoder"], i), x, enc_out,
-                          positions, with_cache=True)
+        x, c = _dec_layer(cfg, tf._layer(params["decoder"], i, mesh), x,
+                          enc_out, positions, with_cache=True)
         caches.append(c)
     return x, {k: torch.stack([c[k] for c in caches])
                for k in ("k", "v", "xk", "xv")}
 
 
 def _embed_dec(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-               offset: int) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+               offset: int, mesh=None) -> torch.Tensor:
+    x = whole(params["embed"], mesh)[tokens.long()]
     pos = offset + torch.arange(tokens.shape[1], device=x.device)
-    return x + params["dec_pos"][pos].to(x.dtype)
+    return x + whole(params["dec_pos"], mesh)[pos].to(x.dtype)
 
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                  audio_frames: Optional[torch.Tensor], with_cache: bool):
+                  audio_frames: Optional[torch.Tensor], with_cache: bool,
+                  mesh=None):
     if audio_frames is None:
         raise ValueError("the audio family needs the batch's audio_frames "
                          "(B, encoder_tokens, d_model)")
     tree = P.nest(params)
-    enc_out = encode(cfg, tree, audio_frames)
-    x = _embed_dec(cfg, tree, tokens, 0)
+    enc_out = encode(cfg, tree, audio_frames, mesh)
+    x = _embed_dec(cfg, tree, tokens, 0, mesh)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, caches = _decode_blocks(cfg, tree, x, enc_out, positions, with_cache)
-    return L.apply_norm(cfg, tree["final_norm"], x), caches
+    x, caches = _decode_blocks(cfg, tree, x, enc_out, positions, with_cache,
+                               mesh)
+    return L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh),
+                        x), caches
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            audio_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+            audio_frames: Optional[torch.Tensor] = None,
+            mesh=None) -> torch.Tensor:
     """tokens (B, T) and audio_frames (B, encoder_tokens, D) -> the
-    decoder's final hidden states (B, T, D); differentiable."""
-    return _forward_impl(cfg, params, tokens, audio_frames, False)[0]
+    decoder's final hidden states (B, T, D); differentiable.  With a
+    ``mesh`` the batch is this rank's rows and sharded params are
+    gathered at their use."""
+    return _forward_impl(cfg, params, tokens, audio_frames, False, mesh)[0]
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            audio_frames: Optional[torch.Tensor] = None):
+            audio_frames: Optional[torch.Tensor] = None, mesh=None):
     """Forward that also returns the caches {"k", "v", "xk", "xv"} in the
     config's dtype."""
-    return _forward_impl(cfg, params, tokens, audio_frames, True)
+    return _forward_impl(cfg, params, tokens, audio_frames, True, mesh)
 
 
 def cache_specs(cfg: ModelConfig, batch: int,
@@ -227,17 +238,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, cache_len: int
+                tokens: torch.Tensor, cache_len: int, mesh=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_len`` -> (logits (B, 1, V), the
-    cache with this token's keys and values written in, in place)."""
+    cache with this token's keys and values written in, in place).  With
+    a ``mesh`` the tokens and the caches are this rank's rows."""
     tree = P.nest(params)
     cache_len = int(cache_len)
-    x = _embed_dec(cfg, tree, tokens, cache_len)
+    x = _embed_dec(cfg, tree, tokens, cache_len, mesh)
     T = x.shape[1]
     positions = cache_len + torch.arange(T, device=x.device)
     for i in range(cfg.num_layers):
-        p = tf._layer(tree["decoder"], i)
+        p = tf._layer(tree["decoder"], i, mesh)
         q, kk, vv = tf._qkv(cfg, p["attn"], x, positions)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         k_cache[:, cache_len:cache_len + T] = kk.to(k_cache.dtype)
@@ -252,5 +264,5 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         x = x + _out(xout, p["xattn"]["wo"])
         x = x + L.apply_mlp(cfg, p["mlp"],
                             L.apply_norm(cfg, p["mlp_norm"], x))
-    hidden = L.apply_norm(cfg, tree["final_norm"], x)
-    return tf.logits_fn(cfg, tree, hidden[:, -1:, :]), cache
+    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
+    return tf.logits_fn(cfg, tree, hidden[:, -1:, :], mesh), cache

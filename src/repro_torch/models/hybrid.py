@@ -26,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import whole_tree
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models import param as P
@@ -72,9 +73,9 @@ _run_mamba_with_state = mamba2.mamba_block_with_state
 
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                  with_cache: bool):
+                  with_cache: bool, mesh=None):
     tree = P.nest(params)
-    x = tf.embed_tokens(cfg, tree, tokens)
+    x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
     positions = torch.arange(x.shape[1], device=x.device)
     na, per = _n_apps(cfg), cfg.shared_attn_every
     attn_caches, ssm_states = [], []
@@ -82,47 +83,55 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         # one application of the shared block and its group of mamba2
         # blocks, recomputed in the backward under cfg.remat (the
         # reference's checkpointed scan body)
+        # (the weights gathered inside it, over a mesh)
         def group(h, a):
-            h = tf._block(cfg, tree["shared"], h, positions=positions,
-                          is_global=True)[0]
+            h = tf._block(cfg, whole_tree(tree["shared"], mesh), h,
+                          positions=positions, is_global=True, mesh=mesh)[0]
             for j in range(per):
                 h = mamba2.mamba_block(
-                    cfg, tf._layer(tree["mamba_blocks"], a * per + j), h)
+                    cfg, tf._layer(tree["mamba_blocks"], a * per + j, mesh),
+                    h)
             return h
         for a in range(na):
             x = L.remat(cfg, group, x, a)
-        return L.apply_norm(cfg, tree["final_norm"], x), None
+        return L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh),
+                            x), None
     for a in range(na):
         # the shared block is the dense family's block (causal, no
         # window), one set of weights at every application
-        x, attn_cache = tf._block(cfg, tree["shared"], x,
+        x, attn_cache = tf._block(cfg, whole_tree(tree["shared"], mesh), x,
                                   positions=positions, is_global=True,
-                                  with_cache=True)
+                                  with_cache=True, mesh=mesh)
         attn_caches.append(attn_cache)
         for j in range(per):
-            p = tf._layer(tree["mamba_blocks"], a * per + j)
+            p = tf._layer(tree["mamba_blocks"], a * per + j, mesh)
             x, st = _run_mamba_with_state(cfg, p, x)
             ssm_states.append(st)
-    hidden = L.apply_norm(cfg, tree["final_norm"], x)
+    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
     attn = {k: torch.stack([c[k] for c in attn_caches]) for k in ("k", "v")}
     ssm = {k: torch.stack([s[k] for s in ssm_states]).unflatten(0, (na, per))
            for k in ("ssm", "conv")}
     return hidden, (attn, ssm)
 
 
-def forward(cfg: ModelConfig, params: Dict,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+            mesh=None) -> torch.Tensor:
     """tokens (B, T) -> final hidden states (B, T, D); differentiable
-    (on a CUDA device through the backward kernels)."""
-    return _forward_impl(cfg, params, tokens, with_cache=False)[0]
+    (on a CUDA device through the backward kernels).  With a ``mesh`` the
+    batch is this rank's rows and sharded params are gathered at their
+    use."""
+    return _forward_impl(cfg, params, tokens, with_cache=False,
+                         mesh=mesh)[0]
 
 
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor):
+def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+            mesh=None):
     """Forward that also returns the caches: {"attn": {"k", "v"}
     (apps, B, T, Hk, hd), "ssm": {"ssm" (apps, per, B, H, hd, N) fp32,
     "conv" (apps, per, B, K-1, d_inner)}}."""
-    hidden, (attn, ssm) = _forward_impl(cfg, params, tokens, with_cache=True)
+    hidden, (attn, ssm) = _forward_impl(cfg, params, tokens,
+                                        with_cache=True, mesh=mesh)
     return hidden, {"attn": attn, "ssm": ssm}
 
 
@@ -152,16 +161,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, cache_len: int
+                tokens: torch.Tensor, cache_len: int, mesh=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_len`` -> (logits (B, 1, V), the
-    cache with this token written in, in place)."""
+    cache with this token written in, in place).  With a ``mesh`` the
+    tokens and the caches are this rank's rows."""
     tree = P.nest(params)
     cache_len = int(cache_len)
-    x = tf.embed_tokens(cfg, tree, tokens)
+    x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
     T = x.shape[1]
     positions = cache_len + torch.arange(T, device=x.device)
-    shared = tree["shared"]
+    shared = whole_tree(tree["shared"], mesh)
     na, per = _n_apps(cfg), cfg.shared_attn_every
     for a in range(na):
         q, kk, vv = tf._qkv(cfg, shared["attn"], x, positions)
@@ -173,10 +183,10 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         x = x + L.apply_mlp(cfg, shared["mlp"],
                             L.apply_norm(cfg, shared["mlp_norm"], x))
         for j in range(per):
-            p = tf._layer(tree["mamba_blocks"], a * per + j)
+            p = tf._layer(tree["mamba_blocks"], a * per + j, mesh)
             state = {k: cache["ssm"][k][a, j] for k in ("ssm", "conv")}
             x, new = mamba2.mamba_block_decode(cfg, p, x, state)
             for k in ("ssm", "conv"):
                 cache["ssm"][k][a, j] = new[k]
-    hidden = L.apply_norm(cfg, tree["final_norm"], x)
-    return tf.logits_fn(cfg, tree, hidden[:, -1:, :]), cache
+    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
+    return tf.logits_fn(cfg, tree, hidden[:, -1:, :], mesh), cache

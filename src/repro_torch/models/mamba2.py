@@ -242,38 +242,46 @@ def specs(cfg: ModelConfig) -> Dict:
 
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                  patch_embeds: Optional[torch.Tensor], with_state: bool):
+                  patch_embeds: Optional[torch.Tensor], with_state: bool,
+                  mesh=None):
+    from repro_torch.distributed.sharding import whole_tree
     from repro_torch.models import transformer as tf
     tree = P.nest(params)
-    x = tf.embed_tokens(cfg, tree, tokens, patch_embeds)
+    x = tf.embed_tokens(cfg, tree, tokens, patch_embeds, mesh)
     if not with_state:
         for i in range(cfg.num_layers):
-            x = L.remat(cfg, lambda h, p=tf._layer(tree["blocks"], i):
-                        mamba_block(cfg, p, h), x)
-        return L.apply_norm(cfg, tree["final_norm"], x), None
+            # the layer's weights gathered inside the recomputed body
+            x = L.remat(cfg, lambda h, i=i: mamba_block(
+                cfg, tf._layer(tree["blocks"], i, mesh), h), x)
+        return L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh),
+                            x), None
     states = []
     for i in range(cfg.num_layers):
-        x, st = mamba_block_with_state(cfg, tf._layer(tree["blocks"], i), x)
+        x, st = mamba_block_with_state(cfg, tf._layer(tree["blocks"], i,
+                                                      mesh), x)
         states.append(st)
-    hidden = L.apply_norm(cfg, tree["final_norm"], x)
+    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
     return hidden, {k: torch.stack([st[k] for st in states])
                     for k in ("ssm", "conv")}
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            patch_embeds: Optional[torch.Tensor] = None,
+            mesh=None) -> torch.Tensor:
     """tokens (B, T) -> final hidden states (B, T, D); differentiable
-    (on a CUDA device through the ``ssd_scan_bwd`` kernel)."""
-    return _forward_impl(cfg, params, tokens, patch_embeds, False)[0]
+    (on a CUDA device through the ``ssd_scan_bwd`` kernel).  With a
+    ``mesh`` the batch is this rank's rows and sharded params are
+    gathered at their use."""
+    return _forward_impl(cfg, params, tokens, patch_embeds, False, mesh)[0]
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            patch_embeds: Optional[torch.Tensor] = None):
+            patch_embeds: Optional[torch.Tensor] = None, mesh=None):
     """Forward that also returns each layer's final states, the reference's
     prefill arithmetic: {"ssm" (L, B, H, hd, N) fp32, "conv" (L, B, K-1,
     d_inner), the last K-1 inputs of the conv}."""
-    return _forward_impl(cfg, params, tokens, patch_embeds, True)
+    return _forward_impl(cfg, params, tokens, patch_embeds, True, mesh)
 
 
 def cache_specs(cfg: ModelConfig, batch: int,
@@ -294,19 +302,21 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, cache_len: int
+                tokens: torch.Tensor, cache_len: int, mesh=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) -> (logits (B, 1, V), the state cache advanced by this
     token, in place).  ``cache_len`` is not read: the states carry the
-    position."""
+    position.  With a ``mesh`` the tokens and the states are this rank's
+    rows."""
+    from repro_torch.distributed.sharding import whole_tree
     from repro_torch.models import transformer as tf
     tree = P.nest(params)
-    x = tf.embed_tokens(cfg, tree, tokens)
+    x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
     for i in range(cfg.num_layers):
         state = {k: cache[k][i] for k in ("ssm", "conv")}
-        x, new = mamba_block_decode(cfg, tf._layer(tree["blocks"], i), x,
-                                    state)
+        x, new = mamba_block_decode(cfg, tf._layer(tree["blocks"], i, mesh),
+                                    x, state)
         for k in ("ssm", "conv"):
             cache[k][i] = new[k]
-    hidden = L.apply_norm(cfg, tree["final_norm"], x)
-    return tf.logits_fn(cfg, tree, hidden[:, -1:, :]), cache
+    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
+    return tf.logits_fn(cfg, tree, hidden[:, -1:, :], mesh), cache

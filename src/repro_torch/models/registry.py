@@ -1,6 +1,13 @@
 """Family -> implementation registry + uniform model facade
 (``repro.models.registry``).  Every family of the reference is ported:
-``mlp``, ``hybrid``, ``dense``, ``ssm``, ``moe``, ``vlm`` and ``audio``."""
+``mlp``, ``hybrid``, ``dense``, ``ssm``, ``moe``, ``vlm`` and ``audio``.
+
+``forward``, ``prefill`` and ``decode_step`` take the reference's
+``mesh=``: a ``distributed.sharding.MeshView`` (a bare ``DeviceMesh`` is
+viewed with the batch whole on every rank).  Over a mesh, params may be
+stored sharded (``DTensor`` leaves, gathered at their use) and the batch is
+this rank's rows of the view's split; a mesh of one rank computes what no
+mesh does."""
 from __future__ import annotations
 
 import math
@@ -12,6 +19,7 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import MeshView, whole_tree
 from repro_torch.models import encdec, hybrid, mamba2, mlp
 from repro_torch.models import param as P
 from repro_torch.models import transformer as tf
@@ -65,33 +73,51 @@ class Model:
         family's ``audio_frames``) or None."""
         return batch.get("patch_embeds", batch.get("audio_frames"))
 
-    def forward(self, params: Dict, batch: Dict) -> torch.Tensor:
+    def forward(self, params: Dict, batch: Dict,
+                mesh=None) -> torch.Tensor:
+        mesh = _view(mesh)
         if self.cfg.family == "mlp":
+            if mesh is not None:
+                params = whole_tree(params, mesh)
             with self._net_lock:
                 return functional_call(self.net, params,
                                        (batch["features"],),
                                        tie_weights=False)
         fe = self._frontend(batch)
         if fe is None:
-            return self.mod.forward(self.cfg, params, batch["tokens"])
-        return self.mod.forward(self.cfg, params, batch["tokens"], fe)
+            return self.mod.forward(self.cfg, params, batch["tokens"],
+                                    mesh=mesh)
+        return self.mod.forward(self.cfg, params, batch["tokens"], fe,
+                                mesh=mesh)
 
-    def prefill(self, params: Dict, batch: Dict):
+    def prefill(self, params: Dict, batch: Dict, mesh=None):
+        mesh = _view(mesh)
         fe = self._frontend(batch)
         if fe is None:
-            return self.mod.prefill(self.cfg, params, batch["tokens"])
-        return self.mod.prefill(self.cfg, params, batch["tokens"], fe)
+            return self.mod.prefill(self.cfg, params, batch["tokens"],
+                                    mesh=mesh)
+        return self.mod.prefill(self.cfg, params, batch["tokens"], fe,
+                                mesh=mesh)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
-                    cache_len: int):
+                    cache_len: int, mesh=None):
         return self.mod.decode_step(self.cfg, params, cache, tokens,
-                                    cache_len)
+                                    cache_len, mesh=_view(mesh))
 
     def init_cache(self, batch: int, seq_len: int, device="cuda") -> Dict:
         return self.mod.init_cache(self.cfg, batch, seq_len, device)
 
-    def logits(self, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
-        return tf.logits_fn(self.cfg, params, hidden)
+    def logits(self, params: Dict, hidden: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+        return tf.logits_fn(self.cfg, params, hidden, _view(mesh))
+
+
+def _view(mesh):
+    """None, or ``mesh`` as a :class:`MeshView` (the batch whole on every
+    rank where a bare ``DeviceMesh`` is given)."""
+    if mesh is None or isinstance(mesh, MeshView):
+        return mesh
+    return MeshView(mesh)
 
 
 def get_model(cfg: ModelConfig) -> Model:

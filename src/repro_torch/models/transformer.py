@@ -38,7 +38,7 @@ differentiable collectives of ``distributed.collectives``.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import param as P
@@ -150,12 +151,12 @@ def _qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.Tensor
 
 
 def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                 patch_embeds: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 patch_embeds: Optional[torch.Tensor] = None,
+                 mesh=None) -> torch.Tensor:
     """Token embeddings (B, T, D); with ``patch_embeds`` (B, P, D) those
     are cast to the embedding's dtype and prepended (the VLM's stub
-    frontend)."""
-    x = params["embed"][tokens.long()]
+    frontend).  A sharded embedding is gathered whole over ``mesh``."""
+    x = shd.whole(params["embed"], mesh)[tokens.long()]
     if cfg.tie_embeddings:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     if patch_embeds is not None:
@@ -163,15 +164,18 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     return x
 
 
-def lm_head_weight(cfg: ModelConfig, params: Dict) -> torch.Tensor:
+def lm_head_weight(cfg: ModelConfig, params: Dict,
+                   mesh=None) -> torch.Tensor:
+    """The (D, V) head: the tied embedding's transpose or ``lm_head``,
+    gathered whole over ``mesh`` where it is sharded."""
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["lm_head"]
+        return shd.whole(params["embed"], mesh).T
+    return shd.whole(params["lm_head"], mesh)
 
 
-def logits_fn(cfg: ModelConfig, params: Dict,
-              hidden: torch.Tensor) -> torch.Tensor:
-    return hidden @ lm_head_weight(cfg, params)
+def logits_fn(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
+              mesh=None) -> torch.Tensor:
+    return hidden @ lm_head_weight(cfg, params, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -438,13 +442,80 @@ def moe_sharded(cfg: ModelConfig, p: Dict, x: torch.Tensor, mesh, *,
     return out.reshape(B, S, D)
 
 
+def moe_rows(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+             view: "shd.MeshView") -> torch.Tensor:
+    """The routed MoE inside a sharded model (:class:`shd.MeshView`): ``x``
+    (B, S, D) is this rank's rows (split over ``view.rows``), and the
+    expert weights come as the policy stores them, each this rank's block
+    (a :class:`shd.Local`) or whole.  The reference's ``shard_map`` islands,
+    computed on those rows: the tokens' rows over the batch axes ("pod",
+    "data"; over "model" too on the ``a2a`` route), experts over "model",
+    their FFN dim over "data"; rows and weights are moved into that split
+    only where the stored one differs (gathered over the axes that differ,
+    then this rank's block taken).  The result is this rank's rows.
+
+    Gradients follow the sharded step's convention (the loss is the sum
+    of the ranks' losses): every collective's backward is its exact
+    transpose, so the replicate + psum route's sum over "model" sums its
+    cotangents too, where :func:`moe_sharded` (whole ``x`` on every rank)
+    keeps them."""
+    B, Sq, D = x.shape
+    names = view.mesh_dim_names
+    axes = {a: C.Axis.of(view, a) for a in names}
+    size = {a: axes[a].size for a in names}
+    tp = size.get("model", 1)
+    if cfg.num_experts % tp:
+        raise ValueError(f"{cfg.num_experts} experts do not split over "
+                         f"{tp} model ranks")
+    e_loc = cfg.num_experts // tp
+    batch = [a for a in ("pod", "data") if view.active(a)]
+    data = "data" if view.active("data") else None
+    model = "model" if view.active("model") else None
+    n_rows = B * Sq * math.prod(size[a] for a in view.rows)
+    shards = math.prod(size[a] for a in batch)
+    a2a = (cfg.moe_route == "a2a" and model is not None
+           and n_rows % (tp * shards) == 0)
+    want = batch + (["model"] if a2a else [])
+    xf = shd.rows_to(x.reshape(B * Sq, D), view.rows, want, view)
+
+    def expert_w(w, f_dim):
+        """An expert weight (E, D, F) or (E, F, D) split as the routes
+        take it: experts over "model", F over "data"."""
+        w = w if isinstance(w, shd.Local) else shd.Local(w, shd.P())
+        target = [model, None, None]
+        target[f_dim] = data
+        return shd.relayout(w.t, w.spec, target, view)
+
+    pl = {"router": shd.whole(p["router"], view),
+          "w_gate": expert_w(p["w_gate"], 2),
+          "w_up": expert_w(p["w_up"], 2),
+          "w_down": expert_w(p["w_down"], 1)}
+    dax = axes[data] if data else None
+    if a2a:
+        out = _moe_a2a(cfg, pl, xf, axes["model"], dax)
+    else:
+        m = axes[model] if model else None
+        out = _moe_local(cfg, pl, xf, m.rank * e_loc if m else 0, e_loc,
+                         dax)
+        if m is not None:
+            out = C.psum(out, m, varying=True)
+    return shd.rows_to(out, want, view.rows, view).reshape(B, Sq, D)
+
+
 def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
               mesh=None) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D), plus the shared expert where the config
-    has one.  On a ``mesh`` of more than one rank the routed part runs
-    sharded (:func:`moe_sharded`); a mesh of one device is the local
-    block, bit for bit, as in the reference."""
-    B, S, D = x.shape
+    has one.  Inside a sharded model (a :class:`shd.MeshView`) the routed
+    part runs on the rank's rows (:func:`moe_rows`); on a ``mesh`` of more
+    than one rank with ``x`` whole it runs sharded (:func:`moe_sharded`);
+    a mesh of one device is the local block, bit for bit, as in the
+    reference."""
+    B, Sq, D = x.shape
+    if isinstance(mesh, shd.MeshView):
+        out = moe_rows(cfg, p, x, mesh)
+        if cfg.num_shared_experts:
+            out = out + L.apply_mlp(cfg, p["shared"], x)
+        return out
     sizes = {}
     if mesh is not None:
         from repro_torch.distributed.sharding import mesh_axis_sizes
@@ -457,17 +528,22 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                 f"(launch.mesh)")
         out = moe_sharded(cfg, p, x, mesh)
     else:
-        out = _moe_local(cfg, p, x.reshape(B * S, D)).reshape(B, S, D)
+        out = _moe_local(cfg, p, x.reshape(B * Sq, D)).reshape(B, Sq, D)
     if cfg.num_shared_experts:
         out = out + L.apply_mlp(cfg, p["shared"], x)
     return out
 
 
-def _ffn(cfg: ModelConfig, p: Dict, xn: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, p: Dict, xn: torch.Tensor,
+         mesh=None) -> torch.Tensor:
     """The block's feed-forward half: the MoE block or the MLP."""
     if cfg.family == "moe":
-        return moe_block(cfg, p, xn)
+        return moe_block(cfg, p, xn, mesh)
     return L.apply_mlp(cfg, p, xn)
+
+
+# the routed experts' weights, which the sharded MoE takes as stored
+_MOE_KEEP = ("mlp.w_gate", "mlp.w_up", "mlp.w_down")
 
 
 # ---------------------------------------------------------------------------
@@ -491,70 +567,148 @@ def _window(cfg: ModelConfig, is_global: bool) -> int:
     return cfg.sliding_window
 
 
+class _Seq(NamedTuple):
+    """The ``seq_serve`` split: this rank's positions [start, start +
+    T_loc) of ``total`` along ``axis``."""
+    axis: C.Axis
+    start: int
+    total: int
+
+
+def _seq_split(cfg: ModelConfig, mesh, T: int) -> Optional[_Seq]:
+    """The reference's ``seq_serve`` branch applies when the config asks
+    for it, the mesh's "model" axis has more than one rank and divides the
+    sequence."""
+    if not isinstance(mesh, shd.MeshView) or cfg.sharding != "seq_serve" \
+            or "model" not in mesh.mesh_dim_names:
+        return None
+    ax = C.Axis.of(mesh, "model")
+    if ax.size < 2 or T % ax.size:
+        return None
+    return _Seq(ax, ax.rank * (T // ax.size), T)
+
+
+def _seq_attention(cfg: ModelConfig, q, kk, vv, seq: _Seq, window: int,
+                   mesh, kv_chunk: int):
+    """Attention over a sequence split along "model": a sliding-window
+    layer exchanges a window-sized halo (``halo_window_attention``) where
+    the window fits in a shard (the reference's ``use_halo``); any other
+    layer gathers K and V over "model" and attends from this rank's
+    positions (``q_offset``).  Both run ``layers.blockwise_attention``,
+    as the reference's branch does (it reaches no Pallas kernel there):
+    the ``flash_attention`` kernel takes no ``q_offset`` or
+    ``kv_start``."""
+    T_loc = q.shape[1]
+    if window and cfg.sliding_window <= T_loc:
+        from repro_torch.serving.halo_attention import halo_window_attention
+        return halo_window_attention(q, kk, vv, window=window, mesh=mesh,
+                                     axis="model")
+    K, V = C.gather(kk, 1, seq.axis), C.gather(vv, 1, seq.axis)
+    return L.blockwise_attention(q, K, V, causal=True, window=window,
+                                 q_offset=seq.start, kv_chunk=kv_chunk)
+
+
 def _block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
            positions: torch.Tensor, is_global: bool, kv_chunk: int = 1024,
-           with_cache: bool = False):
+           with_cache: bool = False, mesh=None, seq: Optional[_Seq] = None):
     q, kk, vv = _qkv(cfg, p["attn"], x, positions)
-    T = x.shape[1]
+    T = x.shape[1] if seq is None else seq.total
     ck = min(kv_chunk, T, L.pick_kv_chunk(x.shape[0], T, cfg.num_heads))
-    out = ops.attention(q, kk, vv, causal=True,
-                        window=_window(cfg, is_global), kv_chunk=ck)
+    if seq is None:
+        out = ops.attention(q, kk, vv, causal=True,
+                            window=_window(cfg, is_global), kv_chunk=ck)
+    else:
+        out = _seq_attention(cfg, q, kk, vv, seq, _window(cfg, is_global),
+                             mesh, ck)
     x = x + torch.einsum("btnh,nhd->btd", out, p["attn"]["wo"])
-    x = x + _ffn(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x))
-    cache = {"k": kk.to(cfg.torch_dtype), "v": vv.to(cfg.torch_dtype)} \
-        if with_cache else None
+    x = x + _ffn(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x), mesh)
+    cache = None
+    if with_cache:
+        if seq is not None:   # the cache whole along the sequence
+            kk, vv = C.gather(kk, 1, seq.axis), C.gather(vv, 1, seq.axis)
+        cache = {"k": kk.to(cfg.torch_dtype), "v": vv.to(cfg.torch_dtype)}
     return x, cache
 
 
-def _layer(blocks: Dict, i: int) -> Dict:
-    """Layer ``i`` of the stacked block params (views, no copies)."""
-    return P.tree_map(lambda a: a[i], blocks)
+def _layer(blocks: Dict, i: int, mesh=None, keep=()) -> Dict:
+    """Layer ``i`` of the stacked block params: views, no copies; over a
+    ``mesh`` each sharded leaf's block gathered whole, but those in
+    ``keep``, which stay this rank's blocks."""
+    if mesh is None:
+        return P.tree_map(lambda a: a[i], blocks)
+    return shd.layer(blocks, i, mesh, keep=keep)
+
+
+def _keep(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The leaves a layer keeps as blocks: the MoE's routed experts."""
+    return _MOE_KEEP if cfg.family == "moe" else ()
 
 
 def _scan_blocks(cfg: ModelConfig, tree: Dict, x: torch.Tensor,
-                 positions: torch.Tensor, with_cache: bool = False):
+                 positions: torch.Tensor, with_cache: bool = False,
+                 mesh=None, seq: Optional[_Seq] = None):
     """The reference's layer scan as a loop over the stacked layers, each
     recomputed in the backward under ``remat`` (``L.remat``); with
-    ``with_cache`` also the stacked K/V cache (L, B, T, Hk, hd)."""
+    ``with_cache`` also the stacked K/V cache (L, B, T, Hk, hd).  A layer's
+    weights are gathered inside the recomputed body, so the backward
+    gathers them again rather than keeping every layer whole."""
     if not with_cache:
         for i, flag in enumerate(_layer_flags(cfg)):
-            def body(h, p=_layer(tree["blocks"], i), flag=flag):
-                return _block(cfg, p, h, positions=positions,
-                              is_global=flag)[0]
+            def body(h, i=i, flag=flag):
+                return _block(cfg, _layer(tree["blocks"], i, mesh, _keep(cfg)), h,
+                              positions=positions, is_global=flag,
+                              mesh=mesh, seq=seq)[0]
             x = L.remat(cfg, body, x)
         return x, None
     caches = []
     for i, flag in enumerate(_layer_flags(cfg)):
-        x, c = _block(cfg, _layer(tree["blocks"], i), x,
-                      positions=positions, is_global=flag, with_cache=True)
+        x, c = _block(cfg, _layer(tree["blocks"], i, mesh, _keep(cfg)), x,
+                      positions=positions, is_global=flag, with_cache=True,
+                      mesh=mesh, seq=seq)
         caches.append(c)
     return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
 
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                  patch_embeds: Optional[torch.Tensor], with_cache: bool):
+                  patch_embeds: Optional[torch.Tensor], with_cache: bool,
+                  mesh=None):
     tree = P.nest(params)
-    x = embed_tokens(cfg, tree, tokens, patch_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, caches = _scan_blocks(cfg, tree, x, positions, with_cache)
-    return L.apply_norm(cfg, tree["final_norm"], x), caches
+    x = embed_tokens(cfg, tree, tokens, patch_embeds, mesh)
+    seq = _seq_split(cfg, mesh, x.shape[1])
+    if seq is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    else:   # this rank's positions of the sequence, RoPE offset to them
+        T_loc = seq.total // seq.axis.size
+        x = x.narrow(1, seq.start, T_loc)
+        positions = seq.start + torch.arange(T_loc, device=x.device)
+    x, caches = _scan_blocks(cfg, tree, x, positions, with_cache, mesh, seq)
+    hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)
+    if seq is not None:
+        hidden = C.gather(hidden, 1, seq.axis)
+    return hidden, caches
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            patch_embeds: Optional[torch.Tensor] = None,
+            mesh=None) -> torch.Tensor:
     """tokens (B, T) [and patch_embeds (B, P, D)] -> final hidden states
-    (B, P + T, D); differentiable (the training loss's forward)."""
+    (B, P + T, D); differentiable (the training loss's forward).  With a
+    ``mesh`` (``distributed.sharding.MeshView``) the batch is this rank's
+    rows, sharded params are gathered at their use, and under
+    ``cfg.sharding == "seq_serve"`` the sequence is split over "model"
+    (the hidden states come back whole)."""
     return _forward_impl(cfg, params, tokens, patch_embeds,
-                         with_cache=False)[0]
+                         with_cache=False, mesh=mesh)[0]
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            patch_embeds: Optional[torch.Tensor] = None):
+            patch_embeds: Optional[torch.Tensor] = None, mesh=None):
     """Forward that also returns the stacked KV cache {"k", "v"}
-    (L, B, P + T, Hk, hd) in the config's dtype."""
+    (L, B, P + T, Hk, hd) in the config's dtype (whole along the sequence
+    after a ``seq_serve`` prefill)."""
     return _forward_impl(cfg, params, tokens, patch_embeds,
-                         with_cache=True)
+                         with_cache=True, mesh=mesh)
 
 
 def cache_specs(cfg: ModelConfig, batch: int,
@@ -573,17 +727,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, cache_len: int
+                tokens: torch.Tensor, cache_len: int, mesh=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_len`` -> (logits (B, 1, V), the
-    cache (L, B, S, Hk, hd) with this token written in, in place)."""
+    cache (L, B, S, Hk, hd) with this token written in, in place).  With
+    a ``mesh`` the tokens and the cache are this rank's rows."""
     tree = P.nest(params)
     cache_len = int(cache_len)
-    x = embed_tokens(cfg, tree, tokens)
+    x = embed_tokens(cfg, tree, tokens, mesh=mesh)
     T = x.shape[1]
     positions = cache_len + torch.arange(T, device=x.device)
     for i, flag in enumerate(_layer_flags(cfg)):
-        p = _layer(tree["blocks"], i)
+        p = _layer(tree["blocks"], i, mesh, _keep(cfg))
         q, kk, vv = _qkv(cfg, p["attn"], x, positions)
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         k_cache[:, cache_len:cache_len + T] = kk.to(k_cache.dtype)
@@ -591,6 +746,7 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         out = L.decode_attention(q, k_cache, v_cache, kv_len=cache_len + 1,
                                  window=_window(cfg, flag))
         x = x + torch.einsum("btnh,nhd->btd", out, p["attn"]["wo"])
-        x = x + _ffn(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x))
-    hidden = L.apply_norm(cfg, tree["final_norm"], x)
-    return logits_fn(cfg, tree, hidden[:, -1:, :]), cache
+        x = x + _ffn(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x),
+                     mesh)
+    hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)
+    return logits_fn(cfg, tree, hidden[:, -1:, :], mesh), cache

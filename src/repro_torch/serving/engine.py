@@ -1,5 +1,5 @@
 """Batched serving engine (``repro.serving.engine``): prefill, scoring and
-greedy decode over a fixed-size cache, on one device.
+greedy decode over a fixed-size cache, on one device or over a mesh.
 
 MCAL's machine-labeling pass is an inference job over the remaining pool;
 :meth:`ServeEngine.score` is its per-batch step (the forward pass and the
@@ -7,17 +7,34 @@ vocab head fused into last-position :class:`ScoreStats`; on a CUDA device
 the head is the ``margin_head`` kernel).  :meth:`ServeEngine.score_pool`
 streams a token pool of any size through that step as paged,
 double-buffered sweep work (``serving.sweep``, ``ServeSweepAdapter``).
+
+Over a ``mesh`` (the reference's ``make_{prefill,scoring,decode}_step``
+with ``mesh`` and ``policy``): the parameters are stored as ``policy``
+shards them (``DTensor`` blocks, each gathered whole at its use), a
+request batch is split over the policy's batch axes where they divide it
+(each rank computes its rows; ranks along the other axes the same rows),
+the KV and SSM caches hold each rank's rows, and logits and stats are
+gathered in row order, so every rank returns what the unmeshed engine
+does.  Collectives run over the calling thread's own copy of each group
+(``MeshView`` ``threads``: the caller's and the sweep worker's).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scoring import head_stats, resolve_head_weight
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import param as P
 from repro_torch.models.layers import ScoreStats
 from repro_torch.models.registry import Model
+
+# the threads that issue an engine's passes over a mesh: the caller's and
+# the sweep runner's worker (``score_pool_async``)
+THREADS = ("MainThread", "pool-sweep")
 
 
 class ServeEngine:
@@ -31,13 +48,48 @@ class ServeEngine:
     T, so ``max_seq`` must cover P + T + the tokens generated."""
 
     def __init__(self, model: Model, params: Dict, max_seq: int,
-                 batch_size: int, device="cuda"):
+                 batch_size: int, device="cuda", mesh=None,
+                 policy: str = "tp", force: bool = False):
+        """``mesh``: a ``DeviceMesh`` of the process group; ``params``
+        (whole, the same on every rank, or already placed) are then stored
+        as ``policy`` shards them.  ``force`` keeps the policy's axes of
+        one rank and takes every collective over them."""
         self.model = model
-        self.params = params
         self.max_seq = max_seq
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.policy = policy
+        self._view = None
+        if mesh is not None:
+            self._view = shd.MeshView(mesh, force=force, threads=THREADS)
+            sh = {k: shd.named(mesh, shd.logical_to_pspec(
+                      sp.shape, sp.logical, mesh, policy, keep_unit=force))
+                  for k, sp in P.iter_specs(model.specs)}
+            params = {k: v if shd.is_placed(v) else shd.distribute(v, sh[k])
+                      for k, v in params.items()}
+        self.params = params
         self._sweep_runners: Dict[int, Any] = {}
+
+    def _rows(self, n: int) -> Tuple[str, ...]:
+        """The mesh axes ``n`` request rows split over: the policy's batch
+        axes that divide ``n`` (none without a mesh)."""
+        if self.mesh is None:
+            return ()
+        spec = shd.logical_to_pspec((n,), ("batch",), self.mesh, self.policy,
+                                    keep_unit=self._view.force)
+        return shd._axes(spec[0])
+
+    def _local(self, x: torch.Tensor, rows: Tuple[str, ...]):
+        """This rank's rows of ``x`` under the split over ``rows``."""
+        return shd.narrow(x, (rows,), self._view) if rows else x
+
+    def _gather(self, x: torch.Tensor, rows: Tuple[str, ...]):
+        """Rows split over ``rows`` whole again, in row order."""
+        return shd.gather(x, (rows,), self._view) if rows else x
+
+    def _mesh_for(self, rows: Tuple[str, ...]):
+        return None if self._view is None else self._view.with_rows(rows)
 
     def _batch(self, batch: Dict) -> Dict:
         return {k: torch.as_tensor(v, device=self.device)
@@ -45,15 +97,22 @@ class ServeEngine:
 
     @torch.no_grad()
     def prefill(self, batch: Dict) -> Tuple[torch.Tensor, Dict, int]:
-        """-> (last-position logits (B, 1, V), the max_seq cache, the
-        positions it holds: P + T, the patches and the prompt)."""
+        """-> (last-position logits (B, 1, V), the max_seq cache (this
+        rank's rows over a mesh), the positions it holds: P + T, the
+        patches and the prompt)."""
         batch = self._batch(batch)
-        hidden, cache = self.model.prefill(self.params, batch)
-        logits = self.model.logits(self.params, hidden[:, -1:, :])
+        rows = self._rows(int(batch["tokens"].shape[0]))
+        batch = {k: self._local(v, rows) for k, v in batch.items()}
+        mesh = self._mesh_for(rows)
+        hidden, cache = self.model.prefill(self.params, batch, mesh=mesh)
+        logits = self.model.logits(self.params, hidden[:, -1:, :], mesh)
         T = hidden.shape[1]
-        full = self.model.init_cache(self.batch_size, self.max_seq,
-                                     self.device)
-        return logits, _load_cache(self.model.cfg, full, cache), T
+        sizes = shd.mesh_axis_sizes(self.mesh) if rows else {}
+        full = self.model.init_cache(
+            self.batch_size // math.prod(sizes[a] for a in rows),
+            self.max_seq, self.device)
+        return (self._gather(logits, rows),
+                _load_cache(self.model.cfg, full, cache), T)
 
     def score(self, batch: Dict) -> ScoreStats:
         """Last-position ScoreStats for one batch (the pass
@@ -63,17 +122,32 @@ class ServeEngine:
     @torch.no_grad()
     def _score(self, params: Dict, batch: Dict) -> ScoreStats:
         """The scoring step over a batch on the device, the head in fp32
-        (the reference's ``make_scoring_step``)."""
-        hidden = self.model.forward(params, batch)
+        (the reference's ``make_scoring_step``); over a mesh on this
+        rank's rows, the stats gathered whole."""
+        rows = self._rows(int(batch["tokens"].shape[0]))
+        batch = {k: self._local(v, rows) for k, v in batch.items()}
+        mesh = self._mesh_for(rows)
+        hidden = self.model.forward(params, batch, mesh=mesh)
         h = hidden[:, -1, :].float()
+        if mesh is not None:   # the one leaf the head reads, whole
+            cfg = self.model.cfg
+            key = "cls_head" if "cls_head" in params else \
+                "embed" if cfg.tie_embeddings else "lm_head"
+            params = {key: shd.whole(params[key], mesh)}
         w = resolve_head_weight(self.model.cfg, params)
-        return head_stats(h, w.float())
+        stats = head_stats(h, w.float())
+        return ScoreStats(*(self._gather(a, rows) for a in stats))
 
     @torch.no_grad()
     def decode(self, cache: Dict, tokens: torch.Tensor,
                cache_len: int) -> Tuple[torch.Tensor, Dict]:
-        """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache)."""
-        return self.model.decode_step(self.params, cache, tokens, cache_len)
+        """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache);
+        over a mesh the cache is this rank's rows and the logits whole."""
+        rows = self._rows(int(tokens.shape[0]))
+        logits, cache = self.model.decode_step(
+            self.params, cache, self._local(tokens, rows), cache_len,
+            mesh=self._mesh_for(rows))
+        return self._gather(logits, rows), cache
 
     def _sweep_runner(self, page_rows: int):
         from repro_torch.serving.sweep import (PoolSweepRunner,

@@ -76,7 +76,13 @@ def test_every_ported_module_was_imported(probe):
             "repro_torch.training.optimizer",
             "repro_torch.distributed.checkpoint",
             "repro_torch.distributed.straggler", "repro_torch.data.loader",
-            "repro_torch.launch.train"}
+            "repro_torch.launch.train", "repro_torch.training.train_loop",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.compression",
+            "repro_torch.training.compressed_dp",
+            "repro_torch.serving.halo_attention", "repro_torch.launch.mesh"}
     assert want <= set(probe["modules"])
 
 

@@ -395,8 +395,38 @@ def test_loader_batch_order_matches_jax(drop_last):
             for k in g:
                 assert isinstance(g[k], torch.Tensor)
                 np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ShardedLoader(data, 8, mesh=object())
+    # over a one-rank mesh the loader's batches are the same rows, placed
+    from repro_torch.launch.mesh import run_ranks
+    meshed, = run_ranks(_one_rank_loader, 1, "cpu", args=(data, drop_last),
+                        threads=1, timeout=120)
+    plain = ShardedLoader(data, 8, seed=3, drop_last=drop_last,
+                          device="cpu")
+    for _ in range(2):
+        want = [{k: v.numpy() for k, v in b.items()} for b in plain.epoch()]
+        got = meshed.pop(0)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for k in g:
+                np.testing.assert_array_equal(g[k], w[k])
+
+
+def _one_rank_loader(rank, world, data, drop_last):
+    """Two epochs of ``ShardedLoader(mesh=)`` on a one-rank mesh: each
+    batch's leaves as numpy, after checking they are placed whole."""
+    from repro_torch.distributed.sharding import is_placed
+    from repro_torch.launch.mesh import make_host_mesh
+    loader = ShardedLoader(data, 8, mesh=make_host_mesh("cpu"), seed=3,
+                           drop_last=drop_last, device="cpu")
+    out = []
+    for _ in range(2):
+        epoch = []
+        for b in loader.epoch():
+            assert all(is_placed(v) and v.to_local().shape == v.shape
+                       for v in b.values())
+            epoch.append({k: v.to_local().numpy() for k, v in b.items()})
+        out.append(epoch)
+    return out
 
 
 def test_straggler_events_match_jax():
