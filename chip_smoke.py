@@ -206,6 +206,26 @@
    prompts of 128 tokens, 16 steps, against the unmeshed engine's (stats
    at the pool pass's tolerance, top1, top-k and tokens exactly), each
    pass's seconds beside the unmeshed one's, ``margin_head`` launched.
+   The ``launch_tools`` phase (the twins of the reference's launch
+   analysis tools, ``repro_torch.launch.{roofline,fitsproof,dryrun}``):
+   (a) after qwen2-1.5b's training, one forward and one more training step
+   at its shape (8 x 2,048 tokens, ``remat="layer"``, ``logits_chunk``
+   16,384) under ``FlopCounterMode``, each hand-written kernel launch added
+   at its bound column's operations (a backward 2.5 times its forward):
+   the forward within 20% of the roofline's ``forward_flops``, the step
+   within 20% of ``forward_flops x (3 + 1) + 2 B T D V x 3``; the
+   roofline's ``model_flops`` and the ``mfu`` its median step implies at
+   989 TFLOP/s; one forward each of mamba2-1.3b and zamba2-2.7b counted
+   the same way, the ratio printed only; (b) the fits-proof on the card's
+   memory: the (arch x cell) rows that fit at 0.9 of it and at 0.9 of the
+   reference's 16 GB, on each mesh kind; (c) ``python -m
+   repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k --mesh
+   single`` in a child process (a fake 256-rank world on the host, at most
+   150 s): its FLOPs a device over the roofline's ``flops_local`` printed
+   beside the "model" axis's 16 ranks and held between 0.8 (less means
+   the trace missed work) and 16 x 1.2 (more than each rank's data shard
+   whole), an all-gather counted, its temporaries under the card's
+   memory.
 11. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
@@ -218,6 +238,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -824,14 +845,16 @@ def check_ssd_bwd(torch, np, ssd, ssdb, ref, cases):
     return worst
 
 
-def record_shapes(mod, name: str, seen: set, key):
+def record_shapes(mod, name: str, seen, key):
     """Wrap the kernel wrapper ``mod.<name>`` (which ``kernels.ops`` looks
-    up at each call) so every call adds ``key(*args, **kw)`` to ``seen``;
-    returns a function that restores it."""
+    up at each call) so every call adds ``key(*args, **kw)`` to ``seen`` (a
+    set of shapes, or a list that keeps one entry a call); returns a
+    function that restores it."""
     fn = getattr(mod, name)
+    keep = seen.append if isinstance(seen, list) else seen.add
 
     def wrapped(*args, **kw):
-        seen.add(key(*args, **kw))
+        keep(key(*args, **kw))
         return fn(*args, **kw)
     setattr(mod, name, wrapped)
     return lambda: setattr(mod, name, fn)
@@ -2338,7 +2361,7 @@ def _zero(torch, mods):
 
 def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
              seq: int = 2048, lr: float = 1e-4,
-             moment_dtype: str = "float32"):
+             moment_dtype: str = "float32", step_secs: list = None):
     """A hook for ``run_serving``: train the served model (a token family at
     its full config or width, the served bf16 weights from ``Model.init(seed
     0)``: qwen2-1.5b, mamba2-1.3b, zamba2-2.7b) for ``steps`` steps through
@@ -2353,7 +2376,8 @@ def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
     the last is below the first and each backward kernel ran once a step
     for each launch of its forward in a served forward pass (attention's
     once a layer, or once a shared-block application in zamba2; the SSD
-    scan's once a Mamba2 layer).  Returns the launch counts."""
+    scan's once a Mamba2 layer).  Each step's seconds are added to
+    ``step_secs`` where it is given.  Returns the launch counts."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.synth import make_lm_tokens
@@ -2395,6 +2419,8 @@ def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
         got = {k: m.launches for k, m in mods.items()}
         for r in restore:
             r()
+        if step_secs is not None:
+            step_secs.extend(secs)
         for i, (loss, sec) in enumerate(zip(losses, secs)):
             print(f"train {cfg.name} step {i + 1}: loss {loss!r}, "
                   f"{sec:.3f} s, {batch * seq / sec:.1f} tokens/s ({CARD})",
@@ -3012,6 +3038,266 @@ def sharded_trainer(torch, np, mods, mesh, seen: dict, secs: dict,
     return run
 
 
+def visible_pairs(Tq: int, Tk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a mask leaves visible, positions from 0 on
+    both sides: the True entries of ``sdpa_mask``."""
+    import numpy as np
+    q = np.arange(Tq)
+    hi = np.minimum(q, Tk - 1) if causal else np.full(Tq, Tk - 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Tq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_flops(case) -> float:
+    """One ``flash_attention`` call's operations at (B, H, Hk, Tq, Tk, hd,
+    causal, window), as the bound column counts them: 4 hd a visible
+    pair (QK^T and PV)."""
+    B, H, Hk, Tq, Tk, hd, causal, window = case
+    return 4.0 * hd * B * H * visible_pairs(Tq, Tk, causal, window)
+
+
+def ssd_flops(case) -> float:
+    """One ``ssd_scan`` call's operations at (B, T, H, hd, N, C), as the
+    bound column counts them: C.B^T per (batch, chunk); per (batch, chunk,
+    head) the lower-triangle intra term (C (C+1)/2 hd FMAs), the chunk
+    summary and the inter term (C hd N FMAs each)."""
+    B, T, H, hd, N, C = case
+    C = min(C, T)
+    nc = -(-T // C)
+    return float(B * nc * (2 * C * C * N + H * (C * (C + 1) * hd
+                                                  + 4 * C * hd * N)))
+
+
+# the kernels' own operations by call key; a backward 2.5 times its forward
+# (five products against two)
+KERNEL_FLOPS = {"flash_attention": (flash_key, attention_flops),
+                "flash_attention_bwd": (flash_bwd_key,
+                                        lambda c: 2.5 * attention_flops(c)),
+                "ssd_scan": (ssd_key, ssd_flops),
+                "ssd_scan_bwd": (ssd_bwd_key, lambda c: 2.5 * ssd_flops(c))}
+FLOPS_TOL = 0.2    # tests/test_roofline.py:36-48, the reference's 20%
+
+
+def count_flops(torch, mods, fn):
+    """``fn()`` under ``FlopCounterMode`` with the launch counts zeroed just
+    before and read just after.  The counter sees aten ops only; each
+    hand-written kernel launch (a ctypes call) is kept a call at a time,
+    as ``record_shapes`` keeps shapes, and added at its own operations
+    (``KERNEL_FLOPS``).  Returns (aten flops, kernel flops, launches)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    calls = {k: [] for k in KERNEL_FLOPS}
+    restore = [record_shapes(mods[k], k, calls[k], key)
+               for k, (key, _) in KERNEL_FLOPS.items()]
+    _zero(torch, mods)
+    try:
+        with FlopCounterMode(display=False) as fc:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for r in restore:
+            r()
+    got = {k: m.launches for k, m in mods.items()}
+    kern = sum(KERNEL_FLOPS[k][1](c) for k, cs in calls.items() for c in cs)
+    return float(fc.get_total_flops()), kern, got
+
+
+def _add(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _lm_batch(torch, cfg, batch: int, seq: int):
+    """``batch`` rows of ``seq`` tokens and their next tokens
+    (``make_lm_tokens``, seed 0), on the card."""
+    from repro_torch.data.synth import make_lm_tokens
+    toks = torch.as_tensor(make_lm_tokens(batch, seq + 1, cfg.vocab_size,
+                                          seed=0), device="cuda")
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def launch_tools_forward(torch, mods, secs: dict, launches: dict,
+                         batch: int = 8, seq: int = 2048):
+    """A hook for ``run_serving`` (phase ``launch_tools`` (a), mamba2-1.3b
+    and zamba2-2.7b): one forward of ``batch`` x ``seq`` tokens counted by
+    ``count_flops`` against the twin roofline's ``forward_flops``; the
+    ratio is printed only (the SSD formula, ``roofline.py:143-152``, is
+    approximate, and the reference holds only dense formulas).  Fails
+    unless each kernel launched as often as a served forward launches it."""
+    from repro_torch.launch.roofline import forward_flops
+
+    def run(model, params):
+        t0 = time.perf_counter()
+        cfg = model.cfg
+        data = _lm_batch(torch, cfg, batch, seq)
+        with torch.no_grad():
+            aten, kern, got = count_flops(
+                torch, mods, lambda: model.forward(params, data))
+        want = forward_flops(cfg, batch * seq, (seq + 1) / 2)
+        print(f"launch_tools {cfg.name} forward {batch} x {seq}: counted "
+              f"{aten + kern:.6e} flops ({aten:.6e} aten, {kern:.6e} "
+              f"kernels), analytic {want:.6e}, counted/analytic "
+              f"{(aten + kern) / want:.4f} (printed only); launches {got}",
+              flush=True)
+        for k, n in per_forward(cfg).items():
+            if got[k] != n:
+                fail(f"launch_tools {cfg.name} forward: {k} launched "
+                     f"{got[k]} times, want {n}")
+        _add(launches, got)
+        secs["a " + cfg.name] = time.perf_counter() - t0
+    return run
+
+
+def launch_tools_train(torch, mods, secs: dict, launches: dict,
+                       step_secs: list, batch: int = 8, seq: int = 2048):
+    """Phase ``launch_tools`` (a) for qwen2-1.5b, a hook run after its
+    training (``train_lm``, whose step seconds are in ``step_secs``): one
+    forward and one more training step at the training phase's shape
+    (``batch`` x ``seq`` tokens, ``remat="layer"``, ``logits_chunk``
+    16,384) counted by ``count_flops``.  The forward must come within 20%
+    of the twin roofline's ``forward_flops(cfg, B T, (T + 1) / 2)``, the
+    step within 20% of ``forward_flops * (3 + 1) + 2 B T D V * 3`` (the
+    reference's train cell with remat).  Prints ``model_flops = 6 (body +
+    head) B T`` and the roofline-implied ``mfu`` of the measured steps:
+    model_flops / (median of steps 2-6 x 989 TFLOP/s)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.roofline import (PEAK_FLOPS, forward_flops,
+                                             param_counts)
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    def check(label, aten, kern, want, got):
+        ratio = (aten + kern) / want
+        print(f"launch_tools {label}: counted {aten + kern:.6e} flops "
+              f"({aten:.6e} aten, {kern:.6e} kernels), analytic "
+              f"{want:.6e}, counted/analytic {ratio:.4f}; launches {got}",
+              flush=True)
+        if abs(ratio - 1) > FLOPS_TOL:
+            fail(f"launch_tools {label}: counted/analytic {ratio:.4f}, "
+                 f"outside 1 +- {FLOPS_TOL}")
+        _add(launches, got)
+
+    def run(model, params):
+        t0 = time.perf_counter()
+        cfg = model.cfg
+        B, T, D, V = batch, seq, cfg.d_model, cfg.vocab_size
+        data = _lm_batch(torch, cfg, B, T)
+        fwd = forward_flops(cfg, B * T, (T + 1) / 2)
+        with torch.no_grad():
+            aten, kern, got = count_flops(
+                torch, mods, lambda: model.forward(params, data))
+        check(f"{cfg.name} forward {B} x {T}", aten, kern, fwd, got)
+        if got["flash_attention"] != cfg.num_layers:
+            fail(f"launch_tools {cfg.name} forward: launches {got}")
+        tc = TrainConfig(learning_rate=1e-4, schedule="paper_steps",
+                         total_steps=6)
+        step = make_train_step(model, tc)
+        state = init_train_state(model, tc, params)
+        aten, kern, got = count_flops(torch, mods,
+                                      lambda: step(state, data))
+        check(f"{cfg.name} train step {B} x {T} (remat {cfg.remat}, "
+              f"logits_chunk {cfg.logits_chunk})", aten, kern,
+              fwd * (3 + 1) + 2.0 * B * T * D * V * 3, got)
+        if got["flash_attention_bwd"] != cfg.num_layers or \
+                got["flash_attention"] < cfg.num_layers:
+            fail(f"launch_tools {cfg.name} train step: launches {got}")
+        del state, step
+        pc = param_counts(cfg)
+        model_flops = 6.0 * (pc.body_active + pc.head) * B * T
+        med = statistics.median(step_secs[1:])
+        print(f"launch_tools {cfg.name} model_flops {model_flops:.6e} a "
+              f"step ({model_flops / (B * T):.6e} a token); median step "
+              f"{med:.4f} s (steps 2-{len(step_secs)}); roofline-implied "
+              f"mfu {model_flops / (med * PEAK_FLOPS):.4f} at "
+              f"{PEAK_FLOPS:.3g} FLOP/s ({CARD})", flush=True)
+        secs["a " + cfg.name] = time.perf_counter() - t0
+    return run
+
+
+def _then(first, second):
+    """A ``run_serving`` hook that runs ``first`` (whose result it
+    returns), then ``second``."""
+    def run(model, params):
+        out = first(model, params)
+        second(model, params)
+        return out
+    return run
+
+
+DRYRUN_CELL = ("qwen2-1.5b", "train_4k", "single")
+DRYRUN_TIMEOUT_S = 150
+
+
+def launch_tools_fits_and_dryrun(torch, secs: dict):
+    """Phase ``launch_tools`` (b) and (c).  (b) the fits-proof on the card:
+    for each mesh kind, how many (arch x cell) rows fit at 0.9 of the
+    card's memory (``fitsproof.capacity``) and how many at 0.9 of the
+    reference's 16 GB, each at the grad accumulation the dry-run picks.
+    (c) ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` in a
+    child process (at most ``DRYRUN_TIMEOUT_S`` s): its record printed,
+    and its FLOPs a device over the twin roofline's ``flops_local`` beside
+    the "model" axis's size (every "model" rank computes its batch shard
+    whole today, so the ratio is near that size).  Fails if the ratio is
+    under 1 - 20% (the trace missed work) or over the axis's size + 20%
+    (a rank counted more than its data shard whole), if it did not
+    gather, or if its peak of temporaries does not fit the card."""
+    from repro_torch.configs import (ARCH_IDS, SHAPES_BY_NAME, cells,
+                                     get_config)
+    from repro_torch.launch import fitsproof
+    from repro_torch.launch.dryrun import pick_grad_accum
+    from repro_torch.launch.roofline import analyze_cell, mesh_sizes
+    t0 = time.perf_counter()
+    hbm = fitsproof.capacity("cuda")
+    rows = [(a, s) for a in ARCH_IDS for s in cells(a)]
+    for mesh in ("single", "multi"):
+        card = tpu = 0
+        for arch, shape in rows:
+            cfg = get_config(arch)
+            r = fitsproof.residents(
+                cfg, shape, mesh, pick_grad_accum(cfg, shape,
+                                                  mesh_sizes(mesh)), hbm=hbm)
+            card += r["fits"]
+            tpu += r["total"] <= 0.9 * 16e9
+        print(f"launch_tools fits ({mesh} mesh): {card} of {len(rows)} "
+              f"(arch x cell) rows at 0.9 x {hbm:.0f} B (read from the "
+              f"card), {tpu} at 0.9 x 16e9 B (the reference's chip) "
+              f"({CARD})", flush=True)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch, shape, mesh = DRYRUN_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", mesh]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                           timeout=DRYRUN_TIMEOUT_S,
+                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    except subprocess.TimeoutExpired:
+        fail(f"launch_tools dry-run {DRYRUN_CELL}: over "
+             f"{DRYRUN_TIMEOUT_S} s")
+    if r.returncode != 0:
+        fail(f"launch_tools dry-run {DRYRUN_CELL}: exit {r.returncode}\n"
+             f"{r.stderr[-3000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    secs["c"] = time.perf_counter() - t0
+    print(f"launch_tools dry-run record ({secs['c']:.1f} s, a fake trace "
+          f"on the host): {json.dumps(rec)}", flush=True)
+    want = analyze_cell(get_config(arch), SHAPES_BY_NAME[shape], mesh,
+                        rec["grad_accum"])
+    ratio = rec["flops"] / want.flops_local
+    tp = mesh_sizes(mesh)["model"]
+    print(f"launch_tools dry-run flops a device {rec['flops']:.6e} against "
+          f"the roofline's flops_local {want.flops_local:.6e}: ratio "
+          f"{ratio:.4f} (the \"model\" axis is {tp} ranks)", flush=True)
+    if not 1 - FLOPS_TOL <= ratio <= tp * (1 + FLOPS_TOL):
+        fail(f"launch_tools dry-run: flops ratio {ratio:.4f}, want it "
+             f"within [{1 - FLOPS_TOL:.1f}, {tp} x {1 + FLOPS_TOL:.1f}]")
+    if rec["collective_counts"]["all-gather"] <= 0:
+        fail(f"launch_tools dry-run: no all-gather in {rec}")
+    if rec["memory"]["temp_bytes"] >= hbm:
+        fail(f"launch_tools dry-run: temp_bytes {rec['memory']['temp_bytes']}"
+             f" over the card's {hbm:.0f}")
+
+
 def profile_pass(torch, label: str, fn, top: int = 10):
     """Where one pass's time goes: the profiler's device time by kernel
     name, and the device's busy share of the pass's wall time."""
@@ -3073,13 +3359,11 @@ def timing_row(torch, name, shape, kern, plain, library, nbytes, flops,
     return row
 
 
-def time_flash(torch, np, fa, ref, case):
-    """``flash_attention`` at one (B, H, Hk, Tq, Tk, hd, causal, window),
-    bf16, beside its plain version and ``scaled_dot_product_attention``
-    (``enable_gqa`` for grouped kv heads, a boolean mask for a window)."""
-    B, H, Hk, Tq, Tk, hd, causal, window = case
-    q, k, v = flash_inputs(torch, np, case, torch.bfloat16)
-    # visible (query, key) pairs of this mask; 4 hd flops each (QK^T, PV)
+def sdpa_mask(np, case):
+    """The (Tq, Tk) boolean mask of (B, H, Hk, Tq, Tk, hd, causal, window)
+    that ``scaled_dot_product_attention`` takes: True where a key is
+    visible."""
+    _, _, _, Tq, Tk, _, causal, window = case
     qp = np.arange(Tq)[:, None]
     kp = np.arange(Tk)[None, :]
     vis = np.ones((Tq, Tk), bool)
@@ -3087,10 +3371,18 @@ def time_flash(torch, np, fa, ref, case):
         vis &= qp >= kp
     if window > 0:
         vis &= (qp - kp) < window
-    pairs = B * H * int(vis.sum())
+    return vis
+
+
+def time_flash(torch, np, fa, ref, case):
+    """``flash_attention`` at one (B, H, Hk, Tq, Tk, hd, causal, window),
+    bf16, beside its plain version and ``scaled_dot_product_attention``
+    (``enable_gqa`` for grouped kv heads, a boolean mask for a window)."""
+    B, H, Hk, Tq, Tk, hd, causal, window = case
+    q, k, v = flash_inputs(torch, np, case, torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask = None if causal and not window else torch.as_tensor(vis,
-                                                              device="cuda")
+    mask = None if causal and not window else torch.as_tensor(
+        sdpa_mask(np, case), device="cuda")
 
     def library():
         if mask is None:
@@ -3101,8 +3393,8 @@ def time_flash(torch, np, fa, ref, case):
         lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
         lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window), library,
-        2 * (2 * B * H * Tq * hd + 2 * B * Hk * Tk * hd), 4 * hd * pairs,
-        BF16_FLOPS_PER_S)
+        2 * (2 * B * H * Tq * hd + 2 * B * Hk * Tk * hd),
+        attention_flops(case), BF16_FLOPS_PER_S)
     del q, k, v
     torch.cuda.empty_cache()
     return row
@@ -3121,19 +3413,12 @@ def time_flash_bwd(torch, np, mods, ref, case):
     dout = flash_inputs(torch, np, case, torch.bfloat16, seed=5)[0]
     out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
                                   return_lse=True)
-    qp = np.arange(Tq)[:, None]
-    kp = np.arange(Tk)[None, :]
-    vis = np.ones((Tq, Tk), bool)
-    if causal:
-        vis &= qp >= kp
-    if window > 0:
-        vis &= (qp - kp) < window
-    pairs = B * H * int(vis.sum())
     plain_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
     plain_out = ref.flash_attention_ref(*plain_in, causal=causal,
                                         window=window)
     lib_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    mask = None if not window else torch.as_tensor(vis, device="cuda")
+    mask = None if not window else torch.as_tensor(sdpa_mask(np, case),
+                                                   device="cuda")
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         *lib_in, is_causal=causal and mask is None, attn_mask=mask,
         enable_gqa=H != Hk)
@@ -3146,7 +3431,7 @@ def time_flash_bwd(torch, np, mods, ref, case):
         lambda: torch.autograd.grad(lib_out, lib_in, dout,
                                     retain_graph=True),
         2 * (4 * B * H * Tq * hd + 4 * B * Hk * Tk * hd) + 4 * B * H * Tq,
-        2.5 * 4 * hd * pairs, BF16_FLOPS_PER_S)
+        2.5 * attention_flops(case), BF16_FLOPS_PER_S)
     del q, k, v, dout, out, lse, plain_in, plain_out, lib_in, lib_out
     torch.cuda.empty_cache()
     return row
@@ -3235,19 +3520,13 @@ def time_kernels(torch, np, mods, ref, shapes):
         B, T, H, hd, N, C = case
         ins = ssd_inputs(torch, np, case, torch.bfloat16)
         C = min(C, T)
-        nc = -(-T // C)
-        # xh and y bf16; dt, B, C and the final state fp32.  Flops: C.B^T
-        # per (batch, chunk); per (batch, chunk, head) the lower-triangle
-        # intra term (C (C+1)/2 * hd FMAs), the chunk summary and the inter
-        # term (C hd N FMAs each)
+        # xh and y bf16; dt, B, C and the final state fp32
         nbytes = 2 * 2 * B * T * H * hd + 4 * (B * T * H + H + 2 * B * T * N
                                                + B * H * hd * N)
-        flops = B * nc * (2 * C * C * N + H * (C * (C + 1) * hd
-                                              + 4 * C * hd * N))
         rows.append(timing_row(
             torch, "ssd_scan", case, lambda: ssd.ssd_scan(*ins, chunk=C),
-            lambda: ref.ssd_scan_ref(*ins, chunk=C), None, nbytes, flops,
-            BF16_FLOPS_PER_S))
+            lambda: ref.ssd_scan_ref(*ins, chunk=C), None, nbytes,
+            ssd_flops(case), BF16_FLOPS_PER_S))
         del ins
         torch.cuda.empty_cache()
     for case in shapes["ssd_scan_bwd"]:
@@ -3372,6 +3651,9 @@ def main() -> None:
                          "sharded_serve", "sharded_trainer")}
     mesh_secs: dict = {}     # the mesh phase's parts: (a) .. (d)
     sharded_secs: dict = {}  # the sharded phase's parts: (a) .. (c)
+    launch_secs: dict = {}   # the launch_tools phase's parts: (a) .. (c)
+    launch_launches: dict = {}   # the kernels its counted passes launched
+    qwen2_steps: list = []   # qwen2-1.5b's training step seconds
     with tempfile.TemporaryDirectory() as tmp:
         camps = run_campaigns(torch, np, mh, pd, args.pool, args.max_iters,
                               seen_by["campaigns"], Path(tmp))
@@ -3417,6 +3699,8 @@ def main() -> None:
     served, _, trained_zamba2 = run_serving(
         torch, np, mods, "zamba2-2.7b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving"],
+        extra=launch_tools_forward(torch, mods, launch_secs,
+                                   launch_launches),
         train=train_lm(torch, np, mods, seen_by["training_zamba2"],
                        moment_dtype="bfloat16"))
     phase("serving and training zamba2-2.7b")
@@ -3440,7 +3724,10 @@ def main() -> None:
                           sharded_secs, mesh_launches),
             sharded_train(torch, np, mods, mesh, seen_by["sharded_train"],
                           sharded_secs, mesh_launches)),
-        train=train_lm(torch, np, mods, seen_by["training_qwen2"]))
+        train=_then(train_lm(torch, np, mods, seen_by["training_qwen2"],
+                             step_secs=qwen2_steps),
+                    launch_tools_train(torch, mods, launch_secs,
+                                       launch_launches, qwen2_steps)))
     phase("serving, pool pass and training qwen2-1.5b")
     served_gemma3, _ = run_serving(
         torch, np, mods, "gemma3-4b", args.serve_batch, args.prompt_len,
@@ -3458,6 +3745,8 @@ def main() -> None:
         torch, np, mods, "mamba2-1.3b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_mamba2"],
         pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass_mamba2"]),
+        extra=launch_tools_forward(torch, mods, launch_secs,
+                                   launch_launches),
         train=train_lm(torch, np, mods, seen_by["training_mamba2"]))
     phase("serving, pool pass and training mamba2-1.3b")
     served_dbrx, _ = run_serving(
@@ -3491,6 +3780,14 @@ def main() -> None:
     if sum(sharded_secs.values()) > 90:
         print(f"phase sharded took {sum(sharded_secs.values()):.1f} s, "
               f"over its 90 s", flush=True)
+    launch_tools_fits_and_dryrun(torch, launch_secs)
+    print(f"phase launch_tools seconds: {sum(launch_secs.values()):.1f} ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(launch_secs.items()))
+          + f"; {CARD})", flush=True)
+    if sum(launch_secs.values()) > 180:
+        print(f"phase launch_tools took {sum(launch_secs.values()):.1f} s, "
+              f"over its 180 s", flush=True)
+    phase("launch tools: fits-proof and dry-run")
     from repro_torch.configs import get_config
     states = {s[4] for s in seen_by["serving_mamba2"]["ssd_scan"]}
     if states != {get_config("mamba2-1.3b").ssm_state}:
@@ -3533,7 +3830,8 @@ def main() -> None:
                    mesh_launches["compressed_dp"][k],
                    "sharded_train": mesh_launches["sharded_train"][k],
                    "sharded_trainer": mesh_launches["sharded_trainer"][k],
-                   "sharded_serve": mesh_launches["sharded_serve"][k]}
+                   "sharded_serve": mesh_launches["sharded_serve"][k],
+                   "launch_tools": launch_launches.get(k, 0)}
                for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
     # every shape the main paths gave a kernel, held against the plain

@@ -1,7 +1,8 @@
 """Architecture registry (``repro.configs``): ``get_config(arch_id)`` and
 ``get_smoke(arch_id)`` give the full and reduced configs of the ported
 architectures (every one of the reference's ``ARCH_IDS`` since whisper-tiny)
-and raise for any other id.  ``input_specs`` and ``input_pspecs`` give the
+and raise for any other id.  ``cells(arch_id)`` lists the (shape) cells
+defined for an architecture.  ``input_specs`` and ``input_pspecs`` give the
 step inputs of a (config x shape) cell and their partition specs, as
 ``(shape, dtype)`` pairs in place of the reference's ``ShapeDtypeStruct``s."""
 from __future__ import annotations
@@ -19,6 +20,9 @@ ARCH_IDS = ("zamba2-2.7b", "qwen2-1.5b", "gemma3-4b", "qwen1.5-4b",
             "phi3-medium-14b", "mamba2-1.3b", "dbrx-132b", "kimi-k2-1t-a32b",
             "internvl2-26b", "whisper-tiny")
 
+# long_500k needs sub-quadratic attention; pure full-attention archs skip it
+LONG_CONTEXT_OK = {"zamba2-2.7b", "mamba2-1.3b", "gemma3-4b"}
+
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
@@ -35,6 +39,13 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke(arch_id: str) -> ModelConfig:
     return _module(arch_id).SMOKE
+
+
+def cells(arch_id: str):
+    """The (shape) cells defined for this arch (applies the long_500k
+    skip)."""
+    return [s for s in SHAPES
+            if s.name != "long_500k" or arch_id in LONG_CONTEXT_OK]
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,

@@ -3,7 +3,9 @@
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises.  There is no switch and no fallback: this
-is the port's counterpart of ``use_pallas()`` "auto" on a TPU.  The port's
+is the port's counterpart of ``use_pallas()`` "auto" on a TPU.  Any other
+device (``meta``, say, whose tensors have no storage a kernel could read)
+is refused with a ``ValueError``.  The port's
 models call :func:`attention` and :func:`ssd` (the reference's models call
 the jnp paths directly and never reach its kernels), so that the serving
 path runs on the kernels.
@@ -33,6 +35,15 @@ from repro_torch.kernels import ssd_scan_bwd as _ssdb
 from repro_torch.models.layers import ScoreStats
 
 
+def _kernel_device(*ts: torch.Tensor) -> None:
+    """Refuse a kernel call on anything but a CUDA tensor."""
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"the CUDA kernels take cuda tensors; got one on {t.device} "
+                f"(cpu tensors take the plain versions)")
+
+
 def score_head(hidden: torch.Tensor, w_vocab: torch.Tensor) -> ScoreStats:
     """Pool-scoring statistics for MCAL's M(.)/L(.).  hidden: (..., D)."""
     lead = hidden.shape[:-1]
@@ -40,6 +51,7 @@ def score_head(hidden: torch.Tensor, w_vocab: torch.Tensor) -> ScoreStats:
     if h2.device.type == "cpu":
         outs = _ref.margin_head_ref(h2, w_vocab)
     else:
+        _kernel_device(h2, w_vocab)
         outs = _mh.margin_head(h2.contiguous(), w_vocab.contiguous())
     return ScoreStats(*(o.reshape(lead) for o in outs))
 
@@ -48,6 +60,7 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """(N, D) x (M, D) -> (N, M) squared distances for k-center M(.)."""
     if x.device.type == "cpu":
         return _ref.pairwise_sqdist_ref(x, c)
+    _kernel_device(x, c)
     return _pd.pairwise_sqdist(x.contiguous(), c.contiguous())
 
 
@@ -91,11 +104,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = _ref.flash_attention_ref(qh, kh, vh, causal=causal,
                                        window=window, scale=scale,
                                        kv_chunk=kv_chunk)
-    elif _needs_grad(q, k, v):
-        out = _FlashAttention.apply(qh, kh, vh, causal, window, scale)
     else:
-        out = _fa.flash_attention(qh, kh, vh, causal=causal, window=window,
-                                  scale=scale)
+        _kernel_device(q, k, v)
+        if _needs_grad(q, k, v):
+            out = _FlashAttention.apply(qh, kh, vh, causal, window, scale)
+        else:
+            out = _fa.flash_attention(qh, kh, vh, causal=causal,
+                                      window=window, scale=scale)
     return out.transpose(1, 2)
 
 
@@ -131,6 +146,7 @@ def ssd(xh, dt, A, Bm, Cm, *, chunk: int = 128):
     function."""
     if xh.device.type == "cpu":
         return _ref.ssd_scan_ref(xh, dt, A, Bm, Cm, chunk=chunk)
+    _kernel_device(xh, dt, A, Bm, Cm)
     ins = tuple(t.contiguous() for t in (xh, dt, A, Bm, Cm))
     if _needs_grad(*ins):
         return _SSDScan.apply(*ins, chunk)

@@ -24,7 +24,8 @@ print(json.dumps({
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "repro")),
     "tf32": [torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32]}))
+             torch.backends.cudnn.allow_tf32],
+    "process_group": torch.distributed.is_initialized()}))
 """
 
 
@@ -82,8 +83,14 @@ def test_every_ported_module_was_imported(probe):
             "repro_torch.distributed.collectives",
             "repro_torch.distributed.compression",
             "repro_torch.training.compressed_dp",
-            "repro_torch.serving.halo_attention", "repro_torch.launch.mesh"}
+            "repro_torch.serving.halo_attention", "repro_torch.launch.mesh",
+            "repro_torch.launch.roofline", "repro_torch.launch.fitsproof",
+            "repro_torch.launch.dryrun"}
     assert want <= set(probe["modules"])
+
+
+def test_importing_the_port_initializes_no_process_group(probe):
+    assert probe["process_group"] is False
 
 
 def test_tf32_is_off_after_import(probe):
