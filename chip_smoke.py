@@ -192,20 +192,26 @@
    half its scale, the peak memory; (d) halo attention at gemma3-4b's
    local layers' shape against the windowed blockwise attention.
    The ``sharded`` phase, on the same group, every collective of the
-   policy taken over its axes of one rank (``force``): (a) two steps of
+   policy taken over its axes of one rank (``force``; each layer computes
+   on its blocks over "model", tensor-parallel, and gathers its storage
+   dims over "data"): (a) four steps of
    ``make_sharded_train_step`` at qwen2-1.5b's full config under
-   ``fsdp_tp`` from the served weights (8 x 2,048 tokens), step 1's loss
-   against two plain steps' from the same weights, seconds, tokens/s and
-   peak memory beside theirs, the attention kernel and its backward
-   launched; (b) ``Trainer`` and ``ShardedLoader`` on the mesh at
-   whisper-tiny's full config, four steps checkpointed at step 2, a second
-   run stopped at step 2 and a fresh ``Trainer`` resumed from it through
-   ``restore(shardings=)``: bit-equal to the uninterrupted meshed run;
+   ``fsdp_tp`` and four under ``tp`` from the served weights (8 x 2,048
+   tokens), step 1's loss the plain step's to the bit (four plain steps
+   from the same weights),
+   seconds, tokens/s and peak memory beside theirs and the medians' ratio,
+   the attention kernel and its backward launched; (b) ``Trainer`` and
+   ``ShardedLoader`` on the mesh at whisper-tiny's full config, four steps
+   checkpointed at step 2, a second run stopped at step 2 and a fresh
+   ``Trainer`` resumed from it through ``restore(shardings=)``: bit-equal
+   to the uninterrupted meshed run;
    (c) ``ServeEngine(mesh=, policy="tp")`` at qwen2-1.5b's full config:
    ``score`` and a ``score_pool`` top-k on 64 rows and ``generate`` for 8
    prompts of 128 tokens, 16 steps, against the unmeshed engine's (stats
-   at the pool pass's tolerance, top1, top-k and tokens exactly), each
-   pass's seconds beside the unmeshed one's, ``margin_head`` launched.
+   at the pool pass's tolerance, top1, top-k and tokens exactly; the
+   meshed cache split along the sequence, decoded by flash-decode), each
+   pass's seconds beside the unmeshed one's and their ratio,
+   ``margin_head`` launched.
    The ``launch_tools`` phase (the twins of the reference's launch
    analysis tools, ``repro_torch.launch.{roofline,fitsproof,dryrun}``):
    (a) after qwen2-1.5b's training, one forward and one more training step
@@ -221,11 +227,12 @@
    reference's 16 GB, on each mesh kind; (c) ``python -m
    repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k --mesh
    single`` in a child process (a fake 256-rank world on the host, at most
-   150 s): its FLOPs a device over the roofline's ``flops_local`` printed
-   beside the "model" axis's 16 ranks and held between 0.8 (less means
-   the trace missed work) and 16 x 1.2 (more than each rank's data shard
-   whole), an all-gather counted, its temporaries under the card's
-   memory.
+   150 s): its FLOPs a device within 20% of the tensor-parallel design's
+   analytic count (``dryrun.expected_train_flops``), printed beside the
+   roofline's ``flops_local``, an all-gather counted, its temporaries
+   under the card's memory; then qwen1.5-4b ``decode_32k`` the same way
+   (a decode step against a 32k cache split along the sequence), its
+   arguments and temporaries within 0.9 of the card's memory.
 11. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
    before a result is printed.
@@ -2772,18 +2779,23 @@ def _sharded_batch_pspecs(mesh, batch):
 
 
 def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
-                  launches: dict, steps: int = 2, batch: int = 8,
+                  launches: dict, steps: int = 4, batch: int = 8,
                   seq: int = 2048, lr: float = 1e-4):
     """Sharded phase (a), a hook for ``run_serving`` (qwen2-1.5b at its
     full config): ``steps`` plain train steps from the served weights,
-    then ``steps`` of ``make_sharded_train_step`` under ``fsdp_tp`` over
-    the one-rank NCCL mesh (``force``: every weight gathered over its
-    axes, every gradient reduced over theirs, in the layer's recomputed
-    body), both on one batch of ``batch`` x ``seq`` tokens
-    (``make_lm_tokens`` seed 2): step 1's loss must meet the plain step's
-    within 1e-3 relative (the loss precedes the update), and the
-    sharded steps launch the attention kernel and its backward.  Prints
-    each step's seconds and tokens/s and each run's peak memory."""
+    then ``steps`` of ``make_sharded_train_step`` under ``fsdp_tp`` and
+    again under ``tp`` over the one-rank NCCL mesh (``force``: each weight's storage dims gathered
+    over "data" in the layer's recomputed body, its tensor-parallel dims
+    over "model" computed as blocks and summed over the axis, every
+    gradient reduced over the axes its leaf is whole on), both on one
+    batch of ``batch`` x ``seq`` tokens (``make_lm_tokens`` seed 2): step
+    1's loss must equal the plain step's to the bit (the loss precedes
+    the update), and the sharded steps launch the attention kernel and
+    its backward.  Prints each step's seconds and tokens/s, each run's
+    peak memory, and each policy's step time over the plain one's (``tp``
+    gathers nothing over "data": what is left of ``fsdp_tp``'s gap is its
+    storage gathers)."""
+    policies = ("fsdp_tp", "tp")
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synth import make_lm_tokens
     from repro_torch.distributed import sharding as shd
@@ -2801,7 +2813,7 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
         tc = TrainConfig(learning_rate=lr, schedule="paper_steps",
                          total_steps=steps)
         out = {}
-        for name in ("plain", "sharded"):
+        for name in ("plain",) + policies:
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2810,15 +2822,16 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                 state = init_train_state(model, tc, params)
             else:
                 step, _, sh = make_sharded_train_step(
-                    model, tc, mesh, "fsdp_tp",
-                    _sharded_batch_pspecs(mesh, b), force=True)
+                    model, tc, mesh, name, _sharded_batch_pspecs(mesh, b),
+                    force=True)
                 state = shd.shard_tree(init_train_state(model, tc, params),
                                        sh)
                 restore = [record_shapes(mods[k], k, seen[k], key)
                            for k, key in (("flash_attention", flash_key),
                                           ("flash_attention_bwd",
                                            flash_bwd_key))]
-                _zero(torch, mods)
+                if name == policies[0]:
+                    _zero(torch, mods)
             losses, walls = [], []
             for _ in range(steps):
                 torch.cuda.synchronize()
@@ -2826,12 +2839,12 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                 state, m = step(state, b)
                 losses.append(float(m["loss"]))
                 walls.append(time.perf_counter() - t1)
-            if name == "sharded":
-                got = {k: mod.launches for k, mod in mods.items()}
+            if name != "plain":
                 for r in restore:
                     r()
             out[name] = (losses, walls, torch.cuda.max_memory_allocated())
             del state, step, m
+        got = {k: mod.launches for k, mod in mods.items()}
         for name, (losses, walls, peak) in out.items():
             print(f"sharded train {cfg.name} {name}: losses {losses}, step "
                   f"seconds {walls}, tokens/s "
@@ -2839,11 +2852,21 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                   f"max_memory_allocated bytes {peak} ({CARD})", flush=True)
         print(f"sharded train {cfg.name}: launches {got} ({CARD})",
               flush=True)
-        plain, sharded = out["plain"][0][0], out["sharded"][0][0]
-        if not all(np.isfinite(out["sharded"][0])) or \
-                abs(sharded - plain) > 1e-3 * abs(plain):
-            fail(f"sharded train: step 1 loss {sharded} against the plain "
-                 f"step's {plain}")
+        # the medians after the first step, which pays the groups' first
+        # collectives
+        p_w = float(np.median(out["plain"][1][1:]))
+        plain = out["plain"][0][0]
+        for policy in policies:
+            s_w = float(np.median(out[policy][1][1:]))
+            print(f"sharded train {cfg.name}: {policy} over plain step "
+                  f"seconds {s_w / p_w:.4f} (medians of steps 2-{steps}, "
+                  f"{s_w:.4f} and {p_w:.4f}); tokens/s {policy} "
+                  f"{batch * seq / s_w:.1f}, plain {batch * seq / p_w:.1f} "
+                  f"({CARD})", flush=True)
+            sharded = out[policy][0][0]
+            if not all(np.isfinite(out[policy][0])) or sharded != plain:
+                fail(f"sharded train {policy}: step 1 loss {sharded} is not "
+                     f"the plain step's {plain} to the bit")
         for k in ("flash_attention", "flash_attention_bwd"):
             if got[k] == 0:
                 fail(f"sharded train never launched {k}")
@@ -2861,16 +2884,19 @@ def sharded_serve(torch, np, mods, mesh, seen: dict, secs: dict,
     """Sharded phase (c), a hook for ``run_serving`` (qwen2-1.5b at its
     full config): the served weights behind ``ServeEngine(mesh=,
     policy="tp", force=True)`` on the one-rank NCCL mesh (stored as
-    DTensors, each layer gathered over "model" at its use, the rows over
-    "data", the stats and logits gathered back) and behind the unmeshed
-    engine: ``score`` on ``rows`` rows of ``prompt`` tokens, a
-    ``score_pool`` top-10 over them in pages of 16, and ``generate`` for
-    ``batch`` prompts, ``gen`` steps (random tokens, seed 3).  The meshed
+    DTensors, each layer computing on its blocks over "model" and summing
+    over the axis, the rows over "data", the cache's positions split over
+    "model" and decoded by flash-decode, the stats and logits gathered
+    back) and behind the unmeshed engine: ``score`` on ``rows`` rows of
+    ``prompt`` tokens, a ``score_pool`` top-10 over them in pages of 16,
+    and ``generate`` for ``batch`` prompts, ``gen`` steps (random tokens,
+    seed 3).  The meshed
     engine's stats must meet the unmeshed ones' at the pool pass's
     tolerance (atol = rtol = 5e-5 on margin and max log-prob, 5e-4 on
     entropy), its top1, top-k and tokens exactly; ``margin_head`` must
     run in the meshed passes.  ``score`` runs twice, the first paying the
-    engine's thread groups' first collectives."""
+    engine's thread groups' first collectives.  Prints each pass's seconds
+    and the meshed over the unmeshed, and ``generate``'s tokens/s."""
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.sweep import TopKSink
 
@@ -2919,6 +2945,13 @@ def sharded_serve(torch, np, mods, mesh, seen: dict, secs: dict,
                   + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
                   + f" ({rows} rows of {prompt} tokens; generate {batch} x "
                   f"{gen}; {CARD})", flush=True)
+        (_, mw), (_, uw) = out["meshed"], out["unmeshed"]
+        print(f"sharded serve {cfg.name}: meshed over unmeshed seconds: "
+              + ", ".join(f"{k} {mw[k] / uw[k]:.4f}" for k in mw)
+              + f"; generate tokens/s meshed "
+              f"{batch * gen / mw['generate']:.1f}, unmeshed "
+              f"{batch * gen / uw['generate']:.1f} (prefill "
+              f"included; {CARD})", flush=True)
         print(f"sharded serve {cfg.name}: launches {got} ({CARD})",
               flush=True)
         a, b = out["meshed"][0], out["unmeshed"][0]
@@ -3225,7 +3258,32 @@ def _then(first, second):
 
 
 DRYRUN_CELL = ("qwen2-1.5b", "train_4k", "single")
+DRYRUN_DECODE_CELL = ("qwen1.5-4b", "decode_32k", "single")
 DRYRUN_TIMEOUT_S = 150
+
+
+def _dryrun_child(cell) -> dict:
+    """``python -m repro_torch.launch.dryrun`` on one (arch, shape, mesh)
+    cell in a child process (at most ``DRYRUN_TIMEOUT_S`` s): its record,
+    printed with the child's seconds."""
+    arch, shape, mesh = cell
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", mesh]
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                           timeout=DRYRUN_TIMEOUT_S,
+                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    except subprocess.TimeoutExpired:
+        fail(f"launch_tools dry-run {cell}: over {DRYRUN_TIMEOUT_S} s")
+    if r.returncode != 0:
+        fail(f"launch_tools dry-run {cell}: exit {r.returncode}\n"
+             f"{r.stderr[-3000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"launch_tools dry-run record {cell} "
+          f"({time.perf_counter() - t0:.1f} s, a fake trace on the host): "
+          f"{json.dumps(rec)}", flush=True)
+    return rec
 
 
 def launch_tools_fits_and_dryrun(torch, secs: dict):
@@ -3233,18 +3291,19 @@ def launch_tools_fits_and_dryrun(torch, secs: dict):
     for each mesh kind, how many (arch x cell) rows fit at 0.9 of the
     card's memory (``fitsproof.capacity``) and how many at 0.9 of the
     reference's 16 GB, each at the grad accumulation the dry-run picks.
-    (c) ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` in a
-    child process (at most ``DRYRUN_TIMEOUT_S`` s): its record printed,
-    and its FLOPs a device over the twin roofline's ``flops_local`` beside
-    the "model" axis's size (every "model" rank computes its batch shard
-    whole today, so the ratio is near that size).  Fails if the ratio is
-    under 1 - 20% (the trace missed work) or over the axis's size + 20%
-    (a rank counted more than its data shard whole), if it did not
-    gather, or if its peak of temporaries does not fit the card."""
+    (c) the dry-run (``_dryrun_child``) on ``DRYRUN_CELL``: its FLOPs a
+    device against the analytic count of the tensor-parallel design
+    (``dryrun.expected_train_flops``) and the twin roofline's
+    ``flops_local``; fails outside the count +- 20%, if it did not gather,
+    or if its peak of temporaries does not fit the card.  Then on
+    ``DRYRUN_DECODE_CELL`` (a decode step against a 32k cache, split
+    along the sequence over "model"): fails if its arguments and
+    temporaries peak over 0.9 of the card's memory."""
     from repro_torch.configs import (ARCH_IDS, SHAPES_BY_NAME, cells,
                                      get_config)
     from repro_torch.launch import fitsproof
-    from repro_torch.launch.dryrun import pick_grad_accum
+    from repro_torch.launch.dryrun import (expected_train_flops,
+                                           pick_grad_accum)
     from repro_torch.launch.roofline import analyze_cell, mesh_sizes
     t0 = time.perf_counter()
     hbm = fitsproof.capacity("cuda")
@@ -3265,37 +3324,33 @@ def launch_tools_fits_and_dryrun(torch, secs: dict):
     secs["b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     arch, shape, mesh = DRYRUN_CELL
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape, "--mesh", mesh]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
-                           timeout=DRYRUN_TIMEOUT_S,
-                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    except subprocess.TimeoutExpired:
-        fail(f"launch_tools dry-run {DRYRUN_CELL}: over "
-             f"{DRYRUN_TIMEOUT_S} s")
-    if r.returncode != 0:
-        fail(f"launch_tools dry-run {DRYRUN_CELL}: exit {r.returncode}\n"
-             f"{r.stderr[-3000:]}")
-    rec = json.loads(r.stdout.strip().splitlines()[-1])
-    secs["c"] = time.perf_counter() - t0
-    print(f"launch_tools dry-run record ({secs['c']:.1f} s, a fake trace "
-          f"on the host): {json.dumps(rec)}", flush=True)
-    want = analyze_cell(get_config(arch), SHAPES_BY_NAME[shape], mesh,
-                        rec["grad_accum"])
-    ratio = rec["flops"] / want.flops_local
-    tp = mesh_sizes(mesh)["model"]
-    print(f"launch_tools dry-run flops a device {rec['flops']:.6e} against "
-          f"the roofline's flops_local {want.flops_local:.6e}: ratio "
-          f"{ratio:.4f} (the \"model\" axis is {tp} ranks)", flush=True)
-    if not 1 - FLOPS_TOL <= ratio <= tp * (1 + FLOPS_TOL):
-        fail(f"launch_tools dry-run: flops ratio {ratio:.4f}, want it "
-             f"within [{1 - FLOPS_TOL:.1f}, {tp} x {1 + FLOPS_TOL:.1f}]")
+    rec = _dryrun_child(DRYRUN_CELL)
+    cfg = get_config(arch)
+    want = analyze_cell(cfg, SHAPES_BY_NAME[shape], mesh, rec["grad_accum"])
+    split = expected_train_flops(cfg, SHAPES_BY_NAME[shape],
+                                 mesh_sizes(mesh))
+    print(f"launch_tools dry-run flops a device {rec['flops']:.6e}: "
+          f"{rec['flops'] / split:.4f} of the split's analytic "
+          f"{split:.6e}, {rec['flops'] / want.flops_local:.4f} x the "
+          f"roofline's flops_local {want.flops_local:.6e} (the analytic "
+          f"{split / want.flops_local:.4f} x)", flush=True)
+    if abs(rec["flops"] / split - 1) > FLOPS_TOL:
+        fail(f"launch_tools dry-run: flops {rec['flops']:.6e} outside the "
+             f"split's analytic {split:.6e} +- {FLOPS_TOL}")
     if rec["collective_counts"]["all-gather"] <= 0:
         fail(f"launch_tools dry-run: no all-gather in {rec}")
     if rec["memory"]["temp_bytes"] >= hbm:
         fail(f"launch_tools dry-run: temp_bytes {rec['memory']['temp_bytes']}"
              f" over the card's {hbm:.0f}")
+    dec = _dryrun_child(DRYRUN_DECODE_CELL)
+    peak = dec["memory"]["argument_bytes"] + dec["memory"]["temp_bytes"]
+    print(f"launch_tools dry-run {DRYRUN_DECODE_CELL}: arguments + "
+          f"temporaries {peak} B, {peak / hbm:.4f} of the card's {hbm:.0f} "
+          f"({CARD})", flush=True)
+    if peak > 0.9 * hbm:
+        fail(f"launch_tools dry-run {DRYRUN_DECODE_CELL}: peak {peak} B over "
+             f"0.9 x {hbm:.0f}")
+    secs["c"] = time.perf_counter() - t0
 
 
 def profile_pass(torch, label: str, fn, top: int = 10):

@@ -27,6 +27,14 @@ rank's shard of a whole tensor (its gradient is assembled whole again),
 holds the same cotangent, so each keeps its chunk), and ``replicate``
 marks a whole input every rank uses on its own shard of the work (its
 gradient sums the ranks' contributions).
+
+Inside a sharded model the ranks' losses sum to the step's loss, and each
+rank's tensors are its own: the tensor-parallel layers
+(``models.transformer``) sum after ``wo`` and ``w_down`` with
+``psum(varying=True)`` (every rank goes on with the sum, so its transpose
+sums the ranks' cotangents) and put nothing in front of the column-split
+products (each rank's input to its columns is its own copy; its gradient
+is that copy's).  :func:`repartition` moves cache positions between ranks.
 """
 from __future__ import annotations
 
@@ -185,6 +193,27 @@ def gather(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
 def replicate(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``x`` as it is; its gradient sums the ranks' gradients."""
     return x if axis.size == 1 else _Replicate.apply(x, axis)
+
+
+def repartition(x: torch.Tensor, dim: int, have, want,
+                axis: Axis) -> torch.Tensor:
+    """Positions along ``dim`` moved between the ranks of ``axis``: rank
+    ``r`` holds [have[r][0], have[r][1]) and gets [want[r][0], want[r][1]),
+    each position from the rank that holds it (an all-to-all with uneven
+    splits; no gradient).  Every held position must be wanted by some
+    rank."""
+    import torch.distributed as dist
+
+    def overlap(a, b):
+        return max(min(a[1], b[1]) - max(a[0], b[0]), 0)
+    r = axis.rank
+    send = [overlap(have[r], want[j]) for j in range(axis.size)]
+    recv = [overlap(have[j], want[r]) for j in range(axis.size)]
+    x0 = x.detach().movedim(dim, 0).contiguous()
+    out = x0.new_empty((sum(recv),) + tuple(x0.shape[1:]))
+    dist.all_to_all_single(out, x0, output_split_sizes=recv,
+                           input_split_sizes=send, group=axis.group)
+    return out.movedim(0, dim)
 
 
 def all_reduce_max(x: torch.Tensor, axis: Axis) -> torch.Tensor:

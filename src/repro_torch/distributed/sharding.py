@@ -16,13 +16,21 @@ Placement (GSPMD's ``NamedSharding`` has no direct twin): a leaf stored as
 a spec says is a ``DTensor`` of this rank's slice (:func:`distribute`,
 :func:`slices`), its placements :func:`to_placements` of the spec, so that
 ``.placements`` records the sharding and ``.full_tensor()`` the whole.
-Compute never runs on DTensors: :func:`whole` all-gathers a leaf from its
-shards over the axes its spec names (``collectives.all_gather``, whose
-backward is a reduce-scatter) just before its one use, and :func:`layer`
-gathers one layer of stacked block params that way.  :class:`MeshView`
-is the mesh as the sharded model code sees it: which axes split the
-batch rows, whether collectives run over axes of one rank too, and each
-thread's own copy of the groups.
+Compute never runs on DTensors.  :func:`whole` all-gathers a leaf from
+its shards over the axes its spec names (``collectives.all_gather``, whose
+backward is a reduce-scatter) just before its one use.  :func:`block` and
+:func:`layer` apply the policy's rule dim by dim instead: a dim split over
+an axis that also splits the activation rows (the policy's ``batch``, and
+its ``seq`` under ``fsdp_tp_seq``) is ZeRO-style storage and is gathered
+at its use; a dim split over any other axis (``heads``, ``kv``, ``mlp``,
+``vocab``, ``expert`` over "model" under ``tp`` and ``fsdp_tp``) is
+tensor-parallel, and the layer computes on this rank's block of it, a
+:class:`Local` (:func:`tp_dims` names those dims).  A consumer that
+moves some axes itself takes the dims over them as stored too: the MoE's
+``shard_map`` island gathers or sums its experts' F over "data" on its
+own route.  :class:`MeshView` is the mesh as the sharded model code sees it: the policy, which axes split
+the batch rows, whether collectives run over axes of one rank too, and
+each thread's own copy of the groups.
 """
 from __future__ import annotations
 
@@ -413,10 +421,24 @@ def spec_of(x) -> P:
 
 
 class Local(NamedTuple):
-    """A rank's block of a leaf and the spec it was cut by: what the
-    sharded MoE takes in place of a whole expert weight."""
+    """A rank's block of a leaf and the spec it was cut by: what a layer
+    computes on in place of the whole weight along its tensor-parallel
+    dims (the spec names only those)."""
     t: Any
     spec: P
+
+
+def local(x):
+    """The tensor a layer computes on: a :class:`Local`'s block, or ``x``."""
+    return x.t if isinstance(x, Local) else x
+
+
+def row_axes(policy: str) -> Tuple[str, ...]:
+    """The mesh axes ``policy`` splits activation rows over: its ``batch``
+    axes, and its ``seq`` axes (``fsdp_tp_seq``, ``seq_serve``)."""
+    rules = POLICIES[policy]
+    return tuple(dict.fromkeys(_axes(rules.get("batch"))
+                               + _axes(rules.get("seq"))))
 
 
 class MeshView:
@@ -431,7 +453,12 @@ class MeshView:
     * ``threads``: thread names that each get their own copy of every
       axis's group (``launch.mesh.thread_groups``, made here, on every
       rank in the same order), so that passes issued from several threads
-      never interleave their collectives on one group.
+      never interleave their collectives on one group;
+    * ``policy``: the policy the params are stored under, whose rule
+      (:func:`tp_dims`) says which dims a layer computes on as blocks and
+      whose ``cache_seq`` splits a serving cache's sequence
+      (:func:`cache_axes`); without one every leaf is gathered whole and
+      no cache is split.
 
     It answers ``mesh_dim_names``, ``size``, ``get_group`` (the calling
     thread's copy where it has one) and ``get_local_rank`` as the mesh
@@ -439,10 +466,11 @@ class MeshView:
     mesh."""
 
     def __init__(self, mesh, rows: Sequence[str] = (), force: bool = False,
-                 threads: Sequence[str] = ()):
+                 threads: Sequence[str] = (), policy: Optional[str] = None):
         self.mesh = mesh.mesh if isinstance(mesh, MeshView) else mesh
         self.rows = tuple(rows)
         self.force = force
+        self.policy = policy
         self.mesh_dim_names = tuple(self.mesh.mesh_dim_names)
         self._groups: Dict[str, Dict[str, Any]] = {}
         if threads:
@@ -543,25 +571,93 @@ def whole(x, mesh=None):
     return x
 
 
-def layer(tree, i: int, mesh=None, keep: Sequence[str] = (),
+def tp_dims(spec: Sequence[AxisAssign], policy: Optional[str],
+            own: Sequence[str] = ()) -> Dict[int, Tuple[str, ...]]:
+    """``{dim: axes}``: the dims of a leaf's ``spec`` that are
+    tensor-parallel under ``policy``, those split over axes none of which
+    splits the activation rows (:func:`row_axes`), leaving out the axes
+    ``own`` that the leaf's consumer moves itself (the MoE's ``shard_map``
+    island takes its experts as stored).  Empty without a policy: every
+    dim is then storage."""
+    if policy is None:
+        return {}
+    rows = set(row_axes(policy)) - set(own)
+    return {d: _axes(e) for d, e in enumerate(spec)
+            if _axes(e) and not rows & set(_axes(e))}
+
+
+def _by_rule(blk, spec: Sequence[AxisAssign], mesh, own: Sequence[str] = ()):
+    """A block cut by ``spec`` as the layer computes on it: gathered over
+    the storage dims' axes; a :class:`Local` of the tensor-parallel dims
+    where there are any, else the whole tensor."""
+    tp = tp_dims(spec, getattr(mesh, "policy", None), own)
+    x = gather(blk, [None if d in tp else e for d, e in enumerate(spec)],
+               mesh)
+    if not tp:
+        return x
+    return Local(x, P(*(e if d in tp else None for d, e in enumerate(spec))))
+
+
+def block(x, mesh=None):
+    """A leaf as a layer computes on it (:func:`tp_dims`'s rule): a
+    ``DTensor``'s or :class:`Local`'s storage dims gathered, its
+    tensor-parallel dims kept as this rank's block (a :class:`Local`); a
+    plain tensor as it is."""
+    if isinstance(x, Local):
+        return _by_rule(x.t, x.spec, mesh)
+    if is_placed(x):
+        return _by_rule(x.to_local(), spec_of(x),
+                        mesh if mesh is not None else x.device_mesh)
+    return x
+
+
+def layer(tree, i: Optional[int], mesh=None,
+          keep: Optional[Mapping[str, Sequence[str]]] = None,
           prefix: str = ""):
-    """Layer ``i`` of stacked block params (a nested dict), each leaf
-    whole: a plain leaf's slice ``i`` (a view), a ``DTensor``'s block of
-    slice ``i`` gathered over the axes its spec names (the stacked
-    ``layers`` dim is never sharded).  Leaves whose dotted path is in
-    ``keep`` stay this rank's block, as a :class:`Local`."""
+    """Layer ``i`` of stacked block params (a nested dict; ``i`` None: an
+    unstacked block): a plain leaf's slice ``i`` (a view), a ``DTensor``'s
+    block of slice ``i`` gathered whole over the axes its spec names (the
+    stacked ``layers`` dim is never sharded).  Leaves under a dotted path
+    in ``keep`` take the rule instead (:func:`block`): their
+    tensor-parallel dims stay this rank's block, with the longest such
+    path's axes taken as their consumer's own (:func:`tp_dims`)."""
     if isinstance(tree, dict):
         return {k: layer(v, i, mesh, keep, f"{prefix}{k}.")
                 for k, v in tree.items()}
     if not is_placed(tree):
-        return tree[i]
+        return tree if i is None else tree[i]
     spec = spec_of(tree)
-    assert spec[0] is None, f"a stacked layers dim is sharded: {spec}"
-    blk = tree.to_local()[i]
-    if prefix[:-1] in keep:
-        return Local(blk, P(*spec[1:]))
-    return gather(blk, spec[1:], mesh if mesh is not None
-                  else tree.device_mesh)
+    blk = tree.to_local()
+    if i is not None:
+        assert spec[0] is None, f"a stacked layers dim is sharded: {spec}"
+        blk, spec = blk[i], P(*spec[1:])
+    mesh = mesh if mesh is not None else tree.device_mesh
+    path = prefix[:-1]
+    under = [k for k in keep or () if path == k or path.startswith(k + ".")]
+    if under:
+        return _by_rule(blk, spec, mesh, keep[max(under, key=len)])
+    return gather(blk, spec, mesh)
+
+
+def cache_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes a serving cache's sequence is split over on ``mesh``
+    (a :class:`MeshView`): its policy's ``cache_seq`` axes that the view
+    takes collectives over and that do not split its rows (the
+    reference's ``cache_batch`` takes the batch axes first).  None without
+    a view or a policy."""
+    policy = getattr(mesh, "policy", None)
+    if policy is None:
+        return ()
+    return tuple(a for a in _axes(POLICIES[policy].get("cache_seq"))
+                 if a not in mesh.rows and mesh.active(a))
+
+
+def block_start(entry: AxisAssign, n_local: int, mesh) -> int:
+    """The first index of this rank's block of a dim cut by ``entry`` into
+    blocks of ``n_local``."""
+    sizes = mesh_axis_sizes(mesh)
+    at = {a: int(mesh.get_local_rank(a)) for a in _axes(entry)}
+    return _entry_index(entry, sizes, at)[0] * n_local
 
 
 def whole_tree(tree, mesh=None):

@@ -12,8 +12,9 @@ collective returns at once, the real production mesh over it
 computed.  Train cells go through ``train_loop.make_sharded_train_step``
 with the grad accumulation the reference would pick; prefill and decode
 cells through the model's ``prefill`` and ``decode_step`` over the mesh,
-with parameters stored as the policy shards them and each rank holding
-its rows of the batch and of the cache.
+with parameters stored as the policy shards them (each layer computing on
+its tensor-parallel blocks) and each rank holding its rows of the batch
+and its rows and block of positions of the cache.
 
 Per cell this emits JSON (the reference's keys), all per device (rank 0):
   flops            — ``FlopCounterMode``'s total: PyTorch runs the layer
@@ -47,7 +48,7 @@ import os
 import subprocess
 import sys
 import weakref
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -116,6 +117,54 @@ def pick_grad_accum(cfg, shape, mesh) -> int:
             (shape.global_batch // (accum * 2)) % ways == 0:
         accum *= 2
     return accum
+
+
+def split_forward_flops(cfg, seq_len: int, mesh) -> Tuple[float, float]:
+    """Per token of a ``seq_len`` sequence, the FLOPs one device computes
+    in a forward under the port's tensor-parallel design, from the config
+    and the specs, as (the layers', the head's): the roofline's per-token
+    products (``roofline._layer_flops``' terms), each over the size of the
+    axes its weight dim is tensor-parallel over (``sharding.tp_dims`` of
+    its spec under the config's policy), the attention on the query heads'
+    share and, as the traced path's plain attention computes every key
+    chunk whole, each query against all ``seq_len`` keys; the head over
+    its vocabulary's share.  Dense and VLM decoders.  ``mesh``: an
+    ``{axis: size}`` mapping."""
+    from repro_torch.models import param as P
+    from repro_torch.models.registry import get_model
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(f"no split count for {cfg.family!r}")
+    specs = {k: shd.logical_to_pspec(sp.shape, sp.logical, mesh,
+                                     cfg.sharding)
+             for k, sp in P.iter_specs(get_model(cfg).specs)}
+
+    def ways(path):
+        return math.prod(mesh[a] for axes in shd.tp_dims(
+            specs[path], cfg.sharding).values() for a in axes)
+    D, F, hd, T = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim, seq_len
+    H = cfg.num_heads / ways("blocks.attn.wq")
+    Hk = cfg.num_kv_heads / ways("blocks.attn.wk")
+    mult = 3 if cfg.act == "swiglu" else 2
+    layer = (2.0 * D * hd * (2 * H + 2 * Hk) + 4.0 * T * H * hd
+             + 2.0 * mult * D * F / ways("blocks.mlp.w_down"))
+    head = 2.0 * D * cfg.vocab_size / ways(
+        "embed" if cfg.tie_embeddings else "lm_head")
+    return cfg.num_layers * layer, head
+
+
+def expected_train_flops(cfg, shape, mesh) -> float:
+    """The FLOPs one device computes in a train cell's traced step:
+    :func:`split_forward_flops`, the layers counted 3 + remat times (1
+    where ``cfg.remat`` recomputes each layer) and the head 3 times, as the
+    roofline counts a step, for one device's rows (the global batch over
+    the axes that split the rows).  ``mesh``: an ``{axis: size}``
+    mapping."""
+    layers, head = split_forward_flops(cfg, shape.seq_len, mesh)
+    remat = 1.0 if cfg.remat != "none" else 0.0
+    rows = math.prod(mesh[a] for a in shd.row_axes(cfg.sharding)
+                     if a in mesh)
+    tokens = shape.global_batch * shape.seq_len / rows
+    return tokens * (layers * (3.0 + remat) + head * 3.0)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +250,7 @@ def build_step(arch: str, shape_name: str, multi_pod: bool,
                   for k, sp in P.iter_specs(model.specs)}
         batch = {k: _block(sh, dt, batch_ps[k], mesh)
                  for k, (sh, dt) in input_specs(cfg, shape).items()}
-    view = shd.MeshView(mesh, rows=batch_rows(batch_ps))
+    view = shd.MeshView(mesh, rows=batch_rows(batch_ps), policy=policy)
 
     if shape.kind == "prefill":
         @torch.no_grad()
@@ -212,10 +261,11 @@ def build_step(arch: str, shape_name: str, multi_pod: bool,
 
         return prefill_step, (params, batch), mesh, meta
 
-    # decode: one new token against a seq_len cache
+    # decode: one new token against a seq_len cache (this rank's block of
+    # its positions, where the policy's cache_seq splits them)
     with fake:
         cache = model.init_cache(batch["tokens"].shape[0], shape.seq_len,
-                                 device="cpu")
+                                 device="cpu", mesh=view)
 
     def serve_step(params, cache, tokens, cache_len):
         return model.decode_step(params, cache, tokens, cache_len,

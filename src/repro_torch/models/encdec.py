@@ -214,7 +214,8 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            audio_frames: Optional[torch.Tensor] = None, mesh=None):
+            audio_frames: Optional[torch.Tensor] = None, mesh=None,
+            max_seq: Optional[int] = None):
     """Forward that also returns the caches {"k", "v", "xk", "xv"} in the
     config's dtype."""
     return _forward_impl(cfg, params, tokens, audio_frames, True, mesh)
@@ -231,7 +232,9 @@ def cache_specs(cfg: ModelConfig, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device="cuda") -> Dict:
+               device="cuda", mesh=None) -> Dict:
+    """A zero cache; no mesh splits it (``mesh`` and the prefill's
+    ``max_seq`` are the dense families' cache split, unused here)."""
     return {k: torch.zeros(shape, dtype=dtype, device=device)
             for k, (shape, dtype) in cache_specs(cfg, batch, seq_len).items()}
 

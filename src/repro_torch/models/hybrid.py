@@ -26,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import whole_tree
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
@@ -72,11 +73,21 @@ def specs(cfg: ModelConfig) -> Dict:
 _run_mamba_with_state = mamba2.mamba_block_with_state
 
 
+def _shared(tree: Dict, mesh):
+    """The shared block's params at their use: over a mesh, its
+    attention's and MLP's tensor-parallel dims this rank's blocks (the
+    dense block's rule), the rest gathered."""
+    return shd.layer(tree["shared"], None, mesh, tf._TP_KEEP) \
+        if mesh is not None else tree["shared"]
+
+
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                  with_cache: bool, mesh=None):
+                  with_cache: bool, mesh=None, max_seq=None):
     tree = P.nest(params)
     x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
     positions = torch.arange(x.shape[1], device=x.device)
+    split = tf.cache_split(mesh, max_seq or x.shape[1]) if with_cache \
+        else None
     na, per = _n_apps(cfg), cfg.shared_attn_every
     attn_caches, ssm_states = [], []
     if not with_cache:
@@ -85,7 +96,7 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         # reference's checkpointed scan body)
         # (the weights gathered inside it, over a mesh)
         def group(h, a):
-            h = tf._block(cfg, whole_tree(tree["shared"], mesh), h,
+            h = tf._block(cfg, _shared(tree, mesh), h,
                           positions=positions, is_global=True, mesh=mesh)[0]
             for j in range(per):
                 h = mamba2.mamba_block(
@@ -99,9 +110,9 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     for a in range(na):
         # the shared block is the dense family's block (causal, no
         # window), one set of weights at every application
-        x, attn_cache = tf._block(cfg, whole_tree(tree["shared"], mesh), x,
+        x, attn_cache = tf._block(cfg, _shared(tree, mesh), x,
                                   positions=positions, is_global=True,
-                                  with_cache=True, mesh=mesh)
+                                  with_cache=True, mesh=mesh, split=split)
         attn_caches.append(attn_cache)
         for j in range(per):
             p = tf._layer(tree["mamba_blocks"], a * per + j, mesh)
@@ -126,18 +137,24 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            mesh=None):
+            mesh=None, max_seq=None):
     """Forward that also returns the caches: {"attn": {"k", "v"}
     (apps, B, T, Hk, hd), "ssm": {"ssm" (apps, per, B, H, hd, N) fp32,
-    "conv" (apps, per, B, K-1, d_inner)}}."""
+    "conv" (apps, per, B, K-1, d_inner)}}; the attention caches' positions
+    this rank's of a ``max_seq`` cache where the mesh splits it
+    (``transformer.prefill``)."""
     hidden, (attn, ssm) = _forward_impl(cfg, params, tokens,
-                                        with_cache=True, mesh=mesh)
+                                        with_cache=True, mesh=mesh,
+                                        max_seq=max_seq)
     return hidden, {"attn": attn, "ssm": ssm}
 
 
-def cache_specs(cfg: ModelConfig, batch: int,
-                seq_len: int) -> Dict[str, Dict[str, Tuple]]:
-    """{part: {leaf: (shape, dtype)}} of a ``seq_len`` cache."""
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                mesh=None) -> Dict[str, Dict[str, Tuple]]:
+    """{part: {leaf: (shape, dtype)}} of a ``seq_len`` cache (over a
+    ``mesh``, this rank's block of the attention caches' positions)."""
+    split = tf.cache_split(mesh, seq_len)
+    seq_len = split.size if split else seq_len
     na, per = _n_apps(cfg), cfg.shared_attn_every
     hd = cfg.resolved_head_dim
     H, shd, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -153,10 +170,11 @@ def cache_specs(cfg: ModelConfig, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device="cuda") -> Dict:
+               device="cuda", mesh=None) -> Dict:
     return {part: {k: torch.zeros(shape, dtype=dtype, device=device)
                    for k, (shape, dtype) in leaves.items()}
-            for part, leaves in cache_specs(cfg, batch, seq_len).items()}
+            for part, leaves
+            in cache_specs(cfg, batch, seq_len, mesh).items()}
 
 
 @torch.no_grad()
@@ -171,17 +189,16 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
     T = x.shape[1]
     positions = cache_len + torch.arange(T, device=x.device)
-    shared = whole_tree(tree["shared"], mesh)
+    shared = _shared(tree, mesh)
+    split = tf.cache_split(mesh, local_len=cache["attn"]["k"].shape[2])
     na, per = _n_apps(cfg), cfg.shared_attn_every
     for a in range(na):
-        q, kk, vv = tf._qkv(cfg, shared["attn"], x, positions)
-        k_cache, v_cache = cache["attn"]["k"][a], cache["attn"]["v"][a]
-        k_cache[:, cache_len:cache_len + T] = kk.to(k_cache.dtype)
-        v_cache[:, cache_len:cache_len + T] = vv.to(v_cache.dtype)
-        out = L.decode_attention(q, k_cache, v_cache, kv_len=cache_len + 1)
-        x = x + torch.einsum("btnh,nhd->btd", out, shared["attn"]["wo"])
-        x = x + L.apply_mlp(cfg, shared["mlp"],
-                            L.apply_norm(cfg, shared["mlp_norm"], x))
+        x = x + tf._decode_attention(cfg, shared["attn"], x, positions,
+                                     cache["attn"]["k"][a],
+                                     cache["attn"]["v"][a], cache_len, 0,
+                                     mesh, split)
+        x = x + tf._mlp(cfg, shared["mlp"],
+                        L.apply_norm(cfg, shared["mlp_norm"], x), mesh)
         for j in range(per):
             p = tf._layer(tree["mamba_blocks"], a * per + j, mesh)
             state = {k: cache["ssm"][k][a, j] for k in ("ssm", "conv")}

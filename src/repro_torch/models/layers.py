@@ -225,6 +225,65 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
+class DecodeState(NamedTuple):
+    """One block of a sequence-split cache's attention state for a decoded
+    token: the block's max score ``m`` and sum of exp(s - m) ``l``, each
+    (B, Hk, G) fp32, and its output ``o`` (B, Hk, G, hd) fp32, already
+    normalized by ``l`` (the plain softmax's arithmetic on the block)."""
+    m: torch.Tensor
+    l: torch.Tensor
+    o: torch.Tensor
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             kv_len: Union[torch.Tensor, int],
+                             k_start: int = 0, window: int = 0,
+                             scale: Optional[float] = None) -> DecodeState:
+    """:func:`decode_attention` over one block of a cache whose keys are
+    at positions ``k_start`` .. ``k_start + S_blk``: q (B, 1, H, hd), k/v
+    (B, S_blk, Hk, hd).  The state :func:`merge_decode_states` merges over
+    the blocks (flash-decode); a block no key of which is visible has
+    ``m`` -1e30 and weighs nothing."""
+    B, _, H, hd = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = scale if scale is not None else hd ** -0.5
+    qg = (q * scale).reshape(B, Hk, G, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k.float())
+    pos = k_start + torch.arange(S, device=q.device)
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int64,
+                             device=q.device).broadcast_to((B,))
+    valid = pos[None, :] < kv_len[:, None]
+    if window > 0:
+        valid = valid & (pos[None, :] >= (kv_len - window)[:, None])
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p.to(v.dtype).float(), v.float())
+    return DecodeState(m, l, o)
+
+
+def merge_decode_states(states: DecodeState, dtype: torch.dtype
+                        ) -> torch.Tensor:
+    """The blocks' states stacked on a leading dim (P, ...), in block
+    order, merged in that order: each block's output weighted by
+    l exp(m - max m) over the weights' sum -> (B, 1, H, hd) in ``dtype``.
+    One block's weight is exactly 1, so a cache of one block gives
+    :func:`decode_attention`'s bits."""
+    mx = states.m.amax(dim=0)
+    w = states.l * torch.exp(states.m - mx)
+    den = w[0]
+    for i in range(1, w.shape[0]):
+        den = den + w[i]
+    out = (w[0] / den)[..., None] * states.o[0]
+    for i in range(1, w.shape[0]):
+        out = out + (w[i] / den)[..., None] * states.o[i]
+    B, Hk, G, hd = out.shape
+    return out.reshape(B, 1, Hk * G, hd).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -256,16 +315,22 @@ def mlp_specs(cfg: ModelConfig, stacked: int = 0,
     }
 
 
-def apply_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """The MLP over x (..., D).  ``reduce`` takes the down-projection
+    before its bias: the sum over ranks where ``p`` holds a rank's columns
+    of ``w_gate`` / ``w_up`` (``b_up``) and its rows of ``w_down``."""
+    reduce = reduce or (lambda y: y)
     if cfg.act == "swiglu":
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
         h = F.silu(g.float()).to(x.dtype) * u
-        return h @ p["w_down"]
+        return reduce(h @ p["w_down"])
     h = x @ p["w_up"] + p["b_up"]
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ p["w_down"] + p["b_down"]
+    return reduce(h @ p["w_down"]) + p["b_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -277,7 +277,8 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            patch_embeds: Optional[torch.Tensor] = None, mesh=None):
+            patch_embeds: Optional[torch.Tensor] = None, mesh=None,
+            max_seq: Optional[int] = None):
     """Forward that also returns each layer's final states, the reference's
     prefill arithmetic: {"ssm" (L, B, H, hd, N) fp32, "conv" (L, B, K-1,
     d_inner), the last K-1 inputs of the conv}."""
@@ -295,7 +296,9 @@ def cache_specs(cfg: ModelConfig, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device="cuda") -> Dict:
+               device="cuda", mesh=None) -> Dict:
+    """A zero cache; no mesh splits it (``mesh`` and the prefill's
+    ``max_seq`` are the dense families' cache split, unused here)."""
     return {k: torch.zeros(shape, dtype=dtype, device=device)
             for k, (shape, dtype) in cache_specs(cfg, batch, seq_len).items()}
 

@@ -5,7 +5,8 @@
 ``forward``, ``prefill`` and ``decode_step`` take the reference's
 ``mesh=``: a ``distributed.sharding.MeshView`` (a bare ``DeviceMesh`` is
 viewed with the batch whole on every rank).  Over a mesh, params may be
-stored sharded (``DTensor`` leaves, gathered at their use) and the batch is
+stored sharded (``DTensor`` leaves: a layer computes on the blocks of its
+tensor-parallel dims and gathers the rest at their use) and the batch is
 this rank's rows of the view's split; a mesh of one rank computes what no
 mesh does."""
 from __future__ import annotations
@@ -90,22 +91,32 @@ class Model:
         return self.mod.forward(self.cfg, params, batch["tokens"], fe,
                                 mesh=mesh)
 
-    def prefill(self, params: Dict, batch: Dict, mesh=None):
+    def prefill(self, params: Dict, batch: Dict, mesh=None,
+                max_seq=None):
+        """The forward and its caches; ``max_seq``: the length of the
+        cache they fill, whose positions a mesh may split
+        (``transformer.cache_split``; the dense, moe, vlm and hybrid
+        families' attention caches)."""
         mesh = _view(mesh)
         fe = self._frontend(batch)
         if fe is None:
             return self.mod.prefill(self.cfg, params, batch["tokens"],
-                                    mesh=mesh)
+                                    mesh=mesh, max_seq=max_seq)
         return self.mod.prefill(self.cfg, params, batch["tokens"], fe,
-                                mesh=mesh)
+                                mesh=mesh, max_seq=max_seq)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
                     cache_len: int, mesh=None):
         return self.mod.decode_step(self.cfg, params, cache, tokens,
                                     cache_len, mesh=_view(mesh))
 
-    def init_cache(self, batch: int, seq_len: int, device="cuda") -> Dict:
-        return self.mod.init_cache(self.cfg, batch, seq_len, device)
+    def init_cache(self, batch: int, seq_len: int, device="cuda",
+                   mesh=None) -> Dict:
+        """A zero cache for ``batch`` rows of ``seq_len`` positions; over
+        a ``mesh`` this rank's block of the positions where it splits
+        them."""
+        return self.mod.init_cache(self.cfg, batch, seq_len, device,
+                                   mesh=_view(mesh))
 
     def logits(self, params: Dict, hidden: torch.Tensor,
                mesh=None) -> torch.Tensor:

@@ -24,6 +24,27 @@ stays on ``layers.decode_attention``, as in the reference.
 is given, in place, and returns it (the reference's engine donates the
 cache to the step).
 
+Over a mesh (a ``sharding.MeshView`` with a policy) each layer computes
+where the policy places the work, as GSPMD does for the reference: a
+weight dim split over "model" under ``tp`` / ``fsdp_tp`` is
+tensor-parallel (``sharding.tp_dims``), so q, k and v come from this
+rank's heads of ``wq`` / ``wk`` / ``wv``, attention runs on those heads
+(each rank given the kv heads its q heads read where kv stays whole), and
+the products with ``wo`` and ``w_down`` are summed over "model" after
+them; the MLP takes its ``w_gate`` / ``w_up`` columns and ``w_down`` rows;
+the embedding looks up this rank's vocabulary rows and sums over "model";
+the head gives this rank's logits (gathered for decode).  Dims whose axis
+splits the rows (``embed`` over "data" under ``fsdp_tp``, every dim under
+``fsdp``) are gathered at their use.  Every sum is ``collectives.psum``
+with a summing backward: the sharded step's loss is the sum of the ranks'
+losses, so each collective is its exact transpose.  A serving cache is
+split as the reference's ``("layers", "cache_batch", "cache_seq", "kv",
+None)`` lays it out (``sharding.cache_axes``): each rank holds its rows and
+its block of positions; a prefill writes its own positions, and decode is
+flash-decode (each rank's block of the cache gives a partial state, the
+states merged across the sequence's axes in block order, the position's
+owner writing the token's K/V).
+
 The MoE block (``_moe_local``): fp32 router, top-k experts by
 probability (ties to the lower index, as ``jax.lax.top_k``), capacity
 slots by a running count over the token-major copies, the overflow
@@ -137,13 +158,15 @@ def specs(cfg: ModelConfig) -> Dict:
 
 def _qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (B, T, D) -> q (B, T, H, hd), k and v (B, T, Hk, hd)."""
+    """x (B, T, D) -> q (B, T, H, hd), k and v (B, T, Hk, hd); this rank's
+    heads where ``wq`` / ``wk`` / ``wv`` are blocks (``sharding.Local``)."""
+    w = {k: shd.local(v) for k, v in p.items() if k != "norm"}
     xn = L.apply_norm(cfg, p["norm"], x)
-    q = torch.einsum("btd,dnh->btnh", xn, p["wq"])
-    kk = torch.einsum("btd,dnh->btnh", xn, p["wk"])
-    vv = torch.einsum("btd,dnh->btnh", xn, p["wv"])
+    q = torch.einsum("btd,dnh->btnh", xn, w["wq"])
+    kk = torch.einsum("btd,dnh->btnh", xn, w["wk"])
+    vv = torch.einsum("btd,dnh->btnh", xn, w["wv"])
     if cfg.qkv_bias:
-        q, kk, vv = q + p["bq"], kk + p["bk"], vv + p["bv"]
+        q, kk, vv = q + w["bq"], kk + w["bk"], vv + w["bv"]
     if cfg.pos_embed == "rope":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         kk = L.apply_rope(kk, positions, cfg.rope_theta)
@@ -155,8 +178,19 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                  mesh=None) -> torch.Tensor:
     """Token embeddings (B, T, D); with ``patch_embeds`` (B, P, D) those
     are cast to the embedding's dtype and prepended (the VLM's stub
-    frontend).  A sharded embedding is gathered whole over ``mesh``."""
-    x = shd.whole(params["embed"], mesh)[tokens.long()]
+    frontend).  Over ``mesh`` the embedding takes the rule
+    (``sharding.block``): a vocabulary split over "model" looks up this
+    rank's rows (zero for other tokens) and sums over the axis, exactly."""
+    w = shd.block(params["embed"], mesh)
+    if isinstance(w, shd.Local):
+        v0 = shd.block_start(w.spec[0], w.t.shape[0], mesh)
+        idx = tokens.long() - v0
+        mine = (idx >= 0) & (idx < w.t.shape[0])
+        x = w.t[idx.clamp(0, w.t.shape[0] - 1)]
+        x = _tp_sum(torch.where(mine[..., None], x, torch.zeros_like(x)),
+                    w, 0, mesh)
+    else:
+        x = w[tokens.long()]
     if cfg.tie_embeddings:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     if patch_embeds is not None:
@@ -173,9 +207,77 @@ def lm_head_weight(cfg: ModelConfig, params: Dict,
     return shd.whole(params["lm_head"], mesh)
 
 
+def lm_head_block(cfg: ModelConfig, params: Dict, mesh=None):
+    """The (D, V) head under the rule (``sharding.block``): a
+    ``sharding.Local`` of this rank's vocabulary columns where the
+    vocabulary is tensor-parallel, else the whole head."""
+    if not cfg.tie_embeddings:
+        return shd.block(params["lm_head"], mesh)
+    w = shd.block(params["embed"], mesh)
+    if isinstance(w, shd.Local):
+        return shd.Local(w.t.T, shd.P(*reversed(w.spec)))
+    return w.T
+
+
 def logits_fn(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
               mesh=None) -> torch.Tensor:
-    return hidden @ lm_head_weight(cfg, params, mesh)
+    """hidden (..., D) -> logits (..., V); over ``mesh`` each rank's
+    vocabulary block of them, gathered in vocabulary order."""
+    w = lm_head_block(cfg, params, mesh)
+    if not isinstance(w, shd.Local):
+        return hidden @ w
+    out = hidden @ w.t
+    return shd.gather(out, (None,) * (out.ndim - 1) + (w.spec[1],), mesh)
+
+
+def _tp_sum(x: torch.Tensor, w, dim: int, mesh) -> torch.Tensor:
+    """``x`` summed over the axes weight ``w``'s ``dim`` is split over
+    where ``w`` is a block (``sharding.Local``); ``x`` itself otherwise.
+    The sum's backward sums too (the sharded step's convention)."""
+    if isinstance(w, shd.Local):
+        for a in shd._axes(w.spec[dim]):
+            x = C.psum(x, C.Axis.of(mesh, a), varying=True)
+    return x
+
+
+def _mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor, mesh=None
+         ) -> torch.Tensor:
+    """``L.apply_mlp`` on this rank's columns of ``w_gate`` / ``w_up`` and
+    rows of ``w_down`` where they are blocks, summed over their axis
+    before the down bias."""
+    return L.apply_mlp(cfg, {k: shd.local(v) for k, v in p.items()}, x,
+                       reduce=lambda y: _tp_sum(y, p["w_down"], 0, mesh))
+
+
+def _kv_for_heads(p: Dict, kk: torch.Tensor, vv: torch.Tensor, mesh,
+                  num_heads: int):
+    """k and v (B, T, Hk, hd) for this rank's query heads where ``wq`` is
+    split and ``wk`` whole: the kv heads those query heads read (a
+    contiguous run where each is read by as many of them, so that the
+    local heads stay a GQA grouping; one per query head otherwise)."""
+    wq = p["wq"]
+    if not isinstance(wq, shd.Local) or isinstance(p["wk"], shd.Local):
+        return kk, vv
+    H_loc, Hk = wq.t.shape[1], kk.shape[2]
+    h0 = shd.block_start(wq.spec[1], H_loc, mesh)
+    G = num_heads // Hk
+    idx = [(h0 + j) // G for j in range(H_loc)]
+    n = idx[-1] - idx[0] + 1
+    if H_loc % n == 0 and idx == [idx[0] + j // (H_loc // n)
+                                  for j in range(H_loc)]:
+        return kk.narrow(2, idx[0], n), vv.narrow(2, idx[0], n)
+    sel = torch.tensor(idx, device=kk.device)
+    return kk.index_select(2, sel), vv.index_select(2, sel)
+
+
+def _kv_whole(p: Dict, kk: torch.Tensor, vv: torch.Tensor, mesh):
+    """k and v with every kv head: gathered over the axis ``wk``'s heads
+    are split over, where they are."""
+    wk = p["wk"]
+    if not isinstance(wk, shd.Local):
+        return kk, vv
+    spec = (None, None, wk.spec[1], None)
+    return shd.gather(kk, spec, mesh), shd.gather(vv, spec, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -447,12 +549,15 @@ def moe_rows(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     """The routed MoE inside a sharded model (:class:`shd.MeshView`): ``x``
     (B, S, D) is this rank's rows (split over ``view.rows``), and the
     expert weights come as the policy stores them, each this rank's block
-    (a :class:`shd.Local`) or whole.  The reference's ``shard_map`` islands,
+    (a :class:`shd.Local`; the layer's rule takes them as the island's
+    own, ``_MOE_KEEP``) or whole.  The reference's ``shard_map`` islands,
     computed on those rows: the tokens' rows over the batch axes ("pod",
     "data"; over "model" too on the ``a2a`` route), experts over "model",
-    their FFN dim over "data"; rows and weights are moved into that split
-    only where the stored one differs (gathered over the axes that differ,
-    then this rank's block taken).  The result is this rank's rows.
+    their FFN dim over "data", which the ``gather`` route gathers (in int8
+    with ``moe_gather_dtype="int8"``) and the ``psum`` route computes on;
+    rows and weights are moved into that split only where the stored one
+    differs (gathered over the axes that differ, then this rank's block
+    taken).  The result is this rank's rows.
 
     Gradients follow the sharded step's convention (the loss is the sum
     of the ranks' losses): every collective's backward is its exact
@@ -514,7 +619,7 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     if isinstance(mesh, shd.MeshView):
         out = moe_rows(cfg, p, x, mesh)
         if cfg.num_shared_experts:
-            out = out + L.apply_mlp(cfg, p["shared"], x)
+            out = out + _mlp(cfg, p["shared"], x, mesh)
         return out
     sizes = {}
     if mesh is not None:
@@ -539,11 +644,21 @@ def _ffn(cfg: ModelConfig, p: Dict, xn: torch.Tensor,
     """The block's feed-forward half: the MoE block or the MLP."""
     if cfg.family == "moe":
         return moe_block(cfg, p, xn, mesh)
-    return L.apply_mlp(cfg, p, xn)
+    return _mlp(cfg, p, xn, mesh)
 
 
-# the routed experts' weights, which the sharded MoE takes as stored
-_MOE_KEEP = ("mlp.w_gate", "mlp.w_up", "mlp.w_down")
+# the block params a layer takes under the policy's rule (``shd.layer``'s
+# ``keep``, each path with the axes its consumer moves itself): the
+# attention's and MLP's tensor-parallel dims stay this rank's blocks; the
+# MoE's routed experts reach its shard_map island as stored (``moe_rows``)
+_TP_KEEP = {"attn": (), "mlp": ()}
+_MOE_KEEP = {**_TP_KEEP, **{f"mlp.{k}": ("pod", "data", "model")
+                            for k in ("w_gate", "w_up", "w_down")}}
+
+
+def _keep(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
+    """The block params a layer takes under the rule (``shd.layer``)."""
+    return _MOE_KEEP if cfg.family == "moe" else _TP_KEEP
 
 
 # ---------------------------------------------------------------------------
@@ -608,72 +723,134 @@ def _seq_attention(cfg: ModelConfig, q, kk, vv, seq: _Seq, window: int,
                                  q_offset=seq.start, kv_chunk=kv_chunk)
 
 
+class CacheSplit(NamedTuple):
+    """A serving cache's sequence split over the mesh axes ``axes``
+    (``shd.cache_axes``, major first): this rank holds positions [start,
+    start + size)."""
+    axes: Tuple[str, ...]
+    start: int
+    size: int
+
+
+def cache_split(mesh, seq_len: Optional[int] = None,
+                local_len: Optional[int] = None) -> Optional[CacheSplit]:
+    """How a cache of ``seq_len`` positions (or this rank's ``local_len``
+    of one) splits on ``mesh``: over ``shd.cache_axes(mesh)``, whose ranks
+    must divide it; None where no axis splits it."""
+    axes = shd.cache_axes(mesh) if isinstance(mesh, shd.MeshView) else ()
+    if not axes:
+        return None
+    parts = math.prod(mesh.sizes()[a] for a in axes)
+    seq_len = local_len * parts if seq_len is None else seq_len
+    if seq_len % parts:
+        raise ValueError(f"a cache of {seq_len} positions does not split "
+                         f"over the {parts} ranks of {axes}: make it a "
+                         f"multiple of {parts}")
+    size = seq_len // parts
+    return CacheSplit(axes, shd.block_start(axes, size, mesh), size)
+
+
+def _own(t: torch.Tensor, split: CacheSplit, T: int) -> torch.Tensor:
+    """This rank's positions of a (B, T, ...) cache entry."""
+    lo = min(split.start, T)
+    return t.narrow(1, lo, max(min(T, split.start + split.size) - lo, 0))
+
+
+def _cache_of(cfg: ModelConfig, pa: Dict, kk: torch.Tensor,
+              vv: torch.Tensor, mesh, seq: Optional[_Seq],
+              split: Optional[CacheSplit], T: int) -> Dict:
+    """A layer's cache entries from its k and v (B, T or T_loc, Hk, hd),
+    in the config's dtype: every kv head (gathered where ``wk``'s heads
+    are split) at this rank's positions.  Over a split cache those are
+    its block of them: narrowed from the whole prompt, or, after a
+    ``seq_serve`` prefill, moved by an all-to-all from the ranks that
+    computed them; without a split, the whole prompt (a ``seq_serve``
+    prefill's gathered)."""
+    kk, vv = _kv_whole(pa, kk, vv, mesh)
+    out = []
+    for t in (kk, vv):
+        if seq is not None and split is not None \
+                and split.axes == ("model",):
+            M, T_loc = seq.axis.size, t.shape[1]
+            t = C.repartition(t, 1, [(r * T_loc, (r + 1) * T_loc)
+                                     for r in range(M)],
+                              [(r * split.size, min(T, (r + 1) * split.size))
+                               for r in range(M)], seq.axis)
+        else:
+            if seq is not None:
+                t = C.gather(t, 1, seq.axis)
+            if split is not None:
+                t = _own(t, split, T)
+        out.append(t.to(cfg.torch_dtype))
+    return {"k": out[0], "v": out[1]}
+
+
 def _block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
            positions: torch.Tensor, is_global: bool, kv_chunk: int = 1024,
-           with_cache: bool = False, mesh=None, seq: Optional[_Seq] = None):
-    q, kk, vv = _qkv(cfg, p["attn"], x, positions)
+           with_cache: bool = False, mesh=None, seq: Optional[_Seq] = None,
+           split: Optional[CacheSplit] = None):
+    pa = p["attn"]
+    q, kk, vv = _qkv(cfg, pa, x, positions)
     T = x.shape[1] if seq is None else seq.total
     ck = min(kv_chunk, T, L.pick_kv_chunk(x.shape[0], T, cfg.num_heads))
+    ka, va = _kv_for_heads(pa, kk, vv, mesh, cfg.num_heads)
     if seq is None:
-        out = ops.attention(q, kk, vv, causal=True,
+        out = ops.attention(q, ka, va, causal=True,
                             window=_window(cfg, is_global), kv_chunk=ck)
     else:
-        out = _seq_attention(cfg, q, kk, vv, seq, _window(cfg, is_global),
+        out = _seq_attention(cfg, q, ka, va, seq, _window(cfg, is_global),
                              mesh, ck)
-    x = x + torch.einsum("btnh,nhd->btd", out, p["attn"]["wo"])
+    x = x + _tp_sum(torch.einsum("btnh,nhd->btd", out, shd.local(pa["wo"])),
+                    pa["wo"], 0, mesh)
     x = x + _ffn(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x), mesh)
-    cache = None
-    if with_cache:
-        if seq is not None:   # the cache whole along the sequence
-            kk, vv = C.gather(kk, 1, seq.axis), C.gather(vv, 1, seq.axis)
-        cache = {"k": kk.to(cfg.torch_dtype), "v": vv.to(cfg.torch_dtype)}
+    cache = _cache_of(cfg, pa, kk, vv, mesh, seq, split, T) \
+        if with_cache else None
     return x, cache
 
 
-def _layer(blocks: Dict, i: int, mesh=None, keep=()) -> Dict:
+def _layer(blocks: Dict, i: int, mesh=None, keep=None) -> Dict:
     """Layer ``i`` of the stacked block params: views, no copies; over a
-    ``mesh`` each sharded leaf's block gathered whole, but those in
-    ``keep``, which stay this rank's blocks."""
+    ``mesh`` each sharded leaf's block gathered whole, but those under
+    ``keep``, which take the policy's rule (``shd.layer``)."""
     if mesh is None:
         return P.tree_map(lambda a: a[i], blocks)
     return shd.layer(blocks, i, mesh, keep=keep)
 
 
-def _keep(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The leaves a layer keeps as blocks: the MoE's routed experts."""
-    return _MOE_KEEP if cfg.family == "moe" else ()
-
-
 def _scan_blocks(cfg: ModelConfig, tree: Dict, x: torch.Tensor,
                  positions: torch.Tensor, with_cache: bool = False,
-                 mesh=None, seq: Optional[_Seq] = None):
+                 mesh=None, seq: Optional[_Seq] = None,
+                 split: Optional[CacheSplit] = None):
     """The reference's layer scan as a loop over the stacked layers, each
     recomputed in the backward under ``remat`` (``L.remat``); with
-    ``with_cache`` also the stacked K/V cache (L, B, T, Hk, hd).  A layer's
-    weights are gathered inside the recomputed body, so the backward
-    gathers them again rather than keeping every layer whole."""
+    ``with_cache`` also the stacked K/V cache (L, B, T, Hk, hd), this
+    rank's positions of it over a ``split``.  A layer's weights are
+    gathered inside the recomputed body, so the backward gathers them
+    again rather than keeping every layer whole."""
+    keep = _keep(cfg)
     if not with_cache:
         for i, flag in enumerate(_layer_flags(cfg)):
             def body(h, i=i, flag=flag):
-                return _block(cfg, _layer(tree["blocks"], i, mesh, _keep(cfg)), h,
+                return _block(cfg, _layer(tree["blocks"], i, mesh, keep), h,
                               positions=positions, is_global=flag,
                               mesh=mesh, seq=seq)[0]
             x = L.remat(cfg, body, x)
         return x, None
     caches = []
     for i, flag in enumerate(_layer_flags(cfg)):
-        x, c = _block(cfg, _layer(tree["blocks"], i, mesh, _keep(cfg)), x,
+        x, c = _block(cfg, _layer(tree["blocks"], i, mesh, keep), x,
                       positions=positions, is_global=flag, with_cache=True,
-                      mesh=mesh, seq=seq)
+                      mesh=mesh, seq=seq, split=split)
         caches.append(c)
     return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
 
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   patch_embeds: Optional[torch.Tensor], with_cache: bool,
-                  mesh=None):
+                  mesh=None, max_seq: Optional[int] = None):
     tree = P.nest(params)
     x = embed_tokens(cfg, tree, tokens, patch_embeds, mesh)
+    split = cache_split(mesh, max_seq or x.shape[1]) if with_cache else None
     seq = _seq_split(cfg, mesh, x.shape[1])
     if seq is None:
         positions = torch.arange(x.shape[1], device=x.device)
@@ -681,7 +858,8 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         T_loc = seq.total // seq.axis.size
         x = x.narrow(1, seq.start, T_loc)
         positions = seq.start + torch.arange(T_loc, device=x.device)
-    x, caches = _scan_blocks(cfg, tree, x, positions, with_cache, mesh, seq)
+    x, caches = _scan_blocks(cfg, tree, x, positions, with_cache, mesh, seq,
+                             split)
     hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)
     if seq is not None:
         hidden = C.gather(hidden, 1, seq.axis)
@@ -694,35 +872,93 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     """tokens (B, T) [and patch_embeds (B, P, D)] -> final hidden states
     (B, P + T, D); differentiable (the training loss's forward).  With a
     ``mesh`` (``distributed.sharding.MeshView``) the batch is this rank's
-    rows, sharded params are gathered at their use, and under
-    ``cfg.sharding == "seq_serve"`` the sequence is split over "model"
-    (the hidden states come back whole)."""
+    rows, each layer computes on the blocks of its tensor-parallel dims
+    and gathers its storage dims, and under ``cfg.sharding ==
+    "seq_serve"`` the sequence is split over "model" (the hidden states
+    come back whole)."""
     return _forward_impl(cfg, params, tokens, patch_embeds,
                          with_cache=False, mesh=mesh)[0]
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            patch_embeds: Optional[torch.Tensor] = None, mesh=None):
+            patch_embeds: Optional[torch.Tensor] = None, mesh=None,
+            max_seq: Optional[int] = None):
     """Forward that also returns the stacked KV cache {"k", "v"}
-    (L, B, P + T, Hk, hd) in the config's dtype (whole along the sequence
-    after a ``seq_serve`` prefill)."""
+    (L, B, P + T, Hk, hd) in the config's dtype.  Over a ``mesh`` that
+    splits a cache of ``max_seq`` positions (default P + T;
+    :func:`cache_split`), each rank's positions of it: (L, B, n, Hk, hd),
+    its block's first n positions."""
     return _forward_impl(cfg, params, tokens, patch_embeds,
-                         with_cache=True, mesh=mesh)
+                         with_cache=True, mesh=mesh, max_seq=max_seq)
 
 
-def cache_specs(cfg: ModelConfig, batch: int,
-                seq_len: int) -> Dict[str, Tuple]:
-    """{leaf: (shape, dtype)} of a ``seq_len`` KV cache."""
-    shape = (cfg.num_layers, batch, seq_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                mesh=None) -> Dict[str, Tuple]:
+    """{leaf: (shape, dtype)} of a ``seq_len`` KV cache; over a ``mesh``
+    this rank's block of its positions (``batch``: the rank's rows)."""
+    split = cache_split(mesh, seq_len)
+    shape = (cfg.num_layers, batch, split.size if split else seq_len,
+             cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": (shape, cfg.torch_dtype), "v": (shape, cfg.torch_dtype)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device="cuda") -> Dict:
+               device="cuda", mesh=None) -> Dict:
     return {k: torch.zeros(shape, dtype=dtype, device=device)
-            for k, (shape, dtype) in cache_specs(cfg, batch, seq_len).items()}
+            for k, (shape, dtype)
+            in cache_specs(cfg, batch, seq_len, mesh).items()}
+
+
+def _decode_attention(cfg: ModelConfig, pa: Dict, x: torch.Tensor,
+                      positions: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, cache_len: int, window: int,
+                      mesh=None, split: Optional[CacheSplit] = None
+                      ) -> torch.Tensor:
+    """A layer's attention half for tokens x (B, T, D) at ``positions``
+    from ``cache_len``: their K/V written into the cache (B, S, Hk, hd), in
+    place, by the rank whose block holds each position; attention over
+    the cache, flash-decode over a ``split`` one (every query head against
+    this rank's block, the states merged over the split's axes in block
+    order, this rank's heads kept); the product with ``wo`` summed over its
+    heads' axis.  Returns the residual's update (B, T, D)."""
+    q, kk, vv = _qkv(cfg, pa, x, positions)
+    kk, vv = _kv_whole(pa, kk, vv, mesh)
+    T, start = x.shape[1], split.start if split else 0
+    lo = max(cache_len, start)
+    hi = min(cache_len + T, start + k_cache.shape[1])
+    if lo < hi:
+        k_cache[:, lo - start:hi - start] = \
+            kk[:, lo - cache_len:hi - cache_len].to(k_cache.dtype)
+        v_cache[:, lo - start:hi - start] = \
+            vv[:, lo - cache_len:hi - cache_len].to(v_cache.dtype)
+    if split is None:
+        if isinstance(pa["wk"], shd.Local):   # this rank's kv heads
+            spec = (None, None, pa["wk"].spec[1], None)
+            ka, va = (shd.narrow(c, spec, mesh) for c in (k_cache, v_cache))
+        else:
+            ka, va = _kv_for_heads(pa, k_cache, v_cache, mesh,
+                                   cfg.num_heads)
+        out = L.decode_attention(q, ka, va, kv_len=cache_len + 1,
+                                 window=window)
+    else:
+        wq = pa["wq"]
+        heads = (None, None, wq.spec[1], None) \
+            if isinstance(wq, shd.Local) else None
+        qa = shd.gather(q, heads, mesh) if heads else q
+        st = L.decode_attention_partial(qa, k_cache, v_cache,
+                                        kv_len=cache_len + 1, k_start=start,
+                                        window=window)
+        hd = st.o.shape[-1]
+        packed = torch.cat([st.o, st.m[..., None], st.l[..., None]],
+                           dim=-1)[None]
+        packed = shd.gather(packed, (split.axes,), mesh)
+        out = L.merge_decode_states(L.DecodeState(
+            packed[..., hd], packed[..., hd + 1], packed[..., :hd]), q.dtype)
+        if heads:
+            out = shd.narrow(out, heads, mesh)
+    return _tp_sum(torch.einsum("btnh,nhd->btd", out, shd.local(pa["wo"])),
+                   pa["wo"], 0, mesh)
 
 
 @torch.no_grad()
@@ -731,21 +967,20 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_len`` -> (logits (B, 1, V), the
     cache (L, B, S, Hk, hd) with this token written in, in place).  With
-    a ``mesh`` the tokens and the cache are this rank's rows."""
+    a ``mesh`` the tokens and the cache are this rank's rows, and the
+    cache its block of positions where the mesh splits it
+    (:func:`cache_split`)."""
     tree = P.nest(params)
     cache_len = int(cache_len)
     x = embed_tokens(cfg, tree, tokens, mesh=mesh)
     T = x.shape[1]
     positions = cache_len + torch.arange(T, device=x.device)
+    split = cache_split(mesh, local_len=cache["k"].shape[2])
     for i, flag in enumerate(_layer_flags(cfg)):
         p = _layer(tree["blocks"], i, mesh, _keep(cfg))
-        q, kk, vv = _qkv(cfg, p["attn"], x, positions)
-        k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[:, cache_len:cache_len + T] = kk.to(k_cache.dtype)
-        v_cache[:, cache_len:cache_len + T] = vv.to(v_cache.dtype)
-        out = L.decode_attention(q, k_cache, v_cache, kv_len=cache_len + 1,
-                                 window=_window(cfg, flag))
-        x = x + torch.einsum("btnh,nhd->btd", out, p["attn"]["wo"])
+        x = x + _decode_attention(cfg, p["attn"], x, positions,
+                                  cache["k"][i], cache["v"][i], cache_len,
+                                  _window(cfg, flag), mesh, split)
         x = x + _ffn(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x),
                      mesh)
     hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)

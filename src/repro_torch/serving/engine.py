@@ -10,13 +10,18 @@ double-buffered sweep work (``serving.sweep``, ``ServeSweepAdapter``).
 
 Over a ``mesh`` (the reference's ``make_{prefill,scoring,decode}_step``
 with ``mesh`` and ``policy``): the parameters are stored as ``policy``
-shards them (``DTensor`` blocks, each gathered whole at its use), a
-request batch is split over the policy's batch axes where they divide it
-(each rank computes its rows; ranks along the other axes the same rows),
-the KV and SSM caches hold each rank's rows, and logits and stats are
-gathered in row order, so every rank returns what the unmeshed engine
-does.  Collectives run over the calling thread's own copy of each group
-(``MeshView`` ``threads``: the caller's and the sweep worker's).
+shards them (``DTensor`` blocks; each layer computes on the blocks of its
+tensor-parallel dims and gathers the rest, ``sharding.block``), a request
+batch is split over the policy's batch axes where they divide it (each
+rank computes its rows; ranks along the other axes the same rows, each
+its heads, MLP columns and vocabulary block), the KV and SSM caches hold
+each rank's rows and the KV cache each rank's block of positions (the
+reference's ``cache_seq``: decode is flash-decode over the blocks; the
+cache's length is ``max_seq`` rounded up to a multiple of the ranks it
+splits over), and logits and stats are gathered in row order, so every
+rank returns what the unmeshed engine does, up to the order of the sums
+over "model".  Collectives run over the calling thread's own copy of each
+group (``MeshView`` ``threads``: the caller's and the sweep worker's).
 """
 from __future__ import annotations
 
@@ -62,7 +67,8 @@ class ServeEngine:
         self.policy = policy
         self._view = None
         if mesh is not None:
-            self._view = shd.MeshView(mesh, force=force, threads=THREADS)
+            self._view = shd.MeshView(mesh, force=force, threads=THREADS,
+                                      policy=policy)
             sh = {k: shd.named(mesh, shd.logical_to_pspec(
                       sp.shape, sp.logical, mesh, policy, keep_unit=force))
                   for k, sp in P.iter_specs(model.specs)}
@@ -91,6 +97,16 @@ class ServeEngine:
     def _mesh_for(self, rows: Tuple[str, ...]):
         return None if self._view is None else self._view.with_rows(rows)
 
+    def _cache_len(self, mesh) -> int:
+        """``max_seq`` rounded up to a multiple of the ranks the cache's
+        positions split over (the positions past ``max_seq`` are never
+        attended)."""
+        if mesh is None:
+            return self.max_seq
+        sizes = mesh.sizes()
+        parts = math.prod(sizes[a] for a in shd.cache_axes(mesh))
+        return -(-self.max_seq // parts) * parts
+
     def _batch(self, batch: Dict) -> Dict:
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
@@ -98,19 +114,21 @@ class ServeEngine:
     @torch.no_grad()
     def prefill(self, batch: Dict) -> Tuple[torch.Tensor, Dict, int]:
         """-> (last-position logits (B, 1, V), the max_seq cache (this
-        rank's rows over a mesh), the positions it holds: P + T, the
-        patches and the prompt)."""
+        rank's rows and block of positions over a mesh), the positions it
+        holds: P + T, the patches and the prompt)."""
         batch = self._batch(batch)
         rows = self._rows(int(batch["tokens"].shape[0]))
         batch = {k: self._local(v, rows) for k, v in batch.items()}
         mesh = self._mesh_for(rows)
-        hidden, cache = self.model.prefill(self.params, batch, mesh=mesh)
+        S = self._cache_len(mesh)
+        hidden, cache = self.model.prefill(self.params, batch, mesh=mesh,
+                                           max_seq=S)
         logits = self.model.logits(self.params, hidden[:, -1:, :], mesh)
         T = hidden.shape[1]
         sizes = shd.mesh_axis_sizes(self.mesh) if rows else {}
         full = self.model.init_cache(
-            self.batch_size // math.prod(sizes[a] for a in rows),
-            self.max_seq, self.device)
+            self.batch_size // math.prod(sizes[a] for a in rows), S,
+            self.device, mesh=mesh)
         return (self._gather(logits, rows),
                 _load_cache(self.model.cfg, full, cache), T)
 
@@ -129,7 +147,7 @@ class ServeEngine:
         mesh = self._mesh_for(rows)
         hidden = self.model.forward(params, batch, mesh=mesh)
         h = hidden[:, -1, :].float()
-        if mesh is not None:   # the one leaf the head reads, whole
+        if mesh is not None:   # the one leaf margin_head reads, whole
             cfg = self.model.cfg
             key = "cls_head" if "cls_head" in params else \
                 "embed" if cfg.tie_embeddings else "lm_head"
@@ -215,7 +233,9 @@ class ServeEngine:
 
 def _load_cache(cfg: ModelConfig, full: Dict, prefix: Dict) -> Dict:
     """Copy a prefill cache into the zero-initialized max_seq cache: the
-    K/V leaves are copied in at position 0 (SSM states are taken as they
+    K/V leaves are copied in at the cache's first position (a split
+    cache's: the rank's block's, whose positions the prefill gave; SSM
+    states are taken as they
     are: the ``ssm`` family's whole cache, the hybrid's ``ssm`` part; so
     is the audio family's cross-attention cache ``xk``/``xv``); the
     reference's ``dynamic_update_slice``."""

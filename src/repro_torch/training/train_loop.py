@@ -14,15 +14,17 @@ over a mesh of ranks (``training.compressed_dp`` holds the
 replicated-parameter data-parallel one).  The state is stored as
 :func:`state_pspecs` says: every parameter and slot a ``DTensor`` of this
 rank's block.  The values are those of the unsharded step; the work is
-split so: each rank computes on its rows of the batch (split over the
-batch spec's axes) with each weight gathered whole just before its use
-(inside the layer's recomputed body, so that the backward gathers again;
-the gather's backward reduce-scatters), and ranks along the other axes
-compute the same rows.  Each rank's loss is its rows' mean over the
-number of ranks, so that the ranks' losses sum to the global mean and
-every row counts once; a leaf's gradient is then summed over the axes
-its spec leaves whole.  The MoE's routed experts take their blocks as
-stored (``transformer.moe_rows``).
+split as the policy places it: each rank computes on its rows of the
+batch (split over the batch spec's axes); a weight dim whose axis also
+splits the rows is storage, gathered just before its use (inside the
+layer's recomputed body, so that the backward gathers again; the
+gather's backward reduce-scatters), and a dim split over another axis
+("model" under ``tp`` and ``fsdp_tp``) is tensor-parallel: the ranks
+along it compute the same rows on their own heads, MLP columns, experts
+and vocabulary block, summed over the axis (``transformer``).  Each
+rank's loss is its rows' mean over the number of ranks, so that the
+ranks' losses sum to the global mean and every row counts once; a leaf's
+gradient is then summed over the axes its spec leaves whole.
 """
 from __future__ import annotations
 
@@ -46,8 +48,11 @@ def loss_fn(model, params: Dict, batch: Dict, mesh=None) -> torch.Tensor:
     against ``batch["labels"]`` through the tied or explicit head (a VLM's
     on its text positions only), vocab-chunked when ``cfg.logits_chunk``
     is set and over materialized fp32 logits otherwise.  Over a ``mesh``
-    (a ``MeshView``), the mean over this rank's rows, the head gathered
-    whole (a vocabulary split over "model" is not exploited)."""
+    (a ``MeshView``), the mean over this rank's rows; where the head's
+    vocabulary is tensor-parallel over axes of more than one rank, the
+    reference's vocabulary-parallel branch (:func:`_vocab_parallel_ce`:
+    this rank's fp32 logits, the softmax's statistics merged over the
+    axes), else the head gathered whole."""
     cfg = model.cfg
     hidden = model.forward(params, batch, mesh=mesh)
     if cfg.num_classes:
@@ -55,15 +60,46 @@ def loss_fn(model, params: Dict, batch: Dict, mesh=None) -> torch.Tensor:
         logits = pooled.to(hidden.dtype) @ shd.whole(params["cls_head"],
                                                      mesh)
         return L.cross_entropy(logits, batch["labels"])
-    w = tf.lm_head_weight(cfg, params, mesh)
     labels = batch["labels"]
     if cfg.family == "vlm" and cfg.frontend_tokens:
         hidden = hidden[:, cfg.frontend_tokens:, :]  # the text positions
+    w = tf.lm_head_block(cfg, params, mesh)
+    if isinstance(w, shd.Local):
+        sizes = mesh.sizes()
+        if math.prod(sizes[a] for a in shd._axes(w.spec[1])) > 1:
+            return _vocab_parallel_ce(hidden, w, labels, mesh)
+        w = shd.whole(w, mesh)
     if cfg.logits_chunk:
         return L.chunked_cross_entropy(hidden, w, labels,
                                        chunk=cfg.logits_chunk)
     logits = torch.einsum("btd,dv->btv", hidden.float(), w.float())
     return L.cross_entropy(logits, labels)
+
+
+def _vocab_parallel_ce(hidden: torch.Tensor, w: "shd.Local",
+                       labels: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean token cross-entropy from this rank's vocabulary block of
+    the head (D, V_loc): its (B, T, V_loc) fp32 logits (the reference's
+    fp32-result product), the max over the vocabulary's axes (no
+    gradient; it only steadies the exponentials), the sum of exponentials
+    and the label's logit (from the rank whose block holds it) each summed
+    over them."""
+    from repro_torch.distributed import collectives as C
+    axes = [C.Axis.of(mesh, a) for a in shd._axes(w.spec[1])]
+    logits = torch.einsum("btd,dv->btv", hidden.float(), w.t.float())
+    m = logits.detach().amax(dim=-1)
+    for ax in axes:
+        m = C.all_reduce_max(m, ax)
+    s = torch.exp(logits - m[..., None]).sum(dim=-1)
+    V_loc = logits.shape[-1]
+    idx = labels.long() - shd.block_start(w.spec[1], V_loc, mesh)
+    mine = (idx >= 0) & (idx < V_loc)
+    ll = torch.gather(logits, -1, idx.clamp(0, V_loc - 1)[..., None])[..., 0]
+    ll = torch.where(mine, ll, torch.zeros_like(ll))
+    for ax in axes:
+        s = C.psum(s, ax, varying=True)
+        ll = C.psum(ll, ax, varying=True)
+    return torch.mean(m + torch.log(s) - ll)
 
 
 def init_train_state(model, tc: TrainConfig, params: Dict) -> Dict:
@@ -190,10 +226,12 @@ def make_sharded_train_step(model, tc: TrainConfig, mesh, policy: str,
     are ``DTensor``s (``data.loader.device_put_global``; moved to
     ``batch_pspecs``'s split where theirs differs) or this rank's rows of
     that split; ``loss``, ``grad_norm`` and ``lr`` are the same on every
-    rank.  With ``tc.grad_accum > 1`` the leading microbatch dim stays
-    whole.  ``force`` keeps the policy's axes of one rank in the specs and
-    takes every collective over them (a one-rank mesh running the sharded
-    program; its specs are then not the reference's)."""
+    rank (``step.grads(state, batch)`` gives the loss and each leaf's
+    gradient block without updating).  With ``tc.grad_accum > 1`` the
+    leading microbatch dim stays whole.  ``force`` keeps the policy's axes
+    of one rank in the specs and takes every collective over them (a
+    one-rank mesh running the sharded program; its specs are then not the
+    reference's)."""
     import torch.distributed as dist
     from repro_torch.distributed import collectives as C
     ab, pspecs = state_pspecs(model, tc, mesh, policy, keep_unit=force)
@@ -201,7 +239,7 @@ def make_sharded_train_step(model, tc: TrainConfig, mesh, policy: str,
     sizes = shd.mesh_axis_sizes(mesh)
     world = math.prod(sizes.values())
     rows = batch_rows(batch_pspecs, tc.grad_accum)
-    view = shd.MeshView(mesh, rows=rows, force=force)
+    view = shd.MeshView(mesh, rows=rows, force=force, policy=policy)
     active = [a for a in mesh.mesh_dim_names if view.active(a)]
     p_specs, p_sh = pspecs["params"], state_sh["params"]
     names = sorted(p_specs)
@@ -275,6 +313,15 @@ def make_sharded_train_step(model, tc: TrainConfig, mesh, policy: str,
     def step(state, batch):
         return inner(state, {k: _rows(v, batch_pspecs[k], mesh)
                              for k, v in batch.items()})
+
+    def grads(state, batch):
+        """(loss, {leaf: this rank's block of its gradient}): what the
+        step clips and applies, from ``state``'s parameters."""
+        params = {k: v.to_local().detach().requires_grad_(True)
+                  for k, v in state["params"].items()}
+        return grads_of(params, {k: _rows(v, batch_pspecs[k], mesh)
+                                 for k, v in batch.items()})
+    step.grads = grads
     return step, ab, state_sh
 
 

@@ -6,12 +6,14 @@ every arch and train cell of both production meshes (the reference's
 ``devices`` array).  Cells traced on the 256-rank fake world in a
 subprocess, at the smoke configs (the MoE's with 16 experts, so that they
 split over the 16 "model" ranks) and cut sequence lengths: the record has
-the reference's keys, the counted FLOPs per device lie between 0.8 of the
-twin roofline's ``flops_local`` (less would mean the trace missed work)
-and 1.2 of its global FLOPs over the data-parallel ways (more than each
-rank's data shard whole; the port computes each batch shard whole on every
-"model" rank today, which is near that end), and the collectives counted
-are exactly those the port issues.  ``sweep`` skips a cell already in its
+the reference's keys; the train cell's counted FLOPs per device lie within
+20% of the analytic count of the tensor-parallel design
+(``dryrun.expected_train_flops``: the MLP and the head split over the 16
+"model" ranks, the smoke's 3 heads whole), the serving cells' between 0.8
+of the twin roofline's ``flops_local`` (less would mean the trace missed
+work) and 1.2 of its global FLOPs over the data-parallel ways (more than
+each rank's data shard whole); and the collectives counted are exactly
+those the port issues.  ``sweep`` skips a cell already in its
 output file.  The kernels' dispatch refuses a tensor that is neither on the
 CPU nor on a card, so a dry-run can never hand a kernel a storage-less
 tensor.
@@ -99,11 +101,14 @@ def test_pick_grad_accum_equals_reference(arch, mesh):
 SEQ = 64
 TRACED = [("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
           ("qwen2-1.5b", "decode_32k"), ("dbrx-132b", "decode_32k")]
-# the collectives the port issues: weights gathered at each use, their
+# the collectives the port issues: storage dims gathered at each use, their
 # gradients reduce-scattered and the leaves' sums all-reduced in training;
-# the MoE's combine is a sum over "model"
+# the tensor-parallel MLP's and embedding's sums over "model" (and the
+# MoE's combine) all-reduced; the vocabulary's logits and decode's
+# attention states gathered over "model"
 ISSUED = {"train_4k": {"all-gather", "reduce-scatter", "all-reduce"},
-          "prefill_32k": {"all-gather"}, "decode_32k": {"all-gather"},
+          "prefill_32k": {"all-gather", "all-reduce"},
+          "decode_32k": {"all-gather", "all-reduce"},
           "moe": {"all-gather", "all-reduce"}}
 # the reference's record (src/repro/launch/dryrun.py:123-130, 259-267)
 KEYS = {"arch", "shape", "mesh", "policy", "params", "flops",
@@ -180,13 +185,18 @@ def test_traced_cell_record(traced, i):
     assert rec["bytes_accessed"] > 0
     assert set(rec["collective_counts"]) == set(td.COLLECTIVE_OPS) == set(
         jd.COLLECTIVE_OPS)
-    # the per-device FLOPs: no less than the roofline's share of a device
-    # (else the trace missed work), no more than the rows' batch shard
-    # whole (as every "model" rank computes it today)
+    # the per-device FLOPs: a train step's within 20% of the analytic
+    # count of the split; a serving step's no less than the roofline's
+    # share of a device (else the trace missed work), no more than the
+    # rows' batch shard whole
     s = tcfg.SHAPES_BY_NAME[shape]
     cell = tcfg.base.ShapeConfig(shape, SEQ, s.global_batch, s.kind)
     sizes = mesh_sizes("single")
     dp = sizes["data"]
+    if train:
+        split = td.expected_train_flops(_smoke(arch), cell, sizes)
+        assert abs(rec["flops"] - split) <= 0.2 * split, (rec["flops"],
+                                                          split)
     want = analyze_cell(_smoke(arch), cell, "single",
                         rec.get("grad_accum", 1))
     flops_global = want.flops_local * want.n_devices

@@ -7,12 +7,17 @@ ranks against its four forced CPU devices.
   rows, ``score_pool`` over 12 rows in pages of 4 (the stats, and the
   top 5 by margin through ``TopKSink``) and ``generate`` (3 steps) equal
   the reference's ``ServeEngine(mesh=)``: tokens and top-k exactly, the
-  stats within 1e-5.  Against the port's unmeshed engine: bit for bit
-  (every rank computes whole rows with the whole weights; dbrx with
+  stats within 1e-5.  Against the port's unmeshed engine likewise: tokens,
+  top-k and top1 exactly, the stats within 1e-5 (each "model" rank
+  computes its MLP columns, experts and vocabulary block, and the sums
+  over "model" round in their own order; dbrx with
   capacity factor 8, since the MoE's capacity
   counts a forward's rows (a rank's, over a mesh, as in the reference),
   so at the config's capacity the meshed and unmeshed engines drop
   different copies: 0.018 apart in margin on these inputs).
+* On a forced one-rank mesh (``force=True``: every collective of the
+  split, over axes of one rank), the same engines equal the unmeshed
+  engine bit for bit, every key.
 * gemma3-4b's smoke config with ``sharding="seq_serve"`` on a (1, 4)
   mesh, 32 tokens (8 a rank: the window of 8 fits, so the local layers
   exchange a halo): the prefill's last hidden states and the greedy
@@ -146,6 +151,57 @@ def _serve_rank(rank, world, data, params):
     return out
 
 
+def _one_rank_serve(rank, world, data):
+    """Every arch and policy of the file on a forced one-rank mesh, and
+    unmeshed, from the port's initial parameters in fp32."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import ServeEngine
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    out = {}
+    for arch in ARCHS:
+        model = get_model(get_smoke(arch).replace(dtype="float32"))
+        p = {k: v.float() for k, v in model.init(0, device="cpu").items()}
+        req = {"tokens": data[arch + ".req"]}
+        pool = {"tokens": data[arch + ".pool"]}
+        engines = [("plain", {})] + [
+            (policy, dict(mesh=mesh, policy=policy, force=True))
+            for policy in POLICIES]
+        for name, kw in engines:
+            eng = ServeEngine(model, p, T + 8, B, device="cpu", **kw)
+            if kw:   # the heads are stored split over "model"
+                out[f"{arch}.{name}.split"] = "model" in shd.spec_of(
+                    eng.params["blocks.attn.wq"])
+            got = _engine_results(eng, req, pool)
+            out.update({f"{arch}.{name}.{k}": v for k, v in got.items()})
+    return out
+
+
+def test_one_rank_meshed_engine_is_the_unmeshed_engine_to_the_bit():
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import run_ranks
+    rng = np.random.default_rng(1)
+    data = {}
+    for arch in ARCHS:
+        v = get_smoke(arch).vocab_size
+        data[arch + ".req"] = rng.integers(0, v, (B, T)).astype(np.int32)
+        data[arch + ".pool"] = rng.integers(0, v, (POOL, T)).astype(np.int32)
+    got, = run_ranks(_one_rank_serve, 1, "cpu", args=(data,), threads=1,
+                     timeout=120)
+    keys = [k[len(ARCHS[0]) + 7:] for k in got
+            if k.startswith(ARCHS[0] + ".plain.")]
+    assert len(keys) == 2 * len(STATS) + 2
+    for arch in ARCHS:
+        for policy in POLICIES:
+            assert got[f"{arch}.{policy}.split"], (arch, policy)
+            for k in keys:
+                np.testing.assert_array_equal(
+                    got[f"{arch}.{policy}.{k}"], got[f"{arch}.plain.{k}"],
+                    err_msg=f"{arch} {policy} {k} on one forced rank")
+
+
 def _close(a, b, what):
     if np.asarray(a).dtype.kind in "iu":
         np.testing.assert_array_equal(a, b, err_msg=what)
@@ -198,10 +254,9 @@ def test_meshed_engine_and_seq_serve_meet_the_reference(tmp_path):
         unmeshed = arch + (".cap8" if arch == "dbrx-132b" else "")
         for policy in POLICIES:
             for k in keys:
-                np.testing.assert_array_equal(
-                    got[f"{unmeshed}.{policy}.{k}"],
-                    got[f"{unmeshed}.plain.{k}"],
-                    err_msg=f"{unmeshed} {policy} {k} against unmeshed")
+                _close(got[f"{unmeshed}.{policy}.{k}"],
+                       got[f"{unmeshed}.plain.{k}"],
+                       f"{unmeshed} {policy} {k} against unmeshed")
     np.testing.assert_allclose(got["gemma3.last"], want["gemma3.last"],
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_array_equal(got["gemma3.gen"], want["gemma3.gen"])
