@@ -204,14 +204,22 @@
    ``ShardedLoader`` on the mesh at whisper-tiny's full config, four steps
    checkpointed at step 2, a second run stopped at step 2 and a fresh
    ``Trainer`` resumed from it through ``restore(shardings=)``: bit-equal
-   to the uninterrupted meshed run;
+   to the uninterrupted meshed run (its heads, MLP columns and vocabulary
+   computed as blocks over "model");
    (c) ``ServeEngine(mesh=, policy="tp")`` at qwen2-1.5b's full config:
    ``score`` and a ``score_pool`` top-k on 64 rows and ``generate`` for 8
    prompts of 128 tokens, 16 steps, against the unmeshed engine's (stats
    at the pool pass's tolerance, top1, top-k and tokens exactly; the
    meshed cache split along the sequence, decoded by flash-decode), each
    pass's seconds beside the unmeshed one's and their ratio,
-   ``margin_head`` launched.
+   ``margin_head`` launched; (d) (a) at mamba2-1.3b's full config, three
+   steps a policy, its Mamba2 mixers on their heads' block over "model"
+   (``ssd_scan`` and its backward launched); (e) (c) at mamba2-1.3b's and
+   zamba2-2.7b's full configs (their state caches split as the
+   reference's rule splits them, ``ssd_scan`` launched), printing whether
+   ``score``'s stats are the unmeshed ones to the bit.  The SSD kernels
+   are also checked and timed at a "model" rank's head block of those two
+   models on the production mesh (4 and 5 heads at B 8 x T 2,048).
    The ``launch_tools`` phase (the twins of the reference's launch
    analysis tools, ``repro_torch.launch.{roofline,fitsproof,dryrun}``):
    (a) after qwen2-1.5b's training, one forward and one more training step
@@ -329,6 +337,33 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def launch_ms(torch, fn, kernel: str, reps: int = 20) -> dict:
+    """Device time per call of each launch whose name carries ``kernel``
+    (the backwards' passes, for ``tools/time_{attention,ssd}_bwd.py``),
+    from the profiler's CUDA trace.  Late in a long process the trace can
+    lose records: a name whose count is not a whole multiple of ``reps``
+    is None, and printed."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if kernel not in e.key or t <= 0:
+            continue
+        out[e.key] = None if e.count % reps else t / reps / 1e3
+        if out[e.key] is None:
+            print(f"launch_ms {kernel}: the trace kept {e.count} records "
+                  f"of {e.key[:60]} over {reps} calls", flush=True)
+    return out
 
 
 def sass_instructions(nvcc: str, lib: Path, ops=("HMMA",)) -> dict:
@@ -683,13 +718,20 @@ def check_flash_bwd(torch, np, mods, ref, cases):
     return worst
 
 
+# a "model" rank's head block of the Mamba2 mixer at the production
+# mesh's 16 "model" ranks, at the training batch (B 8 x T 2,048, C 128):
+# mamba2-1.3b's 64 heads / 16 (N 128) and zamba2-2.7b's 80 / 16 (N 64, a
+# group of 5 of the kernels' 8 heads)
+SSD_RANK_BLOCKS = [(8, 2048, 4, 64, 128, 128), (8, 2048, 5, 64, 64, 128)]
 # the JAX package's grid (tests/test_kernels.py:61-66), zamba2-2.7b's
 # serving shape, and the edges of the kernel's split: T off the chunk, one
-# chunk (C = T = 100), H off its group of 8 heads: (B, T, H, hd, N, chunk)
+# chunk (C = T = 100), H off its group of 8 heads; then the rank blocks:
+# (B, T, H, hd, N, chunk)
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
             (2, 64, 8, 32, 64, 64), (1, 256, 4, 64, 128, 128),
             (8, 2048, 80, 64, 64, 128), (2, 300, 4, 32, 64, 128),
-            (2, 100, 5, 16, 32, 128), (1, 256, 12, 64, 64, 64)]
+            (2, 100, 5, 16, 32, 128), (1, 256, 12, 64, 64, 64)] \
+    + SSD_RANK_BLOCKS
 
 
 def ssd_inputs(torch, np, case, dtype, seed=4):
@@ -750,7 +792,8 @@ def check_ssd_states(torch, np, ssd, ref, case):
 
 
 # the backward kernel: the forward's grid but its largest case (ragged T,
-# one chunk, N 16 to 128, H off the group of 8 heads) and N 8 at a ragged
+# one chunk, N 16 to 128, H off the group of 8 heads, the rank blocks) and
+# N 8 at a ragged
 # T over chunks of 16; the edges of the bf16 wgmma route (hd 64, C 128, N
 # 64 and 128 in 64-column blocks): T off the chunk and H off the head
 # group at N 128, fewer heads than a group at N 64; then, after the
@@ -2778,11 +2821,22 @@ def _sharded_batch_pspecs(mesh, batch):
     return {k: shd.P("data", *(None,) * (v.ndim - 1)) for k, v in batch.items()}
 
 
+# the shape key ``record_shapes`` takes for each kernel's wrapper
+SHAPE_KEYS = {"margin_head": margin_key, "flash_attention": flash_key,
+              "flash_attention_bwd": flash_bwd_key, "ssd_scan": ssd_key,
+              "ssd_scan_bwd": ssd_bwd_key}
+ATTENTION = ("flash_attention", "flash_attention_bwd")
+
+
 def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                   launches: dict, steps: int = 4, batch: int = 8,
-                  seq: int = 2048, lr: float = 1e-4):
+                  seq: int = 2048, lr: float = 1e-4,
+                  kernels=ATTENTION, part: str = "a",
+                  path: str = "sharded_train"):
     """Sharded phase (a), a hook for ``run_serving`` (qwen2-1.5b at its
-    full config): ``steps`` plain train steps from the served weights,
+    full config; phase (d) with ``kernels`` the SSD scan's pair, mamba2-1.3b,
+    whose Mamba2 mixers compute on their heads' block over "model"):
+    ``steps`` plain train steps from the served weights,
     then ``steps`` of ``make_sharded_train_step`` under ``fsdp_tp`` and
     again under ``tp`` over the one-rank NCCL mesh (``force``: each weight's storage dims gathered
     over "data" in the layer's recomputed body, its tensor-parallel dims
@@ -2790,11 +2844,12 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
     gradient reduced over the axes its leaf is whole on), both on one
     batch of ``batch`` x ``seq`` tokens (``make_lm_tokens`` seed 2): step
     1's loss must equal the plain step's to the bit (the loss precedes
-    the update), and the sharded steps launch the attention kernel and
-    its backward.  Prints each step's seconds and tokens/s, each run's
-    peak memory, and each policy's step time over the plain one's (``tp``
-    gathers nothing over "data": what is left of ``fsdp_tp``'s gap is its
-    storage gathers)."""
+    the update), and the sharded steps launch each of ``kernels`` (the
+    attention kernel and its backward by default).  Prints each step's
+    seconds and tokens/s, each run's peak memory, and each policy's step
+    time over the plain one's (``tp`` gathers nothing over "data": what is
+    left of ``fsdp_tp``'s gap is its storage gathers).  The launches go to
+    ``launches[path]``, the seconds to ``secs[part]``."""
     policies = ("fsdp_tp", "tp")
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synth import make_lm_tokens
@@ -2826,10 +2881,8 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                     force=True)
                 state = shd.shard_tree(init_train_state(model, tc, params),
                                        sh)
-                restore = [record_shapes(mods[k], k, seen[k], key)
-                           for k, key in (("flash_attention", flash_key),
-                                          ("flash_attention_bwd",
-                                           flash_bwd_key))]
+                restore = [record_shapes(mods[k], k, seen[k], SHAPE_KEYS[k])
+                           for k in kernels]
                 if name == policies[0]:
                     _zero(torch, mods)
             losses, walls = [], []
@@ -2867,22 +2920,27 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
             if not all(np.isfinite(out[policy][0])) or sharded != plain:
                 fail(f"sharded train {policy}: step 1 loss {sharded} is not "
                      f"the plain step's {plain} to the bit")
-        for k in ("flash_attention", "flash_attention_bwd"):
+        for k in kernels:
             if got[k] == 0:
-                fail(f"sharded train never launched {k}")
-        launches["sharded_train"] = got
+                fail(f"sharded train {cfg.name} never launched {k}")
+        launches[path] = got
         del b, toks, out
         gc.collect()
         torch.cuda.empty_cache()
-        secs["a"] = time.perf_counter() - t0
+        secs[part] = time.perf_counter() - t0
     return run
 
 
 def sharded_serve(torch, np, mods, mesh, seen: dict, secs: dict,
                   launches: dict, rows: int = 64, batch: int = 8,
-                  prompt: int = 128, gen: int = 16):
+                  prompt: int = 128, gen: int = 16,
+                  kernels=("margin_head", "flash_attention"),
+                  part: str = "c", path: str = "sharded_serve"):
     """Sharded phase (c), a hook for ``run_serving`` (qwen2-1.5b at its
-    full config): the served weights behind ``ServeEngine(mesh=,
+    full config; phase (e) with ``kernels`` holding the SSD scan,
+    mamba2-1.3b and zamba2-2.7b, whose Mamba2 mixers compute on their
+    heads' block and whose state caches hold it, the shared attention's
+    cache split as qwen2's): the served weights behind ``ServeEngine(mesh=,
     policy="tp", force=True)`` on the one-rank NCCL mesh (stored as
     DTensors, each layer computing on its blocks over "model" and summing
     over the axis, the rows over "data", the cache's positions split over
@@ -2894,9 +2952,12 @@ def sharded_serve(torch, np, mods, mesh, seen: dict, secs: dict,
     engine's stats must meet the unmeshed ones' at the pool pass's
     tolerance (atol = rtol = 5e-5 on margin and max log-prob, 5e-4 on
     entropy), its top1, top-k and tokens exactly; ``margin_head`` must
-    run in the meshed passes.  ``score`` runs twice, the first paying the
-    engine's thread groups' first collectives.  Prints each pass's seconds
-    and the meshed over the unmeshed, and ``generate``'s tokens/s."""
+    run in the meshed passes, and each of ``kernels``.  ``score`` runs
+    twice, the first paying the engine's thread groups' first
+    collectives.  Prints each pass's seconds and the meshed over the
+    unmeshed, ``generate``'s tokens/s and whether ``score``'s stats are
+    the unmeshed ones to the bit.  The launches go to ``launches[path]``,
+    the seconds to ``secs[part]``."""
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.sweep import TopKSink
 
@@ -2913,12 +2974,8 @@ def sharded_serve(torch, np, mods, mesh, seen: dict, secs: dict,
             eng = ServeEngine(model, params, prompt + gen + 8, batch,
                               device="cuda", **kw)
             if name == "meshed":
-                restore = [record_shapes(mh_mod, k, seen[k], key)
-                           for k, key, mh_mod in (
-                               ("margin_head", margin_key,
-                                mods["margin_head"]),
-                               ("flash_attention", flash_key,
-                                mods["flash_attention"]))]
+                restore = [record_shapes(mods[k], k, seen[k], SHAPE_KEYS[k])
+                           for k in kernels]
                 _zero(torch, mods)
             res, walls = {}, {}
             # the first score pays the groups' first collectives
@@ -2972,15 +3029,18 @@ def sharded_serve(torch, np, mods, mesh, seen: dict, secs: dict,
                  f"{b['score_pool']}")
         if not torch.equal(a["generate"], b["generate"]):
             fail("sharded serve generate: tokens differ from the unmeshed")
-        if got["margin_head"] == 0:
-            fail("sharded serve never launched margin_head")
+        for k in ("margin_head",) + tuple(kernels):
+            if got[k] == 0:
+                fail(f"sharded serve {cfg.name} never launched {k}")
+        bits = all(torch.equal(x, y) for x, y in zip(a["score"], b["score"]))
         print(f"sharded serve {cfg.name}: score, score_pool and generate "
-              f"agree with the unmeshed engine", flush=True)
-        launches["sharded_serve"] = got
+              f"agree with the unmeshed engine; score stats bit-equal "
+              f"{bits}", flush=True)
+        launches[path] = got
         del out, a, b
         gc.collect()
         torch.cuda.empty_cache()
-        secs["c"] = time.perf_counter() - t0
+        secs[part] = time.perf_counter() - t0
     return run
 
 
@@ -3703,9 +3763,11 @@ def main() -> None:
                          "serving_whisper", "training_whisper",
                          "training_mamba2", "training_zamba2",
                          "mesh_compressed_dp", "sharded_train",
-                         "sharded_serve", "sharded_trainer")}
+                         "sharded_serve", "sharded_trainer",
+                         "sharded_train_mamba2", "sharded_serve_mamba2",
+                         "sharded_serve_zamba2")}
     mesh_secs: dict = {}     # the mesh phase's parts: (a) .. (d)
-    sharded_secs: dict = {}  # the sharded phase's parts: (a) .. (c)
+    sharded_secs: dict = {}  # the sharded phase's parts: (a) .. (e)
     launch_secs: dict = {}   # the launch_tools phase's parts: (a) .. (c)
     launch_launches: dict = {}   # the kernels its counted passes launched
     qwen2_steps: list = []   # qwen2-1.5b's training step seconds
@@ -3747,26 +3809,31 @@ def main() -> None:
     launches = camps["launches"]
     del camps
     phase("aggregator, retrain graphs, paged sinks")
-    # zamba2-2.7b served, then trained from the served weights at full depth
-    # with bf16 first moments (the reference's lever for large models:
-    # fp32 ones put the update's two copies of the slots near the card's 80
-    # GB)
+    # the mesh phase's one-rank NCCL group, ("data", "model") = (1, 1)
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mesh_secs["group"] = time.perf_counter() - t0
+    # zamba2-2.7b served (and meshed: sharded phase (e)), then trained from
+    # the served weights at full depth with bf16 first moments (the
+    # reference's lever for large models: fp32 ones put the update's two
+    # copies of the slots near the card's 80 GB)
     served, _, trained_zamba2 = run_serving(
         torch, np, mods, "zamba2-2.7b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving"],
-        extra=launch_tools_forward(torch, mods, launch_secs,
-                                   launch_launches),
+        extra=_hooks(
+            launch_tools_forward(torch, mods, launch_secs, launch_launches),
+            sharded_serve(torch, np, mods, mesh,
+                          seen_by["sharded_serve_zamba2"], sharded_secs,
+                          mesh_launches, kernels=(
+                              "margin_head", "flash_attention", "ssd_scan"),
+                          part="e zamba2", path="sharded_serve_zamba2")),
         train=train_lm(torch, np, mods, seen_by["training_zamba2"],
                        moment_dtype="bfloat16"))
     phase("serving and training zamba2-2.7b")
     # the dense LM labeler: qwen2-1.5b served, then its token-pool pass,
     # then trained from the served weights; gemma3-4b (hd 256,
     # local:global windows, tied 262k head) served
-    # the mesh phase's one-rank NCCL group, ("data", "model") = (1, 1)
-    from repro_torch.launch.mesh import make_mesh
-    t0 = time.perf_counter()
-    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
-    mesh_secs["group"] = time.perf_counter() - t0
     served_qwen2, pooled, trained_qwen2 = run_serving(
         torch, np, mods, "qwen2-1.5b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_qwen2"],
@@ -3796,12 +3863,23 @@ def main() -> None:
     # layers (the MoE block, GQA 48:8 at hd 128); internvl2-26b, cut to
     # INTERNVL2_LAYERS, with its 1,024 patch tokens before the prompt
     phase("serving gemma3-4b")
+    # mamba2-1.3b also trained and served on the mesh (sharded phases (d)
+    # and (e)), its mixers on their heads' block over "model"
     served_mamba2, pooled_mamba2, trained_mamba2 = run_serving(
         torch, np, mods, "mamba2-1.3b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_mamba2"],
         pool_pass=pool_pass(torch, np, mods, seen_by["pool_pass_mamba2"]),
-        extra=launch_tools_forward(torch, mods, launch_secs,
-                                   launch_launches),
+        extra=_hooks(
+            launch_tools_forward(torch, mods, launch_secs, launch_launches),
+            sharded_train(torch, np, mods, mesh,
+                          seen_by["sharded_train_mamba2"], sharded_secs,
+                          mesh_launches,
+                          kernels=("ssd_scan", "ssd_scan_bwd"), part="d",
+                          path="sharded_train_mamba2"),
+            sharded_serve(torch, np, mods, mesh,
+                          seen_by["sharded_serve_mamba2"], sharded_secs,
+                          mesh_launches, kernels=("margin_head", "ssd_scan"),
+                          part="e mamba2", path="sharded_serve_mamba2")),
         train=train_lm(torch, np, mods, seen_by["training_mamba2"]))
     phase("serving, pool pass and training mamba2-1.3b")
     served_dbrx, _ = run_serving(
@@ -3832,9 +3910,9 @@ def main() -> None:
     print(f"phase sharded seconds: {sum(sharded_secs.values()):.1f} ("
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(sharded_secs.items()))
           + f"; {CARD})", flush=True)
-    if sum(sharded_secs.values()) > 90:
+    if sum(sharded_secs.values()) > 180:
         print(f"phase sharded took {sum(sharded_secs.values()):.1f} s, "
-              f"over its 90 s", flush=True)
+              f"over its 180 s", flush=True)
     launch_tools_fits_and_dryrun(torch, launch_secs)
     print(f"phase launch_tools seconds: {sum(launch_secs.values()):.1f} ("
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(launch_secs.items()))
@@ -3886,6 +3964,12 @@ def main() -> None:
                    "sharded_train": mesh_launches["sharded_train"][k],
                    "sharded_trainer": mesh_launches["sharded_trainer"][k],
                    "sharded_serve": mesh_launches["sharded_serve"][k],
+                   "sharded_train_mamba2":
+                   mesh_launches["sharded_train_mamba2"][k],
+                   "sharded_serve_mamba2":
+                   mesh_launches["sharded_serve_mamba2"][k],
+                   "sharded_serve_zamba2":
+                   mesh_launches["sharded_serve_zamba2"][k],
                    "launch_tools": launch_launches.get(k, 0)}
                for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
@@ -3924,8 +4008,11 @@ def main() -> None:
     # at zamba2's, qwen2's, the pool pass's, dbrx's, gemma3's local and
     # global layers' and internvl2's, that last; its backward at each of
     # whisper's training shapes (encoder, decoder, cross-attention), then
-    # zamba2's and qwen2's, that last; ssd_scan at zamba2's state N 64,
-    # mamba2's pool pass's and mamba2's serving shape, N 128, that last)
+    # zamba2's and qwen2's, that last; ssd_scan at the rank blocks of
+    # mamba2's and zamba2's mixers (16 "model" ranks), zamba2's state N 64,
+    # mamba2's pool pass's and mamba2's serving shape, N 128, that last;
+    # its backward at the rank blocks, then zamba2's and mamba2's
+    # training shapes, that last)
     def widest(shapes, size, width):
         return [max((s for s in shapes if width(s) == w),
                     key=lambda s: (size(s), s))
@@ -3966,13 +4053,13 @@ def main() -> None:
             max(seen_by[p]["flash_attention_bwd"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
             for p in ("training_zamba2", "training_qwen2")],
-        "ssd_scan_bwd": [max(seen_by[p]["ssd_scan_bwd"],
-                             key=lambda s: (s[0] * s[1] * s[2], s))
-                         for p in ("training_zamba2", "training_mamba2")],
-        "ssd_scan": [max(seen_by[p]["ssd_scan"],
-                         key=lambda s: (s[0] * s[1] * s[2], s))
-                     for p in ("serving", "pool_pass_mamba2",
-                               "serving_mamba2")]})
+        "ssd_scan_bwd": SSD_RANK_BLOCKS + [
+            max(seen_by[p]["ssd_scan_bwd"],
+                key=lambda s: (s[0] * s[1] * s[2], s))
+            for p in ("training_zamba2", "training_mamba2")],
+        "ssd_scan": SSD_RANK_BLOCKS + [
+            max(seen_by[p]["ssd_scan"], key=lambda s: (s[0] * s[1] * s[2], s))
+            for p in ("serving", "pool_pass_mamba2", "serving_mamba2")]})
 
     meta = {
         "margin_head": ("src/repro_torch/kernels/csrc/margin_head.cu",

@@ -456,9 +456,8 @@ class MeshView:
       never interleave their collectives on one group;
     * ``policy``: the policy the params are stored under, whose rule
       (:func:`tp_dims`) says which dims a layer computes on as blocks and
-      whose ``cache_seq`` splits a serving cache's sequence
-      (:func:`cache_axes`); without one every leaf is gathered whole and
-      no cache is split.
+      how a serving cache is split (:func:`cache_pspec`); without one
+      every leaf is gathered whole and no cache is split.
 
     It answers ``mesh_dim_names``, ``size``, ``get_group`` (the calling
     thread's copy where it has one) and ``get_local_rank`` as the mesh
@@ -640,16 +639,41 @@ def layer(tree, i: Optional[int], mesh=None,
 
 
 def cache_axes(mesh) -> Tuple[str, ...]:
-    """The mesh axes a serving cache's sequence is split over on ``mesh``
+    """The mesh axes a serving cache's sequence may split over on ``mesh``
     (a :class:`MeshView`): its policy's ``cache_seq`` axes that the view
     takes collectives over and that do not split its rows (the
-    reference's ``cache_batch`` takes the batch axes first).  None without
-    a view or a policy."""
+    reference's ``cache_batch`` takes the batch axes first).  A sequence
+    whose length every prefix of them divides takes them all (the
+    engine's cache length is rounded so); :func:`cache_pspec` gives the
+    split of any length.  Empty without a view or a policy."""
     policy = getattr(mesh, "policy", None)
     if policy is None:
         return ()
     return tuple(a for a in _axes(POLICIES[policy].get("cache_seq"))
                  if a not in mesh.rows and mesh.active(a))
+
+
+def cache_pspec(mesh, shape: Sequence[int],
+                logical: Sequence[Optional[str]]) -> P:
+    """The spec of a serving cache leaf of ``shape`` with the reference's
+    ``logical`` axes (its ``cache_specs``) on ``mesh`` (a
+    :class:`MeshView`): its ``cache_batch`` dim over the view's rows, every
+    other dim by :func:`logical_to_pspec`'s greedy rule over the axes the
+    rows leave (so a sequence that does not divide "model" leaves it to
+    the kv heads, or the SSM heads, as the reference's rule does).  All
+    dims whole without a view or a policy."""
+    policy = getattr(mesh, "policy", None)
+    if policy is None:
+        return P(*(None,) * len(shape))
+    sizes = {a: n for a, n in mesh.sizes().items()
+             if a not in mesh.rows and mesh.active(a)}
+    spec = logical_to_pspec(
+        shape, [None if ax == "cache_batch" else ax for ax in logical],
+        sizes, policy, keep_unit=mesh.force)
+    rows = (mesh.rows if len(mesh.rows) > 1 else mesh.rows[0]) \
+        if mesh.rows else None
+    return P(*(rows if ax == "cache_batch" else e
+               for e, ax in zip(spec, logical)))
 
 
 def block_start(entry: AxisAssign, n_local: int, mesh) -> int:

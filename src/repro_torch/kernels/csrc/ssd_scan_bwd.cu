@@ -81,16 +81,21 @@
 //   dx     B resident (both planes, all of N), G^T's tiles of the
 //          warpgroup's rows in registers, loaded once a block; per head
 //          (B g^T) in three products, W^T dy with W^T formed in registers
-//          (two: dy is exact), dx, R, D and Z's column sum (dt D - exp(L -
-//          l) R: sum_t dS_ts G_ts = dt_s x_s . (W^T dy)_s).
+//          (two: dy is exact), dx, R and D.
 //   dcdb   one block per 64 columns of N: B and C resident for them; per
 //          head dS = dy x^T and dS^T = x dy^T formed once a tile (dS twice
 //          a call at N 128, once per column block), masked, scaled and
 //          split in registers as the A operands of dC += dS B and dB +=
-//          dS^T C; the heads summed in the accumulators, written once.  Z's
-//          row sum and Q come from C_t . (the head's share of dC)_t, since
-//          sum_s dS_ts G_ts = C_t . (dS B)_t, so G is not needed here.
-// Shared memory: dx 195 KB at N 128 (131 at 64), dcdb 195 KB; no atomics,
+//          dS^T C; the heads summed in the accumulators, written once.  Q
+//          comes from C_t . exp(l_t) (dy h)_t, dC's first share; Z's row
+//          and column sums from the fp32 dS and dS^T tiles before their
+//          split, times G (its strict lower triangle copied from the gram
+//          scratch into shared memory once a block), as the mma.sync route
+//          and the split plain version take them (dl's Z terms are a small
+//          difference of large sums, which products of bf16 hi + lo
+//          operands do not resolve): the rows by the first column block,
+//          the columns by the last.
+// Shared memory: dx 195 KB at N 128 (131 at 64), dcdb 227 KB; no atomics,
 // the same bits twice.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,7 +109,8 @@ namespace {
 constexpr int NB = 4;  // n8 tiles of a warp's output tile: 16 x 32
 constexpr int UNROLL = 8;  // chunks the walk reads ahead
 // per-row terms the gradient passes leave for the final one
-enum { TERM_R, TERM_D, TERM_Q, TERM_ROWZ, TERM_COLZ, NTERMS };
+// (TERM_Q1: Q's share from the wgmma route's second column block of N)
+enum { TERM_R, TERM_D, TERM_Q, TERM_ROWZ, TERM_COLZ, TERM_Q1, NTERMS };
 
 // shared-memory geometry: the chunk, N and hd padded to 32; bf16 row
 // strides 16 B over the row, so that an ldmatrix's eight rows fall in
@@ -744,6 +750,7 @@ ssd_bwd_dc_kernel(const T* __restrict__ xh, const T* __restrict__ dy,
       float q = 0.f;
       for (int cb = 0; cb < ncb; ++cb) q += rq[cb * CP + s];
       tb[TERM_Q * CP + s] = q;
+      tb[TERM_Q1 * CP + s] = 0.f;
       tb[TERM_ROWZ * CP + s] = rz[s];
     }
   }
@@ -912,7 +919,7 @@ ssd_bwd_final_kernel(const float* __restrict__ dt, const float* __restrict__ A,
       const float er = expf(L - v[s]) * tb[TERM_R * CP + s];
       sr += er;
       v[s] = tb[TERM_ROWZ * CP + s] - tb[TERM_COLZ * CP + s] +
-             tb[TERM_Q * CP + s] - er;
+             tb[TERM_Q * CP + s] + tb[TERM_Q1 * CP + s] - er;
     }
     sr = warp_sum(sr);
     __syncwarp();
@@ -956,14 +963,15 @@ constexpr bool wgmma_route(bool f32, int hd, int N, int C) {
 // dcdb: B hi, B lo, C hi, C lo (128 rows, the block's 64 columns of N),
 // then a ring of two stages, each a head's x and dy (128 x 64), its
 // incoming state h and outgoing gradient g split hi and lo (64 x 64, the
-// block's columns), its dt and l.
+// block's columns), its dt and l; the barriers; G_ts for s < t.
 struct DcdbSmem {
   static constexpr int BC = 0, RING = 4 * TILE;
   static constexpr int X = 0, DY = TILE, HH = 2 * TILE, HL = HH + PANEL,
                        GH = HL + PANEL, GL = GH + PANEL, V = GL + PANEL;
   static constexpr int STAGE = V + VEC;
   static constexpr int BAR = RING + 2 * STAGE;
-  static constexpr size_t BYTES = BAR + 8 * 5 + 1024;
+  static constexpr int GZ = BAR + 64;  // G's strict lower triangle, fp32
+  static constexpr size_t BYTES = GZ + WCH * (WCH - 1) / 2 * 4 + 1024;
 };
 // dx: B hi, B lo (128 rows, all NP columns), then a ring of two stages,
 // each a head's x and dy and its g split hi and lo (64 x NP), its dt and l.
@@ -1113,8 +1121,8 @@ __device__ __forceinline__ bool frag_hi(int i) { return (i / 2) & 1; }
 // products (B and g split hi + lo), R_s = dt_s x_s . (g B_s), then dxd =
 // exp(L - l_s) (B g^T) + W^T dy with W^T_st = G^T_st exp(l_t - l_s) for
 // t >= s formed in registers from G^T (loaded once a block) and split hi +
-// lo against dy, exact (two products); dx = dxd dt, D_s = dxd_s . x_s and
-// Z's column sum dt_s D_s - exp(L - l_s) R_s into `terms`.
+// lo against dy, exact (two products); dx = dxd dt and D_s = dxd_s . x_s
+// into `terms`.
 template <int NP>
 __global__ void __launch_bounds__(WG_BLOCK, 1)
 ssd_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -1265,7 +1273,6 @@ ssd_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         const int row = e ? rb : ra;
         tb[TERM_R * WCH + row] = r;
         tb[TERM_D * WCH + row] = d;
-        tb[TERM_COLZ * WCH + row] = (e ? dtb : dta) * d - (e ? eb : ea) * r;
       }
     }
     sm90::mbar_arrive(&empty[s]);
@@ -1276,14 +1283,16 @@ ssd_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 // HG heads), warpgroup w the rows [64 w, 64 w + 64) of both.  Per head,
 // its share of dC, exp(l_t) (dy h)_t + sum_{s<=t} dS_ts B_s, in a
 // temporary (h split hi + lo against dy, exact: two products; dS = dy x^T,
-// masked and scaled in registers, split hi + lo against B: three), whose
-// row dot with C_t is Z's row sum plus Q_t (C_t . (dS B)_t = sum_s dS_ts
-// G_ts) into `terms`; then added into dC's accumulator.  dB's share,
+// masked and scaled in registers, split hi + lo against B: three), Q_t
+// from its first part's row dot with C_t into `terms`; then added into
+// dC's accumulator.  dB's share,
 // dt_s exp(L - l_s) (x g)_s into the accumulator through a temporary, and
 // sum_{t>=s} dS_ts C_t with dS^T = x dy^T straight into it.  dS and dS^T
-// are formed once a head and tile; the heads are summed in the
-// accumulators in head order, written once into the block's slice of the
-// (groups, B, nc C, N) scratches.  ptxas serializes this kernel's products
+// are formed once a head and tile; Z_ts = dS_ts G_ts summed over s from the
+// fp32 dS tiles (the first column block of N) and over t from the dS^T
+// tiles (the last), s < t, into `terms`.  The heads are
+// summed in the accumulators in head order, written once into the block's
+// slice of the (groups, B, nc C, N) scratches.  ptxas serializes this kernel's products
 // (its note C7514: the temporary is scaled while the next product runs);
 // retiring every product first removed the note and ran 7% slower.
 __global__ void __launch_bounds__(WG_BLOCK, 1)
@@ -1294,6 +1303,7 @@ ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                           const float* __restrict__ A,
                           const float* __restrict__ Hin,
                           const float* __restrict__ Gout,
+                          const float* __restrict__ GT,
                           float* __restrict__ dBp, float* __restrict__ dCp,
                           float* __restrict__ terms, int T_len, int H,
                           int N) {
@@ -1337,6 +1347,32 @@ ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const bf* Bl = reinterpret_cast<const bf*>(smem + L::BC + TILE);
   const bf* Ch = reinterpret_cast<const bf*>(smem + L::BC + 2 * TILE);
   const bf* Cl = reinterpret_cast<const bf*>(smem + L::BC + 3 * TILE);
+  // Z's row sums taken by the first column block, its column sums by the
+  // last, from G_ts for s < t in shared memory, packed by rows (t (t - 1) /
+  // 2 + s) from G^T (row s holds G_ts for every t) once a block.  Z's
+  // diagonal is left out of both sums: dl takes only their difference.
+  const bool zrow = nb == 0, zcol = nb == nnb - 1;
+  float* gz = reinterpret_cast<float*>(smem + L::GZ);
+  {
+    const float4* g4 = reinterpret_cast<const float4*>(
+        GT + ((size_t)b * nc + c) * WCH * WCH);
+    float4 v[WCH * WCH / 4 / (2 * WG)];
+#pragma unroll
+    for (int k = 0; k < WCH * WCH / 4 / (2 * WG); ++k)
+      v[k] = __ldg(g4 + threadIdx.x + 2 * WG * k);
+#pragma unroll
+    for (int k = 0; k < WCH * WCH / 4 / (2 * WG); ++k) {
+      const int e = threadIdx.x + 2 * WG * k, sr = e / (WCH / 4);
+      const float vk[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int tq = 4 * (e % (WCH / 4)) + q;
+        if (sr < tq) gz[tq * (tq - 1) / 2 + sr] = vk[q];
+      }
+    }
+    // the two consumer warpgroups only (the producer runs on)
+    asm volatile("bar.sync 1, %0;" ::"n"(2 * WG) : "memory");
+  }
   float dCs[32], dBs[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dCs[i] = dBs[i] = 0.f;
@@ -1350,7 +1386,8 @@ ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     const float* l2 = dts + WCH;
     sm90::mbar_wait(&full[s], (it >> 1) & 1);
     const float la = l2[ra], lb = l2[rb], lL = l2[WCH - 1];
-    float tmp[32], sv[32];
+    float* tb = terms + (((size_t)b * nc + c) * H + h) * NTERMS * WCH;
+    float tmp[32], sv[32], zs[2] = {0.f, 0.f};
     uint32_t ah[4][4], al[4][4];
     // dC's share: exp(l_t) (dy h)_t, then + dS B tile by tile (s <= t)
     sm90::wgmma_fence();
@@ -1378,16 +1415,36 @@ ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         const float ea = ex2(la), eb = ex2(lb);
 #pragma unroll
         for (int i = 0; i < 32; ++i) tmp[i] *= frag_hi(i) ? eb : ea;
+        // Q over this block's columns: C_t . exp(l_t) (dy h)_t
+        float zq[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int r = frag_hi(i) ? rb : ra, col = frag_col(i);
+          const float2 h2 = bf_pair(smem + L::BC + 2 * TILE, r, col);
+          const float2 l2c = bf_pair(smem + L::BC + 3 * TILE, r, col);
+          zq[frag_hi(i)] +=
+              (h2.x + l2c.x) * tmp[i] + (h2.y + l2c.y) * tmp[i + 1];
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float z = quad_sum(zq[e]);
+          if (q4 == 0) {
+            const int row = e ? rb : ra;
+            tb[(nb ? TERM_Q1 : TERM_Q) * WCH + row] = z;
+            if (nnb == 1) tb[TERM_Q1 * WCH + row] = 0.f;
+          }
+        }
       }
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sv);
-      // dS_ts = (dy_t . x_s) dt_s exp(l_t - l_s), s <= t
+      // dS_ts = (dy_t . x_s) dt_s exp(l_t - l_s), s <= t; Z's row sum
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int sj = 64 * j + frag_col(i), r = frag_hi(i) ? rb : ra;
-        sv[i] = (j < wg || sj <= r)
-                    ? sv[i] * dts[sj] * ex2((frag_hi(i) ? lb : la) - l2[sj])
-                    : 0.f;
+        const bool in = j < wg || sj <= r;
+        sv[i] = in ? sv[i] * dts[sj] * ex2((frag_hi(i) ? lb : la) - l2[sj])
+                   : 0.f;
+        if (zrow && sj < r) zs[frag_hi(i)] += sv[i] * gz[r * (r - 1) / 2 + sj];
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -1411,29 +1468,18 @@ ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
     }
-    sm90::fence_regs(tmp);
-    sm90::fence_regs(dCs);
-    // Z's row sum + Q over this block's columns: C_t . (the share)_t
-    float zq[2] = {0.f, 0.f};
+    if (zrow) {
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int r = frag_hi(i) ? rb : ra, col = frag_col(i);
-      const float2 h2 = bf_pair(smem + L::BC + 2 * TILE, r, col);
-      const float2 l2c = bf_pair(smem + L::BC + 3 * TILE, r, col);
-      zq[frag_hi(i)] += (h2.x + l2c.x) * tmp[i] + (h2.y + l2c.y) * tmp[i + 1];
-      dCs[i] += tmp[i];
-      dCs[i + 1] += tmp[i + 1];
-    }
-    float* tb = terms + (((size_t)b * nc + c) * H + h) * NTERMS * WCH;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float z = quad_sum(zq[e]);
-      if (q4 == 0) {
-        const int row = e ? rb : ra;
-        tb[(nb ? TERM_ROWZ : TERM_Q) * WCH + row] = z;
-        if (nnb == 1) tb[TERM_ROWZ * WCH + row] = 0.f;
+      for (int e = 0; e < 2; ++e) {
+        const float z = quad_sum(zs[e]);
+        if (q4 == 0) tb[TERM_ROWZ * WCH + (e ? rb : ra)] = z;
+        zs[e] = 0.f;
       }
     }
+    sm90::fence_regs(tmp);
+    sm90::fence_regs(dCs);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dCs[i] += tmp[i];
     // dB's share: dt_s exp(L - l_s) (x g)_s, then + dS^T C tile by tile
     sm90::wgmma_fence();
 #pragma unroll
@@ -1464,13 +1510,16 @@ ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       }
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sv);
-      // dS^T_st = (x_s . dy_t) dt_s exp(l_t - l_s), t >= s
+      // dS^T_st = (x_s . dy_t) dt_s exp(l_t - l_s), t >= s; Z's column
+      // sum
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int tj = 64 * j + frag_col(i), r = frag_hi(i) ? rb : ra;
-        sv[i] = (j > wg || tj >= r)
-                    ? sv[i] * dts[r] * ex2(l2[tj] - (frag_hi(i) ? lb : la))
-                    : 0.f;
+        const bool in = j > wg || tj >= r;
+        sv[i] = in ? sv[i] * dts[r] * ex2(l2[tj] - (frag_hi(i) ? lb : la))
+                   : 0.f;
+        if (zcol && r < tj)
+          zs[frag_hi(i)] += sv[i] * gz[tj * (tj - 1) / 2 + r];
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -1493,6 +1542,13 @@ ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                              sm90::desc_mn(Ch + 64 * j * 64, WCH, kk));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
+    }
+    if (zcol) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float z = quad_sum(zs[e]);
+        if (q4 == 0) tb[TERM_COLZ * WCH + (e ? rb : ra)] = z;
+      }
     }
     sm90::mbar_arrive(&empty[s]);
   }
@@ -1568,8 +1624,8 @@ int launch_wgmma(const void* xh, const void* dt, const void* A,
   ssd_bwd_dcdb_wgmma_kernel<<<dim3(groups * (N / 64), nc, B), WG_BLOCK,
                               DcdbSmem::BYTES, s>>>(
       m_x, m_dy, m_bc, (const float*)dt, (const float*)A, (const float*)hin,
-      (const float*)gout, (float*)dBp, (float*)dCp, (float*)terms, T_len, H,
-      N);
+      (const float*)gout, (const float*)gram, (float*)dBp, (float*)dCp,
+      (float*)terms, T_len, H, N);
   return (int)cudaGetLastError();
 }
 
@@ -1668,7 +1724,7 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
 // shares of dA, dBp and dCp (groups of HG heads, B, nc C, N) the groups'
 // shares of dB and dC, all fp32.  Scratch, fp32: gram (B, nc, CP, CP), for
 // bf16 xh followed by room for 4 (B, nc, CP, N) bf16 planes (the wgmma
-// route's split B and C), gout (B, nc, H, hd, N), terms (B, nc, H, 5, CP),
+// route's split B and C), gout (B, nc, H, hd, N), terms (B, nc, H, 6, CP),
 // last (B, nc, H), with CP the chunk rounded up to 32.  hd % 8 == 0, N % 4
 // == 0, every pointer 16-byte aligned.
 extern "C" int ssd_scan_bwd_f32(

@@ -121,7 +121,7 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     planes = 2 * B * nc * CP * N if xh.dtype == torch.bfloat16 else 0
     gram = torch.empty(B * nc * CP * CP + planes, **f32)
     gout = torch.empty((B, nc, H, hd, N), **f32)
-    terms = torch.empty((B, nc, H, 5, CP), **f32)
+    terms = torch.empty((B, nc, H, 6, CP), **f32)
     last = torch.empty((B, nc, H), **f32)
     err = build.call(
         _fn(xh.dtype), dev, xh.data_ptr(), dt.data_ptr(), A.data_ptr(),

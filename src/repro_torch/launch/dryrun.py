@@ -123,33 +123,76 @@ def split_forward_flops(cfg, seq_len: int, mesh) -> Tuple[float, float]:
     """Per token of a ``seq_len`` sequence, the FLOPs one device computes
     in a forward under the port's tensor-parallel design, from the config
     and the specs, as (the layers', the head's): the roofline's per-token
-    products (``roofline._layer_flops``' terms), each over the size of the
-    axes its weight dim is tensor-parallel over (``sharding.tp_dims`` of
-    its spec under the config's policy), the attention on the query heads'
-    share and, as the traced path's plain attention computes every key
-    chunk whole, each query against all ``seq_len`` keys; the head over
-    its vocabulary's share.  Dense and VLM decoders.  ``mesh``: an
-    ``{axis: size}`` mapping."""
+    products (``roofline._layer_flops`` and ``_mamba_layer_flops``'
+    terms), each over the size of the axes its weight dim is
+    tensor-parallel over (``sharding.tp_dims`` of its spec under the
+    config's policy), the attention on the query heads' share and, as the
+    traced path's plain attention computes every key chunk whole, each
+    query against all its keys (the last chunk padded); a Mamba2 mixer's
+    projections, intra-chunk products and states on its heads' share (B
+    and C whole on every rank; all of it whole where its heads and inner
+    width do not split alike, as ``mamba2.mixer_params`` computes them);
+    whisper's encoder and cross-attention keys counted per decoder token;
+    the head over its vocabulary's share.  Every token family but the
+    MoE's.  ``mesh``: an ``{axis: size}`` mapping."""
     from repro_torch.models import param as P
     from repro_torch.models.registry import get_model
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid", "audio"):
         raise NotImplementedError(f"no split count for {cfg.family!r}")
     specs = {k: shd.logical_to_pspec(sp.shape, sp.logical, mesh,
                                      cfg.sharding)
              for k, sp in P.iter_specs(get_model(cfg).specs)}
 
+    def axes(path):
+        return tuple(a for ax in shd.tp_dims(specs[path],
+                                             cfg.sharding).values()
+                     for a in ax)
+
     def ways(path):
-        return math.prod(mesh[a] for axes in shd.tp_dims(
-            specs[path], cfg.sharding).values() for a in axes)
+        return math.prod(mesh[a] for a in axes(path))
     D, F, hd, T = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim, seq_len
-    H = cfg.num_heads / ways("blocks.attn.wq")
-    Hk = cfg.num_kv_heads / ways("blocks.attn.wk")
     mult = 3 if cfg.act == "swiglu" else 2
-    layer = (2.0 * D * hd * (2 * H + 2 * Hk) + 4.0 * T * H * hd
-             + 2.0 * mult * D * F / ways("blocks.mlp.w_down"))
+
+    def attn(pre, keys):
+        """A query token's projections and attention over ``keys``."""
+        H = cfg.num_heads / ways(pre + "attn.wq")
+        Hk = cfg.num_kv_heads / ways(pre + "attn.wk")
+        return 2.0 * D * hd * (2 * H + 2 * Hk) + 4.0 * keys * H * hd
+
+    def mlp(pre):
+        return 2.0 * mult * D * F / ways(pre + "mlp.w_down")
+
+    def mixer(pre):
+        di, N = cfg.ssm_d_inner, cfg.ssm_state
+        H, C = cfg.ssm_num_heads, min(cfg.ssm_chunk, T)
+        w = ways(pre + "w_dt") \
+            if axes(pre + "w_dt") == axes(pre + "w_x") else 1
+        proj = 2.0 * (2 * D * di / w + 2 * D * N + D * H / w + di * D / w)
+        return proj + 2.0 * C * (N + H * hd_s / w) + 4.0 * H * hd_s * N / w
+
+    hd_s = cfg.ssm_head_dim
+    if cfg.family in ("dense", "vlm"):
+        layers = cfg.num_layers * (attn("blocks.", T) + mlp("blocks."))
+    elif cfg.family == "ssm":
+        layers = cfg.num_layers * mixer("blocks.")
+    elif cfg.family == "hybrid":
+        layers = (cfg.num_layers * mixer("mamba_blocks.")
+                  + cfg.num_layers // cfg.shared_attn_every
+                  * (attn("shared.", T) + mlp("shared.")))
+    else:
+        Te = cfg.encoder_tokens
+        ck = min(512, Te)
+        Te_keys = -(-Te // ck) * ck
+        H = cfg.num_heads / ways("decoder.xattn.wq")
+        Hk = cfg.num_kv_heads / ways("decoder.xattn.wk")
+        cross = (4.0 * D * hd * H + 4.0 * Te_keys * H * hd
+                 + 4.0 * D * hd * Hk * Te / T)
+        enc = Te / T * (attn("encoder.", Te_keys) + mlp("encoder."))
+        layers = (cfg.encoder_layers * enc + cfg.num_layers
+                  * (attn("decoder.", T) + cross + mlp("decoder.")))
     head = 2.0 * D * cfg.vocab_size / ways(
         "embed" if cfg.tie_embeddings else "lm_head")
-    return cfg.num_layers * layer, head
+    return layers, head
 
 
 def expected_train_flops(cfg, shape, mesh) -> float:
@@ -157,13 +200,19 @@ def expected_train_flops(cfg, shape, mesh) -> float:
     :func:`split_forward_flops`, the layers counted 3 + remat times (1
     where ``cfg.remat`` recomputes each layer) and the head 3 times, as the
     roofline counts a step, for one device's rows (the global batch over
-    the axes that split the rows).  ``mesh``: an ``{axis: size}``
-    mapping."""
+    the axes that split the rows).  A head left whole (its vocabulary not
+    tensor-parallel) under ``cfg.logits_chunk`` goes through the chunked
+    loss: its vocabulary padded to whole chunks and each chunk recomputed
+    in the backward, 4 times.  ``mesh``: an ``{axis: size}`` mapping."""
     layers, head = split_forward_flops(cfg, shape.seq_len, mesh)
     remat = 1.0 if cfg.remat != "none" else 0.0
     rows = math.prod(mesh[a] for a in shd.row_axes(cfg.sharding)
                      if a in mesh)
     tokens = shape.global_batch * shape.seq_len / rows
+    V, chunk = cfg.vocab_size, cfg.logits_chunk
+    if chunk and head >= 2.0 * cfg.d_model * V:
+        return tokens * (layers * (3.0 + remat)
+                         + 8.0 * cfg.d_model * -(-V // chunk) * chunk)
     return tokens * (layers * (3.0 + remat) + head * 3.0)
 
 
@@ -269,7 +318,7 @@ def build_step(arch: str, shape_name: str, multi_pod: bool,
 
     def serve_step(params, cache, tokens, cache_len):
         return model.decode_step(params, cache, tokens, cache_len,
-                                 mesh=view)
+                                 mesh=view, max_seq=shape.seq_len)
 
     return (serve_step, (params, cache, batch["tokens"], shape.seq_len - 1),
             mesh, meta)

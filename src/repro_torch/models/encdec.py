@@ -22,14 +22,25 @@ self-attention cache ``k``/``v`` and the cross-attention cache ``xk``/``xv``
 (each layer's projections of the encoder output); ``decode_step`` writes
 the new token's keys and values into the cache it is given, in place, and
 returns it (the reference's engine donates the cache to the step).
+
+Over a mesh (a ``sharding.MeshView`` with a policy) every layer takes the
+dense blocks' rule: the self- and cross-attention on this rank's heads
+(the kv heads its query heads read where kv stays whole), the MLP on its
+columns, the products after ``wo`` and ``w_down`` summed over "model";
+the embedding and the head are vocabulary-parallel; ``enc_pos`` and
+``dec_pos`` are gathered.  The cache follows the reference's logical
+axes: ``k`` / ``v`` along the sequence (flash-decode), or over the kv
+heads where it does not divide; ``xk`` / ``xv`` over the kv heads.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import whole, whole_tree
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -92,20 +103,40 @@ def specs(cfg: ModelConfig) -> Dict:
     return sp
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("btd,dnh->btnh", x, w)
+def _proj(x: torch.Tensor, w) -> torch.Tensor:
+    return torch.einsum("btd,dnh->btnh", x, shd.local(w))
 
 
-def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("btnh,nhd->btd", o, w)
+def _out(o: torch.Tensor, w, mesh) -> torch.Tensor:
+    """The heads' output projected by ``wo``, summed over its split heads'
+    axes."""
+    return tf._tp_sum(torch.einsum("btnh,nhd->btd", o, shd.local(w)), w, 0,
+                      mesh)
+
+
+# the layer params that take the rule (``shd.layer``'s ``keep``): heads
+# and MLP columns tensor-parallel, as the dense block's (``tf._TP_KEEP``)
+_KEEP = {"attn": (), "xattn": (), "mlp": ()}
+
+# the reference's logical axes of the cross-attention cache
+XKV_LOGICAL = ("layers", "cache_batch", "seq", "kv", None)
+
+
+def _cross_split(cfg: ModelConfig, mesh) -> Optional[tf.CacheSplit]:
+    """How the cross-attention cache (L, B, encoder_tokens, Hk, hd) splits
+    on ``mesh`` (its kv heads over "model" under ``tp`` / ``fsdp_tp``)."""
+    return tf.cache_split(mesh, cfg.encoder_tokens, cfg.num_kv_heads,
+                          XKV_LOGICAL)
 
 
 def _cross_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+                enc_k: torch.Tensor, enc_v: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     xn = L.apply_norm(cfg, p["norm"], x)
-    out = ops.attention(_proj(xn, p["wq"]), enc_k, enc_v, causal=False,
+    ka, va = tf._kv_for_heads(p, enc_k, enc_v, mesh, cfg.num_heads)
+    out = ops.attention(_proj(xn, p["wq"]), ka, va, causal=False,
                         kv_chunk=min(512, enc_k.shape[1]))
-    return _out(out, p["wo"])
+    return _out(out, p["wo"], mesh)
 
 
 def _enc_kv(p: Dict, enc_out: torch.Tensor
@@ -114,66 +145,86 @@ def _enc_kv(p: Dict, enc_out: torch.Tensor
 
 
 def _enc_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, mesh=None) -> torch.Tensor:
     q, kk, vv = tf._qkv(cfg, p["attn"], h, positions)
+    kk, vv = tf._kv_for_heads(p["attn"], kk, vv, mesh, cfg.num_heads)
     out = ops.attention(q, kk, vv, causal=False,
                         kv_chunk=min(512, h.shape[1]))
-    h = h + _out(out, p["attn"]["wo"])
-    return h + L.apply_mlp(cfg, p["mlp"],
-                           L.apply_norm(cfg, p["mlp_norm"], h))
+    h = h + _out(out, p["attn"]["wo"], mesh)
+    return h + tf._mlp(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], h),
+                       mesh)
+
+
+def _layer(tree: Dict, i: int, mesh) -> Dict:
+    """Layer ``i`` of stacked encoder or decoder params; over a mesh its
+    heads and MLP columns this rank's blocks where the policy splits them
+    (``_KEEP``), the storage dims gathered."""
+    return tf._layer(tree, i, mesh, _KEEP)
 
 
 def encode(cfg: ModelConfig, params: Dict, audio_frames: torch.Tensor,
            mesh=None) -> torch.Tensor:
     """audio_frames (B, encoder_tokens, D) stub frame embeddings -> the
     encoder output (B, encoder_tokens, D) in the config's dtype.
-    ``params`` is the nested tree; over a ``mesh`` its sharded leaves are
+    ``params`` is the nested tree; over a ``mesh`` each layer computes on
+    its tensor-parallel blocks and the storage dims (and ``enc_pos``) are
     gathered at their use."""
     dt = cfg.torch_dtype
     x = audio_frames.to(dt) + whole(params["enc_pos"], mesh).to(dt)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.encoder_layers):
-        x = _enc_layer(cfg, tf._layer(params["encoder"], i, mesh), x,
-                       positions)
+        x = _enc_layer(cfg, _layer(params["encoder"], i, mesh), x,
+                       positions, mesh)
     return L.apply_norm(cfg, whole_tree(params["enc_final_norm"], mesh), x)
 
 
 def _dec_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
                enc_out: torch.Tensor, positions: torch.Tensor,
-               with_cache: bool = False):
+               with_cache: bool = False, mesh=None,
+               split: Optional[tf.CacheSplit] = None):
     q, kk, vv = tf._qkv(cfg, p["attn"], h, positions)
     ck = min(h.shape[1],
              L.pick_kv_chunk(h.shape[0], h.shape[1], cfg.num_heads))
-    out = ops.attention(q, kk, vv, causal=True, kv_chunk=ck)
-    h = h + _out(out, p["attn"]["wo"])
+    ka, va = tf._kv_for_heads(p["attn"], kk, vv, mesh, cfg.num_heads)
+    out = ops.attention(q, ka, va, causal=True, kv_chunk=ck)
+    h = h + _out(out, p["attn"]["wo"], mesh)
     ek, ev = _enc_kv(p["xattn"], enc_out)
-    h = h + _cross_attn(cfg, p["xattn"], h, ek, ev)
-    h = h + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], h))
+    h = h + _cross_attn(cfg, p["xattn"], h, ek, ev, mesh)
+    h = h + tf._mlp(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], h),
+                    mesh)
     if not with_cache:
         return h, None
     dt = cfg.torch_dtype
-    return h, {"k": kk.to(dt), "v": vv.to(dt), "xk": ek.to(dt),
-               "xv": ev.to(dt)}
+    cache = tf._cache_of(cfg, p["attn"], kk, vv, mesh, None, split,
+                         h.shape[1])
+    xs = _cross_split(cfg, mesh)
+    ek, ev = tf.kv_as_cached(p["xattn"]["wk"], ek, ev, mesh,
+                             xs.kv if xs else ())
+    return h, {**cache, "xk": tf._own(ek, xs, ek.shape[1]).to(dt),
+               "xv": tf._own(ev, xs, ev.shape[1]).to(dt)}
 
 
 def _decode_blocks(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                    enc_out: torch.Tensor, positions: torch.Tensor,
-                   with_cache: bool = False, mesh=None):
+                   with_cache: bool = False, mesh=None,
+                   split: Optional[tf.CacheSplit] = None):
     """The decoder layers over x; with ``with_cache`` also the stacked
     caches {"k", "v"} (L, B, T, Hk, hd) and {"xk", "xv"} (L, B,
-    encoder_tokens, Hk, hd).  A layer's weights are gathered inside its
-    recomputed body."""
+    encoder_tokens, Hk, hd), this rank's blocks of them over a ``split``
+    and the cross-attention's (:func:`cache_specs`).  A layer's weights
+    are gathered inside its recomputed body."""
     if not with_cache:
         for i in range(cfg.num_layers):
             def body(h, i=i):
-                return _dec_layer(cfg, tf._layer(params["decoder"], i, mesh),
-                                  h, enc_out, positions)[0]
+                return _dec_layer(cfg, _layer(params["decoder"], i, mesh),
+                                  h, enc_out, positions, mesh=mesh)[0]
             x = L.remat(cfg, body, x)
         return x, None
     caches = []
     for i in range(cfg.num_layers):
-        x, c = _dec_layer(cfg, tf._layer(params["decoder"], i, mesh), x,
-                          enc_out, positions, with_cache=True)
+        x, c = _dec_layer(cfg, _layer(params["decoder"], i, mesh), x,
+                          enc_out, positions, with_cache=True, mesh=mesh,
+                          split=split)
         caches.append(c)
     return x, {k: torch.stack([c[k] for c in caches])
                for k in ("k", "v", "xk", "xv")}
@@ -181,14 +232,17 @@ def _decode_blocks(cfg: ModelConfig, params: Dict, x: torch.Tensor,
 
 def _embed_dec(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                offset: int, mesh=None) -> torch.Tensor:
-    x = whole(params["embed"], mesh)[tokens.long()]
+    """Token embeddings (vocabulary-parallel over ``mesh``, as
+    ``transformer.lookup``) plus the learned positions from ``offset``
+    (gathered)."""
+    x = tf.lookup(params["embed"], tokens, mesh)
     pos = offset + torch.arange(tokens.shape[1], device=x.device)
     return x + whole(params["dec_pos"], mesh)[pos].to(x.dtype)
 
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   audio_frames: Optional[torch.Tensor], with_cache: bool,
-                  mesh=None):
+                  mesh=None, max_seq: Optional[int] = None):
     if audio_frames is None:
         raise ValueError("the audio family needs the batch's audio_frames "
                          "(B, encoder_tokens, d_model)")
@@ -196,8 +250,10 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     enc_out = encode(cfg, tree, audio_frames, mesh)
     x = _embed_dec(cfg, tree, tokens, 0, mesh)
     positions = torch.arange(x.shape[1], device=x.device)
+    split = tf.cache_split(mesh, max_seq or x.shape[1], cfg.num_kv_heads) \
+        if with_cache else None
     x, caches = _decode_blocks(cfg, tree, x, enc_out, positions, with_cache,
-                               mesh)
+                               mesh, split)
     return L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh),
                         x), caches
 
@@ -207,8 +263,10 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             mesh=None) -> torch.Tensor:
     """tokens (B, T) and audio_frames (B, encoder_tokens, D) -> the
     decoder's final hidden states (B, T, D); differentiable.  With a
-    ``mesh`` the batch is this rank's rows and sharded params are
-    gathered at their use."""
+    ``mesh`` the batch is this rank's rows, each layer computes on the
+    rank's heads and MLP columns where the policy splits them, the
+    embedding on its vocabulary rows, and storage dims are gathered at
+    their use."""
     return _forward_impl(cfg, params, tokens, audio_frames, False, mesh)[0]
 
 
@@ -217,55 +275,73 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             audio_frames: Optional[torch.Tensor] = None, mesh=None,
             max_seq: Optional[int] = None):
     """Forward that also returns the caches {"k", "v", "xk", "xv"} in the
-    config's dtype."""
-    return _forward_impl(cfg, params, tokens, audio_frames, True, mesh)
+    config's dtype; over a ``mesh`` this rank's blocks of them, ``k`` /
+    ``v`` of a ``max_seq`` cache (:func:`cache_specs`)."""
+    return _forward_impl(cfg, params, tokens, audio_frames, True, mesh,
+                         max_seq)
 
 
-def cache_specs(cfg: ModelConfig, batch: int,
-                seq_len: int) -> Dict[str, Tuple]:
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                mesh=None) -> Dict[str, Tuple]:
     """{leaf: (shape, dtype)}: the ``seq_len`` self-attention cache and the
-    cross-attention cache over the encoder's frames."""
+    cross-attention cache over the encoder's frames.  Over a ``mesh`` this
+    rank's blocks, as the reference's rule splits ``("layers",
+    "cache_batch", "cache_seq", "kv", None)`` (``k`` / ``v``: the
+    sequence, or the kv heads where it leaves "model";
+    ``transformer.cache_split``) and ``("layers", "cache_batch", "seq",
+    "kv", None)`` (``xk`` / ``xv``: the kv heads over "model" under
+    ``tp`` / ``fsdp_tp``); ``batch``: the rank's rows."""
     hd, nl, dt = cfg.resolved_head_dim, cfg.num_layers, cfg.torch_dtype
-    kv = (nl, batch, seq_len, cfg.num_kv_heads, hd)
-    xkv = (nl, batch, cfg.encoder_tokens, cfg.num_kv_heads, hd)
+    S, Hk = tf.cache_block(mesh, seq_len, cfg.num_kv_heads)
+    xs = _cross_split(cfg, mesh)
+    kv = (nl, batch, S, Hk, hd)
+    xkv = (nl, batch, xs.size if xs else cfg.encoder_tokens,
+           cfg.num_kv_heads // math.prod(mesh.sizes()[a] for a in xs.kv)
+           if xs else cfg.num_kv_heads, hd)
     return {"k": (kv, dt), "v": (kv, dt), "xk": (xkv, dt), "xv": (xkv, dt)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device="cuda", mesh=None) -> Dict:
-    """A zero cache; no mesh splits it (``mesh`` and the prefill's
-    ``max_seq`` are the dense families' cache split, unused here)."""
+    """A zero cache; over a ``mesh`` this rank's blocks
+    (:func:`cache_specs`)."""
     return {k: torch.zeros(shape, dtype=dtype, device=device)
-            for k, (shape, dtype) in cache_specs(cfg, batch, seq_len).items()}
+            for k, (shape, dtype)
+            in cache_specs(cfg, batch, seq_len, mesh).items()}
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, cache_len: int, mesh=None
+                tokens: torch.Tensor, cache_len: int, mesh=None,
+                max_seq: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_len`` -> (logits (B, 1, V), the
     cache with this token's keys and values written in, in place).  With
-    a ``mesh`` the tokens and the caches are this rank's rows."""
+    a ``mesh`` the tokens and the caches are this rank's rows and blocks:
+    the self-attention's as the dense decode takes them
+    (``transformer._decode_attention``), the cross-attention's kv heads
+    attended by the query heads that read them."""
     tree = P.nest(params)
     cache_len = int(cache_len)
     x = _embed_dec(cfg, tree, tokens, cache_len, mesh)
     T = x.shape[1]
     positions = cache_len + torch.arange(T, device=x.device)
+    split = tf.cache_split(mesh, max_seq, cfg.num_kv_heads)
+    xs = _cross_split(cfg, mesh)
     for i in range(cfg.num_layers):
-        p = tf._layer(tree["decoder"], i, mesh)
-        q, kk, vv = tf._qkv(cfg, p["attn"], x, positions)
-        k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[:, cache_len:cache_len + T] = kk.to(k_cache.dtype)
-        v_cache[:, cache_len:cache_len + T] = vv.to(v_cache.dtype)
-        out = L.decode_attention(q, k_cache, v_cache, kv_len=cache_len + 1)
-        x = x + _out(out, p["attn"]["wo"])
+        p = _layer(tree["decoder"], i, mesh)
+        x = x + tf._decode_attention(cfg, p["attn"], x, positions,
+                                     cache["k"][i], cache["v"][i], cache_len,
+                                     0, mesh, split)
         # cross-attention against the cached encoder projections
-        xn = L.apply_norm(cfg, p["xattn"]["norm"], x)
-        xq = _proj(xn, p["xattn"]["wq"])
+        pc = p["xattn"]
+        xq = _proj(L.apply_norm(cfg, pc["norm"], x), pc["wq"])
         xk, xv = cache["xk"][i], cache["xv"][i]
-        xout = L.decode_attention(xq, xk, xv, kv_len=xk.shape[1])
-        x = x + _out(xout, p["xattn"]["wo"])
-        x = x + L.apply_mlp(cfg, p["mlp"],
-                            L.apply_norm(cfg, p["mlp_norm"], x))
+        xout = tf.cache_attention(xq, pc["wq"], xk, xv,
+                                  cfg.encoder_tokens, 0, mesh, xs,
+                                  cfg.num_heads)
+        x = x + _out(xout, pc["wo"], mesh)
+        x = x + tf._mlp(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x),
+                        mesh)
     hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
     return tf.logits_fn(cfg, tree, hidden[:, -1:, :], mesh), cache

@@ -21,7 +21,7 @@ no caller keeps the old one).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -67,12 +67,6 @@ def specs(cfg: ModelConfig) -> Dict:
     return sp
 
 
-# the mamba2 block that also returns its final SSM and conv states (the
-# SSD kernel returns the final state); ``mamba2.mamba_block`` is this
-# function's output alone, so forward and prefill compute alike
-_run_mamba_with_state = mamba2.mamba_block_with_state
-
-
 def _shared(tree: Dict, mesh):
     """The shared block's params at their use: over a mesh, its
     attention's and MLP's tensor-parallel dims this rank's blocks (the
@@ -86,10 +80,10 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     tree = P.nest(params)
     x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
     positions = torch.arange(x.shape[1], device=x.device)
-    split = tf.cache_split(mesh, max_seq or x.shape[1]) if with_cache \
-        else None
+    split = tf.cache_split(mesh, max_seq or x.shape[1], cfg.num_kv_heads) \
+        if with_cache else None
     na, per = _n_apps(cfg), cfg.shared_attn_every
-    attn_caches, ssm_states = [], []
+    attn_caches, ssm_states, lay = [], [], None
     if not with_cache:
         # one application of the shared block and its group of mamba2
         # blocks, recomputed in the backward under cfg.remat (the
@@ -99,9 +93,8 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             h = tf._block(cfg, _shared(tree, mesh), h,
                           positions=positions, is_global=True, mesh=mesh)[0]
             for j in range(per):
-                h = mamba2.mamba_block(
-                    cfg, tf._layer(tree["mamba_blocks"], a * per + j, mesh),
-                    h)
+                h = mamba2.mamba_block(cfg, mamba2.mamba_layer(
+                    tree["mamba_blocks"], a * per + j, mesh), h, mesh)
             return h
         for a in range(na):
             x = L.remat(cfg, group, x, a)
@@ -115,9 +108,10 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                                   with_cache=True, mesh=mesh, split=split)
         attn_caches.append(attn_cache)
         for j in range(per):
-            p = tf._layer(tree["mamba_blocks"], a * per + j, mesh)
-            x, st = _run_mamba_with_state(cfg, p, x)
-            ssm_states.append(st)
+            p = mamba2.mamba_layer(tree["mamba_blocks"], a * per + j, mesh)
+            lay = lay or mamba2.state_layouts(cfg, p, x.shape[0], mesh)
+            x, st = mamba2.mamba_block_with_state(cfg, p, x, mesh)
+            ssm_states.append(mamba2.to_cache(st, lay, mesh))
     hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
     attn = {k: torch.stack([c[k] for c in attn_caches]) for k in ("k", "v")}
     ssm = {k: torch.stack([s[k] for s in ssm_states]).unflatten(0, (na, per))
@@ -129,8 +123,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             mesh=None) -> torch.Tensor:
     """tokens (B, T) -> final hidden states (B, T, D); differentiable
     (on a CUDA device through the backward kernels).  With a ``mesh`` the
-    batch is this rank's rows and sharded params are gathered at their
-    use."""
+    batch is this rank's rows, the shared block and each mamba2 mixer
+    compute on the rank's heads and columns where the policy splits them,
+    and storage dims are gathered at their use."""
     return _forward_impl(cfg, params, tokens, with_cache=False,
                          mesh=mesh)[0]
 
@@ -140,9 +135,8 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             mesh=None, max_seq=None):
     """Forward that also returns the caches: {"attn": {"k", "v"}
     (apps, B, T, Hk, hd), "ssm": {"ssm" (apps, per, B, H, hd, N) fp32,
-    "conv" (apps, per, B, K-1, d_inner)}}; the attention caches' positions
-    this rank's of a ``max_seq`` cache where the mesh splits it
-    (``transformer.prefill``)."""
+    "conv" (apps, per, B, K-1, d_inner)}}; over a ``mesh`` this rank's
+    block of a ``max_seq`` cache (:func:`cache_specs`)."""
     hidden, (attn, ssm) = _forward_impl(cfg, params, tokens,
                                         with_cache=True, mesh=mesh,
                                         max_seq=max_seq)
@@ -151,22 +145,17 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
                 mesh=None) -> Dict[str, Dict[str, Tuple]]:
-    """{part: {leaf: (shape, dtype)}} of a ``seq_len`` cache (over a
-    ``mesh``, this rank's block of the attention caches' positions)."""
-    split = tf.cache_split(mesh, seq_len)
-    seq_len = split.size if split else seq_len
+    """{part: {leaf: (shape, dtype)}} of a ``seq_len`` cache; over a
+    ``mesh`` this rank's block: the attention caches' positions, or their
+    kv heads where the sequence leaves "model" (``transformer.
+    cache_split``), and the states' heads and conv columns
+    (``mamba2.cache_specs``)."""
     na, per = _n_apps(cfg), cfg.shared_attn_every
-    hd = cfg.resolved_head_dim
-    H, shd, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
-    K, di = cfg.ssm_conv_kernel, cfg.ssm_d_inner
-    kv = ((na, batch, seq_len, cfg.num_kv_heads, hd), cfg.torch_dtype)
-    return {
-        "attn": {"k": kv, "v": kv},
-        "ssm": {
-            "ssm": ((na, per, batch, H, shd, N), torch.float32),
-            "conv": ((na, per, batch, K - 1, di), cfg.torch_dtype),
-        },
-    }
+    S, Hk = tf.cache_block(mesh, seq_len, cfg.num_kv_heads)
+    kv = ((na, batch, S, Hk, cfg.resolved_head_dim), cfg.torch_dtype)
+    ssm = {k: ((na, per) + shape[1:], dtype) for k, (shape, dtype)
+           in mamba2.cache_specs(cfg, batch, seq_len, mesh).items()}
+    return {"attn": {"k": kv, "v": kv}, "ssm": ssm}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -179,19 +168,21 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, cache_len: int, mesh=None
+                tokens: torch.Tensor, cache_len: int, mesh=None,
+                max_seq: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_len`` -> (logits (B, 1, V), the
     cache with this token written in, in place).  With a ``mesh`` the
-    tokens and the caches are this rank's rows."""
+    tokens and the caches are this rank's rows and blocks."""
     tree = P.nest(params)
     cache_len = int(cache_len)
     x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
     T = x.shape[1]
     positions = cache_len + torch.arange(T, device=x.device)
     shared = _shared(tree, mesh)
-    split = tf.cache_split(mesh, local_len=cache["attn"]["k"].shape[2])
+    split = tf.cache_split(mesh, max_seq, cfg.num_kv_heads)
     na, per = _n_apps(cfg), cfg.shared_attn_every
+    lay = None
     for a in range(na):
         x = x + tf._decode_attention(cfg, shared["attn"], x, positions,
                                      cache["attn"]["k"][a],
@@ -200,9 +191,13 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
         x = x + tf._mlp(cfg, shared["mlp"],
                         L.apply_norm(cfg, shared["mlp_norm"], x), mesh)
         for j in range(per):
-            p = tf._layer(tree["mamba_blocks"], a * per + j, mesh)
-            state = {k: cache["ssm"][k][a, j] for k in ("ssm", "conv")}
-            x, new = mamba2.mamba_block_decode(cfg, p, x, state)
+            p = mamba2.mamba_layer(tree["mamba_blocks"], a * per + j, mesh)
+            lay = lay or mamba2.state_layouts(cfg, p, x.shape[0], mesh)
+            state = mamba2.from_cache(
+                {k: cache["ssm"][k][a, j] for k in ("ssm", "conv")}, lay,
+                mesh)
+            x, new = mamba2.mamba_block_decode(cfg, p, x, state, mesh)
+            new = mamba2.to_cache(new, lay, mesh)
             for k in ("ssm", "conv"):
                 cache["ssm"][k][a, j] = new[k]
     hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)

@@ -31,11 +31,20 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+            reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+            parts: int = 1) -> torch.Tensor:
+    """RMS norm over the last dim.  Where ``x`` and ``weight`` are one of
+    ``parts`` equal blocks of that dim, ``reduce`` sums the fp32 sum of
+    squares over the blocks' ranks; the mean is that sum over the whole
+    width either way (the reference's ``jnp.mean``: a sum, then a
+    divide), so one block is the plain norm's bits."""
     dt = x.dtype
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    ss = torch.sum(xf * xf, dim=-1, keepdim=True)
+    if reduce is not None:
+        ss = reduce(ss)
+    var = ss / (x.shape[-1] * parts)
     out = xf * torch.rsqrt(var + eps) * (1.0 + weight.float())
     return out.to(dt)
 

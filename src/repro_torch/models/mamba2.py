@@ -12,18 +12,31 @@ CPU through the plain scan, on a CUDA device through the ``ssd_scan_bwd``
 kernel (``ops.ssd``'s autograd function).  ``decode_step`` writes the new
 states into the cache it is given, in place, and returns it (the
 reference's engine donates the cache to the step).
+
+Over a mesh (a ``sharding.MeshView`` with a policy) the mixer computes
+where GSPMD places the reference's: under ``tp`` / ``fsdp_tp`` its inner
+width (``mlp``) and heads (``ssm_heads``) are split over "model", so each
+rank computes z, x, dt and the conv for its heads' columns, runs the
+scan on its head block (B and C, over the unsplit ``state``, whole on
+every rank), the gate norm with its sum of squares summed over "model",
+and sums the product with ``w_out`` over the axis.  The state cache is
+split as the reference's rule splits its logical axes: ``ssm`` over its
+heads, ``conv`` over d_inner.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import param as P
+from repro_torch.models import transformer as tf
 from repro_torch.models.param import ParamSpec
 
 
@@ -160,60 +173,160 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _split_heads(cfg: ModelConfig, xc: torch.Tensor) -> torch.Tensor:
-    B, T, _ = xc.shape
-    return xc.reshape(B, T, cfg.ssm_num_heads, cfg.ssm_head_dim)
-
-
 def _in_proj(p: Dict, xn: torch.Tensor):
-    """z, x, B, C (fp32) and dt (fp32, softplus) from the normed input."""
-    Bm = (xn @ p["w_B"]).float()
-    Cm = (xn @ p["w_C"]).float()
-    dt = F.softplus((xn @ p["w_dt"]).float() + p["dt_bias"])
-    return xn @ p["w_z"], xn @ p["w_x"], Bm, Cm, dt
+    """z, x, B, C (fp32) and dt (fp32, softplus) from the normed input;
+    z, x and dt this rank's columns and heads where the mixer is split."""
+    w = {k: shd.local(v) for k, v in p.items() if k != "norm"}
+    Bm = (xn @ w["w_B"]).float()
+    Cm = (xn @ w["w_C"]).float()
+    dt = F.softplus((xn @ w["w_dt"]).float() + w["dt_bias"])
+    return xn @ w["w_z"], xn @ w["w_x"], Bm, Cm, dt
 
 
-def mamba_block_with_state(cfg: ModelConfig, p: Dict, x: torch.Tensor
-                           ) -> Tuple[torch.Tensor, Dict]:
+def mixer_params(p: Dict, mesh) -> Dict:
+    """A layer's mixer params as it computes on them: the mixer is
+    tensor-parallel where the policy splits its heads (``w_dt``'s
+    ``ssm_heads``) and its inner width (``w_x``'s ``mlp``) over the same
+    axes, each rank then holding whole heads; otherwise every block is
+    gathered whole."""
+    heads, cols = p["w_dt"], p["w_x"]
+    if isinstance(heads, shd.Local) and isinstance(cols, shd.Local) \
+            and shd._axes(heads.spec[1]) == shd._axes(cols.spec[1]):
+        return p
+    return shd.whole_tree(p, mesh)
+
+
+def _gate(p: Dict, y: torch.Tensor, z: torch.Tensor, mesh) -> torch.Tensor:
+    """The gated RMS norm over d_inner, ``rmsnorm(y * silu(z))``: over
+    this rank's columns where ``gate_norm`` is split, the sum of squares
+    summed over its axes."""
+    w = p["gate_norm"]
+    g = y * F.silu(z.float()).to(y.dtype)
+    if not isinstance(w, shd.Local):
+        return L.rmsnorm(g, w)
+    axes = shd._axes(w.spec[0])
+    return L.rmsnorm(g, w.t, reduce=lambda s: tf._tp_sum(s, w, 0, mesh),
+                     parts=math.prod(mesh.sizes()[a] for a in axes))
+
+
+def _out(p: Dict, x: torch.Tensor, y: torch.Tensor, mesh) -> torch.Tensor:
+    """x + y @ w_out, summed over w_out's split rows."""
+    return x + tf._tp_sum(y @ shd.local(p["w_out"]), p["w_out"], 0, mesh)
+
+
+def mamba_block_with_state(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                           mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence mamba2 block: x (B, T, D) -> (out (B, T, D),
-    {"ssm": final state (B, H, hd, N) fp32, "conv": last K-1 inputs})."""
+    {"ssm": final state (B, H, hd, N) fp32, "conv": last K-1 inputs}).
+    Over a ``mesh`` ``p`` is the layer as ``mixer_params`` gives it: on a
+    split mixer this rank's heads (``ops.ssd`` on their block, B and C
+    whole) and their d_inner columns, the states its heads', the output
+    summed over the heads' axes."""
     xn = L.apply_norm(cfg, p["norm"], x)
     z, xs, Bm, Cm, dt = _in_proj(p, xn)
-    xc = F.silu(_causal_conv(xs, p["conv_w"]).float()).to(x.dtype)
-    xh = _split_heads(cfg, xc)
-    A = torch.exp(p["A_log"])
+    xc = F.silu(_causal_conv(xs, shd.local(p["conv_w"])).float()).to(
+        x.dtype)
+    xh = xc.reshape(x.shape[0], x.shape[1], -1, cfg.ssm_head_dim)
+    A = torch.exp(shd.local(p["A_log"]))
     y, h_fin = ops.ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    y = y + xh * p["D_skip"][None, None, :, None].to(x.dtype)
-    y = y.reshape(x.shape[0], x.shape[1], cfg.ssm_d_inner)
-    y = L.rmsnorm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"])
-    out = x + y @ p["w_out"]
+    y = y + xh * shd.local(p["D_skip"])[None, None, :, None].to(x.dtype)
+    y = _gate(p, y.reshape(xc.shape), z, mesh)
+    out = _out(p, x, y, mesh)
     K = cfg.ssm_conv_kernel
     return out, {"ssm": h_fin.float(), "conv": xs[:, -(K - 1):, :]}
 
 
-def mamba_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def mamba_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     """Full-sequence mamba2 block: x (B, T, D) -> (B, T, D)."""
-    return mamba_block_with_state(cfg, p, x)[0]
+    return mamba_block_with_state(cfg, p, x, mesh)[0]
 
 
 def mamba_block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                       state: Dict) -> Tuple[torch.Tensor, Dict]:
+                       state: Dict, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Single-token mamba2 block.  x: (B, 1, D);
-    state = {"ssm": (B, H, hd, N), "conv": (B, K-1, di)}."""
+    state = {"ssm": (B, H, hd, N), "conv": (B, K-1, di)}, this rank's
+    heads and columns of them on a split mixer (``mixer_params``)."""
     xn = L.apply_norm(cfg, p["norm"], x)[:, 0]               # (B, D)
     z, xs, Bm, Cm, dt = _in_proj(p, xn)
     # conv over the K-1 cached inputs + the new one
     hist = torch.cat([state["conv"], xs[:, None, :]], dim=1)  # (B, K, di)
-    xc = torch.einsum("bkc,kc->bc", hist.float(), p["conv_w"].float())
+    xc = torch.einsum("bkc,kc->bc", hist.float(),
+                      shd.local(p["conv_w"]).float())
     xc = F.silu(xc).to(x.dtype)
-    xh = xc.reshape(-1, cfg.ssm_num_heads, cfg.ssm_head_dim)
-    A = torch.exp(p["A_log"])
+    xh = xc.reshape(xc.shape[0], -1, cfg.ssm_head_dim)
+    A = torch.exp(shd.local(p["A_log"]))
     y, h_new = ssd_decode(xh, dt, A, Bm, Cm, state["ssm"])
-    y = y + xh * p["D_skip"][None, :, None].to(x.dtype)
-    y = y.reshape(x.shape[0], cfg.ssm_d_inner)
-    y = L.rmsnorm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"])
-    out = x + (y @ p["w_out"])[:, None, :]
+    y = y + xh * shd.local(p["D_skip"])[None, :, None].to(x.dtype)
+    y = _gate(p, y.reshape(xc.shape), z, mesh)
+    out = _out(p, x, y[:, None, :], mesh)
     return out, {"ssm": h_new, "conv": hist[:, 1:, :]}
+
+
+# the reference's logical axes of the state cache's leaves, a layer's
+# (its ``cache_specs`` behind the stacked dims)
+STATE_LOGICAL = {"ssm": ("cache_batch", "ssm_heads", None, "state"),
+                 "conv": ("cache_batch", "conv", "mlp")}
+
+
+def state_layouts(cfg: ModelConfig, p: Dict, batch: int, mesh):
+    """(computed, cached): the specs of a layer's states (``ssm`` (B, H,
+    hd, N), ``conv`` (B, K-1, di)) as the mixer ``p`` computes them (over
+    its heads' axes, ``mixer_params``) and as the cache stores them (the
+    reference's rule, ``sharding.cache_pspec``), the rows' dim left out
+    (each rank's rows either way); None without a mesh.  Every layer has
+    the same: a caller takes them once, from its first layer."""
+    if mesh is None:
+        return None
+    w = p["w_dt"]
+    a = shd._axes(w.spec[1]) or None if isinstance(w, shd.Local) else None
+    have = {"ssm": (None, a, None, None), "conv": (None, None, a)}
+    shapes = state_shapes(cfg, batch)
+    want = {k: (None,) + tuple(shd.cache_pspec(mesh, shapes[k],
+                                               STATE_LOGICAL[k]))[1:]
+            for k in shapes}
+    return have, want
+
+
+def state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, Tuple]:
+    """A layer's whole state shapes for ``batch`` rows."""
+    return {"ssm": (batch, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                    cfg.ssm_state),
+            "conv": (batch, cfg.ssm_conv_kernel - 1, cfg.ssm_d_inner)}
+
+
+def to_cache(st: Dict, layouts, mesh) -> Dict:
+    """A layer's states as computed, laid out as the cache holds them
+    (``layouts``: :func:`state_layouts`; no collective where the two
+    splits agree)."""
+    if layouts is None:
+        return st
+    have, want = layouts
+    return {k: shd.relayout(st[k], have[k], want[k], mesh) for k in st}
+
+
+def from_cache(st: Dict, layouts, mesh) -> Dict:
+    """A layer's cached states laid out as its mixer computes on them."""
+    if layouts is None:
+        return st
+    have, want = layouts
+    return {k: shd.relayout(st[k], want[k], have[k], mesh) for k in st}
+
+
+# the mixer's leaves take the rule (``shd.layer``'s ``keep``)
+_MIXER_KEEP = {k: () for k in ("w_z", "w_x", "w_B", "w_C", "w_dt", "conv_w",
+                               "A_log", "dt_bias", "D_skip", "gate_norm",
+                               "w_out")}
+
+
+def mamba_layer(tree: Dict, i: int, mesh) -> Dict:
+    """Layer ``i`` of stacked mixer params as it computes on them: over a
+    mesh its tensor-parallel blocks kept (``shd.layer``'s rule), then
+    ``mixer_params``."""
+    if mesh is None:
+        return tf._layer(tree, i)
+    return mixer_params(tf._layer(tree, i, mesh, _MIXER_KEEP), mesh)
+
 
 
 # ---------------------------------------------------------------------------
@@ -244,23 +357,22 @@ def specs(cfg: ModelConfig) -> Dict:
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   patch_embeds: Optional[torch.Tensor], with_state: bool,
                   mesh=None):
-    from repro_torch.distributed.sharding import whole_tree
-    from repro_torch.models import transformer as tf
     tree = P.nest(params)
     x = tf.embed_tokens(cfg, tree, tokens, patch_embeds, mesh)
     if not with_state:
         for i in range(cfg.num_layers):
             # the layer's weights gathered inside the recomputed body
             x = L.remat(cfg, lambda h, i=i: mamba_block(
-                cfg, tf._layer(tree["blocks"], i, mesh), h), x)
-        return L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh),
+                cfg, mamba_layer(tree["blocks"], i, mesh), h, mesh), x)
+        return L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh),
                             x), None
-    states = []
+    states, lay = [], None
     for i in range(cfg.num_layers):
-        x, st = mamba_block_with_state(cfg, tf._layer(tree["blocks"], i,
-                                                      mesh), x)
-        states.append(st)
-    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
+        p = mamba_layer(tree["blocks"], i, mesh)
+        lay = lay or state_layouts(cfg, p, x.shape[0], mesh)
+        x, st = mamba_block_with_state(cfg, p, x, mesh)
+        states.append(to_cache(st, lay, mesh))
+    hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)
     return hidden, {k: torch.stack([st[k] for st in states])
                     for k in ("ssm", "conv")}
 
@@ -270,8 +382,9 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             mesh=None) -> torch.Tensor:
     """tokens (B, T) -> final hidden states (B, T, D); differentiable
     (on a CUDA device through the ``ssd_scan_bwd`` kernel).  With a
-    ``mesh`` the batch is this rank's rows and sharded params are
-    gathered at their use."""
+    ``mesh`` the batch is this rank's rows, each mixer computes on the
+    rank's heads where the policy splits them (``mixer_params``) and
+    storage dims are gathered at their use."""
     return _forward_impl(cfg, params, tokens, patch_embeds, False, mesh)[0]
 
 
@@ -281,45 +394,60 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             max_seq: Optional[int] = None):
     """Forward that also returns each layer's final states, the reference's
     prefill arithmetic: {"ssm" (L, B, H, hd, N) fp32, "conv" (L, B, K-1,
-    d_inner), the last K-1 inputs of the conv}."""
+    d_inner), the last K-1 inputs of the conv}; over a ``mesh`` this
+    rank's block of them (:func:`cache_specs`).  ``max_seq`` is not read:
+    the states' size does not depend on it."""
     return _forward_impl(cfg, params, tokens, patch_embeds, True, mesh)
 
 
-def cache_specs(cfg: ModelConfig, batch: int,
-                seq_len: int) -> Dict[str, Tuple]:
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                mesh=None) -> Dict[str, Tuple]:
     """{leaf: (shape, dtype)} of the state cache (its size does not depend
-    on ``seq_len``)."""
-    H, hd, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
-    K, di, nl = cfg.ssm_conv_kernel, cfg.ssm_d_inner, cfg.num_layers
-    return {"ssm": ((nl, batch, H, hd, N), torch.float32),
-            "conv": ((nl, batch, K - 1, di), cfg.torch_dtype)}
+    on ``seq_len``); over a ``mesh`` this rank's block, as the reference's
+    rule splits ``("layers", "cache_batch", "ssm_heads", None, "state")``
+    and ``("layers", "cache_batch", "conv", "mlp")``: the heads and the
+    conv's d_inner over "model" where they divide it (``batch``: the
+    rank's rows)."""
+    dtypes = {"ssm": torch.float32, "conv": cfg.torch_dtype}
+    out = {}
+    for k, shape in state_shapes(cfg, batch).items():
+        if isinstance(mesh, shd.MeshView):
+            spec = shd.cache_pspec(mesh, shape, STATE_LOGICAL[k])
+            shape = tuple(s.stop - s.start for s in shd.slices(
+                shape, (None,) + tuple(spec)[1:], mesh))
+        out[k] = ((cfg.num_layers,) + tuple(shape), dtypes[k])
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device="cuda", mesh=None) -> Dict:
-    """A zero cache; no mesh splits it (``mesh`` and the prefill's
-    ``max_seq`` are the dense families' cache split, unused here)."""
+    """A zero cache; over a ``mesh`` this rank's block of it
+    (:func:`cache_specs`)."""
     return {k: torch.zeros(shape, dtype=dtype, device=device)
-            for k, (shape, dtype) in cache_specs(cfg, batch, seq_len).items()}
+            for k, (shape, dtype)
+            in cache_specs(cfg, batch, seq_len, mesh).items()}
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, cache_len: int, mesh=None
+                tokens: torch.Tensor, cache_len: int, mesh=None,
+                max_seq: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) -> (logits (B, 1, V), the state cache advanced by this
-    token, in place).  ``cache_len`` is not read: the states carry the
-    position.  With a ``mesh`` the tokens and the states are this rank's
-    rows."""
-    from repro_torch.distributed.sharding import whole_tree
-    from repro_torch.models import transformer as tf
+    token, in place).  ``cache_len`` and ``max_seq`` are not read: the
+    states carry the position.  With a ``mesh`` the tokens and the states are this rank's
+    rows, and the states its block (:func:`cache_specs`)."""
     tree = P.nest(params)
     x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
+    lay = None
     for i in range(cfg.num_layers):
-        state = {k: cache[k][i] for k in ("ssm", "conv")}
-        x, new = mamba_block_decode(cfg, tf._layer(tree["blocks"], i, mesh),
-                                    x, state)
+        p = mamba_layer(tree["blocks"], i, mesh)
+        lay = lay or state_layouts(cfg, p, x.shape[0], mesh)
+        state = from_cache({k: cache[k][i] for k in ("ssm", "conv")}, lay,
+                           mesh)
+        x, new = mamba_block_decode(cfg, p, x, state, mesh)
+        new = to_cache(new, lay, mesh)
         for k in ("ssm", "conv"):
             cache[k][i] = new[k]
-    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
+    hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)
     return tf.logits_fn(cfg, tree, hidden[:, -1:, :], mesh), cache

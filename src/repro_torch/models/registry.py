@@ -106,9 +106,12 @@ class Model:
                                 mesh=mesh, max_seq=max_seq)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
-                    cache_len: int, mesh=None):
+                    cache_len: int, mesh=None, max_seq=None):
+        """One decode step; ``max_seq``: the length of the cache, whose
+        block a mesh may hold (read from the block where not given)."""
         return self.mod.decode_step(self.cfg, params, cache, tokens,
-                                    cache_len, mesh=_view(mesh))
+                                    cache_len, mesh=_view(mesh),
+                                    max_seq=max_seq)
 
     def init_cache(self, batch: int, seq_len: int, device="cuda",
                    mesh=None) -> Dict:

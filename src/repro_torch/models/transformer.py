@@ -39,11 +39,13 @@ splits the rows (``embed`` over "data" under ``fsdp_tp``, every dim under
 with a summing backward: the sharded step's loss is the sum of the ranks'
 losses, so each collective is its exact transpose.  A serving cache is
 split as the reference's ``("layers", "cache_batch", "cache_seq", "kv",
-None)`` lays it out (``sharding.cache_axes``): each rank holds its rows and
-its block of positions; a prefill writes its own positions, and decode is
-flash-decode (each rank's block of the cache gives a partial state, the
-states merged across the sequence's axes in block order, the position's
-owner writing the token's K/V).
+None)`` lays it out (``sharding.cache_pspec``): each rank holds its rows
+and its block of positions, or, where the sequence does not divide
+"model", its kv heads; a prefill writes its own block, and decode over a
+split sequence is flash-decode (each rank's block of the cache gives a
+partial state, the states merged across the sequence's axes in block
+order, the position's owner writing the token's K/V), over split kv heads
+each rank's query heads attend to their own kv heads.
 
 The MoE block (``_moe_local``): fp32 router, top-k experts by
 probability (ties to the lower index, as ``jax.lax.top_k``), capacity
@@ -181,21 +183,28 @@ def embed_tokens(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     frontend).  Over ``mesh`` the embedding takes the rule
     (``sharding.block``): a vocabulary split over "model" looks up this
     rank's rows (zero for other tokens) and sums over the axis, exactly."""
-    w = shd.block(params["embed"], mesh)
-    if isinstance(w, shd.Local):
-        v0 = shd.block_start(w.spec[0], w.t.shape[0], mesh)
-        idx = tokens.long() - v0
-        mine = (idx >= 0) & (idx < w.t.shape[0])
-        x = w.t[idx.clamp(0, w.t.shape[0] - 1)]
-        x = _tp_sum(torch.where(mine[..., None], x, torch.zeros_like(x)),
-                    w, 0, mesh)
-    else:
-        x = w[tokens.long()]
+    x = lookup(params["embed"], tokens, mesh)
     if cfg.tie_embeddings:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x
+
+
+def lookup(embed, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The rows of the (V, D) table ``embed`` for ``tokens``; over
+    ``mesh`` under the rule (``sharding.block``): a vocabulary split over
+    "model" looks up this rank's rows (zero for other tokens) and sums
+    over the axis, exactly."""
+    w = shd.block(embed, mesh)
+    if not isinstance(w, shd.Local):
+        return w[tokens.long()]
+    v0 = shd.block_start(w.spec[0], w.t.shape[0], mesh)
+    idx = tokens.long() - v0
+    mine = (idx >= 0) & (idx < w.t.shape[0])
+    x = w.t[idx.clamp(0, w.t.shape[0] - 1)]
+    return _tp_sum(torch.where(mine[..., None], x, torch.zeros_like(x)),
+                   w, 0, mesh)
 
 
 def lm_head_weight(cfg: ModelConfig, params: Dict,
@@ -268,16 +277,6 @@ def _kv_for_heads(p: Dict, kk: torch.Tensor, vv: torch.Tensor, mesh,
         return kk.narrow(2, idx[0], n), vv.narrow(2, idx[0], n)
     sel = torch.tensor(idx, device=kk.device)
     return kk.index_select(2, sel), vv.index_select(2, sel)
-
-
-def _kv_whole(p: Dict, kk: torch.Tensor, vv: torch.Tensor, mesh):
-    """k and v with every kv head: gathered over the axis ``wk``'s heads
-    are split over, where they are."""
-    wk = p["wk"]
-    if not isinstance(wk, shd.Local):
-        return kk, vv
-    spec = (None, None, wk.spec[1], None)
-    return shd.gather(kk, spec, mesh), shd.gather(vv, spec, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -723,50 +722,75 @@ def _seq_attention(cfg: ModelConfig, q, kk, vv, seq: _Seq, window: int,
                                  q_offset=seq.start, kv_chunk=kv_chunk)
 
 
+# the reference's logical axes of a KV cache (its ``cache_specs``)
+KV_LOGICAL = ("layers", "cache_batch", "cache_seq", "kv", None)
+
+
 class CacheSplit(NamedTuple):
-    """A serving cache's sequence split over the mesh axes ``axes``
-    (``shd.cache_axes``, major first): this rank holds positions [start,
-    start + size)."""
+    """How a serving KV cache splits on a mesh (``shd.cache_pspec`` of
+    :data:`KV_LOGICAL`): its positions over the mesh axes ``axes`` (major
+    first; this rank holds [start, start + size)) and its kv heads over
+    ``kv``; either may be empty."""
     axes: Tuple[str, ...]
     start: int
     size: int
+    kv: Tuple[str, ...] = ()
 
 
-def cache_split(mesh, seq_len: Optional[int] = None,
-                local_len: Optional[int] = None) -> Optional[CacheSplit]:
-    """How a cache of ``seq_len`` positions (or this rank's ``local_len``
-    of one) splits on ``mesh``: over ``shd.cache_axes(mesh)``, whose ranks
-    must divide it; None where no axis splits it."""
-    axes = shd.cache_axes(mesh) if isinstance(mesh, shd.MeshView) else ()
-    if not axes:
+def cache_split(mesh, seq_len: Optional[int], kv_heads: int,
+                logical: Tuple = KV_LOGICAL) -> Optional[CacheSplit]:
+    """How a cache of ``seq_len`` positions and ``kv_heads`` kv heads
+    laid out as ``logical`` says splits on ``mesh`` (a ``MeshView``): the
+    reference's greedy rule, under which the sequence takes the policy's
+    ``cache_seq`` axes that divide it and the kv heads take "model" where
+    the sequence left it.  None where the cache is whole."""
+    if not isinstance(mesh, shd.MeshView):
         return None
-    parts = math.prod(mesh.sizes()[a] for a in axes)
-    seq_len = local_len * parts if seq_len is None else seq_len
-    if seq_len % parts:
-        raise ValueError(f"a cache of {seq_len} positions does not split "
-                         f"over the {parts} ranks of {axes}: make it a "
-                         f"multiple of {parts}")
-    size = seq_len // parts
-    return CacheSplit(axes, shd.block_start(axes, size, mesh), size)
+    if seq_len is None:
+        raise ValueError("a cache on a mesh splits by its whole length: "
+                         "pass max_seq")
+    spec = shd.cache_pspec(mesh, (1, 1, seq_len, kv_heads, 1), logical)
+    axes, kv = shd._axes(spec[2]), shd._axes(spec[3])
+    if not axes and not kv:
+        return None
+    size = seq_len // math.prod(mesh.sizes()[a] for a in axes)
+    return CacheSplit(axes, shd.block_start(axes, size, mesh), size, kv)
 
 
-def _own(t: torch.Tensor, split: CacheSplit, T: int) -> torch.Tensor:
-    """This rank's positions of a (B, T, ...) cache entry."""
+def _own(t: torch.Tensor, split: Optional[CacheSplit],
+         T: int) -> torch.Tensor:
+    """This rank's positions of a (B, T, ...) cache entry (all of them
+    where the split leaves the sequence whole)."""
+    if split is None or not split.axes:
+        return t
     lo = min(split.start, T)
     return t.narrow(1, lo, max(min(T, split.start + split.size) - lo, 0))
+
+
+def kv_as_cached(wk, kk: torch.Tensor, vv: torch.Tensor, mesh,
+                 kv: Tuple[str, ...]):
+    """k and v (B, T, Hk or its block, hd), computed on ``wk``'s heads,
+    with the kv heads a cache split over the axes ``kv`` holds: this
+    rank's where ``kv`` names axes, every head otherwise (moved only where
+    the two splits differ)."""
+    have = (None, None, wk.spec[1] if isinstance(wk, shd.Local) else None,
+            None)
+    want = (None, None, tuple(kv) or None, None)
+    return (shd.relayout(kk, have, want, mesh),
+            shd.relayout(vv, have, want, mesh))
 
 
 def _cache_of(cfg: ModelConfig, pa: Dict, kk: torch.Tensor,
               vv: torch.Tensor, mesh, seq: Optional[_Seq],
               split: Optional[CacheSplit], T: int) -> Dict:
     """A layer's cache entries from its k and v (B, T or T_loc, Hk, hd),
-    in the config's dtype: every kv head (gathered where ``wk``'s heads
-    are split) at this rank's positions.  Over a split cache those are
-    its block of them: narrowed from the whole prompt, or, after a
-    ``seq_serve`` prefill, moved by an all-to-all from the ranks that
-    computed them; without a split, the whole prompt (a ``seq_serve``
+    in the config's dtype: the kv heads the split holds
+    (:func:`kv_as_cached`) at this rank's positions.  Over a split
+    sequence those are its block of them: narrowed from the whole prompt,
+    or, after a ``seq_serve`` prefill, moved by an all-to-all from the
+    ranks that computed them; otherwise the whole prompt (a ``seq_serve``
     prefill's gathered)."""
-    kk, vv = _kv_whole(pa, kk, vv, mesh)
+    kk, vv = kv_as_cached(pa["wk"], kk, vv, mesh, split.kv if split else ())
     out = []
     for t in (kk, vv):
         if seq is not None and split is not None \
@@ -779,8 +803,7 @@ def _cache_of(cfg: ModelConfig, pa: Dict, kk: torch.Tensor,
         else:
             if seq is not None:
                 t = C.gather(t, 1, seq.axis)
-            if split is not None:
-                t = _own(t, split, T)
+            t = _own(t, split, T)
         out.append(t.to(cfg.torch_dtype))
     return {"k": out[0], "v": out[1]}
 
@@ -850,7 +873,8 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   mesh=None, max_seq: Optional[int] = None):
     tree = P.nest(params)
     x = embed_tokens(cfg, tree, tokens, patch_embeds, mesh)
-    split = cache_split(mesh, max_seq or x.shape[1]) if with_cache else None
+    split = cache_split(mesh, max_seq or x.shape[1], cfg.num_kv_heads) \
+        if with_cache else None
     seq = _seq_split(cfg, mesh, x.shape[1])
     if seq is None:
         positions = torch.arange(x.shape[1], device=x.device)
@@ -893,13 +917,23 @@ def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                          with_cache=True, mesh=mesh, max_seq=max_seq)
 
 
+def cache_block(mesh, seq_len: int, kv_heads: int) -> Tuple[int, int]:
+    """(positions, kv heads) of this rank's block of a ``seq_len`` cache
+    of ``kv_heads`` kv heads on ``mesh`` (:func:`cache_split`)."""
+    split = cache_split(mesh, seq_len, kv_heads)
+    if split is None:
+        return seq_len, kv_heads
+    return split.size, kv_heads // math.prod(mesh.sizes()[a]
+                                             for a in split.kv)
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
                 mesh=None) -> Dict[str, Tuple]:
     """{leaf: (shape, dtype)} of a ``seq_len`` KV cache; over a ``mesh``
-    this rank's block of its positions (``batch``: the rank's rows)."""
-    split = cache_split(mesh, seq_len)
-    shape = (cfg.num_layers, batch, split.size if split else seq_len,
-             cfg.num_kv_heads, cfg.resolved_head_dim)
+    this rank's block of it (``batch``: the rank's rows; its positions
+    and kv heads as :func:`cache_split` splits them)."""
+    S, Hk = cache_block(mesh, seq_len, cfg.num_kv_heads)
+    shape = (cfg.num_layers, batch, S, Hk, cfg.resolved_head_dim)
     return {"k": (shape, cfg.torch_dtype), "v": (shape, cfg.torch_dtype)}
 
 
@@ -910,20 +944,55 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
             in cache_specs(cfg, batch, seq_len, mesh).items()}
 
 
+def cache_attention(q: torch.Tensor, wq, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, kv_len, window: int, mesh,
+                    split: Optional[CacheSplit], num_heads: int
+                    ) -> torch.Tensor:
+    """Single-token attention of q (B, 1, H or this rank's heads where
+    ``wq``'s are split, hd) over this rank's block of a cache (B, S, Hk,
+    hd) split as ``split`` says; the output in q's heads.  A cache split
+    over kv heads is attended by the query heads that read them (q's own
+    where ``wq`` splits alike); a split sequence is flash-decode (those
+    query heads against this rank's positions, the states merged over
+    the sequence's axes in block order); a whole cache gives this rank's
+    query heads the kv heads they read."""
+    if split is None:
+        ka, va = _kv_for_heads({"wq": wq, "wk": None}, k_cache, v_cache,
+                               mesh, num_heads)
+        return L.decode_attention(q, ka, va, kv_len=kv_len, window=window)
+
+    def heads(axes):
+        return (None, None, tuple(axes) or None, None)
+    have = shd._axes(wq.spec[1]) if isinstance(wq, shd.Local) else ()
+    qa = shd.relayout(q, heads(have), heads(split.kv), mesh)
+    if not split.axes:
+        out = L.decode_attention(qa, k_cache, v_cache, kv_len=kv_len,
+                                 window=window)
+    else:
+        st = L.decode_attention_partial(qa, k_cache, v_cache, kv_len=kv_len,
+                                        k_start=split.start, window=window)
+        hd = st.o.shape[-1]
+        packed = torch.cat([st.o, st.m[..., None], st.l[..., None]],
+                           dim=-1)[None]
+        packed = shd.gather(packed, (split.axes,), mesh)
+        out = L.merge_decode_states(L.DecodeState(
+            packed[..., hd], packed[..., hd + 1], packed[..., :hd]), q.dtype)
+    return shd.relayout(out, heads(split.kv), heads(have), mesh)
+
+
 def _decode_attention(cfg: ModelConfig, pa: Dict, x: torch.Tensor,
                       positions: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, cache_len: int, window: int,
                       mesh=None, split: Optional[CacheSplit] = None
                       ) -> torch.Tensor:
     """A layer's attention half for tokens x (B, T, D) at ``positions``
-    from ``cache_len``: their K/V written into the cache (B, S, Hk, hd), in
-    place, by the rank whose block holds each position; attention over
-    the cache, flash-decode over a ``split`` one (every query head against
-    this rank's block, the states merged over the split's axes in block
-    order, this rank's heads kept); the product with ``wo`` summed over its
+    from ``cache_len``: their K/V (the kv heads the cache holds) written
+    into this rank's block of the cache (B, S, Hk, hd), in place, by the
+    rank whose block holds each position; attention over the cache
+    (:func:`cache_attention`); the product with ``wo`` summed over its
     heads' axis.  Returns the residual's update (B, T, D)."""
     q, kk, vv = _qkv(cfg, pa, x, positions)
-    kk, vv = _kv_whole(pa, kk, vv, mesh)
+    kk, vv = kv_as_cached(pa["wk"], kk, vv, mesh, split.kv if split else ())
     T, start = x.shape[1], split.start if split else 0
     lo = max(cache_len, start)
     hi = min(cache_len + T, start + k_cache.shape[1])
@@ -932,50 +1001,28 @@ def _decode_attention(cfg: ModelConfig, pa: Dict, x: torch.Tensor,
             kk[:, lo - cache_len:hi - cache_len].to(k_cache.dtype)
         v_cache[:, lo - start:hi - start] = \
             vv[:, lo - cache_len:hi - cache_len].to(v_cache.dtype)
-    if split is None:
-        if isinstance(pa["wk"], shd.Local):   # this rank's kv heads
-            spec = (None, None, pa["wk"].spec[1], None)
-            ka, va = (shd.narrow(c, spec, mesh) for c in (k_cache, v_cache))
-        else:
-            ka, va = _kv_for_heads(pa, k_cache, v_cache, mesh,
-                                   cfg.num_heads)
-        out = L.decode_attention(q, ka, va, kv_len=cache_len + 1,
-                                 window=window)
-    else:
-        wq = pa["wq"]
-        heads = (None, None, wq.spec[1], None) \
-            if isinstance(wq, shd.Local) else None
-        qa = shd.gather(q, heads, mesh) if heads else q
-        st = L.decode_attention_partial(qa, k_cache, v_cache,
-                                        kv_len=cache_len + 1, k_start=start,
-                                        window=window)
-        hd = st.o.shape[-1]
-        packed = torch.cat([st.o, st.m[..., None], st.l[..., None]],
-                           dim=-1)[None]
-        packed = shd.gather(packed, (split.axes,), mesh)
-        out = L.merge_decode_states(L.DecodeState(
-            packed[..., hd], packed[..., hd + 1], packed[..., :hd]), q.dtype)
-        if heads:
-            out = shd.narrow(out, heads, mesh)
+    out = cache_attention(q, pa["wq"], k_cache, v_cache, cache_len + 1,
+                          window, mesh, split, cfg.num_heads)
     return _tp_sum(torch.einsum("btnh,nhd->btd", out, shd.local(pa["wo"])),
                    pa["wo"], 0, mesh)
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor, cache_len: int, mesh=None
+                tokens: torch.Tensor, cache_len: int, mesh=None,
+                max_seq: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, 1) at position ``cache_len`` -> (logits (B, 1, V), the
     cache (L, B, S, Hk, hd) with this token written in, in place).  With
     a ``mesh`` the tokens and the cache are this rank's rows, and the
-    cache its block of positions where the mesh splits it
-    (:func:`cache_split`)."""
+    cache its block of positions and kv heads where the mesh splits a
+    cache of ``max_seq`` positions (:func:`cache_split`)."""
     tree = P.nest(params)
     cache_len = int(cache_len)
     x = embed_tokens(cfg, tree, tokens, mesh=mesh)
     T = x.shape[1]
     positions = cache_len + torch.arange(T, device=x.device)
-    split = cache_split(mesh, local_len=cache["k"].shape[2])
+    split = cache_split(mesh, max_seq, cfg.num_kv_heads)
     for i, flag in enumerate(_layer_flags(cfg)):
         p = _layer(tree["blocks"], i, mesh, _keep(cfg))
         x = x + _decode_attention(cfg, p["attn"], x, positions,

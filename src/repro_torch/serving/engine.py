@@ -162,9 +162,10 @@ class ServeEngine:
         """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache);
         over a mesh the cache is this rank's rows and the logits whole."""
         rows = self._rows(int(tokens.shape[0]))
+        mesh = self._mesh_for(rows)
         logits, cache = self.model.decode_step(
             self.params, cache, self._local(tokens, rows), cache_len,
-            mesh=self._mesh_for(rows))
+            mesh=mesh, max_seq=self._cache_len(mesh))
         return self._gather(logits, rows), cache
 
     def _sweep_runner(self, page_rows: int):

@@ -4,12 +4,14 @@
 every arch and train cell of both production meshes (the reference's
 ``pick_grad_accum`` gets a stand-in mesh with ``axis_names`` and a
 ``devices`` array).  Cells traced on the 256-rank fake world in a
-subprocess, at the smoke configs (the MoE's with 16 experts, so that they
-split over the 16 "model" ranks) and cut sequence lengths: the record has
-the reference's keys; the train cell's counted FLOPs per device lie within
-20% of the analytic count of the tensor-parallel design
-(``dryrun.expected_train_flops``: the MLP and the head split over the 16
-"model" ranks, the smoke's 3 heads whole), the serving cells' between 0.8
+subprocess, at the smoke configs (the MoE's with 16 experts and mamba2's
+with 16 SSM heads, so that they split over the 16 "model" ranks) and cut
+sequence lengths: the record has the reference's keys; the train cells'
+counted FLOPs per device lie within 20% of the analytic count of the
+tensor-parallel design (``dryrun.expected_train_flops``: qwen2's MLP and
+head split over the 16 "model" ranks, the smoke's 3 heads whole;
+mamba2's mixer on a rank's heads and inner columns, B and C whole), the
+serving cells' between 0.8
 of the twin roofline's ``flops_local`` (less would mean the trace missed
 work) and 1.2 of its global FLOPs over the data-parallel ways (more than
 each rank's data shard whole); and the collectives counted are exactly
@@ -100,7 +102,8 @@ def test_pick_grad_accum_equals_reference(arch, mesh):
 # production cell's, so the mesh splits the rows as it would)
 SEQ = 64
 TRACED = [("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "prefill_32k"),
-          ("qwen2-1.5b", "decode_32k"), ("dbrx-132b", "decode_32k")]
+          ("qwen2-1.5b", "decode_32k"), ("dbrx-132b", "decode_32k"),
+          ("mamba2-1.3b", "train_4k")]
 # the collectives the port issues: storage dims gathered at each use, their
 # gradients reduce-scattered and the leaves' sums all-reduced in training;
 # the tensor-parallel MLP's and embedding's sums over "model" (and the
@@ -125,6 +128,8 @@ SCRIPT = textwrap.dedent("""
 
     def smoke(arch):
         cfg = C.get_smoke(arch)
+        if cfg.family == "ssm":
+            return cfg.replace(ssm_head_dim=8)
         return cfg.replace(num_experts=16) if cfg.family == "moe" else cfg
 
     C.get_config = smoke
@@ -163,6 +168,8 @@ def traced(tmp_path_factory):
 
 def _smoke(arch):
     cfg = tcfg.get_smoke(arch)
+    if cfg.family == "ssm":   # 16 SSM heads, which split over "model"
+        return cfg.replace(ssm_head_dim=8)
     return cfg.replace(num_experts=16) if cfg.family == "moe" else cfg
 
 

@@ -3,7 +3,7 @@
 turns on one card, with each launch's device time.
 
     python3 tools/time_ssd_bwd.py [--variant build/pr23/ssd_scan_bwd.cu ...]
-                                  [--shapes mamba2 zamba2]
+                                  [--shapes mamba2 zamba2 ...]
                                   [--reps 20] [--turns 2]
 
 At each shape (xh and dy bf16, as training gives them, inputs from a seed,
@@ -18,7 +18,10 @@ order, again in reverse, the kernel, ``--turns`` times; the profiler's
 device time per launch name (``ssd_bwd_*``) of the kernel and of each
 variant; the bound (``chip_smoke``'s: the bytes or the products at the
 bf16 peak); and the largest difference between the gradients of the
-kernel and of each variant.  Prints the card's line and one JSON line.
+kernel and of each variant; each gradient's largest error against a
+float64 truth (the split plain version run in float64 on float64 inputs
+and forward states) for the kernel, each variant and the fp32 split
+version.  Prints the card's line and one JSON line.
 Needs a CUDA device.
 
 Imports nothing of JAX or of the JAX package.
@@ -36,9 +39,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-# (B, T, H, hd, N, C): the training paths' shapes
+# (B, T, H, hd, N, C): the training paths' shapes, and their head blocks
+# at 16 "model" ranks
 SHAPES = {"mamba2": (8, 2048, 64, 64, 128, 128),
-          "zamba2": (8, 2048, 80, 64, 64, 128)}
+          "zamba2": (8, 2048, 80, 64, 64, 128),
+          "mamba2_rank": (8, 2048, 4, 64, 128, 128),
+          "zamba2_rank": (8, 2048, 5, 64, 64, 128)}
 
 
 def print_spills(label: str, log: str) -> None:
@@ -73,6 +79,21 @@ def load_variant(path: Path):
     return fn
 
 
+def float64_truth(torch, ref, ins, C: int):
+    """The gradients of the split plain version run in float64 (its
+    ``.float()`` casts bound to ``.double()`` for the call) on float64
+    inputs and float64 forward states, dy given last in ``ins``."""
+    as_float = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        xs = [t.double() for t in ins]
+        _, _, states = ref.ssd_scan_passes_ref(*xs[:5], chunk=C)
+        return ref.ssd_scan_bwd_passes_ref(*xs[:5], states, xs[5], None,
+                                           chunk=C)
+    finally:
+        torch.Tensor.float = as_float
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variant", type=Path, nargs="+", default=[])
@@ -88,7 +109,7 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import ssd_scan_bwd as ssdb
 
@@ -139,6 +160,17 @@ def main() -> int:
             row["max_abs_diff_vs_variant"][p] = [
                 float((x.float() - y.float()).abs().max())
                 for x, y in zip(a, b)]
+        truth = float64_truth(torch, ref, (*ins, dy), C)
+        got = {"kernel": kern(),
+               "split_fp32": ref.ssd_scan_bwd_passes_ref(
+                   *ins, states, dy, None, chunk=C)}
+        got.update({p: other(fn)() for p, fn in variants.items()})
+        row["max_abs_err_vs_float64"] = {
+            k: [float((x.double() - t).abs().max())
+                for x, t in zip(v, truth)] for k, v in got.items()}
+        print(f"float64 {name}: max abs err (dxh, ddt, dA, dBm, dCm) "
+              f"{row['max_abs_err_vs_float64']}", flush=True)
+        del truth, got
         print(f"time {name} {case} (nc {nc}): kernel {row['device_ms']} ms, "
               f"variant {row['variant_device_ms']} ms, bound {b_ms:.4f} ms "
               f"({b_by})", flush=True)
