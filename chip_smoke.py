@@ -27,7 +27,16 @@
    128) also against its arithmetic step by step
    (``ref.flash_attention_bwd_tiled_ref``, atol = rtol = 1e-2), and two
    calls on the same inputs bit-equal, on ``FLASH_BWD_GRID`` and at every
-   shape the training paths gave it.  ``ssd_scan``'s backward kernel on the
+   shape the training paths gave it.  The pair in the mask's shifted frame
+   (``q_offset``, ``kv_start``): qwen2-1.5b's training shape as 16 "model"
+   ranks split its sequence (B 8, H 12/2, 128 queries at each of the 16
+   offsets over 2,048 keys, hd 128; bf16, fp32 at three offsets), gemma3-4b's
+   halo frame (2,048 queries at offset 1,024 over 3,072 keys, hd 256,
+   window and kv_start 1,024), each at the tolerances above and keys below
+   ``kv_start`` without a gradient; the 16 blocks on one sequence put back
+   together against the whole sequence's pair (output and dQ at 3e-2, dK
+   and dV summed over the blocks, their error printed).  ``ssd_scan``'s
+   backward kernel on the
    forward kernel's per-chunk states against its split plain version
    (``ref.ssd_scan_bwd_passes_ref``) and against ``torch.autograd.grad``
    through the plain scan, with a final-state gradient and without, and
@@ -164,6 +173,9 @@
    queued back to back between two CUDA events, with no host wait
    between them; ``device_ms_by_launch`` stays empty (each launch's own
    time: ``tools/time_attention_bwd.py`` and ``tools/time_ssd_bwd.py``).
+   ``flash_attention`` and its backward are also timed at the last rank
+   block of the 16-way split and at the halo frame (SDPA with the explicit
+   boolean mask as the library's time).
    Every check's and timing row's wall seconds are printed; their random
    inputs are drawn on the card (seeded ``torch.Generator``s).
    The bound is the larger of the bytes the function must move over 3.35
@@ -190,7 +202,9 @@
    data-parallel steps of qwen2-1.5b at its full config from the served
    weights, step 1's loss against a plain step's, every residual within
    half its scale, the peak memory; (d) halo attention at gemma3-4b's
-   local layers' shape against the windowed blockwise attention.
+   local layers' shape against the windowed blockwise attention: it runs
+   the ``flash_attention`` kernel once, in the halo's frame, and its
+   seconds are printed beside the blockwise attention's.
    The ``sharded`` phase, on the same group, every collective of the
    policy taken over its axes of one rank (``force``; each layer computes
    on its blocks over "model", tensor-parallel, and gathers its storage
@@ -217,7 +231,12 @@
    (``ssd_scan`` and its backward launched); (e) (c) at mamba2-1.3b's and
    zamba2-2.7b's full configs (their state caches split as the
    reference's rule splits them, ``ssd_scan`` launched), printing whether
-   ``score``'s stats are the unmeshed ones to the bit.  The SSD kernels
+   ``score``'s stats are the unmeshed ones to the bit; (f) with (a), four
+   steps under ``fsdp_tp_seq`` (the sequence split over "model": one block
+   at offset 0, K and V gathered over the axis, attention at ``q_offset``,
+   the loss's share summed over it), step 1's loss the plain step's to the
+   bit, its step time over the plain one's, the attention kernel pair
+   launched (counted apart, path ``sharded_train_seq``).  The SSD kernels
    are also checked and timed at a "model" rank's head block of those two
    models on the production mesh (4 and 5 heads at B 8 x T 2,048).
    The ``launch_tools`` phase (the twins of the reference's launch
@@ -608,6 +627,24 @@ FLASH_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
 # sum taken in another order, or exp2 against exp, can move a rounding by
 # one step)
 FLASH_BWD_TILED_TOL = 1e-2
+# the mask's shifted frame (a case's optional 9th and 10th entries,
+# q_offset and kv_start): qwen2-1.5b's training shape as 16 "model" ranks
+# split its sequence (each rank's 128 queries at its offset over the 2,048
+# gathered keys), and gemma3-4b's halo frame on one rank (a local layer's
+# 2,048 queries at q_offset 1,024 over the 1,024-key halo and its own
+# keys, the halo hidden by kv_start as on rank 0)
+FLASH_SPLIT = [(8, 12, 2, 128, 2048, 128, True, 0, 128 * r, 0)
+               for r in range(16)]
+FLASH_HALO = (8, 8, 4, 2048, 3072, 256, True, 1024, 1024, 1024)
+
+
+def mask_of(case) -> dict:
+    """A case's mask settings: (.., causal, window[, q_offset,
+    kv_start])."""
+    causal, window, *rest = case[6:]
+    q_offset, kv_start = rest or (0, 0)
+    return dict(causal=causal, window=window, q_offset=q_offset,
+                kv_start=kv_start)
 
 
 def flash_inputs(torch, np, case, dtype, seed=3):
@@ -617,18 +654,22 @@ def flash_inputs(torch, np, case, dtype, seed=3):
             for s in ((B, H, Tq, hd), (B, Hk, Tk, hd), (B, Hk, Tk, hd))]
 
 
-def check_flash(torch, np, fa, ref, cases):
+# the JAX package's attention tolerances (atol = rtol) by dtype
+FLASH_TOLS = (("float32", 5e-4), ("bfloat16", 3e-2))
+
+
+def check_flash(torch, np, fa, ref, cases, dtypes=("float32", "bfloat16")):
     """Kernel vs plain at each case, fp32 (atol = rtol = 5e-4) and bf16
     (3e-2), the JAX package's tolerances; returns the max abs error in
     bf16, the serving dtype."""
     worst = 0.0
     for case in cases:
-        causal, window = case[6], case[7]
-        for dtype, tol in ((torch.float32, 5e-4), (torch.bfloat16, 3e-2)):
+        mask = mask_of(case)
+        for dtype, tol in ((getattr(torch, d), t) for d, t in FLASH_TOLS
+                           if d in dtypes):
             q, k, v = flash_inputs(torch, np, case, dtype)
-            got = fa.flash_attention(q, k, v, causal=causal, window=window)
-            want = ref.flash_attention_ref(q, k, v, causal=causal,
-                                           window=window)
+            got = fa.flash_attention(q, k, v, **mask)
+            want = ref.flash_attention_ref(q, k, v, **mask)
             torch.cuda.synchronize()
             g, r = got.float(), want.float()
             err = float((g - r).abs().max())
@@ -644,7 +685,8 @@ def check_flash(torch, np, fa, ref, cases):
     return worst
 
 
-def check_flash_bwd(torch, np, mods, ref, cases):
+def check_flash_bwd(torch, np, mods, ref, cases,
+                    dtypes=("float32", "bfloat16")):
     """``ops.attention`` with grad at each case, fp32 and bf16 (the
     forward kernel with its log-sum-exp, then the backward kernel), against
     ``torch.autograd.grad`` through the plain version on the same inputs
@@ -658,32 +700,32 @@ def check_flash_bwd(torch, np, mods, ref, cases):
     fa, fab = mods["flash_attention"], mods["flash_attention_bwd"]
     worst = 0.0
     for case in cases:
-        causal, window, hd = case[6], case[7], case[5]
-        for dtype, tol in ((torch.float32, 5e-4), (torch.bfloat16, 3e-2)):
+        mask, hd = mask_of(case), case[5]
+        for dtype, tol in ((getattr(torch, d), t) for d, t in FLASH_TOLS
+                           if d in dtypes):
             q, k, v = flash_inputs(torch, np, case, dtype)
             dout = flash_inputs(torch, np, case, dtype, seed=5)[0]
             ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
             before = (fa.launches, fab.launches)
-            out = ops.attention(*(t.transpose(1, 2) for t in ins),
-                                causal=causal, window=window)
+            out = ops.attention(*(t.transpose(1, 2) for t in ins), **mask)
             got = torch.autograd.grad(out.transpose(1, 2), ins, dout)
             if (fa.launches, fab.launches) != (before[0] + 1,
                                                 before[1] + 1):
                 fail(f"flash_attention_bwd at {case}: launches "
                      f"{(fa.launches, fab.launches)} after {before}")
+            hidden = mask["kv_start"]
+            if got[1][:, :, :hidden].any() or got[2][:, :, :hidden].any():
+                fail(f"flash_attention_bwd at {case}: keys below kv_start "
+                     f"got a gradient")
             plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
             want = torch.autograd.grad(
-                ref.flash_attention_ref(*plain, causal=causal,
-                                        window=window), plain, dout)
-            o, lse = fa.flash_attention(q, k, v, causal=causal,
-                                        window=window, return_lse=True)
-            again = [fab.flash_attention_bwd(q, k, v, o, dout, lse,
-                                             causal=causal, window=window)
+                ref.flash_attention_ref(*plain, **mask), plain, dout)
+            o, lse = fa.flash_attention(q, k, v, return_lse=True, **mask)
+            again = [fab.flash_attention_bwd(q, k, v, o, dout, lse, **mask)
                      for _ in range(2)]
             wgmma = dtype == torch.bfloat16 and hd in fab.WGMMA_HEAD_DIMS
             tiled = ref.flash_attention_bwd_tiled_ref(
-                q, k, v, o, dout, lse, causal=causal, window=window) \
-                if wgmma else None
+                q, k, v, o, dout, lse, **mask) if wgmma else None
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(*again)):
                 fail(f"flash_attention_bwd at {case} {dtype}: two calls on "
@@ -715,6 +757,62 @@ def check_flash_bwd(torch, np, mods, ref, cases):
                   + ", two calls bit-equal ok", flush=True)
             del q, k, v, dout, ins, out, got, plain, want, o, lse, again
             del tiled
+    return worst
+
+
+def check_flash_offsets(torch, np, mods, ref):
+    """The kernel pair in the mask's shifted frame: each of
+    ``FLASH_SPLIT``'s 16 rank blocks (bf16; fp32 at the first, a middle
+    and the last) and ``FLASH_HALO`` (fp32 and bf16) through
+    :func:`check_flash` and :func:`check_flash_bwd`; then the 16 blocks
+    at their offsets on one bf16 sequence put back together against the
+    whole sequence's kernel pair: the forward's output and dQ concatenated,
+    at the bf16 tolerance (3e-2; bit-equality is printed), and dK and dV
+    summed over the blocks in fp32, their error printed.  Returns the max
+    abs errors (forward, backward) in bf16."""
+    fa, fab = mods["flash_attention"], mods["flash_attention_bwd"]
+    ends = [FLASH_SPLIT[i] for i in (0, 7, 15)]
+    worst = (max(check_flash(torch, np, fa, ref, FLASH_SPLIT, ("bfloat16",)),
+                 check_flash(torch, np, fa, ref, ends, ("float32",)),
+                 check_flash(torch, np, fa, ref, [FLASH_HALO])),
+             max(check_flash_bwd(torch, np, mods, ref, FLASH_SPLIT,
+                                 ("bfloat16",)),
+                 check_flash_bwd(torch, np, mods, ref, ends, ("float32",)),
+                 check_flash_bwd(torch, np, mods, ref, [FLASH_HALO])))
+    B, H, Hk, n, Tk, hd = FLASH_SPLIT[0][:6]
+    whole = (B, H, Hk, Tk, Tk, hd, True, 0)
+    q, k, v = flash_inputs(torch, np, whole, torch.bfloat16)
+    dout = flash_inputs(torch, np, whole, torch.bfloat16, seed=5)[0]
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    grads = fab.flash_attention_bwd(q, k, v, out, dout, lse)
+    outs, dqs, dk, dv = [], [], 0.0, 0.0
+    for case in FLASH_SPLIT:
+        r = slice(case[8], case[8] + n)
+        o, l = fa.flash_attention(q[:, :, r], k, v, q_offset=case[8],
+                                  return_lse=True)
+        g = fab.flash_attention_bwd(q[:, :, r], k, v, o, dout[:, :, r], l,
+                                    q_offset=case[8])
+        outs.append(o)
+        dqs.append(g[0])
+        dk, dv = dk + g[1].float(), dv + g[2].float()
+    torch.cuda.synchronize()
+    tol = dict(FLASH_TOLS)["bfloat16"]
+    errs = {}
+    for name, a, b in (("forward", torch.cat(outs, dim=2), out),
+                       ("dq", torch.cat(dqs, dim=2), grads[0]),
+                       ("dk", dk, grads[1]), ("dv", dv, grads[2])):
+        a, b = a.float(), b.float()
+        errs[name] = (float((a - b).abs().max()), bool(torch.equal(a, b)),
+                      bool(((a - b).abs() <= tol + tol * b.abs()).all()))
+    print(f"flash_attention split {FLASH_SPLIT[0][:3]} x 16 blocks of {n} "
+          f"over {Tk} keys against the whole sequence: " + ", ".join(
+              f"{k} max abs err {e:.3g} bit-equal {eq} within {tol} {ok}"
+              for k, (e, eq, ok) in errs.items()) + f" ({CARD})", flush=True)
+    for name in ("forward", "dq"):
+        if not errs[name][2]:
+            fail(f"flash_attention split: the blocks' {name} is not the "
+                 f"whole sequence's within {tol}")
+    del q, k, v, dout, out, lse, grads, outs, dqs, dk, dv
     return worst
 
 
@@ -919,14 +1017,20 @@ def pairwise_key(x, c):
 
 
 def flash_key(q, k, v, *, causal=True, window=0, scale=None,
-              return_lse=False):
+              return_lse=False, q_offset=0, kv_start=0):
+    """(B, H, Hk, Tq, Tk, hd, causal, window), and q_offset and kv_start
+    where either is set."""
     B, H, Tq, hd = q.shape
-    return (B, H, k.shape[1], Tq, k.shape[2], hd, bool(causal), int(window))
+    key = (B, H, k.shape[1], Tq, k.shape[2], hd, bool(causal), int(window))
+    if q_offset or kv_start:
+        key += (int(q_offset), int(kv_start))
+    return key
 
 
 def flash_bwd_key(q, k, v, out, dout, lse, *, causal=True, window=0,
-                  scale=None):
-    return flash_key(q, k, v, causal=causal, window=window)
+                  scale=None, q_offset=0, kv_start=0):
+    return flash_key(q, k, v, causal=causal, window=window,
+                     q_offset=q_offset, kv_start=kv_start)
 
 
 def ssd_key(xh, dt, A, Bm, Cm, *, chunk=128):
@@ -2773,35 +2877,64 @@ def compressed_dp(torch, np, mods, mesh, seen: dict, secs: dict,
     return run
 
 
-def check_halo(torch, mesh, secs: dict, B=8, T=2048, H=8, Hk=4, hd=256,
-               window=1024):
+def check_halo(torch, mods, mesh, secs: dict, launches: dict,
+               seen: dict, B=8, T=2048, H=8, Hk=4, hd=256, window=1024):
     """Mesh phase (d): ``halo_window_attention`` on the one-rank NCCL
     mesh's "model" axis at gemma3-4b's local-layer shape (B 8, T 2,048, H
     8 over 4 kv heads, hd 256, window 1,024; fp32, seed 0) against the
     port's windowed ``blockwise_attention``: within 2e-5, the reference's
-    halo tolerance."""
+    halo tolerance.  It must run the ``flash_attention`` kernel (once, in
+    the halo's frame: ``q_offset`` = ``kv_start`` = window on rank 0; its
+    launches go to ``launches["halo"]``); the call's seconds to a device
+    synchronize (the median of 5, after one) are printed beside the
+    windowed blockwise attention's."""
     from repro_torch.models.layers import blockwise_attention
     from repro_torch.serving.halo_attention import halo_window_attention
+    fa = mods["flash_attention"]
     t0 = time.perf_counter()
     g = torch.Generator().manual_seed(0)
     q = torch.randn(B, T, H, hd, generator=g).cuda()
     k, v = (torch.randn(B, T, Hk, hd, generator=g).cuda() for _ in "kv")
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        got = halo_window_attention(q, k, v, window=window, mesh=mesh,
-                                    axis="model")
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t1) * 1e3
-        want = blockwise_attention(q, k, v, causal=True, window=window,
+
+    def halo():
+        return halo_window_attention(q, k, v, window=window, mesh=mesh,
+                                     axis="model")
+
+    def plain():
+        return blockwise_attention(q, k, v, causal=True, window=window,
                                    kv_chunk=1024)
-        err = float((got - want).abs().max())
+
+    def wall_ms(fn):
+        fn()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(walls)
+    with torch.no_grad():
+        restore = record_shapes(fa, "flash_attention", seen["flash_attention"],
+                                flash_key)
+        _zero(torch, mods)
+        got = halo()
+        torch.cuda.synchronize()
+        launches["halo"] = {k: m.launches for k, m in mods.items()}
+        restore()
+        err = float((got - plain()).abs().max())
+        ms, plain_ms = wall_ms(halo), wall_ms(plain)
     print(f"mesh halo attention at (B {B}, T {T}, H {H}/{Hk}, hd {hd}, "
           f"window {window}): max abs err {err:.3g} against the windowed "
-          f"blockwise attention, {ms:.1f} ms ({CARD})", flush=True)
+          f"blockwise attention; {ms:.3f} ms on the kernel, the blockwise "
+          f"attention {plain_ms:.3f} ms; launches {launches['halo']} "
+          f"({CARD})", flush=True)
     if not err <= 2e-5:
         fail(f"halo attention: error {err} > 2e-5")
-    del q, k, v, got, want
+    if launches["halo"]["flash_attention"] != 1:
+        fail(f"halo attention launched flash_attention "
+             f"{launches['halo']['flash_attention']} times, want 1")
+    del q, k, v, got
     torch.cuda.empty_cache()
     secs["d"] = time.perf_counter() - t0
 
@@ -2832,7 +2965,7 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                   launches: dict, steps: int = 4, batch: int = 8,
                   seq: int = 2048, lr: float = 1e-4,
                   kernels=ATTENTION, part: str = "a",
-                  path: str = "sharded_train"):
+                  path: str = "sharded_train", seen_split=None):
     """Sharded phase (a), a hook for ``run_serving`` (qwen2-1.5b at its
     full config; phase (d) with ``kernels`` the SSD scan's pair, mamba2-1.3b,
     whose Mamba2 mixers compute on their heads' block over "model"):
@@ -2849,8 +2982,17 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
     seconds and tokens/s, each run's peak memory, and each policy's step
     time over the plain one's (``tp`` gathers nothing over "data": what is
     left of ``fsdp_tp``'s gap is its storage gathers).  The launches go to
-    ``launches[path]``, the seconds to ``secs[part]``."""
+    ``launches[path]``, the seconds to ``secs[part]``.
+
+    With ``seen_split`` (a dict of shape sets; phase (f), qwen2-1.5b), four
+    more steps under ``fsdp_tp_seq``: the sequence split over "model" (one
+    block at offset 0 on the forced rank: K and V gathered over the axis,
+    attention at ``q_offset``, the loss's share summed over it), every
+    weight gathered as storage; step 1's loss must be the plain step's to
+    the bit and the steps must launch the attention kernel pair, counted
+    apart (``launches[path + "_seq"]``, seconds ``secs["f"]``)."""
     policies = ("fsdp_tp", "tp")
+    split = ("fsdp_tp_seq",) if seen_split is not None else ()
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synth import make_lm_tokens
     from repro_torch.distributed import sharding as shd
@@ -2868,7 +3010,7 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
         tc = TrainConfig(learning_rate=lr, schedule="paper_steps",
                          total_steps=steps)
         out = {}
-        for name in ("plain",) + policies:
+        for name in ("plain",) + policies + split:
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2881,9 +3023,12 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                     force=True)
                 state = shd.shard_tree(init_train_state(model, tc, params),
                                        sh)
-                restore = [record_shapes(mods[k], k, seen[k], SHAPE_KEYS[k])
+                mine = seen_split if name in split else seen
+                restore = [record_shapes(mods[k], k, mine[k], SHAPE_KEYS[k])
                            for k in kernels]
-                if name == policies[0]:
+                if name in (policies[0],) + split:
+                    if name in split:
+                        t_split = time.perf_counter()
                     _zero(torch, mods)
             losses, walls = [], []
             for _ in range(steps):
@@ -2895,9 +3040,13 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
             if name != "plain":
                 for r in restore:
                     r()
+            if name == policies[-1]:
+                got = {k: mod.launches for k, mod in mods.items()}
+            if name in split:
+                got_split = {k: mod.launches for k, mod in mods.items()}
+                secs["f"] = time.perf_counter() - t_split
             out[name] = (losses, walls, torch.cuda.max_memory_allocated())
             del state, step, m
-        got = {k: mod.launches for k, mod in mods.items()}
         for name, (losses, walls, peak) in out.items():
             print(f"sharded train {cfg.name} {name}: losses {losses}, step "
                   f"seconds {walls}, tokens/s "
@@ -2905,11 +3054,14 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                   f"max_memory_allocated bytes {peak} ({CARD})", flush=True)
         print(f"sharded train {cfg.name}: launches {got} ({CARD})",
               flush=True)
+        if split:
+            print(f"sharded train {cfg.name} {split[0]}: launches "
+                  f"{got_split} ({CARD})", flush=True)
         # the medians after the first step, which pays the groups' first
         # collectives
         p_w = float(np.median(out["plain"][1][1:]))
         plain = out["plain"][0][0]
-        for policy in policies:
+        for policy in policies + split:
             s_w = float(np.median(out[policy][1][1:]))
             print(f"sharded train {cfg.name}: {policy} over plain step "
                   f"seconds {s_w / p_w:.4f} (medians of steps 2-{steps}, "
@@ -2923,11 +3075,16 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
         for k in kernels:
             if got[k] == 0:
                 fail(f"sharded train {cfg.name} never launched {k}")
+            if split and got_split[k] == 0:
+                fail(f"sharded train {cfg.name} {split[0]} never launched "
+                     f"{k}")
         launches[path] = got
+        if split:
+            launches[path + "_seq"] = got_split
         del b, toks, out
         gc.collect()
         torch.cuda.empty_cache()
-        secs[part] = time.perf_counter() - t0
+        secs[part] = time.perf_counter() - t0 - (secs["f"] if split else 0)
     return run
 
 
@@ -3131,22 +3288,25 @@ def sharded_trainer(torch, np, mods, mesh, seen: dict, secs: dict,
     return run
 
 
-def visible_pairs(Tq: int, Tk: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs a mask leaves visible, positions from 0 on
-    both sides: the True entries of ``sdpa_mask``."""
+def visible_pairs(Tq: int, Tk: int, causal: bool, window: int,
+                  q_offset: int = 0, kv_start: int = 0) -> int:
+    """The (query, key) pairs a mask leaves visible, query row i at
+    position q_offset + i and keys from kv_start: the True entries of
+    ``sdpa_mask``."""
     import numpy as np
-    q = np.arange(Tq)
+    q = q_offset + np.arange(Tq)
     hi = np.minimum(q, Tk - 1) if causal else np.full(Tq, Tk - 1)
-    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Tq, int)
+    lo = np.maximum(q - window + 1, kv_start) if window > 0 \
+        else np.full(Tq, kv_start)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def attention_flops(case) -> float:
     """One ``flash_attention`` call's operations at (B, H, Hk, Tq, Tk, hd,
-    causal, window), as the bound column counts them: 4 hd a visible
-    pair (QK^T and PV)."""
-    B, H, Hk, Tq, Tk, hd, causal, window = case
-    return 4.0 * hd * B * H * visible_pairs(Tq, Tk, causal, window)
+    causal, window[, q_offset, kv_start]), as the bound column counts
+    them: 4 hd a visible pair (QK^T and PV)."""
+    B, H, Hk, Tq, Tk, hd = case[:6]
+    return 4.0 * hd * B * H * visible_pairs(Tq, Tk, **mask_of(case))
 
 
 def ssd_flops(case) -> float:
@@ -3475,28 +3635,37 @@ def timing_row(torch, name, shape, kern, plain, library, nbytes, flops,
 
 
 def sdpa_mask(np, case):
-    """The (Tq, Tk) boolean mask of (B, H, Hk, Tq, Tk, hd, causal, window)
-    that ``scaled_dot_product_attention`` takes: True where a key is
-    visible."""
-    _, _, _, Tq, Tk, _, causal, window = case
-    qp = np.arange(Tq)[:, None]
+    """The (Tq, Tk) boolean mask of (B, H, Hk, Tq, Tk, hd, causal,
+    window[, q_offset, kv_start]) that ``scaled_dot_product_attention``
+    takes: True where a key is visible."""
+    Tq, Tk = case[3], case[4]
+    m = mask_of(case)
+    qp = m["q_offset"] + np.arange(Tq)[:, None]
     kp = np.arange(Tk)[None, :]
-    vis = np.ones((Tq, Tk), bool)
-    if causal:
+    vis = np.broadcast_to(kp >= m["kv_start"], (Tq, Tk)).copy()
+    if m["causal"]:
         vis &= qp >= kp
-    if window > 0:
-        vis &= (qp - kp) < window
+    if m["window"] > 0:
+        vis &= (qp - kp) < m["window"]
     return vis
 
 
+def shifted(case) -> bool:
+    """A window, a q_offset or a kv_start: SDPA takes the mask explicitly."""
+    m = mask_of(case)
+    return bool(m["window"] or m["q_offset"] or m["kv_start"])
+
+
 def time_flash(torch, np, fa, ref, case):
-    """``flash_attention`` at one (B, H, Hk, Tq, Tk, hd, causal, window),
-    bf16, beside its plain version and ``scaled_dot_product_attention``
-    (``enable_gqa`` for grouped kv heads, a boolean mask for a window)."""
-    B, H, Hk, Tq, Tk, hd, causal, window = case
+    """``flash_attention`` at one (B, H, Hk, Tq, Tk, hd, causal, window[,
+    q_offset, kv_start]), bf16, beside its plain version and
+    ``scaled_dot_product_attention`` (``enable_gqa`` for grouped kv heads,
+    an explicit boolean mask for a window or a shifted frame)."""
+    B, H, Hk, Tq, Tk, hd, causal = case[:7]
+    fmask = mask_of(case)
     q, k, v = flash_inputs(torch, np, case, torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask = None if causal and not window else torch.as_tensor(
+    mask = None if causal and not shifted(case) else torch.as_tensor(
         sdpa_mask(np, case), device="cuda")
 
     def library():
@@ -3505,9 +3674,8 @@ def time_flash(torch, np, fa, ref, case):
         return sdpa(q, k, v, attn_mask=mask, enable_gqa=H != Hk)
     row = timing_row(
         torch, "flash_attention", case,
-        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
-        lambda: ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window), library,
+        lambda: fa.flash_attention(q, k, v, **fmask),
+        lambda: ref.flash_attention_ref(q, k, v, **fmask), library,
         2 * (2 * B * H * Tq * hd + 2 * B * Hk * Tk * hd),
         attention_flops(case), BF16_FLOPS_PER_S)
     del q, k, v
@@ -3516,31 +3684,30 @@ def time_flash(torch, np, fa, ref, case):
 
 
 def time_flash_bwd(torch, np, mods, ref, case):
-    """The backward kernel at one (B, H, Hk, Tq, Tk, hd, causal, window),
-    bf16, beside the backward of autograd through the plain version and
-    of ``scaled_dot_product_attention`` (``enable_gqa``), each over a
+    """The backward kernel at one (B, H, Hk, Tq, Tk, hd, causal, window[,
+    q_offset, kv_start]), bf16, beside the backward of autograd through
+    the plain version and of ``scaled_dot_product_attention``
+    (``enable_gqa``; the mask explicit as in :func:`time_flash`), each over a
     graph kept for repeated backwards.  Bound: the forward's operations
     times 2.5 (five products against two) or the bytes of q, k, v, o, dO
     and lse read and dQ, dK, dV written, whichever is larger."""
     fa, fab = mods["flash_attention"], mods["flash_attention_bwd"]
-    B, H, Hk, Tq, Tk, hd, causal, window = case
+    B, H, Hk, Tq, Tk, hd, causal = case[:7]
+    fmask = mask_of(case)
     q, k, v = flash_inputs(torch, np, case, torch.bfloat16)
     dout = flash_inputs(torch, np, case, torch.bfloat16, seed=5)[0]
-    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                  return_lse=True)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **fmask)
     plain_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    plain_out = ref.flash_attention_ref(*plain_in, causal=causal,
-                                        window=window)
+    plain_out = ref.flash_attention_ref(*plain_in, **fmask)
     lib_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    mask = None if not window else torch.as_tensor(sdpa_mask(np, case),
-                                                   device="cuda")
+    mask = None if not shifted(case) else torch.as_tensor(
+        sdpa_mask(np, case), device="cuda")
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         *lib_in, is_causal=causal and mask is None, attn_mask=mask,
         enable_gqa=H != Hk)
     row = timing_row(
         torch, "flash_attention_bwd", case,
-        lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse,
-                                        causal=causal, window=window),
+        lambda: fab.flash_attention_bwd(q, k, v, out, dout, lse, **fmask),
         lambda: torch.autograd.grad(plain_out, plain_in, dout,
                                     retain_graph=True),
         lambda: torch.autograd.grad(lib_out, lib_in, dout,
@@ -3741,6 +3908,8 @@ def main() -> None:
           FLASH_GRID)
     timed("check flash_attention_bwd grid", check_flash_bwd, torch, np,
           mods, ref, FLASH_BWD_GRID)
+    timed("check flash_attention pair at q_offset and kv_start",
+          check_flash_offsets, torch, np, mods, ref)
     timed("check ssd_scan grid", check_ssd, torch, np, ssd, ref, SSD_GRID)
     timed("check ssd_scan states", check_ssd_states, torch, np, ssd, ref,
           SSD_GRID[4])
@@ -3765,9 +3934,10 @@ def main() -> None:
                          "mesh_compressed_dp", "sharded_train",
                          "sharded_serve", "sharded_trainer",
                          "sharded_train_mamba2", "sharded_serve_mamba2",
-                         "sharded_serve_zamba2")}
+                         "sharded_serve_zamba2", "sharded_train_seq",
+                         "mesh_halo")}
     mesh_secs: dict = {}     # the mesh phase's parts: (a) .. (d)
-    sharded_secs: dict = {}  # the sharded phase's parts: (a) .. (e)
+    sharded_secs: dict = {}  # the sharded phase's parts: (a) .. (f)
     launch_secs: dict = {}   # the launch_tools phase's parts: (a) .. (c)
     launch_launches: dict = {}   # the kernels its counted passes launched
     qwen2_steps: list = []   # qwen2-1.5b's training step seconds
@@ -3845,7 +4015,8 @@ def main() -> None:
             sharded_serve(torch, np, mods, mesh, seen_by["sharded_serve"],
                           sharded_secs, mesh_launches),
             sharded_train(torch, np, mods, mesh, seen_by["sharded_train"],
-                          sharded_secs, mesh_launches)),
+                          sharded_secs, mesh_launches,
+                          seen_split=seen_by["sharded_train_seq"])),
         train=_then(train_lm(torch, np, mods, seen_by["training_qwen2"],
                              step_secs=qwen2_steps),
                     launch_tools_train(torch, mods, launch_secs,
@@ -3902,7 +4073,8 @@ def main() -> None:
         train=train_whisper_resume(torch, np, mods,
                                    seen_by["training_whisper"]))
     phase("serving and training whisper-tiny")
-    check_halo(torch, mesh, mesh_secs)
+    check_halo(torch, mods, mesh, mesh_secs, mesh_launches,
+               seen_by["mesh_halo"])
     torch.distributed.destroy_process_group()
     print(f"phase mesh seconds: {sum(mesh_secs.values()):.1f} (" + ", ".join(
         f"{k} {v:.1f}" for k, v in mesh_secs.items()) + f"; {CARD})",
@@ -3970,6 +4142,8 @@ def main() -> None:
                    mesh_launches["sharded_serve_mamba2"][k],
                    "sharded_serve_zamba2":
                    mesh_launches["sharded_serve_zamba2"][k],
+                   "sharded_train_seq": mesh_launches["sharded_train_seq"][k],
+                   "mesh_halo": mesh_launches["halo"][k],
                    "launch_tools": launch_launches.get(k, 0)}
                for k in mods}
     seen = {k: set().union(*(seen_by[p][k] for p in seen_by)) for k in mods}
@@ -4006,9 +4180,10 @@ def main() -> None:
     # pairwise_sqdist at the live k-center's, the fleet's, the selection's
     # other widths and the replay k-center's, that last; flash_attention
     # at zamba2's, qwen2's, the pool pass's, dbrx's, gemma3's local and
-    # global layers' and internvl2's, that last; its backward at each of
-    # whisper's training shapes (encoder, decoder, cross-attention), then
-    # zamba2's and qwen2's, that last; ssd_scan at the rank blocks of
+    # global layers', whisper's, the split's last rank block, the halo frame
+    # and internvl2's, that last; its backward at each of whisper's training
+    # shapes (encoder, decoder, cross-attention), the split block and the
+    # halo frame, then zamba2's and qwen2's, that last; ssd_scan at the rank blocks of
     # mamba2's and zamba2's mixers (16 "model" ranks), zamba2's state N 64,
     # mamba2's pool pass's and mamba2's serving shape, N 128, that last;
     # its backward at the rank blocks, then zamba2's and mamba2's
@@ -4046,10 +4221,12 @@ def main() -> None:
                  if s[-1] == w), key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
             for w in (1024, 0)] + sorted(
             seen_by["serving_whisper"]["flash_attention"]) + [
+            FLASH_SPLIT[-1], FLASH_HALO] + [
             max(seen_by["serving_internvl2"]["flash_attention"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))],
         "flash_attention_bwd": sorted(
             seen_by["training_whisper"]["flash_attention_bwd"]) + [
+            FLASH_SPLIT[-1], FLASH_HALO] + [
             max(seen_by[p]["flash_attention_bwd"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
             for p in ("training_zamba2", "training_qwen2")],

@@ -67,14 +67,26 @@
 // tensor cores would break the fp32 tolerance, and no serving path sends
 // fp32; the dtype selects the kernel.
 //
+// The mask (csrc/attn_mask.cuh) is the reference's: query row i at
+// position q_offset + i, keys below kv_start hidden, so a rank of a
+// sequence split attends from its positions over the gathered keys and
+// halo attention masks a missing halo; both kernels walk only the key
+// tiles that some row of a block can see in that shifted frame.  The bf16
+// kernel is instantiated for the shifted and the unshifted frame (SHIFT),
+// the latter with its tests on scalar settings as they were before the
+// shift existed (csrc/attn_mask.cuh), and each launch takes the one its
+// settings need.
+//
 // A row with no visible key at all (possible only with a window and no
-// causal mask) is not defined alike by the two reference functions: each
-// averages the values of the masked keys it happens to visit, as both
-// kernels do over the tiles they visit.
+// causal mask, or with keys hidden by kv_start) is not defined alike by the
+// two reference functions: each averages the values of the masked keys it
+// happens to visit, as both kernels do over the tiles they visit (none:
+// zeros, and an lse of about -1e30).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_mask.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -113,7 +125,10 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, Strides sq, Strides sk,
                        Strides sv, Strides so, int H, int Hk, int Tq, int Tk,
-                       float scale, int causal, int window) {
+                       float scale, AttnMask mask) {
+  // a local copy: a reference to a kernel parameter would put it in
+  // local memory
+  const AttnMask mk = mask;
   using FT = F32Tile<HD>;
   constexpr int TPR = FT::TPR, DPT = FT::DPT, BK = FT::BK;
   constexpr int NT = FT::THREADS, G4 = DPT / 4;
@@ -141,8 +156,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // the keys some row of this block can see
   const int q_last = min(q0 + BQ, Tq) - 1;
-  const int k_hi = causal ? min(Tk, q_last + 1) : Tk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = mk.key_hi(q_last, Tk);
+  const int k_lo = mk.key_lo(q0);
   const float* kb = k + b * sk.b + hk * sk.h;
   const float* vb = v + b * sv.b + hk * sv.h;
 
@@ -177,9 +192,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int off = TPR / 2; off > 0; off >>= 1)
           x += __shfl_xor_sync(0xffffffffu, x, off);
-        bool vis = j < nk && q_ok;
-        if (causal) vis = vis && qi >= kp;
-        if (window > 0) vis = vis && (qi - kp) < window;
+        const bool vis = mk.visible(qi, kp, j < nk && q_ok);
         s[jj] = vis ? x : NEG_INF;
         mx = fmaxf(mx, s[jj]);
       }
@@ -259,7 +272,7 @@ size_t mma_smem_bytes() {
 }
 
 // two blocks an SM: up to 255 registers a thread
-template <int HD>
+template <int HD, bool SHIFT>
 __global__ void __launch_bounds__(32 * WARPS, 2)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -267,7 +280,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, Strides sq, Strides sk,
                            Strides sv, Strides so, int H, int Hk, int Tq,
-                           int Tk, float scale, int causal, int window) {
+                           int Tk, float scale, AttnMask mask) {
+  // the unshifted frame's settings as scalars; the shifted frame's as a
+  // local copy (a reference to a kernel parameter would put it in local
+  // memory)
+  const int causal = mask.causal, window = mask.window;
+  const AttnMask mk = mask;
   using TL = Tile<HD>;
   constexpr int ROW = TL::ROW, HDP = TL::HDP, CH = TL::CHUNKS;
   constexpr int MT = TL::MT, MMA_BK = TL::BKV, MBQ = TL::MBQ;
@@ -284,7 +302,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hk);
   const int nqt = gridDim.y;
-  // causal: the tiles with the most keys first
+  // causal: the tiles with the most keys first (the last rows see the
+  // most keys at any q_offset)
   const int qt = causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y;
   const int q0 = qt * MBQ;
 
@@ -294,8 +313,10 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // the keys some row of this block can see
   const int q_last = min(q0 + MBQ, Tq) - 1;
-  const int k_hi = causal ? min(Tk, q_last + 1) : Tk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = SHIFT ? mk.key_hi(q_last, Tk)
+                         : (causal ? min(Tk, q_last + 1) : Tk);
+  const int k_lo = SHIFT ? mk.key_lo(q0)
+                         : (window > 0 ? max(0, q0 - window + 1) : 0);
   const int ntiles = k_hi > k_lo ? (k_hi - k_lo + MMA_BK - 1) / MMA_BK : 0;
 
   // zero the pad columns (hd 8 -> 16) once: the copies never write them
@@ -393,8 +414,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // the mask, only on tiles that cross its edge
-    const bool edge = t0 + MMA_BK > Tk || (causal && t0 + MMA_BK - 1 > q0) ||
-                      (window > 0 && q_last - t0 >= window);
+    bool edge;
+    if constexpr (SHIFT)
+      edge = t0 + MMA_BK > Tk || mk.cuts(q0, q_last - q0 + 1, t0, MMA_BK);
+    else
+      edge = t0 + MMA_BK > Tk || (causal && t0 + MMA_BK - 1 > q0) ||
+             (window > 0 && q_last - t0 >= window);
     if (edge) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -405,8 +430,12 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
             const int qi = row0 + 16 * mt + (e >> 1) * 8;
             const int kp = t0 + j * 8 + 2 * tq + (e & 1);
             bool vis = kp < Tk;
-            if (causal) vis = vis && qi >= kp;
-            if (window > 0) vis = vis && (qi - kp) < window;
+            if constexpr (SHIFT) {
+              vis = mk.visible(qi, kp, vis);
+            } else {
+              if (causal) vis = vis && qi >= kp;
+              if (window > 0) vis = vis && (qi - kp) < window;
+            }
             if (!vis) s[mt][j][e] = NEG_INF;
           }
     }
@@ -502,20 +531,20 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, Strides sq, Strides sk, Strides sv, Strides so,
-               int B, int H, int Hk, int Tq, int Tk, float scale, int causal,
-               int window, cudaStream_t stream) {
+               int B, int H, int Hk, int Tq, int Tk, float scale,
+               AttnMask mk, cudaStream_t stream) {
   const dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_attention_kernel<HD><<<grid, F32Tile<HD>::THREADS, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, sq,
-      sk, sv, so, H, Hk, Tq, Tk, scale, causal, window);
+      sk, sv, so, H, Hk, Tq, Tk, scale, mk);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, Strides sq, Strides sk, Strides sv, Strides so,
-                int B, int H, int Hk, int Tq, int Tk, float scale, int causal,
-                int window, cudaStream_t stream) {
+template <int HD, bool SHIFT>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+               int B, int H, int Hk, int Tq, int Tk, float scale,
+               AttnMask mk, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<HD>();
   // the attribute is per kernel and per device: set once on each device
   static bool sized[MAX_DEVICES] = {};
@@ -524,23 +553,38 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (!sized[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_mma_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_attention_mma_kernel<HD, SHIFT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     sized[dev] = true;
   }
   const dim3 grid(B * H, (Tq + Tile<HD>::MBQ - 1) / Tile<HD>::MBQ);
-  flash_attention_mma_kernel<HD><<<grid, 32 * WARPS, smem, stream>>>(
+  flash_attention_mma_kernel<HD, SHIFT><<<grid, 32 * WARPS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, sq, sk, sv, so, H, Hk,
-      Tq, Tk, scale, causal, window);
+      Tq, Tk, scale, mk);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+                int B, int H, int Hk, int Tq, int Tk, float scale,
+                AttnMask mk, cudaStream_t stream) {
+  return shifted(mk) ? launch_mma<HD, true>(q, k, v, o, lse, sq, sk, sv, so,
+                                            B, H, Hk, Tq, Tk, scale, mk,
+                                            stream)
+                     : launch_mma<HD, false>(q, k, v, o, lse, sq, sk, sv, so,
+                                             B, H, Hk, Tq, Tk, scale, mk,
+                                             stream);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (b, h, t) of q, k, v and o in that order.
+// q_offset: the position of query row 0; kv_start: the first visible key
+// (both >= 0; csrc/attn_mask.cuh).
 // lse: null, or (B, H, Tq) fp32 written with each row's log-sum-exp of its
 // scaled scores (m + log l), which the backward (flash_attention_bwd.cu)
 // recomputes P from; serving passes null and does the same work as without.
@@ -548,14 +592,16 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    const long long* st, int B, int H, int Hk,
                                    int Tq, int Tk, int hd, float scale,
-                                   int causal, int window, void* stream) {
+                                   int causal, int window, int q_offset,
+                                   int kv_start, void* stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   const cudaStream_t s = (cudaStream_t)stream;
+  const AttnMask mk{causal, window, q_offset, kv_start};
 #define FA_CASE(HD)                                                          \
   case HD:                                                                   \
     return launch_f32<HD>(q, k, v, o, lse, sq, sk, sv, so, B, H, Hk, Tq, Tk, \
-                          scale, causal, window, s);
+                          scale, mk, s);
   switch (hd) {
     FA_CASE(8)
     FA_CASE(16)
@@ -576,14 +622,16 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, float* lse,
                                     const long long* st, int B, int H, int Hk,
                                     int Tq, int Tk, int hd, float scale,
-                                    int causal, int window, void* stream) {
+                                    int causal, int window, int q_offset,
+                                    int kv_start, void* stream) {
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   const cudaStream_t s = (cudaStream_t)stream;
+  const AttnMask mk{causal, window, q_offset, kv_start};
 #define FA_CASE(HD)                                                          \
   case HD:                                                                   \
     return launch_bf16<HD>(q, k, v, o, lse, sq, sk, sv, so, B, H, Hk, Tq,    \
-                           Tk, scale, causal, window, s);
+                           Tk, scale, mk, s);
   switch (hd) {
     FA_CASE(8)
     FA_CASE(16)

@@ -12,7 +12,9 @@
 // dQ, dK and dV of o = softmax(qs k^T + mask) v, qs = q * scale rounded to
 // the input dtype as the forward rounds it, with the forward's masks
 // (causal, window with or without causal, keys past Tk) and GQA (query head
-// h reads kv head h / (H / Hk)).  P is recomputed from lse, never stored:
+// h reads kv head h / (H / Hk)), in the shifted frame of csrc/attn_mask.cuh
+// (query row i at position q_offset + i, keys below kv_start hidden, whose
+// dK and dV are zeros).  P is recomputed from lse, never stored:
 // P = exp(qs k^T - lse), masked entries 0.
 //
 // Three launches on one stream, no float atomics, so the result does not
@@ -87,6 +89,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_mask.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -162,7 +165,7 @@ template <int HD>
 __device__ __forceinline__ void score_tile(
     const float* qs, const float* dos, const float* ks, const float* vs,
     const float* lse_s, const float* d_s, float* ps, float* dss, int q0,
-    int k0, int Tq, int Tk, int causal, int window) {
+    int k0, int Tq, int Tk, AttnMask mk) {
   using TL = BwdTile<HD>;
   constexpr int M = TL::M, LD = TL::LD;
   const int ri = threadIdx.x / 16, cj = threadIdx.x % 16;
@@ -195,9 +198,7 @@ __device__ __forceinline__ void score_tile(
     for (int c = 0; c < M; ++c) {
       const int i = ri + 16 * a, j = cj + 16 * c;
       const int qi = q0 + i, kp = k0 + j;
-      bool vis = qi < Tq && kp < Tk;
-      if (causal) vis = vis && qi >= kp;
-      if (window > 0) vis = vis && (qi - kp) < window;
+      const bool vis = mk.visible(qi, kp, qi < Tq && kp < Tk);
       const float p = vis ? __expf(s[a][c] - lse_s[i]) : 0.f;
       ps[i * TL::PLD + j] = p;
       dss[i * TL::PLD + j] = p * (dp[a][c] - d_s[i]);
@@ -270,7 +271,10 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ delta, T* __restrict__ dk,
                    T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
                    Strides sdo, Strides sdk, Strides sdv, int H, int Hk,
-                   int Tq, int Tk, float scale, int causal, int window) {
+                   int Tq, int Tk, float scale, AttnMask mask) {
+  // a local copy: a reference to a kernel parameter would put it in
+  // local memory
+  const AttnMask mk = mask;
   using TL = BwdTile<HD>;
   constexpr int BT = TL::BT, NG = TL::NG, NPT = TL::NPT, LD = TL::LD;
   extern __shared__ __align__(16) float bwd_smem[];
@@ -285,8 +289,8 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int u = 0; u < NPT; ++u)
     gk[u] = gv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
   // the queries some key of this tile is visible to
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Tq, k0 + BT - 1 + window) : Tq;
+  const int q_lo = mk.row_lo(k0);
+  const int q_hi = mk.row_hi(k0 + BT - 1, Tq);
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     for (int q0 = q_lo; q0 < q_hi; q0 += BT) {
@@ -295,7 +299,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           scale);
       __syncthreads();
       score_tile<HD>(m.qs, m.dos, m.ks, m.vs, m.lse, m.d, m.ps, m.dss, q0,
-                     k0, Tq, Tk, causal, window);
+                     k0, Tq, Tk, mk);
       __syncthreads();
 #pragma unroll
       for (int u = 0; u < NPT; ++u) {
@@ -351,7 +355,10 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const float* __restrict__ delta, T* __restrict__ dq,
                  Strides sq, Strides sk, Strides sv, Strides sdo,
                  Strides sdq, int H, int Hk, int Tq, int Tk, float scale,
-                 int causal, int window) {
+                 AttnMask mask) {
+  // a local copy: a reference to a kernel parameter would put it in
+  // local memory
+  const AttnMask mk = mask;
   using TL = BwdTile<HD>;
   constexpr int BT = TL::BT, NG = TL::NG, NPT = TL::NPT, LD = TL::LD;
   extern __shared__ __align__(16) float bwd_smem[];
@@ -365,8 +372,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int u = 0; u < NPT; ++u) gq[u] = make_float4(0.f, 0.f, 0.f, 0.f);
   // the keys some row of this tile can see, as the forward walks them
   const int q_last = min(q0 + BT, Tq) - 1;
-  const int k_hi = causal ? min(Tk, q_last + 1) : Tk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = mk.key_hi(q_last, Tk);
+  const int k_lo = mk.key_lo(q0);
   const T* kb = k + b * sk.b + hk * sk.h;
   const T* vb = v + b * sv.b + hk * sv.h;
   for (int k0 = k_lo; k0 < k_hi; k0 += BT) {
@@ -375,7 +382,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_rows<T, HD>(m.vs, vb, sv.t, k0, Tk, 0.f);
     __syncthreads();
     score_tile<HD>(m.qs, m.dos, m.ks, m.vs, m.lse, m.d, m.ps, m.dss, q0, k0,
-                   Tq, Tk, causal, window);
+                   Tq, Tk, mk);
     __syncthreads();
 #pragma unroll
     for (int u = 0; u < NPT; ++u) {
@@ -549,7 +556,10 @@ fa_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        __nv_bfloat16* __restrict__ dv, Strides sq,
                        Strides sk, Strides sv, Strides sdo, Strides sdk,
                        Strides sdv, int H, int Hk, int Tq, int Tk,
-                       float scale, int causal, int window) {
+                       float scale, AttnMask mask) {
+  // a local copy: a reference to a kernel parameter would put it in
+  // local memory
+  const AttnMask mk = mask;
   using TL = MmaTile<HD>;
   constexpr int ROW = TL::ROW, BM = TL::BM, BN = TL::BN, NTN = TL::NTN;
   extern __shared__ __align__(16) unsigned char bwd_mma_smem[];
@@ -575,8 +585,8 @@ fa_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // this thread's keys: kw + g and kw + g + 8
   const int kw = k0 + warp * 16 + g;
   // the queries some key of this block is visible to
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Tq, k0 + BM - 1 + window) : Tq;
+  const int q_lo = mk.row_lo(k0);
+  const int q_hi = mk.row_hi(k0 + BM - 1, Tq);
   for (int hg = 0; hg < G; ++hg) {
     const int h = hk * G + hg;
     const long long row = ((long long)b * H + h) * Tq;
@@ -603,9 +613,7 @@ fa_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int col = j * 8 + 2 * tq + (e & 1);
           const int qi = q0 + col, kp = kw + 8 * (e >> 1);
-          bool vis = qi < Tq && kp < Tk;
-          if (causal) vis = vis && qi >= kp;
-          if (window > 0) vis = vis && (qi - kp) < window;
+          const bool vis = mk.visible(qi, kp, qi < Tq && kp < Tk);
           const float p = vis ? __expf(st[j][e] - lse_s[col]) : 0.f;
           st[j][e] = p;
           dpt[j][e] = p * (dpt[j][e] - d_s[col]);
@@ -634,7 +642,10 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dq, Strides sq, Strides sk,
                      Strides sv, Strides sdo, Strides sdq, int H, int Hk,
-                     int Tq, int Tk, float scale, int causal, int window) {
+                     int Tq, int Tk, float scale, AttnMask mask) {
+  // a local copy: a reference to a kernel parameter would put it in
+  // local memory
+  const AttnMask mk = mask;
   using TL = MmaTile<HD>;
   constexpr int ROW = TL::ROW, BM = TL::BM, BN = TL::BN, NTN = TL::NTN;
   extern __shared__ __align__(16) unsigned char bwd_mma_smem[];
@@ -671,8 +682,8 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const float d0 = d_s[r0], d1 = d_s[r0 + 8];
   // the keys some row of this block can see, as the forward walks them
   const int q_last = min(q0 + BM, Tq) - 1;
-  const int k_hi = causal ? min(Tk, q_last + 1) : Tk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = mk.key_hi(q_last, Tk);
+  const int k_lo = mk.key_lo(q0);
   const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
   for (int kt0 = k_lo; kt0 < k_hi; kt0 += BN) {
@@ -691,9 +702,7 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int qi = q0 + r0 + 8 * (e >> 1);
         const int kp = kt0 + j * 8 + 2 * tq + (e & 1);
-        bool vis = qi < Tq && kp < Tk;
-        if (causal) vis = vis && qi >= kp;
-        if (window > 0) vis = vis && (qi - kp) < window;
+        const bool vis = mk.visible(qi, kp, qi < Tq && kp < Tk);
         const float p =
             vis ? __expf(s[j][e] - ((e >> 1) ? lse1 : lse0)) : 0.f;
         s[j][e] = p * (dp[j][e] - ((e >> 1) ? d1 : d0));
@@ -743,12 +752,20 @@ __device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
   return (unsigned char*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
 }
 
+// The wgmma passes' tests, in the unshifted frame on scalar mask settings,
+// in the form they had before the shifted frame existed, and in the
+// shifted frame through AttnMask (csrc/attn_mask.cuh: these loops' code
+// is fragile; each pass is instantiated for both frames).
 __device__ __forceinline__ bool visible(int qi, int kp, int Tq, int Tk,
                                         int causal, int window) {
   bool vis = qi < Tq && kp < Tk;
   if (causal) vis = vis && qi >= kp;
   if (window > 0) vis = vis && (qi - kp) < window;
   return vis;
+}
+__device__ __forceinline__ bool visible(int qi, int kp, int Tq, int Tk,
+                                        const AttnMask& mk) {
+  return mk.visible(qi, kp, qi < Tq && kp < Tk);
 }
 
 // some pair of queries [q0, q0 + 64) and keys [k0, k0 + 64) is visible
@@ -757,11 +774,19 @@ __device__ __forceinline__ bool block_any(int q0, int k0, int Tq, int Tk,
   return q0 < Tq && k0 < Tk && !(causal && q0 + 63 < k0) &&
          !(window > 0 && q0 - (k0 + 63) >= window);
 }
+__device__ __forceinline__ bool block_any(int q0, int k0, int Tq, int Tk,
+                                          const AttnMask& mk) {
+  return q0 < Tq && k0 < Tk && mk.any(q0, 64, k0, 64);
+}
 // some pair of that block is hidden (its P needs the mask)
 __device__ __forceinline__ bool block_edge(int q0, int k0, int Tq, int Tk,
                                            int causal, int window) {
   return q0 + 64 > Tq || k0 + 64 > Tk || (causal && q0 < k0 + 63) ||
          (window > 0 && q0 + 63 - k0 >= window);
+}
+__device__ __forceinline__ bool block_edge(int q0, int k0, int Tq, int Tk,
+                                           const AttnMask& mk) {
+  return q0 + 64 > Tq || k0 + 64 > Tk || mk.cuts(q0, 64, k0, 64);
 }
 
 // d (64 x HD) += A (64 x 16 registers) B (16 x HD, MN-major)
@@ -826,8 +851,9 @@ fa_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q,
 // stage each consumer computes S^T = K qs^T and dP^T = V dO^T (both
 // operands from shared memory), P^T = exp(S^T - lse) and dS^T = P^T (dP^T
 // - D) in registers, then dV += P^T dO and dK += dS^T qs with P^T and dS^T
-// as bf16 register A operands and dO, qs read transposed.
-template <int HD>
+// as bf16 register A operands and dO, qs read transposed.  SHIFT: the
+// mask's frame (csrc/attn_mask.cuh).
+template <int HD, bool SHIFT>
 __global__ void __launch_bounds__(WG_BLOCK, 1)
 fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
                          const __grid_constant__ CUtensorMap tm_do,
@@ -837,7 +863,12 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, Strides sdk,
                          Strides sdv, int H, int Hk, int Tq, int Tk, int nqt,
-                         int causal, int window) {
+                         AttnMask mask) {
+  // the unshifted frame's settings as scalars; the shifted frame's as a
+  // local copy (a reference to a kernel parameter would put it in local
+  // memory)
+  const int causal = mask.causal, window = mask.window;
+  const AttnMask mk = mask;
   using TL = WgTile<HD>;
   using bf = __nv_bfloat16;
   constexpr int HDP = TL::HDP, P = HDP / 64, STAGES = TL::STAGES;
@@ -853,8 +884,11 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
   // most queries and go first
   const int k0 = blockIdx.y * 128;
   // the queries some key of this block is visible to, in 64-row tiles
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Tq, k0 + 127 + window) : Tq;
+  // (the first on a tile's boundary: the row tiles of lse and D are read
+  // whole)
+  const int q_lo = SHIFT ? mk.row_lo(k0) / QT * QT : (causal ? k0 : 0);
+  const int q_hi = SHIFT ? mk.row_hi(k0 + 127, Tq)
+                         : (window > 0 ? min(Tq, k0 + 127 + window) : Tq);
   const int n_q = q_hi > q_lo ? (q_hi - q_lo + QT - 1) / QT : 0;
   const int n_it = G * n_q;  // stages: head g outer, query tiles inner
   if (threadIdx.x == 0) {
@@ -921,11 +955,13 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       const float* lse_s = reinterpret_cast<const float*>(st + 2 * TL::T64);
       const float* d_s = lse_s + QT;
       sm90::mbar_wait(&full[s], (it / STAGES) & 1);
-      if (!block_any(q0, kw0, Tq, Tk, causal, window)) {
+      if (SHIFT ? !block_any(q0, kw0, Tq, Tk, mk)
+                : !block_any(q0, kw0, Tq, Tk, causal, window)) {
         sm90::mbar_arrive(&empty[s]);
         continue;
       }
-      const bool edge = block_edge(q0, kw0, Tq, Tk, causal, window);
+      const bool edge = SHIFT ? block_edge(q0, kw0, Tq, Tk, mk)
+                              : block_edge(q0, kw0, Tq, Tk, causal, window);
       float sc[32], dp[32];
       sm90::wgmma_fence();
 #pragma unroll
@@ -948,7 +984,9 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
         const int col = 8 * (i / 4) + 2 * q4 + (i & 1);
         const int kp = kw0 + 16 * warp + g8 + 8 * ((i / 2) & 1);
         p[i] = exp2f(fmaf(sc[i], LOG2E, -lse_s[col]));
-        if (edge && !visible(q0 + col, kp, Tq, Tk, causal, window)) p[i] = 0.f;
+        if (edge && !(SHIFT ? visible(q0 + col, kp, Tq, Tk, mk)
+                            : visible(q0 + col, kp, Tq, Tk, causal, window)))
+          p[i] = 0.f;
       }
       uint32_t pa[4][4];
 #pragma unroll
@@ -1003,8 +1041,9 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
 // warpgroup 2's first thread streams the visible key tiles (64 keys) of kv
 // head h / (H / Hk).  Per stage: S = qs K^T and dP = dO V^T from shared
 // memory, dS = P (dP - D) in registers, dQ += dS K with dS as the bf16 A
-// operand and K read transposed; dQ * scale at the end.
-template <int HD>
+// operand and K read transposed; dQ * scale at the end.  SHIFT: the mask's
+// frame.
+template <int HD, bool SHIFT>
 __global__ void __launch_bounds__(WG_BLOCK, 1)
 fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
                        const __grid_constant__ CUtensorMap tm_do,
@@ -1013,7 +1052,10 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
                        const float* __restrict__ rows,
                        __nv_bfloat16* __restrict__ dq, Strides sdq, int H,
                        int Hk, int Tq, int Tk, int nqt, float scale,
-                       int causal, int window) {
+                       AttnMask mask) {
+  // as in the dK/dV pass
+  const int causal = mask.causal, window = mask.window;
+  const AttnMask mk = mask;
   using TL = WgTile<HD>;
   using bf = __nv_bfloat16;
   constexpr int HDP = TL::HDP, P = HDP / 64, STAGES = TL::STAGES;
@@ -1030,8 +1072,11 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
   const int n_qt = (Tq + 127) / 128;
   const int q0 = 128 * (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y);
   // the keys some query of this block sees, in 64-key tiles
-  const int k_hi = causal ? min(Tk, min(q0 + 128, Tq)) : Tk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) / 64 * 64 : 0;
+  const int k_hi = SHIFT ? mk.key_hi(min(q0 + 128, Tq) - 1, Tk)
+                         : (causal ? min(Tk, min(q0 + 128, Tq)) : Tk);
+  const int k_lo = SHIFT ? mk.key_lo(q0) / 64 * 64
+                         : (window > 0 ? max(0, q0 - window + 1) / 64 * 64
+                                       : 0);
   const int n_it = k_hi > k_lo ? (k_hi - k_lo + 63) / 64 : 0;
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -1099,11 +1144,13 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
           reinterpret_cast<const bf*>(smem + TL::Q_RING + s * TL::Q_STAGE);
       const bf* v_s = k_s + 64 * HDP;
       sm90::mbar_wait(&full[s], (it / STAGES) & 1);
-      if (!block_any(qw0, kt0, Tq, Tk, causal, window)) {
+      if (SHIFT ? !block_any(qw0, kt0, Tq, Tk, mk)
+                : !block_any(qw0, kt0, Tq, Tk, causal, window)) {
         sm90::mbar_arrive(&empty[s]);
         continue;
       }
-      const bool edge = block_edge(qw0, kt0, Tq, Tk, causal, window);
+      const bool edge = SHIFT ? block_edge(qw0, kt0, Tq, Tk, mk)
+                              : block_edge(qw0, kt0, Tq, Tk, causal, window);
       float sc[32], dp[32];
       sm90::wgmma_fence();
 #pragma unroll
@@ -1126,8 +1173,9 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
         const bool hi = (i / 2) & 1;
         const int col = 8 * (i / 4) + 2 * q4 + (i & 1);
         p[i] = exp2f(fmaf(sc[i], LOG2E, -(hi ? l1 : l0)));
-        if (edge && !visible(qw0 + r0 + 8 * hi, kt0 + col, Tq, Tk, causal,
-                             window))
+        const int qi = qw0 + r0 + 8 * hi, kp = kt0 + col;
+        if (edge && !(SHIFT ? visible(qi, kp, Tq, Tk, mk)
+                            : visible(qi, kp, Tq, Tk, causal, window)))
           p[i] = 0.f;
       }
       sm90::wgmma_wait<0>();
@@ -1184,7 +1232,7 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, const long long* st, int B, int H, int Hk,
-           int Tq, int Tk, float scale, int causal, int window,
+           int Tq, int Tk, float scale, AttnMask mk,
            cudaStream_t stream) {
   using TL = BwdTile<HD>;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
@@ -1205,14 +1253,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const dim3 grid_kv((Tk + TL::BT - 1) / TL::BT, B * Hk);
   fa_bwd_dkdv_kernel<T, HD><<<grid_kv, NT, TL::SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, sq, sk, sv, sdo, sdk, sdv, H, Hk, Tq, Tk, scale,
-      causal, window);
+      (T*)dk, (T*)dv, sq, sk, sv, sdo, sdk, sdv, H, Hk, Tq, Tk, scale, mk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((Tq + TL::BT - 1) / TL::BT, B * H);
   fa_bwd_dq_kernel<T, HD><<<grid_q, NT, TL::SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, sq, sk, sv, sdo, sdq, H, Hk, Tq, Tk, scale, causal, window);
+      (T*)dq, sq, sk, sv, sdo, sdq, H, Hk, Tq, Tk, scale, mk);
   return (int)cudaGetLastError();
 }
 
@@ -1220,7 +1267,7 @@ template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* delta, void* dq,
                void* dk, void* dv, const long long* st, int B, int H,
-               int Hk, int Tq, int Tk, float scale, int causal, int window,
+               int Hk, int Tq, int Tk, float scale, AttnMask mk,
                cudaStream_t stream) {
   using TL = MmaTile<HD>;
   using bf = __nv_bfloat16;
@@ -1243,25 +1290,24 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
   const dim3 grid_kv((Tk + TL::BM - 1) / TL::BM, B * Hk);
   fa_bwd_dkdv_mma_kernel<HD><<<grid_kv, 32 * MWARPS, TL::SMEM, stream>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta,
-      (bf*)dk, (bf*)dv, sq, sk, sv, sdo, sdk, sdv, H, Hk, Tq, Tk, scale,
-      causal, window);
+      (bf*)dk, (bf*)dv, sq, sk, sv, sdo, sdk, sdv, H, Hk, Tq, Tk, scale, mk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((Tq + TL::BM - 1) / TL::BM, B * H);
   fa_bwd_dq_mma_kernel<HD><<<grid_q, 32 * MWARPS, TL::SMEM, stream>>>(
       (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta,
-      (bf*)dq, sq, sk, sv, sdo, sdq, H, Hk, Tq, Tk, scale, causal, window);
+      (bf*)dq, sq, sk, sv, sdo, sdq, H, Hk, Tq, Tk, scale, mk);
   return (int)cudaGetLastError();
 }
 
 // bf16 at hd 64, 80 and 128: the prep launch, then the dK/dV and dQ passes
-// on wgmma.  `work` holds qs (B H Tq HD bf16, rows hd wide) and then the
-// row tiles (B H, nqt, 2, 64) fp32.
-template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+// on wgmma, instantiated for the mask's frame.  `work` holds qs (B H Tq HD
+// bf16, rows hd wide) and then the row tiles (B H, nqt, 2, 64) fp32.
+template <int HD, bool SHIFT>
+int launch_wgmma_in(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, void* work, void* dq,
                  void* dk, void* dv, const long long* st, int B, int H,
-                 int Hk, int Tq, int Tk, float scale, int causal, int window,
+                 int Hk, int Tq, int Tk, float scale, AttnMask mk,
                  cudaStream_t stream) {
   using TL = WgTile<HD>;
   using bf = __nv_bfloat16;
@@ -1270,10 +1316,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
       sdo{st[12], st[13], st[14]}, sdq{st[15], st[16], st[17]},
       sdk{st[18], st[19], st[20]}, sdv{st[21], st[22], st[23]};
   static bool sized_kv[MAX_DEVICES] = {}, sized_q[MAX_DEVICES] = {};
-  cudaError_t err = size_smem(fa_bwd_dkdv_wgmma_kernel<HD>, TL::KV_SMEM,
-                              sized_kv);
+  cudaError_t err = size_smem(fa_bwd_dkdv_wgmma_kernel<HD, SHIFT>,
+                              TL::KV_SMEM, sized_kv);
   if (err != cudaSuccess) return (int)err;
-  err = size_smem(fa_bwd_dq_wgmma_kernel<HD>, TL::Q_SMEM, sized_q);
+  err = size_smem(fa_bwd_dq_wgmma_kernel<HD, SHIFT>, TL::Q_SMEM, sized_q);
   if (err != cudaSuccess) return (int)err;
 
   const int nqt = (Tq + QT - 1) / QT;
@@ -1298,29 +1344,45 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                             sv.b * e, 64)) != cudaSuccess)
     return (int)err;
   const dim3 grid_kv(B * Hk, (Tk + 127) / 128);
-  fa_bwd_dkdv_wgmma_kernel<HD><<<grid_kv, WG_BLOCK, TL::KV_SMEM, stream>>>(
+  fa_bwd_dkdv_wgmma_kernel<HD, SHIFT>
+      <<<grid_kv, WG_BLOCK, TL::KV_SMEM, stream>>>(
       m_qs, m_do, m_k, m_v, rows, (bf*)dk, (bf*)dv, sdk, sdv, H, Hk, Tq, Tk,
-      nqt, causal, window);
+      nqt, mk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q(B * H, (Tq + 127) / 128);
-  fa_bwd_dq_wgmma_kernel<HD><<<grid_q, WG_BLOCK, TL::Q_SMEM, stream>>>(
+  fa_bwd_dq_wgmma_kernel<HD, SHIFT><<<grid_q, WG_BLOCK, TL::Q_SMEM, stream>>>(
       m_qs, m_do, m_k, m_v, rows, (bf*)dq, sdq, H, Hk, Tq, Tk, nqt, scale,
-      causal, window);
+      mk);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, void* work, void* dq,
+                 void* dk, void* dv, const long long* st, int B, int H,
+                 int Hk, int Tq, int Tk, float scale, AttnMask mk,
+                 cudaStream_t stream) {
+  return shifted(mk)
+             ? launch_wgmma_in<HD, true>(q, k, v, o, dout, lse, work, dq, dk,
+                                         dv, st, B, H, Hk, Tq, Tk, scale, mk,
+                                         stream)
+             : launch_wgmma_in<HD, false>(q, k, v, o, dout, lse, work, dq, dk,
+                                          dv, st, B, H, Hk, Tq, Tk, scale, mk,
+                                          stream);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* delta, void* dq,
              void* dk, void* dv, const long long* st, int B, int H, int Hk,
-             int Tq, int Tk, int hd, float scale, int causal, int window,
+             int Tq, int Tk, int hd, float scale, AttnMask mk,
              void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
 #define FA_BWD_CASE(HD)                                                     \
   case HD:                                                                  \
     return launch<T, HD>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,   \
-                         H, Hk, Tq, Tk, scale, causal, window, s);
+                         H, Hk, Tq, Tk, scale, mk, s);
   switch (hd) {
     FA_BWD_CASE(8)
     FA_BWD_CASE(16)
@@ -1340,13 +1402,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 // strides: 24 element strides, (b, h, t) of q, k, v, o, dO, dQ, dK and dV in
 // that order (hd contiguous in each); lse (B, H, Tq) fp32 from the forward;
 // delta (B, H, Tq) fp32 scratch.  dQ, dK and dV are written whole.
+// q_offset, kv_start: the forward's mask settings (csrc/attn_mask.cuh).
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, const long long* st, int B, int H, int Hk, int Tq, int Tk,
-    int hd, float scale, int causal, int window, void* stream) {
+    int hd, float scale, int causal, int window, int q_offset, int kv_start,
+    void* stream) {
+  const AttnMask mk{causal, window, q_offset, kv_start};
   return dispatch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B, H,
-                         Hk, Tq, Tk, hd, scale, causal, window, stream);
+                         Hk, Tq, Tk, hd, scale, mk, stream);
 }
 
 // bf16: the wgmma kernels at hd 64, 80 and 128 (`delta` then points at
@@ -1358,27 +1423,29 @@ extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, const long long* st, int B, int H, int Hk, int Tq, int Tk,
-    int hd, float scale, int causal, int window, void* stream) {
+    int hd, float scale, int causal, int window, int q_offset, int kv_start,
+    void* stream) {
+  const AttnMask mk{causal, window, q_offset, kv_start};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 16:
       return launch_mma<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,
-                            H, Hk, Tq, Tk, scale, causal, window, s);
+                            H, Hk, Tq, Tk, scale, mk, s);
     case 32:
       return launch_mma<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, st, B,
-                            H, Hk, Tq, Tk, scale, causal, window, s);
+                            H, Hk, Tq, Tk, scale, mk, s);
     case 64:
       return launch_wgmma<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
-                              B, H, Hk, Tq, Tk, scale, causal, window, s);
+                              B, H, Hk, Tq, Tk, scale, mk, s);
     case 80:
       return launch_wgmma<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
-                              B, H, Hk, Tq, Tk, scale, causal, window, s);
+                              B, H, Hk, Tq, Tk, scale, mk, s);
     case 128:
       return launch_wgmma<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
-                               B, H, Hk, Tq, Tk, scale, causal, window, s);
+                               B, H, Hk, Tq, Tk, scale, mk, s);
     default:
       return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, st, B, H, Hk, Tq, Tk, hd, scale,
-                                     causal, window, stream);
+                                     dv, st, B, H, Hk, Tq, Tk, hd, scale, mk,
+                                     stream);
   }
 }

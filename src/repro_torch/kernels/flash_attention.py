@@ -15,12 +15,16 @@ With ``return_lse`` the kernel also writes each query row's log-sum-exp
 (B, H, Tq) fp32, which the backward kernel
 (:mod:`repro_torch.kernels.flash_attention_bwd`) recomputes the softmax
 from; without it (serving) the kernel does the same work as before.
+``q_offset`` (the position of query row 0) and ``kv_start`` (keys below it
+hidden) are the reference's ``blockwise_attention`` mask settings
+(``csrc/attn_mask.cuh``): a rank of a sequence split attends from its
+positions over the gathered keys, halo attention masks a missing halo.
 ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,7 +47,7 @@ def _fn(dtype: torch.dtype):
         if dtype not in _fns:
             fn = getattr(build.load("flash_attention"), _SYMBOLS[dtype])
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                           + [ctypes.c_float] + [ctypes.c_int] * 2
+                           + [ctypes.c_float] + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _fns[dtype] = fn
@@ -76,10 +80,22 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: {tuple(q.shape)} is too large")
 
 
+def mask_args(causal: bool, window: int, q_offset: int, kv_start: int,
+              name: str = "flash_attention") -> Tuple[int, int, int, int]:
+    """The C entry points' four mask ints; raises on a negative window,
+    offset or start."""
+    args = (int(causal), int(window), int(q_offset), int(kv_start))
+    if min(args[1:]) < 0 or max(args[2:]) >= 2**31:
+        raise ValueError(f"{name}: window {window}, q_offset {q_offset}, "
+                         f"kv_start {kv_start} out of range")
+    return args
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, q_offset: int = 0,
+                    kv_start: int = 0):
     """q: (B, H, Tq, hd); k, v: (B, Hk, Tk, hd), H % Hk == 0, all fp32 or
     all bf16, on one CUDA device -> (B, H, Tq, hd) in q's dtype, and with
     ``return_lse`` also each row's log-sum-exp (B, H, Tq) fp32.
@@ -88,9 +104,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     long as hd is contiguous, so ``ops.attention`` passes transposed views
     of the model layout (B, T, H, hd) without a copy; the result is a
     head-major view of a contiguous (B, Tq, H, hd) tensor.  ``window``
-    applies with or without ``causal``, as in the TPU kernel."""
+    applies with or without ``causal``, as in the TPU kernel; query row i
+    sits at position ``q_offset + i`` and keys below ``kv_start`` are
+    hidden."""
     global launches
     check_inputs(q, k, v)
+    mask = mask_args(causal, window, q_offset, kv_start)
     B, H, Tq, hd = q.shape
     _, Hk, Tk, _ = k.shape
     if q.dtype == torch.bfloat16:
@@ -112,7 +131,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      v.data_ptr(), out.data_ptr(),
                      None if lse is None else lse.data_ptr(),
                      ctypes.addressof(strides),
-                     B, H, Hk, Tq, Tk, hd, scale, int(causal), int(window))
+                     B, H, Hk, Tq, Tk, hd, scale, *mask)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     with build.COUNT_LOCK:

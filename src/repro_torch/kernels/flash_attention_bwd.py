@@ -17,7 +17,9 @@ width of two whole 64-column panels, zero past hd) run on Hopper's
 ``torch.autograd.grad`` through
 :func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version,
 :func:`repro_torch.kernels.ref.flash_attention_bwd_tiled_ref` the wgmma
-route's arithmetic step by step.  ``launches`` counts calls.
+route's arithmetic step by step.  ``q_offset`` and ``kv_start`` are the
+forward's mask settings (keys below ``kv_start`` get zero gradients).
+``launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import check_inputs
+from repro_torch.kernels.flash_attention import check_inputs, mask_args
 
 launches = 0
 
@@ -46,7 +48,7 @@ def _fn(dtype: torch.dtype):
         if dtype not in _fns:
             fn = getattr(build.load("flash_attention_bwd"), _SYMBOLS[dtype])
             fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                           + [ctypes.c_float] + [ctypes.c_int] * 2
+                           + [ctypes.c_float] + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _fns[dtype] = fn
@@ -56,7 +58,8 @@ def _fn(dtype: torch.dtype):
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor,
                         lse: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, scale: Optional[float] = None
+                        window: int = 0, scale: Optional[float] = None,
+                        q_offset: int = 0, kv_start: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Head-major q (B, H, Tq, hd), k/v (B, Hk, Tk, hd), the forward's out
     and the gradient dout (B, H, Tq, hd), all of one dtype (fp32 or bf16),
@@ -66,6 +69,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dim are taken."""
     global launches
     check_inputs(q, k, v, "flash_attention_bwd")
+    mask = mask_args(causal, window, q_offset, kv_start,
+                     "flash_attention_bwd")
     B, H, Tq, hd = q.shape
     _, Hk, Tk, _ = k.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -109,7 +114,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                      lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
                      dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides),
-                     B, H, Hk, Tq, Tk, hd, scale, int(causal), int(window))
+                     B, H, Hk, Tq, Tk, hd, scale, *mask)
     if err != 0:
         raise RuntimeError(
             f"flash_attention_bwd launch failed: CUDA error {err}")

@@ -66,25 +66,24 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 class _FlashAttention(torch.autograd.Function):
     """The flash-attention kernel with the backward kernel as its gradient
-    (head-major q, k, v; the mask settings are not differentiated)."""
+    (head-major q, k, v; the mask settings ``causal``, ``window``,
+    ``q_offset``, ``kv_start`` and the scale are not differentiated)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = _fa.flash_attention(q, k, v, causal=causal,
-                                       window=window, scale=scale,
-                                       return_lse=True)
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, kv_start):
+        mask = dict(causal=causal, window=window, scale=scale,
+                    q_offset=q_offset, kv_start=kv_start)
+        out, lse = _fa.flash_attention(q, k, v, return_lse=True, **mask)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, window, scale)
+        ctx.mask = mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, scale = ctx.mask
         dq, dk, dv = _fab.flash_attention_bwd(q, k, v, out, dout, lse,
-                                              causal=causal, window=window,
-                                              scale=scale)
-        return dq, dk, dv, None, None, None
+                                              **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:
@@ -94,23 +93,26 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               scale: Optional[float] = None,
-              kv_chunk: Optional[int] = None) -> torch.Tensor:
-    """Model-layout attention (B, T, H, hd) x (B, Tk, Hk, hd).  On the CPU
-    the plain version walks kv chunks of ``kv_chunk`` keys (the model's own
-    chunking; default min(1024, Tk)).  On a CUDA device with grad wanted,
-    the kernel pair as one autograd function."""
+              kv_chunk: Optional[int] = None, q_offset: int = 0,
+              kv_start: int = 0) -> torch.Tensor:
+    """Model-layout attention (B, T, H, hd) x (B, Tk, Hk, hd), query row i
+    at position ``q_offset + i``, keys below ``kv_start`` hidden (the
+    reference's ``blockwise_attention`` settings).  On the CPU the plain
+    version walks kv chunks of ``kv_chunk`` keys (the model's own chunking;
+    default min(1024, Tk)).  On a CUDA device with grad wanted, the kernel
+    pair as one autograd function."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    mask = dict(causal=causal, window=window, scale=scale,
+                q_offset=q_offset, kv_start=kv_start)
     if q.device.type == "cpu":
-        out = _ref.flash_attention_ref(qh, kh, vh, causal=causal,
-                                       window=window, scale=scale,
-                                       kv_chunk=kv_chunk)
+        out = _ref.flash_attention_ref(qh, kh, vh, kv_chunk=kv_chunk, **mask)
     else:
         _kernel_device(q, k, v)
         if _needs_grad(q, k, v):
-            out = _FlashAttention.apply(qh, kh, vh, causal, window, scale)
+            out = _FlashAttention.apply(qh, kh, vh, causal, window, scale,
+                                        q_offset, kv_start)
         else:
-            out = _fa.flash_attention(qh, kh, vh, causal=causal,
-                                      window=window, scale=scale)
+            out = _fa.flash_attention(qh, kh, vh, **mask)
     return out.transpose(1, 2)
 
 

@@ -11,7 +11,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (NEG_INF, online_attention,
+from repro_torch.models.layers import (NEG_INF, attention_mask,
+                                       online_attention,
                                        score_stats_from_logits)
 from repro_torch.models import mamba2
 
@@ -128,28 +129,25 @@ def pairwise_sqdist_split_ref(x: torch.Tensor, c: torch.Tensor
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         scale: Optional[float] = None,
-                        kv_chunk: Optional[int] = None) -> torch.Tensor:
+                        kv_chunk: Optional[int] = None, q_offset: int = 0,
+                        kv_start: int = 0) -> torch.Tensor:
     """Head-major q (B, H, Tq, hd), k/v (B, Hk, Tk, hd) -> (B, H, Tq, hd).
 
     The online softmax over kv chunks of ``kv_chunk`` keys (default
-    min(1024, Tk), as the reference's ``ref.flash_attention_ref``), with the
-    TPU kernel's masks: ``window`` applies with or without ``causal``.  (The
-    reference's jnp oracle, ``layers.blockwise_attention``, applies it only
-    under ``causal``; no model calls a window without ``causal``.)"""
+    min(1024, Tk), as the reference's ``ref.flash_attention_ref``), query
+    row i at position ``q_offset + i`` and keys below ``kv_start`` hidden,
+    as the reference's ``layers.blockwise_attention`` takes them, with the
+    TPU kernel's window: it applies with or without ``causal``
+    (``layers.attention_mask``; the jnp oracle applies it only under
+    ``causal``, and no model calls a window without it)."""
     Tk = k.shape[2]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-
-    def visible(q_pos, k_pos):
-        ok = (k_pos < Tk)[None, :].expand(q_pos.shape[0], -1)
-        if causal:
-            ok = ok & (q_pos[:, None] >= k_pos[None, :])
-        if window > 0:
-            ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
-        return ok
-
+    visible = attention_mask(Tk, causal=causal, window=window,
+                             kv_start=kv_start, window_alone=True)
     out = online_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale,
-        kv_chunk=kv_chunk or min(1024, Tk), q_offset=0, visible=visible)
+        kv_chunk=kv_chunk or min(1024, Tk), q_offset=q_offset,
+        visible=visible)
     return out.transpose(1, 2)
 
 
@@ -157,10 +155,12 @@ def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, out: torch.Tensor,
                                   dout: torch.Tensor, lse: torch.Tensor, *,
                                   causal: bool = True, window: int = 0,
-                                  scale: Optional[float] = None):
+                                  scale: Optional[float] = None,
+                                  q_offset: int = 0, kv_start: int = 0):
     """The backward kernel's arithmetic on its wgmma route (bf16 at hd 64,
     80 and 128), step by step, on head-major tensors as
-    ``flash_attention_bwd`` takes them (``lse`` the forward's (B, H, Tq)).
+    ``flash_attention_bwd`` takes them (``lse`` the forward's (B, H, Tq);
+    the mask with ``q_offset`` and ``kv_start`` as the forward's).
 
     qs = q * scale rounded to q's dtype (fp32 rounds nothing), D =
     rowsum(dO o) in fp32.  dK and dV: fp32 sums over query tiles of 64
@@ -185,13 +185,10 @@ def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
     kf, vf, dof = (rnd(t.float()) for t in (k, v, dout))
     D = (dout.float() * out.float()).sum(-1)
     lse = lse.float()
-    qp = torch.arange(Tq, device=q.device)[:, None]
-    kp = torch.arange(Tk, device=q.device)[None, :]
-    vis = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        vis = vis & (qp >= kp)
-    if window > 0:
-        vis = vis & ((qp - kp) < window)
+    vis = attention_mask(Tk, causal=causal, window=window,
+                         kv_start=kv_start, window_alone=True)(
+        q_offset + torch.arange(Tq, device=q.device),
+        torch.arange(Tk, device=q.device))
 
     def grads(qs_t, do_t, lse_t, d_t, k_t, v_t, vis_t):
         p = torch.where(vis_t, torch.exp(qs_t @ k_t.transpose(-1, -2)

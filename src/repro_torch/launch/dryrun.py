@@ -199,8 +199,9 @@ def expected_train_flops(cfg, shape, mesh) -> float:
     """The FLOPs one device computes in a train cell's traced step:
     :func:`split_forward_flops`, the layers counted 3 + remat times (1
     where ``cfg.remat`` recomputes each layer) and the head 3 times, as the
-    roofline counts a step, for one device's rows (the global batch over
-    the axes that split the rows).  A head left whole (its vocabulary not
+    roofline counts a step, for one device's tokens (the global batch's
+    over the axes that split the rows: ``fsdp_tp_seq``'s "model" splits
+    the sequence, ``transformer.seq_split``).  A head left whole (its vocabulary not
     tensor-parallel) under ``cfg.logits_chunk`` goes through the chunked
     loss: its vocabulary padded to whole chunks and each chunk recomputed
     in the backward, 4 times.  ``mesh``: an ``{axis: size}`` mapping."""

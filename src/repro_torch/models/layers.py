@@ -182,6 +182,28 @@ def online_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Tq, H, hd).to(q.dtype)
 
 
+def attention_mask(Tk: int, *, causal: bool, window: int, kv_start: int,
+                   window_alone: bool) -> MaskFn:
+    """The mask of attention over ``Tk`` keys, as ``visible(q_pos, k_pos)``
+    -> (Tq, ck) bool for absolute query and key positions: keys in
+    [kv_start, Tk), no later key under ``causal``, and under ``window`` > 0
+    none ``window`` or more positions back, with or without ``causal``
+    where ``window_alone`` (the TPU kernel's rule,
+    ``kernels.ref.flash_attention_ref``), only with it otherwise (the
+    reference's ``blockwise_attention``).  One contract for the model's
+    attention and the kernel's plain version; no model sets a window
+    without ``causal``."""
+    def visible(q_pos, k_pos):
+        ok = ((k_pos < Tk) & (k_pos >= kv_start))[None, :].expand(
+            q_pos.shape[0], -1)
+        if causal:
+            ok = ok & (q_pos[:, None] >= k_pos[None, :])
+        if window > 0 and (causal or window_alone):
+            ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
+        return ok
+    return visible
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, kv_chunk: int = 1024,
@@ -193,20 +215,11 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset`` is the absolute position of q[0]; keys at positions <
     ``kv_start`` are masked.  As in the reference, ``window`` applies only
     when ``causal`` is set (the TPU kernel applies it either way; see
-    ``kernels.ref.flash_attention_ref``).
+    :func:`attention_mask`).
     """
-    Tk = k.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-
-    def visible(q_pos, k_pos):
-        ok = ((k_pos < Tk) & (k_pos >= kv_start))[None, :].expand(
-            q_pos.shape[0], -1)
-        if causal:
-            ok = ok & (q_pos[:, None] >= k_pos[None, :])
-            if window > 0:
-                ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
-        return ok
-
+    visible = attention_mask(k.shape[1], causal=causal, window=window,
+                             kv_start=kv_start, window_alone=False)
     return online_attention(q, k, v, scale=scale, kv_chunk=kv_chunk,
                             q_offset=q_offset, visible=visible)
 

@@ -74,9 +74,13 @@ class Model:
         family's ``audio_frames``) or None."""
         return batch.get("patch_embeds", batch.get("audio_frames"))
 
-    def forward(self, params: Dict, batch: Dict,
-                mesh=None) -> torch.Tensor:
+    def forward(self, params: Dict, batch: Dict, mesh=None,
+                whole: bool = True) -> torch.Tensor:
+        """The final hidden states; ``whole=False`` leaves them as this
+        rank's positions where the mesh splits the sequence
+        (``transformer.seq_split``: the dense, moe and vlm families)."""
         mesh = _view(mesh)
+        kw = {} if whole else {"whole": False}
         if self.cfg.family == "mlp":
             if mesh is not None:
                 params = whole_tree(params, mesh)
@@ -87,9 +91,9 @@ class Model:
         fe = self._frontend(batch)
         if fe is None:
             return self.mod.forward(self.cfg, params, batch["tokens"],
-                                    mesh=mesh)
+                                    mesh=mesh, **kw)
         return self.mod.forward(self.cfg, params, batch["tokens"], fe,
-                                mesh=mesh)
+                                mesh=mesh, **kw)
 
     def prefill(self, params: Dict, batch: Dict, mesh=None,
                 max_seq=None):

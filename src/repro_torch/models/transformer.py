@@ -35,7 +35,13 @@ them; the MLP takes its ``w_gate`` / ``w_up`` columns and ``w_down`` rows;
 the embedding looks up this rank's vocabulary rows and sums over "model";
 the head gives this rank's logits (gathered for decode).  Dims whose axis
 splits the rows (``embed`` over "data" under ``fsdp_tp``, every dim under
-``fsdp``) are gathered at their use.  Every sum is ``collectives.psum``
+``fsdp``, every dim over "model" under ``fsdp_tp_seq``) are gathered at
+their use.  Under ``fsdp_tp_seq`` and ``seq_serve`` the sequence is split
+over "model" (:func:`seq_split`): each rank computes its block of
+positions, attends from them over the keys and values gathered along the
+axis (the ``flash_attention`` kernel at ``q_offset``; ``seq_serve``'s
+sliding-window layers exchange a halo instead), and the MoE's islands
+take its rows' whole sequence.  Every sum is ``collectives.psum``
 with a summing backward: the sharded step's loss is the sum of the ranks'
 losses, so each collective is its exact transpose.  A serving cache is
 split as the reference's ``("layers", "cache_batch", "cache_seq", "kv",
@@ -544,7 +550,8 @@ def moe_sharded(cfg: ModelConfig, p: Dict, x: torch.Tensor, mesh, *,
 
 
 def moe_rows(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-             view: "shd.MeshView") -> torch.Tensor:
+             view: "shd.MeshView", seq: Optional["SeqSplit"] = None
+             ) -> torch.Tensor:
     """The routed MoE inside a sharded model (:class:`shd.MeshView`): ``x``
     (B, S, D) is this rank's rows (split over ``view.rows``), and the
     expert weights come as the policy stores them, each this rank's block
@@ -556,13 +563,19 @@ def moe_rows(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     with ``moe_gather_dtype="int8"``) and the ``psum`` route computes on;
     rows and weights are moved into that split only where the stored one
     differs (gathered over the axes that differ, then this rank's block
-    taken).  The result is this rank's rows.
+    taken).  The result is this rank's rows.  Over a sequence split
+    (``seq``) ``x`` is this rank's block of positions: the islands split
+    the flat (row, position) tokens in the reference's order, so the rows'
+    whole sequence is gathered along the split's axis first and this
+    rank's positions taken from the result.
 
     Gradients follow the sharded step's convention (the loss is the sum
     of the ranks' losses): every collective's backward is its exact
     transpose, so the replicate + psum route's sum over "model" sums its
     cotangents too, where :func:`moe_sharded` (whole ``x`` on every rank)
     keeps them."""
+    if seq is not None:
+        x = C.all_gather(x, 1, seq.axis)
     B, Sq, D = x.shape
     names = view.mesh_dim_names
     axes = {a: C.Axis.of(view, a) for a in names}
@@ -603,20 +616,24 @@ def moe_rows(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                          dax)
         if m is not None:
             out = C.psum(out, m, varying=True)
-    return shd.rows_to(out, want, view.rows, view).reshape(B, Sq, D)
+    out = shd.rows_to(out, want, view.rows, view).reshape(B, Sq, D)
+    if seq is not None:
+        out = out.narrow(1, seq.start, Sq // seq.axis.size)
+    return out
 
 
 def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-              mesh=None) -> torch.Tensor:
+              mesh=None, seq: Optional["SeqSplit"] = None) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D), plus the shared expert where the config
     has one.  Inside a sharded model (a :class:`shd.MeshView`) the routed
-    part runs on the rank's rows (:func:`moe_rows`); on a ``mesh`` of more
+    part runs on the rank's rows (:func:`moe_rows`; its positions over a
+    sequence split ``seq``); on a ``mesh`` of more
     than one rank with ``x`` whole it runs sharded (:func:`moe_sharded`);
     a mesh of one device is the local block, bit for bit, as in the
     reference."""
     B, Sq, D = x.shape
     if isinstance(mesh, shd.MeshView):
-        out = moe_rows(cfg, p, x, mesh)
+        out = moe_rows(cfg, p, x, mesh, seq)
         if cfg.num_shared_experts:
             out = out + _mlp(cfg, p["shared"], x, mesh)
         return out
@@ -639,10 +656,10 @@ def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 
 
 def _ffn(cfg: ModelConfig, p: Dict, xn: torch.Tensor,
-         mesh=None) -> torch.Tensor:
+         mesh=None, seq: Optional["SeqSplit"] = None) -> torch.Tensor:
     """The block's feed-forward half: the MoE block or the MLP."""
     if cfg.family == "moe":
-        return moe_block(cfg, p, xn, mesh)
+        return moe_block(cfg, p, xn, mesh, seq)
     return _mlp(cfg, p, xn, mesh)
 
 
@@ -681,45 +698,60 @@ def _window(cfg: ModelConfig, is_global: bool) -> int:
     return cfg.sliding_window
 
 
-class _Seq(NamedTuple):
-    """The ``seq_serve`` split: this rank's positions [start, start +
-    T_loc) of ``total`` along ``axis``."""
+class SeqSplit(NamedTuple):
+    """A sequence split over "model": this rank's positions [start, start
+    + total / axis size) of ``total`` along ``axis``; ``halo``: its
+    sliding-window layers may exchange a halo (``seq_serve``, the
+    reference's ``use_halo``) rather than gather."""
     axis: C.Axis
     start: int
     total: int
+    halo: bool
 
 
-def _seq_split(cfg: ModelConfig, mesh, T: int) -> Optional[_Seq]:
-    """The reference's ``seq_serve`` branch applies when the config asks
-    for it, the mesh's "model" axis has more than one rank and divides the
-    sequence."""
-    if not isinstance(mesh, shd.MeshView) or cfg.sharding != "seq_serve" \
+# the policies whose activations' sequence is split over "model"
+SEQ_POLICIES = ("seq_serve", "fsdp_tp_seq")
+
+
+def seq_split(cfg: ModelConfig, mesh, T: int) -> Optional[SeqSplit]:
+    """The split of a ``T``-position sequence (a VLM's patches included)
+    on ``mesh`` (a ``MeshView``): where its policy (the config's without
+    one) splits the activations' sequence over "model" (``seq_serve``,
+    ``fsdp_tp_seq``), the axis takes collectives (more than one rank, or
+    forced: one block at offset 0) and divides ``T``.  None otherwise,
+    and decode (T = 1) never splits."""
+    if not isinstance(mesh, shd.MeshView) \
             or "model" not in mesh.mesh_dim_names:
         return None
-    ax = C.Axis.of(mesh, "model")
-    if ax.size < 2 or T % ax.size:
+    policy = mesh.policy or cfg.sharding
+    if policy not in SEQ_POLICIES or not mesh.active("model"):
         return None
-    return _Seq(ax, ax.rank * (T // ax.size), T)
+    ax = C.Axis.of(mesh, "model")
+    if T % ax.size:
+        return None
+    return SeqSplit(ax, ax.rank * (T // ax.size), T, policy == "seq_serve")
 
 
-def _seq_attention(cfg: ModelConfig, q, kk, vv, seq: _Seq, window: int,
+def _seq_attention(cfg: ModelConfig, q, kk, vv, seq: SeqSplit, window: int,
                    mesh, kv_chunk: int):
-    """Attention over a sequence split along "model": a sliding-window
-    layer exchanges a window-sized halo (``halo_window_attention``) where
-    the window fits in a shard (the reference's ``use_halo``); any other
-    layer gathers K and V over "model" and attends from this rank's
-    positions (``q_offset``).  Both run ``layers.blockwise_attention``,
-    as the reference's branch does (it reaches no Pallas kernel there):
-    the ``flash_attention`` kernel takes no ``q_offset`` or
-    ``kv_start``."""
+    """Attention over a sequence split along "model": under ``seq_serve``
+    a sliding-window layer exchanges a window-sized halo
+    (``halo_window_attention``) where the window fits in a shard (the
+    reference's ``use_halo``) and no gradient is wanted (the exchange has
+    none); any other layer gathers K and V over "model" (an all-gather,
+    whose backward reduce-scatters) and attends from this rank's positions
+    (``q_offset``).  Both go through ``ops.attention``: the
+    ``flash_attention`` kernel pair on a card."""
     T_loc = q.shape[1]
-    if window and cfg.sliding_window <= T_loc:
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, kk, vv))
+    if seq.halo and window and cfg.sliding_window <= T_loc and not grad:
         from repro_torch.serving.halo_attention import halo_window_attention
         return halo_window_attention(q, kk, vv, window=window, mesh=mesh,
                                      axis="model")
-    K, V = C.gather(kk, 1, seq.axis), C.gather(vv, 1, seq.axis)
-    return L.blockwise_attention(q, K, V, causal=True, window=window,
-                                 q_offset=seq.start, kv_chunk=kv_chunk)
+    K, V = C.all_gather(kk, 1, seq.axis), C.all_gather(vv, 1, seq.axis)
+    return ops.attention(q, K, V, causal=True, window=window,
+                         q_offset=seq.start, kv_chunk=kv_chunk)
 
 
 # the reference's logical axes of a KV cache (its ``cache_specs``)
@@ -781,14 +813,14 @@ def kv_as_cached(wk, kk: torch.Tensor, vv: torch.Tensor, mesh,
 
 
 def _cache_of(cfg: ModelConfig, pa: Dict, kk: torch.Tensor,
-              vv: torch.Tensor, mesh, seq: Optional[_Seq],
+              vv: torch.Tensor, mesh, seq: Optional[SeqSplit],
               split: Optional[CacheSplit], T: int) -> Dict:
     """A layer's cache entries from its k and v (B, T or T_loc, Hk, hd),
     in the config's dtype: the kv heads the split holds
     (:func:`kv_as_cached`) at this rank's positions.  Over a split
     sequence those are its block of them: narrowed from the whole prompt,
-    or, after a ``seq_serve`` prefill, moved by an all-to-all from the
-    ranks that computed them; otherwise the whole prompt (a ``seq_serve``
+    or, after a sequence-split prefill, moved by an all-to-all from the
+    ranks that computed them; otherwise the whole prompt (a split
     prefill's gathered)."""
     kk, vv = kv_as_cached(pa["wk"], kk, vv, mesh, split.kv if split else ())
     out = []
@@ -810,7 +842,8 @@ def _cache_of(cfg: ModelConfig, pa: Dict, kk: torch.Tensor,
 
 def _block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
            positions: torch.Tensor, is_global: bool, kv_chunk: int = 1024,
-           with_cache: bool = False, mesh=None, seq: Optional[_Seq] = None,
+           with_cache: bool = False, mesh=None,
+           seq: Optional[SeqSplit] = None,
            split: Optional[CacheSplit] = None):
     pa = p["attn"]
     q, kk, vv = _qkv(cfg, pa, x, positions)
@@ -825,7 +858,8 @@ def _block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                              mesh, ck)
     x = x + _tp_sum(torch.einsum("btnh,nhd->btd", out, shd.local(pa["wo"])),
                     pa["wo"], 0, mesh)
-    x = x + _ffn(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x), mesh)
+    x = x + _ffn(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], x), mesh,
+                 seq)
     cache = _cache_of(cfg, pa, kk, vv, mesh, seq, split, T) \
         if with_cache else None
     return x, cache
@@ -842,7 +876,7 @@ def _layer(blocks: Dict, i: int, mesh=None, keep=None) -> Dict:
 
 def _scan_blocks(cfg: ModelConfig, tree: Dict, x: torch.Tensor,
                  positions: torch.Tensor, with_cache: bool = False,
-                 mesh=None, seq: Optional[_Seq] = None,
+                 mesh=None, seq: Optional[SeqSplit] = None,
                  split: Optional[CacheSplit] = None):
     """The reference's layer scan as a loop over the stacked layers, each
     recomputed in the backward under ``remat`` (``L.remat``); with
@@ -870,12 +904,13 @@ def _scan_blocks(cfg: ModelConfig, tree: Dict, x: torch.Tensor,
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   patch_embeds: Optional[torch.Tensor], with_cache: bool,
-                  mesh=None, max_seq: Optional[int] = None):
+                  mesh=None, max_seq: Optional[int] = None,
+                  whole: bool = True):
     tree = P.nest(params)
     x = embed_tokens(cfg, tree, tokens, patch_embeds, mesh)
     split = cache_split(mesh, max_seq or x.shape[1], cfg.num_kv_heads) \
         if with_cache else None
-    seq = _seq_split(cfg, mesh, x.shape[1])
+    seq = seq_split(cfg, mesh, x.shape[1])
     if seq is None:
         positions = torch.arange(x.shape[1], device=x.device)
     else:   # this rank's positions of the sequence, RoPE offset to them
@@ -885,23 +920,24 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     x, caches = _scan_blocks(cfg, tree, x, positions, with_cache, mesh, seq,
                              split)
     hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)
-    if seq is not None:
-        hidden = C.gather(hidden, 1, seq.axis)
+    if seq is not None and whole:
+        hidden = C.all_gather(hidden, 1, seq.axis)
     return hidden, caches
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             patch_embeds: Optional[torch.Tensor] = None,
-            mesh=None) -> torch.Tensor:
+            mesh=None, whole: bool = True) -> torch.Tensor:
     """tokens (B, T) [and patch_embeds (B, P, D)] -> final hidden states
     (B, P + T, D); differentiable (the training loss's forward).  With a
     ``mesh`` (``distributed.sharding.MeshView``) the batch is this rank's
     rows, each layer computes on the blocks of its tensor-parallel dims
-    and gathers its storage dims, and under ``cfg.sharding ==
-    "seq_serve"`` the sequence is split over "model" (the hidden states
-    come back whole)."""
+    and gathers its storage dims, and under ``fsdp_tp_seq`` or
+    ``seq_serve`` the sequence is split over "model" (:func:`seq_split`):
+    the hidden states come back whole (gathered after the final norm), or
+    with ``whole=False`` as this rank's positions (the loss's)."""
     return _forward_impl(cfg, params, tokens, patch_embeds,
-                         with_cache=False, mesh=mesh)[0]
+                         with_cache=False, mesh=mesh, whole=whole)[0]
 
 
 @torch.no_grad()

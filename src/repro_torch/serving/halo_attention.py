@@ -7,8 +7,13 @@ last w tokens of shard s-1 only, so each rank sends exactly that halo to
 the next rank (``batch_isend_irecv``) instead of gathering the whole
 sequence's keys and values.
 
+The attention runs through ``kernels.ops.attention`` in the halo's frame
+(``q_offset`` = window, ``kv_start`` masking a missing halo): on a CUDA
+device the ``flash_attention`` kernel, on the CPU its plain version.
+
 Requirements: T divisible by the axis size, window <= T / axis size.
-Global (full-attention) layers still need the gathered path.
+Global (full-attention) layers still need the gathered path.  The
+exchange has no gradient: a training step gathers instead.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import blockwise_attention
+from repro_torch.kernels import ops
 
 
 def _exchange(x: torch.Tensor, group, idx: int, n: int) -> torch.Tensor:
@@ -59,7 +64,7 @@ def halo_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kk = torch.cat([halo_k, k], dim=1)
     vv = torch.cat([halo_v, v], dim=1)
     # relative frame: q[j] at window + j, keys at 0 .. window + T_loc - 1
-    return blockwise_attention(
+    return ops.attention(
         q, kk, vv, causal=True, window=window, q_offset=window,
         kv_start=window if idx == 0 else 0,
         kv_chunk=min(1024, kk.shape[1]), scale=scale)

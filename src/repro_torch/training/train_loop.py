@@ -21,10 +21,12 @@ layer's recomputed body, so that the backward gathers again; the
 gather's backward reduce-scatters), and a dim split over another axis
 ("model" under ``tp`` and ``fsdp_tp``) is tensor-parallel: the ranks
 along it compute the same rows on their own heads, MLP columns, experts
-and vocabulary block, summed over the axis (``transformer``).  Each
-rank's loss is its rows' mean over the number of ranks, so that the
-ranks' losses sum to the global mean and every row counts once; a leaf's
-gradient is then summed over the axes its spec leaves whole.
+and vocabulary block, summed over the axis (``transformer``); under
+``fsdp_tp_seq`` they compute their block of the rows' positions
+(``transformer.seq_split``) and the loss sums the blocks' shares over the
+axis.  Each rank's loss is its rows' mean over the number of ranks, so
+that the ranks' losses sum to the global mean and every row counts once;
+a leaf's gradient is then summed over the axes its spec leaves whole.
 """
 from __future__ import annotations
 
@@ -52,9 +54,21 @@ def loss_fn(model, params: Dict, batch: Dict, mesh=None) -> torch.Tensor:
     vocabulary is tensor-parallel over axes of more than one rank, the
     reference's vocabulary-parallel branch (:func:`_vocab_parallel_ce`:
     this rank's fp32 logits, the softmax's statistics merged over the
-    axes), else the head gathered whole."""
+    axes), else the head gathered whole.  Over a sequence split
+    (``transformer.seq_split``) each rank takes the cross-entropy of its
+    own positions (:func:`_split_ce`)."""
     cfg = model.cfg
-    hidden = model.forward(params, batch, mesh=mesh)
+    seq = None
+    if cfg.family in tf.FAMILIES and not cfg.num_classes:
+        fe = batch.get("patch_embeds")
+        T = batch["tokens"].shape[1] + (0 if fe is None else fe.shape[1])
+        seq = tf.seq_split(cfg, mesh, T)
+    hidden = model.forward(params, batch, mesh=mesh, whole=seq is None)
+    if seq is not None:
+        # the vocabulary is storage under the split's policies: the head
+        # comes whole
+        return _split_ce(cfg, hidden, tf.lm_head_block(cfg, params, mesh),
+                         batch["labels"], seq)
     if cfg.num_classes:
         pooled = torch.mean(hidden.float(), dim=1)
         logits = pooled.to(hidden.dtype) @ shd.whole(params["cls_head"],
@@ -69,11 +83,42 @@ def loss_fn(model, params: Dict, batch: Dict, mesh=None) -> torch.Tensor:
         if math.prod(sizes[a] for a in shd._axes(w.spec[1])) > 1:
             return _vocab_parallel_ce(hidden, w, labels, mesh)
         w = shd.whole(w, mesh)
+    return _ce(cfg, hidden, w, labels)
+
+
+def _ce(cfg, hidden: torch.Tensor, w: torch.Tensor,
+        labels: torch.Tensor) -> torch.Tensor:
+    """The mean token cross-entropy through the whole head ``w`` (D, V):
+    vocab-chunked where ``cfg.logits_chunk`` is set, over materialized
+    fp32 logits otherwise."""
     if cfg.logits_chunk:
         return L.chunked_cross_entropy(hidden, w, labels,
                                        chunk=cfg.logits_chunk)
     logits = torch.einsum("btd,dv->btv", hidden.float(), w.float())
     return L.cross_entropy(logits, labels)
+
+
+def _split_ce(cfg, hidden: torch.Tensor, w: torch.Tensor,
+              labels: torch.Tensor, seq: "tf.SeqSplit") -> torch.Tensor:
+    """The rows' mean token cross-entropy over a sequence split: this
+    rank's positions' mean (of a VLM's, its text positions') weighted by
+    their share of the sequence's text positions, summed over the split's
+    axis (its transpose sums too, as the step's loss sums the ranks'), so
+    that every rank of the axis returns the whole sequence's mean.  A rank
+    whose block is all patches adds an empty product with the head, which
+    keeps its gathers and the axis's sum in the graph on every rank.  On
+    one forced rank the share is 1.0 and the sum runs over that rank: the
+    unsplit loss to the bit."""
+    from repro_torch.distributed import collectives as C
+    P = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    T_loc = hidden.shape[1]
+    lo, hi = max(seq.start, P), seq.start + T_loc
+    if hi > lo:
+        part = _ce(cfg, hidden[:, lo - seq.start:], w,
+                   labels[:, lo - P:hi - P]) * ((hi - lo) / (seq.total - P))
+    else:
+        part = (hidden[:, :0].float() @ w.float()).sum()
+    return C.psum(part, seq.axis, varying=True)
 
 
 def _vocab_parallel_ce(hidden: torch.Tensor, w: "shd.Local",

@@ -328,6 +328,76 @@ def test_flash_attention_backward_is_deterministic_on_card(
         assert torch.equal(a, b)
 
 
+# the mask's shifted frame (q_offset, kv_start) on every route of the pair:
+# a rank's block of a sequence split (hd 128 and 64 on wgmma, an offset off
+# the 64-row tiles), halo frames (window = q_offset = kv_start; hd 256 and
+# 80), the mma.sync head dims and hd 8, non-causal keys below kv_start:
+# (B, H, Hk, Tq, Tk, hd, causal, window, q_offset, kv_start)
+FA_OFFSET_GRID = [(2, 4, 2, 128, 512, 128, True, 0, 384, 0),
+                  (1, 6, 6, 200, 600, 64, True, 0, 250, 0),
+                  (2, 8, 4, 192, 256, 256, True, 64, 64, 64),
+                  (1, 4, 4, 100, 170, 80, True, 50, 70, 70),
+                  (1, 4, 2, 100, 200, 16, True, 0, 77, 13),
+                  (1, 4, 4, 150, 230, 32, False, 0, 0, 70),
+                  (1, 6, 2, 64, 200, 8, True, 0, 136, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_OFFSET_GRID,
+                         ids=["-".join(map(str, c)) for c in FA_OFFSET_GRID])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_pair_at_an_offset_matches_plain_on_card(case, dtype):
+    """The forward kernel, and ``ops.attention``'s kernel pair with grad, at
+    ``q_offset`` and ``kv_start`` against the plain version and autograd
+    through it, at the forward's tolerances (fp32 5e-4, bf16 3e-2); on the
+    wgmma route also the backward against its tiled plain version (1e-2);
+    keys below ``kv_start`` get zero gradients; and the query blocks of a
+    4-way split at their offsets give the whole sequence's forward."""
+    _need_card()
+    B, H, Hk, Tq, Tk, hd, causal, window, q_offset, kv_start = case
+    mask = dict(causal=causal, window=window, q_offset=q_offset,
+                kv_start=kv_start)
+    rng = np.random.default_rng(Tq + Tk + hd)
+    td = getattr(torch, dtype)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                   device="cuda").to(td)
+                   for s in ((B, H, Tq, hd), (B, Hk, Tk, hd),
+                             (B, Hk, Tk, hd), (B, H, Tq, hd)))
+    tol = 5e-4 if dtype == "float32" else 3e-2
+    got = fa.flash_attention(q, k, v, **mask)
+    want = ref.flash_attention_ref(q, k, v, **mask)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before, fwd = fab.launches, fa.launches
+    out = ops.attention(*(t.transpose(1, 2) for t in ins),
+                        **mask).transpose(1, 2)
+    grads = torch.autograd.grad(out, ins, do)
+    assert (fab.launches, fa.launches) == (before + 1, fwd + 1)
+    ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = torch.autograd.grad(ref.flash_attention_ref(*ref_ins, **mask),
+                                ref_ins, do)
+    for g, w in zip(grads, plain):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+    assert not grads[1][:, :, :kv_start].any()
+    assert not grads[2][:, :, :kv_start].any()
+    if td == torch.bfloat16 and hd in fab.WGMMA_HEAD_DIMS:
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **mask)
+        got = fab.flash_attention_bwd(q, k, v, o, do, lse, **mask)
+        tiled = ref.flash_attention_bwd_tiled_ref(q, k, v, o, do, lse,
+                                                  **mask)
+        for g, w in zip(got, tiled):
+            torch.testing.assert_close(g.float(), w.float(), atol=1e-2,
+                                       rtol=1e-2)
+    if Tq % 4 == 0:
+        n = Tq // 4
+        parts = [fa.flash_attention(q[:, :, i * n:(i + 1) * n], k, v,
+                                    **dict(mask, q_offset=q_offset + i * n))
+                 for i in range(4)]
+        torch.testing.assert_close(torch.cat(parts, dim=2).float(),
+                                   fa.flash_attention(q, k, v, **mask).float(),
+                                   atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_forward_log_sum_exp_on_card():
     """The forward's per-row log-sum-exp against the plain one."""

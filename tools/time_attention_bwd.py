@@ -11,7 +11,10 @@ log-sum-exp): ``flash_attention_bwd`` as built from ``csrc/``, each
 ``--variant`` source (a ``flash_attention_bwd.cu`` of the same C
 interface, e.g. an earlier commit's, compiled with the same nvcc flags and
 ``csrc/`` on the include path), and the backward of
-``scaled_dot_product_attention`` (``enable_gqa``).  Device ms: ``--reps``
+``scaled_dot_product_attention`` (``enable_gqa``).  A variant from before
+the mask's ``q_offset`` / ``kv_start`` (two mask ints in its C interface)
+is called with the two dropped; every shape here has neither.  Device ms:
+``--reps``
 calls queued back to back between two CUDA events (``chip_smoke.device_ms``),
 taken in turns: the kernel, the variants in order, again in reverse, the
 kernel, ``--turns`` times; the profiler's device time per launch name of
@@ -43,11 +46,14 @@ SHAPES = {"qwen2": (8, 12, 2, 2048, 2048, 128, True, 0),
           "zamba2": (8, 32, 32, 2048, 2048, 80, True, 0)}
 
 
-def load_variant(path: Path):
-    """The variant source's bf16 entry point, typed as the wrapper types
-    its own."""
+def load_variant(path: Path, symbol: str = "flash_attention_bwd_bf16",
+                 pointers: int = 11):
+    """The variant source's ``symbol`` (a bf16 entry point with
+    ``pointers`` pointer arguments), called as the wrapper calls its own
+    (an entry point without ``q_offset`` and ``kv_start`` gets them
+    dropped)."""
     from repro_torch.kernels import build
-    out = build.BUILD_ROOT / "variants" / f"lib{path.stem}.so"
+    out = build.BUILD_ROOT / "variants" / f"lib{path.stem}.{symbol}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([build.nvcc(), *build.FLAGS, "-I", str(build.CSRC),
                            "-o", str(out), str(path)],
@@ -55,12 +61,15 @@ def load_variant(path: Path):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {path}:\n{proc.stdout}"
                            f"{proc.stderr}")
-    fn = ctypes.CDLL(str(out)).flash_attention_bwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
+    fn = getattr(ctypes.CDLL(str(out)), symbol)
+    masks = 4 if "int q_offset" in path.read_text() else 2
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * masks
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    if masks == 4:
+        return fn
+    return lambda *args: fn(*args[:-3], args[-1])
 
 
 def main() -> int:
