@@ -236,9 +236,23 @@
    at offset 0, K and V gathered over the axis, attention at ``q_offset``,
    the loss's share summed over it), step 1's loss the plain step's to the
    bit, its step time over the plain one's, the attention kernel pair
-   launched (counted apart, path ``sharded_train_seq``).  The SSD kernels
-   are also checked and timed at a "model" rank's head block of those two
-   models on the production mesh (4 and 5 heads at B 8 x T 2,048).
+   launched (counted apart, path ``sharded_train_seq``), and with (d)
+   four mamba2-1.3b steps under ``fsdp_tp_seq`` (its conv halo gathered
+   along the axis; one block, so no state to exchange), step 1's loss the
+   plain step's to the bit, ``ssd_scan`` and its backward launched
+   (counted apart, path ``sharded_train_mamba2_seq``); (g)
+   ``ServeEngine(mesh=, policy="fsdp_tp_seq")`` at zamba2-2.7b's and
+   whisper-tiny's full configs: ``prefill`` of 8 prompts (whisper's
+   1,500 frames split too), its logits and every cache leaf against the
+   unmeshed engine's (2^-7 relative plus 1e-3 of the largest, bit-equality
+   printed), ``flash_attention`` (and zamba2's ``ssd_scan``) launched.  The
+   SSD kernels are also checked and timed at a "model" rank's head block
+   of those two models on the production mesh (4 and 5 heads at B 8 x T
+   2,048), and chained through the incoming state ``h0`` (and back
+   through its gradient ``dh0``) over mamba2-1.3b's and zamba2-2.7b's
+   training shapes cut into 4 and 16 chunk-aligned blocks against the
+   whole sequence (``check_ssd_offsets``); the pair with ``h0`` is timed
+   at a 16-way block (T 128).
    The ``launch_tools`` phase (the twins of the reference's launch
    analysis tools, ``repro_torch.launch.{roofline,fitsproof,dryrun}``):
    (a) after qwen2-1.5b's training, one forward and one more training step
@@ -993,6 +1007,117 @@ def check_ssd_bwd(torch, np, ssd, ssdb, ref, cases):
     return worst
 
 
+# mamba2-1.3b's and zamba2-2.7b's training shapes (B 8 x T 2,048, C 128),
+# cut into (blocks) chunk-aligned blocks as 4 and 16 "model" ranks split
+# the sequence under fsdp_tp_seq: ((B, T, H, hd, N, C), blocks)
+SSD_SPLIT = [(case, blocks) for case in ((8, 2048, 64, 64, 128, 128),
+                                         (8, 2048, 80, 64, 64, 128))
+             for blocks in (4, 16)]
+# a 16-way rank block of mamba2-1.3b's, timed with h0 and dh0
+SSD_SPLIT_BLOCK = (8, 128, 64, 64, 128, 128)
+
+
+def check_ssd_offsets(torch, np, ssd, ssdb, ref):
+    """The SSD kernel pair with an incoming state: each ``SSD_SPLIT`` case
+    (fp32 and bf16 xh) cut into chunk-aligned blocks, the forward chained
+    from block to block through ``h0`` (each block from the last one's
+    final state) and the backward chained back through ``dh0`` (each
+    block's incoming-state gradient the last one's ``dh_final``), against
+    the whole sequence's kernel pair: the forward's output and final state
+    bit-equal (the walk is the same arithmetic), the gradients at
+    ``check_ssd_bwd``'s split tolerance (dA's chunk shares are summed in
+    another order), and each block's ``dh0`` against autograd through the
+    plain scan started from the same ``h0`` at its plain tolerance.
+    Returns the max abs errors (forward, backward) in bf16."""
+    worst = [0.0, 0.0]
+    names = ("dxh", "ddt", "dA", "dBm", "dCm")
+    for case, blocks in SSD_SPLIT:
+        B, T, H, hd, N, C = case
+        n = T // blocks
+        for dtype in (torch.float32, torch.bfloat16):
+            ins, dy, dh = ssd_bwd_inputs(torch, np, case, dtype)
+            y, hfin, states = ssd.ssd_scan_with_states(*ins, chunk=C)
+            whole = ssdb.ssd_scan_bwd(*ins, states, dy, dh, chunk=C)
+            del states
+
+            def block(t, r):
+                return t if t.ndim == 1 else \
+                    t[:, r * n:(r + 1) * n].contiguous()
+            h, hs, ys, st = None, [], [], []
+            for r in range(blocks):
+                hs.append(h)
+                yr, h, sr = ssd.ssd_scan_with_states(
+                    *(block(t, r) for t in ins), chunk=C, h0=h)
+                ys.append(yr)
+                st.append(sr)
+            g, parts, dh0s = dh, [None] * blocks, [None] * blocks
+            for r in reversed(range(blocks)):
+                got = ssdb.ssd_scan_bwd(*(block(t, r) for t in ins), st[r],
+                                        block(dy, r), g, chunk=C,
+                                        with_dh0=True)
+                parts[r], g = got[:5], got[5]
+                dh0s[r] = g
+            del st
+            chain = (torch.cat([p[0] for p in parts], 1),
+                     torch.cat([p[1] for p in parts], 1),
+                     sum(p[2] for p in parts),
+                     torch.cat([p[3] for p in parts], 1),
+                     torch.cat([p[4] for p in parts], 1))
+            yc = torch.cat(ys, 1)
+            torch.cuda.synchronize()
+            y_eq, h_eq = bool(torch.equal(yc, y)), bool(torch.equal(h, hfin))
+            ferr = float((yc.float() - y.float()).abs().max())
+            rt = SSD_BWD_SPLIT_TOL
+            berr, bok = _ssd_bwd_err(
+                chain, whole, rt,
+                (rt if dtype == torch.float32 else 2 ** -7,) + (rt,) * 4)
+            bit = [bool(torch.equal(a, b)) for a, b in zip(chain, whole)]
+            # each block's dh0 against autograd through the plain scan
+            # from the same incoming state
+            pt = SSD_BWD_PLAIN_TOL
+            derr, dok = 0.0, True
+            for r in range(blocks):
+                h0 = hs[r] if hs[r] is not None else torch.zeros_like(hfin)
+                plain_in = [block(t, r).clone().requires_grad_(True)
+                            for t in ins] + [h0.clone().requires_grad_(True)]
+                yp, hp = ref.ssd_scan_ref(*plain_in[:5], chunk=C,
+                                          h0=plain_in[5])
+                loss = (yp.float() * block(dy, r).float()).sum()
+                g_out = dh0s[r + 1] if r + 1 < blocks else dh
+                loss = loss + (hp * g_out).sum()
+                want = torch.autograd.grad(loss, plain_in[5])[0]
+                e, ok = _ssd_bwd_err((dh0s[r],), (want,), pt,
+                                     (pt + 2 ** -7,))
+                derr, dok = max(derr, e[0]), dok and ok
+                del plain_in, yp, hp, loss, want
+            label = (f"ssd_scan pair {case} {str(dtype)[6:]} as {blocks} "
+                     f"blocks of {n} chained through h0 / dh0")
+            print(f"{label}: forward max abs err {ferr:.3g} y bit-equal "
+                  f"{y_eq} final state bit-equal {h_eq}; backward against "
+                  f"the whole sequence " + " ".join(
+                      f"{k} {e:.3g}{' (bit-equal)' if b else ''}"
+                      for k, e, b in zip(names, berr, bit))
+                  + f"; dh0 against autograd {derr:.3g} ({CARD})",
+                  flush=True)
+            if not (y_eq and h_eq):
+                print(f"{label}: the chained forward is not the whole "
+                      f"sequence's bits", flush=True)
+                ok = bool(((yc.float() - y.float()).abs()
+                           <= 2e-3 + 2e-3 * y.float().abs()).all())
+                if not ok:
+                    fail(f"{label}: forward err {ferr}")
+            if not (bok and dok) or chain[0].dtype != dtype:
+                fail(f"{label}: backward against the whole sequence "
+                     f"{dict(zip(names, berr))}, dh0 against autograd "
+                     f"{derr}")
+            if dtype == torch.bfloat16:
+                worst = [max(worst[0], ferr), max(worst[1], *berr, derr)]
+            del ins, dy, dh, y, hfin, whole, hs, ys, parts, dh0s, chain, yc
+            del h, g
+            torch.cuda.empty_cache()
+    return tuple(worst)
+
+
 def record_shapes(mod, name: str, seen, key):
     """Wrap the kernel wrapper ``mod.<name>`` (which ``kernels.ops`` looks
     up at each call) so every call adds ``key(*args, **kw)`` to ``seen`` (a
@@ -1033,12 +1158,13 @@ def flash_bwd_key(q, k, v, out, dout, lse, *, causal=True, window=0,
                      q_offset=q_offset, kv_start=kv_start)
 
 
-def ssd_key(xh, dt, A, Bm, Cm, *, chunk=128):
+def ssd_key(xh, dt, A, Bm, Cm, *, chunk=128, h0=None):
     B, T, H, hd = xh.shape
     return (B, T, H, hd, Bm.shape[-1], chunk)
 
 
-def ssd_bwd_key(xh, dt, A, Bm, Cm, h_in, dy, dh_final=None, *, chunk=128):
+def ssd_bwd_key(xh, dt, A, Bm, Cm, h_in, dy, dh_final=None, *, chunk=128,
+                with_dh0=False):
     return ssd_key(xh, dt, A, Bm, Cm, chunk=chunk)
 
 
@@ -2965,7 +3091,8 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                   launches: dict, steps: int = 4, batch: int = 8,
                   seq: int = 2048, lr: float = 1e-4,
                   kernels=ATTENTION, part: str = "a",
-                  path: str = "sharded_train", seen_split=None):
+                  path: str = "sharded_train", seen_split=None,
+                  split_part: str = "f"):
     """Sharded phase (a), a hook for ``run_serving`` (qwen2-1.5b at its
     full config; phase (d) with ``kernels`` the SSD scan's pair, mamba2-1.3b,
     whose Mamba2 mixers compute on their heads' block over "model"):
@@ -2984,13 +3111,15 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
     left of ``fsdp_tp``'s gap is its storage gathers).  The launches go to
     ``launches[path]``, the seconds to ``secs[part]``.
 
-    With ``seen_split`` (a dict of shape sets; phase (f), qwen2-1.5b), four
-    more steps under ``fsdp_tp_seq``: the sequence split over "model" (one
-    block at offset 0 on the forced rank: K and V gathered over the axis,
-    attention at ``q_offset``, the loss's share summed over it), every
-    weight gathered as storage; step 1's loss must be the plain step's to
-    the bit and the steps must launch the attention kernel pair, counted
-    apart (``launches[path + "_seq"]``, seconds ``secs["f"]``)."""
+    With ``seen_split`` (a dict of shape sets; phase (f), qwen2-1.5b; and
+    in phase (d), mamba2-1.3b), four more steps under ``fsdp_tp_seq``: the
+    sequence split over "model" (one block at offset 0 on the forced rank:
+    K and V gathered over the axis, attention at ``q_offset``; a Mamba2
+    mixer's conv halo gathered, its scan from zero, no state to exchange;
+    the loss's share summed over it), every weight gathered as storage;
+    step 1's loss must be the plain step's to the bit and the steps must
+    launch each of ``kernels``, counted apart (``launches[path +
+    "_seq"]``, seconds ``secs[split_part]``)."""
     policies = ("fsdp_tp", "tp")
     split = ("fsdp_tp_seq",) if seen_split is not None else ()
     from repro_torch.configs.base import TrainConfig
@@ -3044,7 +3173,7 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
                 got = {k: mod.launches for k, mod in mods.items()}
             if name in split:
                 got_split = {k: mod.launches for k, mod in mods.items()}
-                secs["f"] = time.perf_counter() - t_split
+                secs[split_part] = time.perf_counter() - t_split
             out[name] = (losses, walls, torch.cuda.max_memory_allocated())
             del state, step, m
         for name, (losses, walls, peak) in out.items():
@@ -3084,7 +3213,94 @@ def sharded_train(torch, np, mods, mesh, seen: dict, secs: dict,
         del b, toks, out
         gc.collect()
         torch.cuda.empty_cache()
-        secs[part] = time.perf_counter() - t0 - (secs["f"] if split else 0)
+        secs[part] = time.perf_counter() - t0 - (secs[split_part] if split
+                                                 else 0)
+    return run
+
+
+def seq_prefill(torch, np, mods, mesh, seen: dict, secs: dict,
+                launches: dict, batch: int = 8, prompt: int = 512,
+                kernels=("flash_attention",), part: str = "g",
+                path: str = "sharded_prefill_seq"):
+    """Sharded phase (g), a hook for ``run_serving`` (zamba2-2.7b and
+    whisper-tiny at their full configs): the served weights behind
+    ``ServeEngine(mesh=, policy="fsdp_tp_seq", force=True)`` on the
+    one-rank NCCL mesh (the sequence split over "model": one block at
+    offset 0, K and V gathered along the axis, a Mamba2 layer's conv halo
+    gathered; whisper's 1,500 frames split too) and behind the unmeshed
+    engine: ``prefill`` of ``batch`` prompts of ``prompt`` random tokens
+    (seed 5; whisper's 1,500 frames a request).  The meshed prefill's
+    last-position logits and every cache leaf must meet the unmeshed
+    ones' within 2^-7 relative plus 1e-3 of the largest (bit-equality is
+    printed), and the meshed prefill must launch each of ``kernels``.
+    The launches go to ``launches[path]``, the seconds to
+    ``secs[part]``."""
+    from repro_torch.serving.engine import ServeEngine
+
+    def flat(tree, pre=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from flat(tree[k], pre + k + ".")
+            else:
+                yield pre + k, tree[k]
+
+    def run(model, params):
+        t0 = time.perf_counter()
+        cfg = model.cfg
+        rng = np.random.default_rng(5)
+        req = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt))}
+        if cfg.family == "audio":
+            req["audio_frames"] = rng.normal(
+                size=(batch, cfg.encoder_tokens, cfg.d_model)).astype(
+                np.float32)
+        out = {}
+        for name, kw in (("unmeshed", {}),
+                         ("meshed", dict(mesh=mesh, policy="fsdp_tp_seq",
+                                         force=True))):
+            eng = ServeEngine(model, params, prompt + 8, batch,
+                              device="cuda", **kw)
+            if name == "meshed":
+                restore = [record_shapes(mods[k], k, seen[k], SHAPE_KEYS[k])
+                           for k in kernels]
+                _zero(torch, mods)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache, _ = eng.prefill(req)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            if name == "meshed":
+                got = {k: m.launches for k, m in mods.items()}
+                for r in restore:
+                    r()
+            out[name] = (logits, dict(flat(cache)), wall)
+            eng.close()
+            del eng
+        (ml, mc, mw), (ul, uc, uw) = out["meshed"], out["unmeshed"]
+        errs, bits = {}, True
+        for k, (a, b) in [("logits", (ml, ul))] + [
+                (k, (mc[k], uc[k])) for k in uc]:
+            a, b = a.float(), b.float()
+            d = (a - b).abs()
+            errs[k] = float(d.max())
+            bits &= bool(torch.equal(a, b))
+            if a.shape != b.shape or not bool(
+                    (d <= 1e-3 * b.abs().max() + 2 ** -7 * b.abs()).all()):
+                fail(f"sharded prefill {cfg.name} fsdp_tp_seq: {k} max err "
+                     f"{errs[k]} against the unmeshed engine")
+        for k in kernels:
+            if got[k] == 0:
+                fail(f"sharded prefill {cfg.name} fsdp_tp_seq never "
+                     f"launched {k}")
+        print(f"sharded prefill {cfg.name} fsdp_tp_seq: {batch} x {prompt} "
+              f"tokens, seconds meshed {mw:.3f} unmeshed {uw:.3f}; logits "
+              f"and caches against the unmeshed engine: max abs err "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + f"; bit-equal {bits}; launches {got} ({CARD})", flush=True)
+        launches[path] = got
+        del out, ml, mc, ul, uc
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[part] = secs.get(part, 0.0) + time.perf_counter() - t0
     return run
 
 
@@ -3737,28 +3953,38 @@ def ssd_bwd_work(case):
     return nbytes, flops
 
 
-def time_ssd_bwd(torch, np, mods, ref, case):
+def time_ssd_bwd(torch, np, mods, ref, case, h0=False):
     """The SSD scan's backward kernel at one (B, T, H, hd, N, C), xh and dy
     in bf16, no final-state gradient (as training gives it), beside the
     backward of autograd through the plain scan over a graph kept for
     repeated backwards; no single PyTorch call computes it (library none).
-    Bound: ``ssd_bwd_work``'s bytes over the memory rate or its products
-    at the bf16 tensor-core peak, whichever is larger."""
+    With ``h0`` the forward starts from an incoming state and the backward
+    gives its gradient too (a split sequence's rank block: its gradient
+    written adds to the bytes; h0 itself is the first chunk's saved
+    state, which ``ssd_bwd_work`` already reads).  Bound:
+    ``ssd_bwd_work``'s bytes over the memory rate or its products at the
+    bf16 tensor-core peak, whichever is larger."""
     ssd, ssdb = mods["ssd_scan"], mods["ssd_scan_bwd"]
     B, T, H, hd, N, C = case
-    ins, dy, _ = ssd_bwd_inputs(torch, np, case, torch.bfloat16)
+    ins, dy, dh = ssd_bwd_inputs(torch, np, case, torch.bfloat16)
+    hin = dh * 0.1 if h0 else None
     C = min(C, T)
-    _, _, states = ssd.ssd_scan_with_states(*ins, chunk=C)
+    _, _, states = ssd.ssd_scan_with_states(*ins, chunk=C, h0=hin)
     plain_in = [t.clone().requires_grad_(True) for t in ins]
-    plain_y, _ = ref.ssd_scan_ref(*plain_in, chunk=C)
+    want = plain_in
+    if h0:
+        want = plain_in + [hin.clone().requires_grad_(True)]
+    plain_y, _ = ref.ssd_scan_ref(*plain_in, chunk=C,
+                                  h0=want[5] if h0 else None)
     nbytes, flops = ssd_bwd_work(case)
+    nbytes += 4 * B * H * hd * N if h0 else 0
     row = timing_row(
-        torch, "ssd_scan_bwd", case,
-        lambda: ssdb.ssd_scan_bwd(*ins, states, dy, None, chunk=C),
-        lambda: torch.autograd.grad(plain_y, plain_in, dy,
-                                    retain_graph=True),
+        torch, "ssd_scan_bwd", list(case) + (["h0"] if h0 else []),
+        lambda: ssdb.ssd_scan_bwd(*ins, states, dy, None, chunk=C,
+                                  with_dh0=h0),
+        lambda: torch.autograd.grad(plain_y, want, dy, retain_graph=True),
         None, nbytes, flops, BF16_FLOPS_PER_S)
-    del ins, dy, states, plain_in, plain_y
+    del ins, dy, dh, hin, states, plain_in, want, plain_y
     torch.cuda.empty_cache()
     return row
 
@@ -3798,19 +4024,28 @@ def time_kernels(torch, np, mods, ref, shapes):
         rows.append(time_flash(torch, np, fa, ref, case))
     for case in shapes["flash_attention_bwd"]:
         rows.append(time_flash_bwd(torch, np, mods, ref, case))
-    for case in shapes["ssd_scan"]:
+    # a split sequence's rank block, from an incoming state: first, so that
+    # the largest shape stays the last row
+    for case, h0 in [(c, True) for c in shapes.get("ssd_scan_h0", [])] + [
+            (c, False) for c in shapes["ssd_scan"]]:
         B, T, H, hd, N, C = case
         ins = ssd_inputs(torch, np, case, torch.bfloat16)
+        hin = normal(torch, (B, H, hd, N), card_generator(torch, 7)) \
+            if h0 else None
         C = min(C, T)
-        # xh and y bf16; dt, B, C and the final state fp32
+        # xh and y bf16; dt, B, C and the final state fp32 (and h0)
         nbytes = 2 * 2 * B * T * H * hd + 4 * (B * T * H + H + 2 * B * T * N
-                                               + B * H * hd * N)
+                                               + (2 if h0 else 1)
+                                               * B * H * hd * N)
         rows.append(timing_row(
-            torch, "ssd_scan", case, lambda: ssd.ssd_scan(*ins, chunk=C),
-            lambda: ref.ssd_scan_ref(*ins, chunk=C), None, nbytes,
+            torch, "ssd_scan", list(case) + (["h0"] if h0 else []),
+            lambda: ssd.ssd_scan(*ins, chunk=C, h0=hin),
+            lambda: ref.ssd_scan_ref(*ins, chunk=C, h0=hin), None, nbytes,
             ssd_flops(case), BF16_FLOPS_PER_S))
-        del ins
+        del ins, hin
         torch.cuda.empty_cache()
+    for case in shapes.get("ssd_scan_h0", []):
+        rows.append(time_ssd_bwd(torch, np, mods, ref, case, h0=True))
     for case in shapes["ssd_scan_bwd"]:
         rows.append(time_ssd_bwd(torch, np, mods, ref, case))
     return rows
@@ -3920,6 +4155,8 @@ def main() -> None:
                   f"{ssdb.smem_bytes(C, N, hd, f32)}", flush=True)
     timed("check ssd_scan_bwd grid", check_ssd_bwd, torch, np, ssd, ssdb,
           ref, SSD_BWD_GRID)
+    timed("check ssd_scan pair chained through h0 and dh0",
+          check_ssd_offsets, torch, np, ssd, ssdb, ref)
     phase("build and kernel checks")
 
     # the shapes each main path gave each kernel
@@ -3935,9 +4172,11 @@ def main() -> None:
                          "sharded_serve", "sharded_trainer",
                          "sharded_train_mamba2", "sharded_serve_mamba2",
                          "sharded_serve_zamba2", "sharded_train_seq",
-                         "mesh_halo")}
+                         "sharded_train_mamba2_seq",
+                         "sharded_prefill_seq_zamba2",
+                         "sharded_prefill_seq_whisper", "mesh_halo")}
     mesh_secs: dict = {}     # the mesh phase's parts: (a) .. (d)
-    sharded_secs: dict = {}  # the sharded phase's parts: (a) .. (f)
+    sharded_secs: dict = {}  # the sharded phase's parts: (a) .. (g)
     launch_secs: dict = {}   # the launch_tools phase's parts: (a) .. (c)
     launch_launches: dict = {}   # the kernels its counted passes launched
     qwen2_steps: list = []   # qwen2-1.5b's training step seconds
@@ -3997,7 +4236,12 @@ def main() -> None:
                           seen_by["sharded_serve_zamba2"], sharded_secs,
                           mesh_launches, kernels=(
                               "margin_head", "flash_attention", "ssd_scan"),
-                          part="e zamba2", path="sharded_serve_zamba2")),
+                          part="e zamba2", path="sharded_serve_zamba2"),
+            seq_prefill(torch, np, mods, mesh,
+                        seen_by["sharded_prefill_seq_zamba2"], sharded_secs,
+                        mesh_launches, kernels=("flash_attention",
+                                                "ssd_scan"),
+                        path="sharded_prefill_seq_zamba2")),
         train=train_lm(torch, np, mods, seen_by["training_zamba2"],
                        moment_dtype="bfloat16"))
     phase("serving and training zamba2-2.7b")
@@ -4046,7 +4290,9 @@ def main() -> None:
                           seen_by["sharded_train_mamba2"], sharded_secs,
                           mesh_launches,
                           kernels=("ssd_scan", "ssd_scan_bwd"), part="d",
-                          path="sharded_train_mamba2"),
+                          path="sharded_train_mamba2",
+                          seen_split=seen_by["sharded_train_mamba2_seq"],
+                          split_part="d fsdp_tp_seq"),
             sharded_serve(torch, np, mods, mesh,
                           seen_by["sharded_serve_mamba2"], sharded_secs,
                           mesh_launches, kernels=("margin_head", "ssd_scan"),
@@ -4067,9 +4313,14 @@ def main() -> None:
     served_whisper, _, trained_whisper = run_serving(
         torch, np, mods, "whisper-tiny", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_whisper"],
-        extra=sharded_trainer(torch, np, mods, mesh,
-                              seen_by["sharded_trainer"], sharded_secs,
-                              mesh_launches),
+        extra=_hooks(
+            sharded_trainer(torch, np, mods, mesh,
+                            seen_by["sharded_trainer"], sharded_secs,
+                            mesh_launches),
+            seq_prefill(torch, np, mods, mesh,
+                        seen_by["sharded_prefill_seq_whisper"],
+                        sharded_secs, mesh_launches, prompt=448,
+                        path="sharded_prefill_seq_whisper")),
         train=train_whisper_resume(torch, np, mods,
                                    seen_by["training_whisper"]))
     phase("serving and training whisper-tiny")
@@ -4143,6 +4394,12 @@ def main() -> None:
                    "sharded_serve_zamba2":
                    mesh_launches["sharded_serve_zamba2"][k],
                    "sharded_train_seq": mesh_launches["sharded_train_seq"][k],
+                   "sharded_train_mamba2_seq":
+                   mesh_launches["sharded_train_mamba2_seq"][k],
+                   "sharded_prefill_seq_zamba2":
+                   mesh_launches["sharded_prefill_seq_zamba2"][k],
+                   "sharded_prefill_seq_whisper":
+                   mesh_launches["sharded_prefill_seq_whisper"][k],
                    "mesh_halo": mesh_launches["halo"][k],
                    "launch_tools": launch_launches.get(k, 0)}
                for k in mods}
@@ -4187,7 +4444,8 @@ def main() -> None:
     # mamba2's and zamba2's mixers (16 "model" ranks), zamba2's state N 64,
     # mamba2's pool pass's and mamba2's serving shape, N 128, that last;
     # its backward at the rank blocks, then zamba2's and mamba2's
-    # training shapes, that last)
+    # training shapes, that last; the pair at a 16-way sequence block of
+    # mamba2's training shape, from h0 and from zeros)
     def widest(shapes, size, width):
         return [max((s for s in shapes if width(s) == w),
                     key=lambda s: (size(s), s))
@@ -4230,11 +4488,12 @@ def main() -> None:
             max(seen_by[p]["flash_attention_bwd"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
             for p in ("training_zamba2", "training_qwen2")],
-        "ssd_scan_bwd": SSD_RANK_BLOCKS + [
+        "ssd_scan_bwd": SSD_RANK_BLOCKS + [SSD_SPLIT_BLOCK] + [
             max(seen_by[p]["ssd_scan_bwd"],
                 key=lambda s: (s[0] * s[1] * s[2], s))
             for p in ("training_zamba2", "training_mamba2")],
-        "ssd_scan": SSD_RANK_BLOCKS + [
+        "ssd_scan_h0": [SSD_SPLIT_BLOCK],
+        "ssd_scan": SSD_RANK_BLOCKS + [SSD_SPLIT_BLOCK] + [
             max(seen_by[p]["ssd_scan"], key=lambda s: (s[0] * s[1] * s[2], s))
             for p in ("serving", "pool_pass_mamba2", "serving_mamba2")]})
 

@@ -34,7 +34,8 @@ rank's tensors are its own: the tensor-parallel layers
 ``psum(varying=True)`` (every rank goes on with the sum, so its transpose
 sums the ranks' cotangents) and put nothing in front of the column-split
 products (each rank's input to its columns is its own copy; its gradient
-is that copy's).  :func:`repartition` moves cache positions between ranks.
+is that copy's).  :func:`repartition` moves cache positions between ranks and
+:func:`broadcast` hands one rank's tensor to the others.
 """
 from __future__ import annotations
 
@@ -214,6 +215,16 @@ def repartition(x: torch.Tensor, dim: int, have, want,
     dist.all_to_all_single(out, x0, output_split_sizes=recv,
                            input_split_sizes=send, group=axis.group)
     return out.movedim(0, dim)
+
+
+def broadcast(x: torch.Tensor, axis: Axis, root: int) -> torch.Tensor:
+    """Rank ``root``'s ``x`` (of the same shape and dtype on every rank)
+    on every rank of ``axis`` (no gradient)."""
+    import torch.distributed as dist
+    out = x.detach().contiguous().clone()
+    dist.broadcast(out, src=dist.get_global_rank(axis.group, root),
+                   group=axis.group)
+    return out
 
 
 def all_reduce_max(x: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -3,7 +3,11 @@
 // Replaces the TPU kernel `ssd_scan` (src/repro/kernels/ssd_scan.py, body
 // `_kernel`).  For xh (B, T, H, hd), dt (B, T, H), A (H,), Bm and Cm
 // (B, T, N) and a chunk length C it returns y (B, T, H, hd) in xh's dtype
-// and the final state h (B, H, hd, N) in fp32.  Per chunk, with
+// and the final state h (B, H, hd, N) in fp32, from an incoming state h0
+// (B, H, hd, N) fp32, or zeros (the TPU kernel's only start).  A sequence
+// split into chunk-aligned blocks, each started from the last one's final
+// state, gives the whole sequence's bits: the walk below is the same
+// arithmetic either way.  Per chunk, with
 // l_t = cumsum_t(-dt_t * A) and xd_t = x_t * dt_t:
 //   y_t = sum_{s<=t} (C_t . B_s) exp(l_t - l_s) xd_s + exp(l_t) C_t . h
 //   h  <- exp(l_last) h + sum_s exp(l_last - l_s) xd_s (x) B_s
@@ -27,7 +31,8 @@
 //       chunk summary S_c = sum_s exp(l_last - l_s) xd_s (x) B_s and
 //       l_last.
 //   (b) ssd_scan_state_kernel, one thread per (batch, head, 4 state
-//       elements): walks the nc summaries, h_c = exp(l_last,c) h_{c-1} +
+//       elements): walks the nc summaries from h0 (or zeros),
+//       h_c = exp(l_last,c) h_{c-1} +
 //       S_c, overwriting each summary with the chunk's incoming state
 //       h_{c-1}, and writes the final state.
 //   (c) ssd_scan_output_kernel, one block per (batch, chunk, group of
@@ -224,11 +229,13 @@ ssd_scan_chunk_kernel(const T* __restrict__ xh, const float* __restrict__ dt,
   }
 }
 
-// (b) the inter-chunk walk, one thread per (b, h, 4 state elements); the
-// summaries are read UNROLL chunks ahead of the walk
+// (b) the inter-chunk walk, one thread per (b, h, 4 state elements), from
+// the incoming state h0 (zeros where it is null); the summaries are read
+// UNROLL chunks ahead of the walk
 constexpr int UNROLL = 8;
 __global__ void __launch_bounds__(256)
 ssd_scan_state_kernel(float4* __restrict__ S, const float* __restrict__ last,
+                      const float4* __restrict__ h0,
                       float4* __restrict__ hfin, int B, int nc, int H,
                       int P4) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -236,7 +243,8 @@ ssd_scan_state_kernel(float4* __restrict__ S, const float* __restrict__ last,
   const int p = (int)(i % P4);
   const int h = (int)((i / P4) % H);
   const int b = (int)(i / ((size_t)P4 * H));
-  float4 st = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 st = h0 ? h0[((size_t)b * H + h) * P4 + p]
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
   for (int c0 = 0; c0 < nc; c0 += UNROLL) {
     float4 sum[UNROLL];
     float gam[UNROLL];
@@ -517,8 +525,9 @@ cudaError_t allow_smem(K kernel, size_t bytes, int max_smem) {
 
 template <typename T>
 int launch(const void* xh, const void* dt, const void* A, const void* Bm,
-           const void* Cm, void* y, void* hfin, void* states, void* last,
-           int B, int T_len, int H, int hd, int N, int C, void* stream) {
+           const void* Cm, const void* h0, void* y, void* hfin, void* states,
+           void* last, int B, int T_len, int H, int hd, int N, int C,
+           void* stream) {
   // 16-byte pieces of x rows, float2 pairs of B and C, float4s of h
   if (hd % 8 || N % 4) return (int)cudaErrorInvalidValue;
   const Geo geo(C, N, hd);
@@ -543,8 +552,8 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t n_state = (size_t)B * H * hd * N / 4;
   ssd_scan_state_kernel<<<(unsigned)((n_state + 255) / 256), 256, 0, s>>>(
-      (float4*)states, (const float*)last, (float4*)hfin, B, nc, H,
-      hd * N / 4);
+      (float4*)states, (const float*)last, (const float4*)h0, (float4*)hfin,
+      B, nc, H, hd * N / 4);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ssd_scan_output_kernel<T><<<grid, THREADS, smem_c, s>>>(
       (const T*)xh, (const float*)dt, (const float*)A, (const float*)Bm,
@@ -554,23 +563,24 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
 
 }  // namespace
 
-// states: (B, nc, H, hd, N) fp32 scratch, left holding each chunk's
-// incoming state; last: (B, nc, H) fp32 scratch.  hd % 8 == 0, N % 4 == 0,
-// xh 16-byte aligned.
+// h0: the incoming state (B, H, hd, N) fp32, or null for zeros; states:
+// (B, nc, H, hd, N) fp32 scratch, left holding each chunk's incoming state
+// (h0 for the first); last: (B, nc, H) fp32 scratch.  hd % 8 == 0, N % 4
+// == 0, xh and h0 16-byte aligned.
 extern "C" int ssd_scan_f32(const void* xh, const void* dt, const void* A,
-                            const void* Bm, const void* Cm, void* y,
-                            void* hfin, void* states, void* last, int B,
-                            int T, int H, int hd, int N, int C,
+                            const void* Bm, const void* Cm, const void* h0,
+                            void* y, void* hfin, void* states, void* last,
+                            int B, int T, int H, int hd, int N, int C,
                             void* stream) {
-  return launch<float>(xh, dt, A, Bm, Cm, y, hfin, states, last, B, T, H, hd,
-                       N, C, stream);
+  return launch<float>(xh, dt, A, Bm, Cm, h0, y, hfin, states, last, B, T, H,
+                       hd, N, C, stream);
 }
 
 extern "C" int ssd_scan_bf16(const void* xh, const void* dt, const void* A,
-                             const void* Bm, const void* Cm, void* y,
-                             void* hfin, void* states, void* last, int B,
-                             int T, int H, int hd, int N, int C,
+                             const void* Bm, const void* Cm, const void* h0,
+                             void* y, void* hfin, void* states, void* last,
+                             int B, int T, int H, int hd, int N, int C,
                              void* stream) {
-  return launch<__nv_bfloat16>(xh, dt, A, Bm, Cm, y, hfin, states, last, B,
-                               T, H, hd, N, C, stream);
+  return launch<__nv_bfloat16>(xh, dt, A, Bm, Cm, h0, y, hfin, states, last,
+                               B, T, H, hd, N, C, stream);
 }

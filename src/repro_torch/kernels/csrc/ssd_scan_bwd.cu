@@ -43,7 +43,10 @@
 //          N) walk buffer.
 //   state  one thread per (batch, head, 4 state elements): walks the chunks
 //          from the last, g = dh_final; each chunk's U is replaced by the g
-//          arriving at its outgoing state, then g <- exp(L) g + U.
+//          arriving at its outgoing state, then g <- exp(L) g + U; the g
+//          left after the first chunk is the incoming state's gradient dh0
+//          (written where the caller wants it: a sequence split into
+//          blocks chains it into the previous block's dh_final).
 //   dx     one block per (batch, chunk, group of heads): dxd as (B g^T)
 //          exp(L - l) plus W^T dy, W's fragments formed in registers from G
 //          (read from the scratch, L2-resident) and masked to s <= t; dx,
@@ -464,10 +467,12 @@ ssd_bwd_chunk_kernel(const T* __restrict__ dy, const float* __restrict__ dt,
 
 // state: the reverse walk, one thread per (b, h, 4 state elements); each
 // chunk's U is read UNROLL chunks ahead and replaced by the gradient
-// arriving at the chunk's outgoing state
+// arriving at the chunk's outgoing state; what is left after chunk 0 is
+// the incoming state's gradient, written to dh0 where it is wanted
 __global__ void __launch_bounds__(256)
 ssd_bwd_state_kernel(float4* __restrict__ U, const float* __restrict__ last,
-                     const float4* __restrict__ dhfin, int B, int nc, int H,
+                     const float4* __restrict__ dhfin,
+                     float4* __restrict__ dh0, int B, int nc, int H,
                      int P4) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)B * H * P4) return;
@@ -498,6 +503,7 @@ ssd_bwd_state_kernel(float4* __restrict__ U, const float* __restrict__ last,
       }
     }
   }
+  if (dh0) dh0[((size_t)b * H + h) * P4 + p] = gs;
 }
 
 // dx: dxd = exp(L - l_s) (B g^T)_s + sum_{t>=s} W_ts dy_t, dx = dxd dt;
@@ -1632,9 +1638,10 @@ int launch_wgmma(const void* xh, const void* dt, const void* A,
 template <typename T>
 int launch(const void* xh, const void* dt, const void* A, const void* Bm,
            const void* Cm, const void* hin, const void* dy,
-           const void* dhfin, void* dx, void* ddt, void* dAp, void* dBp,
-           void* dCp, void* gram, void* gout, void* terms, void* last, int B,
-           int T_len, int H, int hd, int N, int C, void* stream) {
+           const void* dhfin, void* dh0, void* dx, void* ddt, void* dAp,
+           void* dBp, void* dCp, void* gram, void* gout, void* terms,
+           void* last, int B, int T_len, int H, int hd, int N, int C,
+           void* stream) {
   constexpr bool F32 = std::is_same<T, float>::value;
   // 16-byte pieces of x and dy rows, float2 pairs of B and C, float4s of
   // the states
@@ -1681,8 +1688,8 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t n_state = (size_t)B * H * hd * N / 4;
   ssd_bwd_state_kernel<<<(unsigned)((n_state + 255) / 256), 256, 0, s>>>(
-      (float4*)gout, (const float*)last, (const float4*)dhfin, B, nc, H,
-      hd * N / 4);
+      (float4*)gout, (const float*)last, (const float4*)dhfin, (float4*)dh0,
+      B, nc, H, hd * N / 4);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if constexpr (!F32) {
     if (wg) {
@@ -1718,8 +1725,11 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
 
 }  // namespace
 
-// hin: the forward's per-chunk incoming states (B, nc, H, hd, N) fp32;
-// dhfin: the final state's gradient (B, H, hd, N) fp32, or null for zeros.
+// hin: the forward's per-chunk incoming states (B, nc, H, hd, N) fp32 (the
+// first chunk's is the forward's h0, which the dt and A terms and dC read);
+// dhfin: the final state's gradient (B, H, hd, N) fp32, or null for zeros;
+// dh0: where the incoming state's gradient (B, H, hd, N) fp32 goes, or null
+// where it is not wanted.
 // Outputs: dx in xh's dtype, ddt (B, T, H), dAp (B, nc, H) the chunks'
 // shares of dA, dBp and dCp (groups of HG heads, B, nc C, N) the groups'
 // shares of dB and dC, all fp32.  Scratch, fp32: gram (B, nc, CP, CP), for
@@ -1730,23 +1740,23 @@ int launch(const void* xh, const void* dt, const void* A, const void* Bm,
 extern "C" int ssd_scan_bwd_f32(
     const void* xh, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* hin, const void* dy, const void* dhfin,
-    void* dx, void* ddt, void* dAp, void* dBp, void* dCp, void* gram,
-    void* gout, void* terms, void* last, int B, int T, int H, int hd, int N,
-    int C, void* stream) {
-  return launch<float>(xh, dt, A, Bm, Cm, hin, dy, dhfin, dx, ddt, dAp, dBp,
-                       dCp, gram, gout, terms, last, B, T, H, hd, N, C,
+    void* dh0, void* dx, void* ddt, void* dAp, void* dBp, void* dCp,
+    void* gram, void* gout, void* terms, void* last, int B, int T, int H,
+    int hd, int N, int C, void* stream) {
+  return launch<float>(xh, dt, A, Bm, Cm, hin, dy, dhfin, dh0, dx, ddt, dAp,
+                       dBp, dCp, gram, gout, terms, last, B, T, H, hd, N, C,
                        stream);
 }
 
 extern "C" int ssd_scan_bwd_bf16(
     const void* xh, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* hin, const void* dy, const void* dhfin,
-    void* dx, void* ddt, void* dAp, void* dBp, void* dCp, void* gram,
-    void* gout, void* terms, void* last, int B, int T, int H, int hd, int N,
-    int C, void* stream) {
-  return launch<__nv_bfloat16>(xh, dt, A, Bm, Cm, hin, dy, dhfin, dx, ddt,
-                               dAp, dBp, dCp, gram, gout, terms, last, B, T,
-                               H, hd, N, C, stream);
+    void* dh0, void* dx, void* ddt, void* dAp, void* dBp, void* dCp,
+    void* gram, void* gout, void* terms, void* last, int B, int T, int H,
+    int hd, int N, int C, void* stream) {
+  return launch<__nv_bfloat16>(xh, dt, A, Bm, Cm, hin, dy, dhfin, dh0, dx,
+                               ddt, dAp, dBp, dCp, gram, gout, terms, last, B,
+                               T, H, hd, N, C, stream);
 }
 
 // the dynamic shared memory of each launch at (C, N, hd), xh in fp32 or

@@ -118,16 +118,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class _SSDScan(torch.autograd.Function):
     """The ``ssd_scan`` kernel with the ``ssd_scan_bwd`` kernel as its
-    gradient (contiguous inputs; ``chunk`` is not differentiated).  The
-    forward keeps each chunk's incoming state for the backward: (B, nc, H,
-    hd, N) fp32, 268 MB at mamba2-1.3b's training batch of 8 x 2,048."""
+    gradient (contiguous inputs; ``chunk`` is not differentiated), from the
+    incoming state ``h0`` (None: zeros), whose gradient the backward kernel
+    gives where it is wanted.  The forward keeps each chunk's incoming
+    state for the backward: (B, nc, H, hd, N) fp32, 268 MB at mamba2-1.3b's
+    training batch of 8 x 2,048."""
 
     @staticmethod
-    def forward(ctx, xh, dt, A, Bm, Cm, chunk):
+    def forward(ctx, xh, dt, A, Bm, Cm, h0, chunk):
         y, hfin, states = _ssd.ssd_scan_with_states(xh, dt, A, Bm, Cm,
-                                                    chunk=chunk)
+                                                    chunk=chunk, h0=h0)
         ctx.save_for_backward(xh, dt, A, Bm, Cm, states)
         ctx.chunk = chunk
+        ctx.with_dh0 = h0 is not None and ctx.needs_input_grad[5]
         # an unused output's gradient comes as None, not as zeros
         ctx.set_materialize_grads(False)
         return y, hfin
@@ -138,18 +141,22 @@ class _SSDScan(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros_like(xh)
         grads = _ssdb.ssd_scan_bwd(xh, dt, A, Bm, Cm, states, dy, dh_final,
-                                   chunk=ctx.chunk)
-        return (*grads, None)
+                                   chunk=ctx.chunk, with_dh0=ctx.with_dh0)
+        dh0 = grads[5] if ctx.with_dh0 else None
+        return (*grads[:5], dh0, None)
 
 
-def ssd(xh, dt, A, Bm, Cm, *, chunk: int = 128):
-    """Chunked SSD scan -> (y (B, T, H, hd), final state (B, H, hd, N)).
-    On a CUDA device with grad wanted, the kernel pair as one autograd
-    function."""
+def ssd(xh, dt, A, Bm, Cm, *, chunk: int = 128,
+        h0: Optional[torch.Tensor] = None):
+    """Chunked SSD scan from the incoming state ``h0`` (B, H, hd, N) fp32
+    (None: zeros) -> (y (B, T, H, hd), final state (B, H, hd, N)).  On a
+    CUDA device with grad wanted, the kernel pair as one autograd function
+    (``h0``'s gradient from the backward kernel)."""
     if xh.device.type == "cpu":
-        return _ref.ssd_scan_ref(xh, dt, A, Bm, Cm, chunk=chunk)
-    _kernel_device(xh, dt, A, Bm, Cm)
+        return _ref.ssd_scan_ref(xh, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    start = () if h0 is None else (h0,)
+    _kernel_device(xh, dt, A, Bm, Cm, *start)
     ins = tuple(t.contiguous() for t in (xh, dt, A, Bm, Cm))
-    if _needs_grad(*ins):
-        return _SSDScan.apply(*ins, chunk)
-    return _ssd.ssd_scan(*ins, chunk=chunk)
+    if _needs_grad(*ins, *start):
+        return _SSDScan.apply(*ins, h0, chunk)
+    return _ssd.ssd_scan(*ins, chunk=chunk, h0=h0)

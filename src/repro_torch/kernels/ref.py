@@ -216,17 +216,18 @@ def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
     return (dq * scale).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def ssd_scan_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
-    """The chunked SSD scan: ``mamba2.ssd_chunked`` (the kernel's oracle in
-    the reference)."""
-    return mamba2.ssd_chunked(xh, dt, A, Bm, Cm, chunk)
+def ssd_scan_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128, h0=None):
+    """The chunked SSD scan from the incoming state ``h0`` (None: zeros):
+    ``mamba2.ssd_chunked`` (the kernel's oracle in the reference)."""
+    return mamba2.ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0)
 
 
-def ssd_scan_passes_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
+def ssd_scan_passes_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128, h0=None):
     """The chunked SSD scan split as the CUDA kernel splits it: (a) each
     chunk's summary S_c = sum_s exp(l_last - l_s) xd_s (x) B_s and its total
     log decay l_last, (b) the walk h_c = exp(l_last,c) h_{c-1} + S_c over
-    the chunks, (c) each chunk's output from its incoming state,
+    the chunks from ``h0`` (None: zeros), (c) each chunk's output from its
+    incoming state,
     y_t = sum_{s<=t} (C_t . B_s) exp(l_t - l_s) xd_s + exp(l_t) C_t . h_{c-1}.
 
     Returns (y (B, T, H, hd) in xh's dtype, h_final (B, H, hd, N) fp32,
@@ -248,7 +249,8 @@ def ssd_scan_passes_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
     dec = torch.exp(last[:, :, None] - cum)
     S = torch.einsum("bcsh,bcshd,bcsn->bchdn", dec, xd, Bc)
     # (b) the inter-chunk walk
-    h = torch.zeros((Bsz, H, hd, N), dtype=torch.float32, device=xh.device)
+    h = torch.zeros((Bsz, H, hd, N), dtype=torch.float32, device=xh.device) \
+        if h0 is None else h0.float()
     h_in = []
     for c in range(nc):
         h_in.append(h)
@@ -268,7 +270,7 @@ def ssd_scan_passes_ref(xh, dt, A, Bm, Cm, *, chunk: int = 128):
 
 
 def ssd_scan_bwd_passes_ref(xh, dt, A, Bm, Cm, h_in, dy, dh_final=None, *,
-                            chunk: int = 128):
+                            chunk: int = 128, with_dh0: bool = False):
     """The gradient of the chunked SSD scan split as the CUDA kernel
     ``ssd_scan_bwd`` splits it, all in fp32 (the model's ``ssd_chunked``
     rounds W, the end decays and B to xh's dtype inside its products; this
@@ -289,7 +291,9 @@ def ssd_scan_bwd_passes_ref(xh, dt, A, Bm, Cm, h_in, dy, dh_final=None, *,
     -A dla + dxd . x, dA = -sum dt dla.
 
     Returns (dxh in xh's dtype, ddt (B, T, H), dA (H,), dBm, dCm (B, T, N)),
-    fp32 but dxh.  The main path never calls it."""
+    fp32 but dxh, and with ``with_dh0`` the first chunk's incoming state's
+    gradient (the g the walk leaves after it) after them.  The main path
+    never calls it."""
     Bsz, T, H, hd = xh.shape
     N = Bm.shape[-1]
     C = min(chunk, T)
@@ -342,4 +346,4 @@ def ssd_scan_bwd_passes_ref(xh, dt, A, Bm, Cm, h_in, dy, dh_final=None, *,
     def unchunk(t):
         return t.reshape(Bsz, nc * C, *t.shape[3:])[:, :T]
     return ((unchunk(dxd) * dt.float()[..., None]).to(xh.dtype), unchunk(ddt),
-            dA, unchunk(dB), unchunk(dC))
+            dA, unchunk(dB), unchunk(dC)) + ((g,) if with_dh0 else ())

@@ -6,9 +6,12 @@ differentiates its jnp ``ssd_chunked`` instead).
 ``ssd_scan_bwd(xh, dt, A, Bm, Cm, h_in, dy, dh_final)`` launches it on CUDA
 tensors and raises on anything it does not take (the forward's dtypes and
 shapes); ``h_in`` is each chunk's incoming state, which the forward leaves
-behind (``ssd_scan_with_states``).  It runs its launches on one stream
-(G = C B^T, the chunk summaries of dy, the reverse walk over the chunks,
-then dx, dC and dB, and the per-position dt and A terms) with no atomics,
+behind (``ssd_scan_with_states``; the first is the forward's ``h0``), and
+``with_dh0`` adds the gradient of that incoming state (what the reverse
+walk leaves after the first chunk) to the result.  It runs its launches
+on one stream (G = C B^T, the chunk summaries of dy, the reverse walk over
+the chunks, then dx, dC and dB, and the per-position dt and A terms) with
+no atomics,
 so its result does not depend on the order blocks run in; the groups'
 shares of dB and dC and the chunks' shares of dA are summed here, in a
 fixed order.  bf16 xh at hd 64, chunk 128 and N 64 or 128 (what training
@@ -43,7 +46,7 @@ def _fn(dtype: torch.dtype):
     with build.LOCK:
         if dtype not in _fns:
             fn = getattr(build.load("ssd_scan_bwd"), _SYMBOLS[dtype])
-            fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [
+            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _fns[dtype] = fn
@@ -75,12 +78,15 @@ def smem_bytes(C: int, N: int, hd: int, f32: bool) -> dict:
 def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, h_in: torch.Tensor,
                  dy: torch.Tensor, dh_final: Optional[torch.Tensor] = None,
-                 *, chunk: int = 128) -> Tuple[torch.Tensor, ...]:
+                 *, chunk: int = 128, with_dh0: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
     """The forward's inputs (as ``ssd_scan`` takes them), each chunk's
     incoming state ``h_in`` (B, nc, H, hd, N) fp32, the output's gradient
     ``dy`` (B, T, H, hd) and the final state's ``dh_final`` (B, H, hd, N;
     None for zeros), on one CUDA device -> (dxh in xh's dtype, ddt (B, T,
-    H), dA (H,), dBm (B, T, N), dCm (B, T, N), fp32)."""
+    H), dA (H,), dBm (B, T, N), dCm (B, T, N), fp32), and with
+    ``with_dh0`` the incoming state's gradient dh0 (B, H, hd, N) fp32
+    after them."""
     global launches
     _ssd.check_inputs(xh, dt, A, Bm, Cm, "ssd_scan_bwd", chunk)
     B, T, H, hd = xh.shape
@@ -98,22 +104,23 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if dy.shape != xh.shape or dy.device != dev:
         raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} on "
                          f"{dy.device}, want {tuple(xh.shape)} on {dev}")
-    if dh_final is not None and (
-            dh_final.shape != (B, H, hd, N) or dh_final.device != dev):
-        raise ValueError(f"ssd_scan_bwd: dh_final {tuple(dh_final.shape)} "
-                         f"on {dh_final.device}, want {(B, H, hd, N)}")
+    dh_final = _ssd.check_state(dh_final, (B, H, hd, N), dev,
+                                "ssd_scan_bwd: dh_final")
     h_in, dy = _aligned(h_in), _aligned(dy.to(xh.dtype))
-    if dh_final is not None:
-        dh_final = _aligned(dh_final.float())
     xh, dt, A, Bm, Cm = (_aligned(t) for t in (xh, dt, A, Bm, Cm))
     groups = -(-H // HEAD_GROUP)
     CP = -(-C // 32) * 32 if C else 0
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(xh)
     ddt = torch.empty((B, T, H), **f32)
+    dh0 = torch.empty((B, H, hd, N), **f32) if with_dh0 else None
     if B * H * T == 0:
+        # no position: the final state is the incoming one
+        if with_dh0:
+            dh0.zero_() if dh_final is None else dh0.copy_(dh_final)
         return (dx.zero_(), ddt.zero_(), torch.zeros((H,), **f32),
-                torch.zeros((B, T, N), **f32), torch.zeros((B, T, N), **f32))
+                torch.zeros((B, T, N), **f32),
+                torch.zeros((B, T, N), **f32)) + ((dh0,) if with_dh0 else ())
     dAp = torch.empty((B, nc, H), **f32)
     dBp, dCp = (torch.empty((groups, B, nc * C, N), **f32) for _ in range(2))
     # G (or G^T), then for bf16 xh room for B and C split into bf16 hi and
@@ -127,9 +134,10 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         _fn(xh.dtype), dev, xh.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), h_in.data_ptr(), dy.data_ptr(),
         dh_final.data_ptr() if dh_final is not None else None,
-        dx.data_ptr(), ddt.data_ptr(), dAp.data_ptr(), dBp.data_ptr(),
-        dCp.data_ptr(), gram.data_ptr(), gout.data_ptr(), terms.data_ptr(),
-        last.data_ptr(), B, T, H, hd, N, C)
+        dh0.data_ptr() if with_dh0 else None, dx.data_ptr(),
+        ddt.data_ptr(), dAp.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+        gram.data_ptr(), gout.data_ptr(), terms.data_ptr(), last.data_ptr(),
+        B, T, H, hd, N, C)
     if err != 0:
         # error 1 (invalid value) includes a chunk too large for shared
         # memory: ``smem_bytes`` gives the bytes each launch needs
@@ -140,4 +148,4 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # the groups' and the chunks' shares, summed in a fixed order
     dB, dC = ((p.sum(0) if groups > 1 else p[0])[:, :T].contiguous()
               for p in (dBp, dCp))
-    return dx, ddt, dAp.sum((0, 1)), dB, dC
+    return (dx, ddt, dAp.sum((0, 1)), dB, dC) + ((dh0,) if with_dh0 else ())

@@ -5,18 +5,23 @@ one device does.
 The reference forces 512 XLA host devices, compiles each cell and reads
 XLA's cost and memory analyses and the collectives of the optimized HLO.
 The twin runs the port's own step in a fake world: a ``fake`` process
-group of 256 (512) ranks in which this process is rank 0 and every
-collective returns at once, the real production mesh over it
-(``launch.mesh.make_production_mesh``), and every tensor a ``FakeTensor``
-(shapes and dtypes, no storage), so nothing is allocated and no data is
-computed.  Train cells go through ``train_loop.make_sharded_train_step``
-with the grad accumulation the reference would pick; prefill and decode
-cells through the model's ``prefill`` and ``decode_step`` over the mesh,
+group of 256 (512) ranks in which this process is rank 0 (or
+``--rank``) and every collective returns at once, the real production
+mesh over it (``launch.mesh.make_production_mesh``), and every tensor a
+``FakeTensor`` (shapes and dtypes, no storage), so nothing is allocated
+and no data is computed.  Train cells go through
+``train_loop.make_sharded_train_step`` with the grad accumulation the
+reference would pick; prefill and decode cells through the model's
+``prefill`` and ``decode_step`` over the mesh,
 with parameters stored as the policy shards them (each layer computing on
 its tensor-parallel blocks) and each rank holding its rows of the batch
 and its rows and block of positions of the cache.
 
-Per cell this emits JSON (the reference's keys), all per device (rank 0):
+Per cell this emits JSON (the reference's keys), all per device (the
+traced rank).  Under a sequence split the ranks differ: a Mamba2 block's
+rank past the first along "model" scans twice where rank 0 scans once, so
+``--rank 15`` (the last "model" rank of the (16, 16) mesh) is the
+busiest.  The keys:
   flops            — ``FlopCounterMode``'s total: PyTorch runs the layer
                      loop eagerly, so every layer is counted (XLA counts a
                      scanned body once)
@@ -36,6 +41,7 @@ op (its name and its inputs' and outputs' shapes) where the reference's
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k --mesh multi
+  python -m repro_torch.launch.dryrun --arch mamba2-1.3b --shape train_4k --policy fsdp_tp_seq --rank 15
   python -m repro_torch.launch.dryrun --sweep          # every cell, subprocesses
 """
 from __future__ import annotations
@@ -119,6 +125,16 @@ def pick_grad_accum(cfg, shape, mesh) -> int:
     return accum
 
 
+def seq_ways(cfg, T: int, mesh) -> int:
+    """The "model" ranks a ``T``-position sequence splits over on a mesh
+    of ``{axis: size}`` under the config's policy
+    (``transformer.seq_split``): "model"'s size where the policy splits
+    the sequence and the size divides ``T``, else 1."""
+    from repro_torch.models import transformer as tf
+    M = mesh.get("model", 1)
+    return M if tf.splits_seq(cfg.sharding, M, T) else 1
+
+
 def split_forward_flops(cfg, seq_len: int, mesh) -> Tuple[float, float]:
     """Per token of a ``seq_len`` sequence, the FLOPs one device computes
     in a forward under the port's tensor-parallel design, from the config
@@ -134,7 +150,18 @@ def split_forward_flops(cfg, seq_len: int, mesh) -> Tuple[float, float]:
     width do not split alike, as ``mamba2.mixer_params`` computes them);
     whisper's encoder and cross-attention keys counted per decoder token;
     the head over its vocabulary's share.  Every token family but the
-    MoE's.  ``mesh``: an ``{axis: size}`` mapping."""
+    MoE's.  ``mesh``: an ``{axis: size}`` mapping.
+
+    Under a sequence split (:func:`seq_ways`: ``fsdp_tp_seq``,
+    ``seq_serve``) the count is per token of a rank's block: the
+    attention's keys stay the whole sequence's (gathered); a Mamba2
+    mixer's chunk is at most the block, and a rank past the first scans
+    its block twice (from zero for the exchange, then from its incoming
+    state; rank 0 once) and sums the M - 2 decayed states before its own
+    (the conv's halo moves data only); whisper's encoder runs on a rank's
+    share of the frames where "model" divides them (every frame on every
+    rank otherwise) and every rank projects the whole encoder output to
+    the cross-attention's keys and values."""
     from repro_torch.models import param as P
     from repro_torch.models.registry import get_model
     if cfg.family not in ("dense", "vlm", "ssm", "hybrid", "audio"):
@@ -162,13 +189,19 @@ def split_forward_flops(cfg, seq_len: int, mesh) -> Tuple[float, float]:
     def mlp(pre):
         return 2.0 * mult * D * F / ways(pre + "mlp.w_down")
 
+    M = seq_ways(cfg, T, mesh)
+
     def mixer(pre):
         di, N = cfg.ssm_d_inner, cfg.ssm_state
-        H, C = cfg.ssm_num_heads, min(cfg.ssm_chunk, T)
+        H, C = cfg.ssm_num_heads, min(cfg.ssm_chunk, T // M)
         w = ways(pre + "w_dt") \
             if axes(pre + "w_dt") == axes(pre + "w_x") else 1
         proj = 2.0 * (2 * D * di / w + 2 * D * N + D * H / w + di * D / w)
-        return proj + 2.0 * C * (N + H * hd_s / w) + 4.0 * H * hd_s * N / w
+        scan = 2.0 * C * (N + H * hd_s / w) + 4.0 * H * hd_s * N / w
+        if M == 1:
+            return proj + scan
+        return (proj + 2 * scan
+                + 2.0 * max(M - 2, 0) * H * hd_s * N / w / (T // M))
 
     hd_s = cfg.ssm_head_dim
     if cfg.family in ("dense", "vlm"):
@@ -185,9 +218,12 @@ def split_forward_flops(cfg, seq_len: int, mesh) -> Tuple[float, float]:
         Te_keys = -(-Te // ck) * ck
         H = cfg.num_heads / ways("decoder.xattn.wq")
         Hk = cfg.num_kv_heads / ways("decoder.xattn.wk")
+        # a rank's frames, and the whole output it projects, per token of
+        # its block of the decoder's positions
+        frames = Te * M / seq_ways(cfg, Te, mesh)
         cross = (4.0 * D * hd * H + 4.0 * Te_keys * H * hd
-                 + 4.0 * D * hd * Hk * Te / T)
-        enc = Te / T * (attn("encoder.", Te_keys) + mlp("encoder."))
+                 + 4.0 * D * hd * Hk * Te * M / T)
+        enc = frames / T * (attn("encoder.", Te_keys) + mlp("encoder."))
         layers = (cfg.encoder_layers * enc + cfg.num_layers
                   * (attn("decoder.", T) + cross + mlp("decoder.")))
     head = 2.0 * D * cfg.vocab_size / ways(
@@ -405,18 +441,18 @@ class _Census(TorchDispatchMode):
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              keep_ops: Optional[str] = None,
-             policy: Optional[str] = None) -> Dict:
-    """Trace one step of a cell on a fake world of 256 (512) ranks as rank
-    0 and return the reference's record.  Refuses to start where a process
-    group is already initialized (it must never join a real world); tears
-    its fake world down before it returns."""
+             policy: Optional[str] = None, rank: int = 0) -> Dict:
+    """Trace one step of a cell on a fake world of 256 (512) ranks as
+    ``rank`` and return the reference's record.  Refuses to start where a
+    process group is already initialized (it must never join a real
+    world); tears its fake world down before it returns."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         raise RuntimeError("run_cell traces on a fake world of its own; a "
                            "process group is already initialized here")
     world = 512 if multi_pod else 256
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
     ops_file = open(keep_ops, "w") if keep_ops else None
     try:
@@ -509,12 +545,15 @@ def main():
     ap.add_argument("--keep-ops",
                     help="write each dispatched op (name, shapes) here")
     ap.add_argument("--policy", help="override the sharding policy (perf)")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="the rank of the fake world to trace as")
     args = ap.parse_args()
     if args.sweep:
         failures = sweep(out_path=args.out)
         sys.exit(1 if failures else 0)
     res = run_cell(args.arch, args.shape, args.mesh == "multi",
-                   keep_ops=args.keep_ops, policy=args.policy)
+                   keep_ops=args.keep_ops, policy=args.policy,
+                   rank=args.rank)
     js = json.dumps(res)
     print(js)
     if args.append:

@@ -31,6 +31,16 @@ the embedding and the head are vocabulary-parallel; ``enc_pos`` and
 ``dec_pos`` are gathered.  The cache follows the reference's logical
 axes: ``k`` / ``v`` along the sequence (flash-decode), or over the kv
 heads where it does not divide; ``xk`` / ``xv`` over the kv heads.
+
+Under ``fsdp_tp_seq`` and ``seq_serve`` the sequences are split over
+"model" (``transformer.seq_split``): the encoder's frames where "model"
+divides them (each rank its block and its rows of the gathered
+``enc_pos``, self-attention over the keys and values gathered along the
+axis, the output gathered whole after
+``enc_final_norm`` for the cross-attention and its cache), and the
+decoder's tokens (``dec_pos`` offset to the rank's positions, causal
+self-attention at ``q_offset`` over the gathered keys and values, the
+cross-attention from the rank's queries over the whole encoder output).
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import whole, whole_tree
 from repro_torch.kernels import ops
@@ -145,11 +156,17 @@ def _enc_kv(p: Dict, enc_out: torch.Tensor
 
 
 def _enc_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
-               positions: torch.Tensor, mesh=None) -> torch.Tensor:
+               positions: torch.Tensor, mesh=None,
+               seq: Optional[tf.SeqSplit] = None) -> torch.Tensor:
+    """An encoder layer over h (B, frames, D); over a sequence split
+    ``seq`` h is this rank's block of frames, attending over the keys and
+    values gathered along the split's axis."""
     q, kk, vv = tf._qkv(cfg, p["attn"], h, positions)
     kk, vv = tf._kv_for_heads(p["attn"], kk, vv, mesh, cfg.num_heads)
+    if seq is not None:
+        kk, vv = C.all_gather(kk, 1, seq.axis), C.all_gather(vv, 1, seq.axis)
     out = ops.attention(q, kk, vv, causal=False,
-                        kv_chunk=min(512, h.shape[1]))
+                        kv_chunk=min(512, kk.shape[1]))
     h = h + _out(out, p["attn"]["wo"], mesh)
     return h + tf._mlp(cfg, p["mlp"], L.apply_norm(cfg, p["mlp_norm"], h),
                        mesh)
@@ -162,31 +179,54 @@ def _layer(tree: Dict, i: int, mesh) -> Dict:
     return tf._layer(tree, i, mesh, _KEEP)
 
 
+def _pos_rows(pos, seq: Optional[tf.SeqSplit], n: int, mesh):
+    """Rows [start, start + n) of a learned position table (S, D), start
+    this rank's first position over a sequence split ``seq`` (0 without
+    one), from the table gathered whole (whose backward sums the ranks'
+    rows)."""
+    start = 0 if seq is None else seq.start
+    return whole(pos, mesh)[start:start + n]
+
+
 def encode(cfg: ModelConfig, params: Dict, audio_frames: torch.Tensor,
            mesh=None) -> torch.Tensor:
     """audio_frames (B, encoder_tokens, D) stub frame embeddings -> the
     encoder output (B, encoder_tokens, D) in the config's dtype.
     ``params`` is the nested tree; over a ``mesh`` each layer computes on
     its tensor-parallel blocks and the storage dims (and ``enc_pos``) are
-    gathered at their use."""
+    gathered at their use.  Where the mesh splits the sequence and "model"
+    divides the frames (``transformer.seq_split``), each rank encodes its
+    block of them and the output is gathered whole after the final
+    norm."""
     dt = cfg.torch_dtype
-    x = audio_frames.to(dt) + whole(params["enc_pos"], mesh).to(dt)
-    positions = torch.arange(x.shape[1], device=x.device)
+    seq = tf.seq_split(cfg, mesh, audio_frames.shape[1])
+    x = tf.seq_block(audio_frames, seq).to(dt)
+    x = x + _pos_rows(params["enc_pos"], seq, x.shape[1], mesh).to(dt)
+    positions = (0 if seq is None else seq.start) + torch.arange(
+        x.shape[1], device=x.device)
     for i in range(cfg.encoder_layers):
         x = _enc_layer(cfg, _layer(params["encoder"], i, mesh), x,
-                       positions, mesh)
-    return L.apply_norm(cfg, whole_tree(params["enc_final_norm"], mesh), x)
+                       positions, mesh, seq)
+    return tf.seq_whole(L.apply_norm(
+        cfg, whole_tree(params["enc_final_norm"], mesh), x), seq)
 
 
 def _dec_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
                enc_out: torch.Tensor, positions: torch.Tensor,
                with_cache: bool = False, mesh=None,
-               split: Optional[tf.CacheSplit] = None):
+               split: Optional[tf.CacheSplit] = None,
+               seq: Optional[tf.SeqSplit] = None):
+    """A decoder layer over h (B, T, D); over a sequence split ``seq`` h
+    is this rank's block of positions: causal self-attention over the
+    keys and values gathered along the split's axis, at its offset."""
     q, kk, vv = tf._qkv(cfg, p["attn"], h, positions)
-    ck = min(h.shape[1],
-             L.pick_kv_chunk(h.shape[0], h.shape[1], cfg.num_heads))
+    T = h.shape[1] if seq is None else seq.total
+    ck = min(T, L.pick_kv_chunk(h.shape[0], T, cfg.num_heads))
     ka, va = tf._kv_for_heads(p["attn"], kk, vv, mesh, cfg.num_heads)
-    out = ops.attention(q, ka, va, causal=True, kv_chunk=ck)
+    if seq is None:
+        out = ops.attention(q, ka, va, causal=True, kv_chunk=ck)
+    else:
+        out = tf._seq_attention(cfg, q, ka, va, seq, 0, mesh, ck)
     h = h + _out(out, p["attn"]["wo"], mesh)
     ek, ev = _enc_kv(p["xattn"], enc_out)
     h = h + _cross_attn(cfg, p["xattn"], h, ek, ev, mesh)
@@ -195,8 +235,7 @@ def _dec_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
     if not with_cache:
         return h, None
     dt = cfg.torch_dtype
-    cache = tf._cache_of(cfg, p["attn"], kk, vv, mesh, None, split,
-                         h.shape[1])
+    cache = tf._cache_of(cfg, p["attn"], kk, vv, mesh, seq, split, T)
     xs = _cross_split(cfg, mesh)
     ek, ev = tf.kv_as_cached(p["xattn"]["wk"], ek, ev, mesh,
                              xs.kv if xs else ())
@@ -207,24 +246,27 @@ def _dec_layer(cfg: ModelConfig, p: Dict, h: torch.Tensor,
 def _decode_blocks(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                    enc_out: torch.Tensor, positions: torch.Tensor,
                    with_cache: bool = False, mesh=None,
-                   split: Optional[tf.CacheSplit] = None):
-    """The decoder layers over x; with ``with_cache`` also the stacked
-    caches {"k", "v"} (L, B, T, Hk, hd) and {"xk", "xv"} (L, B,
-    encoder_tokens, Hk, hd), this rank's blocks of them over a ``split``
-    and the cross-attention's (:func:`cache_specs`).  A layer's weights
-    are gathered inside its recomputed body."""
+                   split: Optional[tf.CacheSplit] = None,
+                   seq: Optional[tf.SeqSplit] = None):
+    """The decoder layers over x (this rank's positions over a sequence
+    split ``seq``); with ``with_cache`` also the stacked caches {"k", "v"}
+    (L, B, T, Hk, hd) and {"xk", "xv"} (L, B, encoder_tokens, Hk, hd),
+    this rank's blocks of them over a ``split`` and the cross-attention's
+    (:func:`cache_specs`).  A layer's weights are gathered inside its
+    recomputed body."""
     if not with_cache:
         for i in range(cfg.num_layers):
             def body(h, i=i):
                 return _dec_layer(cfg, _layer(params["decoder"], i, mesh),
-                                  h, enc_out, positions, mesh=mesh)[0]
+                                  h, enc_out, positions, mesh=mesh,
+                                  seq=seq)[0]
             x = L.remat(cfg, body, x)
         return x, None
     caches = []
     for i in range(cfg.num_layers):
         x, c = _dec_layer(cfg, _layer(params["decoder"], i, mesh), x,
                           enc_out, positions, with_cache=True, mesh=mesh,
-                          split=split)
+                          split=split, seq=seq)
         caches.append(c)
     return x, {k: torch.stack([c[k] for c in caches])
                for k in ("k", "v", "xk", "xv")}
@@ -242,32 +284,40 @@ def _embed_dec(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   audio_frames: Optional[torch.Tensor], with_cache: bool,
-                  mesh=None, max_seq: Optional[int] = None):
+                  mesh=None, max_seq: Optional[int] = None,
+                  whole: bool = True):
     if audio_frames is None:
         raise ValueError("the audio family needs the batch's audio_frames "
                          "(B, encoder_tokens, d_model)")
     tree = P.nest(params)
     enc_out = encode(cfg, tree, audio_frames, mesh)
-    x = _embed_dec(cfg, tree, tokens, 0, mesh)
-    positions = torch.arange(x.shape[1], device=x.device)
-    split = tf.cache_split(mesh, max_seq or x.shape[1], cfg.num_kv_heads) \
+    T = tokens.shape[1]
+    split = tf.cache_split(mesh, max_seq or T, cfg.num_kv_heads) \
         if with_cache else None
+    seq = tf.seq_split(cfg, mesh, T)
+    start = 0 if seq is None else seq.start
+    x = _embed_dec(cfg, tree, tf.seq_block(tokens, seq), start, mesh)
+    positions = start + torch.arange(x.shape[1], device=x.device)
     x, caches = _decode_blocks(cfg, tree, x, enc_out, positions, with_cache,
-                               mesh, split)
-    return L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh),
-                        x), caches
+                               mesh, split, seq)
+    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
+    return tf.seq_whole(hidden, seq, whole), caches
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             audio_frames: Optional[torch.Tensor] = None,
-            mesh=None) -> torch.Tensor:
+            mesh=None, whole: bool = True) -> torch.Tensor:
     """tokens (B, T) and audio_frames (B, encoder_tokens, D) -> the
     decoder's final hidden states (B, T, D); differentiable.  With a
     ``mesh`` the batch is this rank's rows, each layer computes on the
     rank's heads and MLP columns where the policy splits them, the
     embedding on its vocabulary rows, and storage dims are gathered at
-    their use."""
-    return _forward_impl(cfg, params, tokens, audio_frames, False, mesh)[0]
+    their use; under ``fsdp_tp_seq`` or ``seq_serve`` each rank computes
+    its block of the decoder's positions (and of the frames where "model"
+    divides them), the hidden states gathered after the final norm, or
+    left as this rank's with ``whole=False`` (the loss's)."""
+    return _forward_impl(cfg, params, tokens, audio_frames, False, mesh,
+                         whole=whole)[0]
 
 
 @torch.no_grad()

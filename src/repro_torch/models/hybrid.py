@@ -18,6 +18,12 @@ through the kernels' backward kernels (``flash_attention_bwd``,
 new token's keys, values and states into the cache it is given, in place,
 and returns it (the reference's engine donates the cache to the step, so
 no caller keeps the old one).
+
+Under ``fsdp_tp_seq`` and ``seq_serve`` the sequence is split over "model"
+(``transformer.seq_split``): each rank computes its block of positions,
+the shared block attending from them over the keys and values gathered
+along the axis (``flash_attention`` at ``q_offset``), each Mamba layer
+with its conv halo and incoming state (``mamba2._split_ssd``).
 """
 from __future__ import annotations
 
@@ -76,12 +82,17 @@ def _shared(tree: Dict, mesh):
 
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                  with_cache: bool, mesh=None, max_seq=None):
+                  with_cache: bool, mesh=None, max_seq=None,
+                  whole: bool = True):
     tree = P.nest(params)
     x = tf.embed_tokens(cfg, tree, tokens, mesh=mesh)
-    positions = torch.arange(x.shape[1], device=x.device)
     split = tf.cache_split(mesh, max_seq or x.shape[1], cfg.num_kv_heads) \
         if with_cache else None
+    seq = tf.seq_split(cfg, mesh, x.shape[1])
+    x = tf.seq_block(x, seq)
+    # this rank's positions of the sequence, RoPE offset to them
+    positions = (0 if seq is None else seq.start) + torch.arange(
+        x.shape[1], device=x.device)
     na, per = _n_apps(cfg), cfg.shared_attn_every
     attn_caches, ssm_states, lay = [], [], None
     if not with_cache:
@@ -91,28 +102,33 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         # (the weights gathered inside it, over a mesh)
         def group(h, a):
             h = tf._block(cfg, _shared(tree, mesh), h,
-                          positions=positions, is_global=True, mesh=mesh)[0]
+                          positions=positions, is_global=True, mesh=mesh,
+                          seq=seq)[0]
             for j in range(per):
                 h = mamba2.mamba_block(cfg, mamba2.mamba_layer(
-                    tree["mamba_blocks"], a * per + j, mesh), h, mesh)
+                    tree["mamba_blocks"], a * per + j, mesh), h, mesh, seq)
             return h
         for a in range(na):
             x = L.remat(cfg, group, x, a)
-        return L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh),
-                            x), None
+        hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
+        return tf.seq_whole(hidden, seq, whole), None
     for a in range(na):
         # the shared block is the dense family's block (causal, no
         # window), one set of weights at every application
         x, attn_cache = tf._block(cfg, _shared(tree, mesh), x,
                                   positions=positions, is_global=True,
-                                  with_cache=True, mesh=mesh, split=split)
+                                  with_cache=True, mesh=mesh, seq=seq,
+                                  split=split)
         attn_caches.append(attn_cache)
         for j in range(per):
             p = mamba2.mamba_layer(tree["mamba_blocks"], a * per + j, mesh)
             lay = lay or mamba2.state_layouts(cfg, p, x.shape[0], mesh)
-            x, st = mamba2.mamba_block_with_state(cfg, p, x, mesh)
-            ssm_states.append(mamba2.to_cache(st, lay, mesh))
-    hidden = L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x)
+            x, st = mamba2.mamba_block_with_state(cfg, p, x, mesh, seq)
+            ssm_states.append(mamba2.to_cache(mamba2.last_states(st, seq),
+                                              lay, mesh))
+    hidden = tf.seq_whole(
+        L.apply_norm(cfg, whole_tree(tree["final_norm"], mesh), x), seq,
+        whole)
     attn = {k: torch.stack([c[k] for c in attn_caches]) for k in ("k", "v")}
     ssm = {k: torch.stack([s[k] for s in ssm_states]).unflatten(0, (na, per))
            for k in ("ssm", "conv")}
@@ -120,14 +136,17 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            mesh=None) -> torch.Tensor:
+            mesh=None, whole: bool = True) -> torch.Tensor:
     """tokens (B, T) -> final hidden states (B, T, D); differentiable
     (on a CUDA device through the backward kernels).  With a ``mesh`` the
     batch is this rank's rows, the shared block and each mamba2 mixer
     compute on the rank's heads and columns where the policy splits them,
-    and storage dims are gathered at their use."""
-    return _forward_impl(cfg, params, tokens, with_cache=False,
-                         mesh=mesh)[0]
+    and storage dims are gathered at their use; under ``fsdp_tp_seq`` or
+    ``seq_serve`` each rank computes its block of positions, the hidden
+    states gathered after the final norm, or left as this rank's with
+    ``whole=False`` (the loss's)."""
+    return _forward_impl(cfg, params, tokens, with_cache=False, mesh=mesh,
+                         whole=whole)[0]
 
 
 @torch.no_grad()

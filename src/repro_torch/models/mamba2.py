@@ -22,6 +22,19 @@ every rank), the gate norm with its sum of squares summed over "model",
 and sums the product with ``w_out`` over the axis.  The state cache is
 split as the reference's rule splits its logical axes: ``ssm`` over its
 heads, ``conv`` over d_inner.
+
+Under ``fsdp_tp_seq`` and ``seq_serve`` the sequence is split over "model"
+(``transformer.seq_split``): each rank computes its block of positions
+with the mixer whole.  The causal conv takes the ``K - 1`` inputs before
+the block from the previous rank (:func:`_halo`, one small all-gather;
+rank 0 takes zeros, as the conv's own padding gives them), and the scan
+starts from the state the blocks before it leave (:func:`_split_ssd`):
+each rank scans its block from zero, one all-gather exchanges every
+rank's final state and total log decay, each rank sums the states before
+it, decayed, into its incoming state, and ranks past the first scan again
+from it (``ops.ssd(h0=)``: the ``ssd_scan`` kernel pair on a card).  No
+rank waits for another's scan.  A prefill's states are the last rank's,
+handed to every rank as the cache splits them.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -163,10 +177,13 @@ def block_specs(cfg: ModelConfig, nl: int) -> Dict:
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv.  x: (B, T, C); w: (K, C)."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv.  x: (B, T, C); w: (K, C); ``halo``: the K-1
+    inputs before x (B, K-1, C), zeros where None."""
     K = w.shape[0]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = F.pad(x, (0, 0, K - 1, 0)) if halo is None \
+        else torch.cat([halo.to(x.dtype), x], dim=1)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(K):
         out = out + xp[:, i:i + x.shape[1], :].float() * w[i].float()
@@ -214,32 +231,118 @@ def _out(p: Dict, x: torch.Tensor, y: torch.Tensor, mesh) -> torch.Tensor:
     return x + tf._tp_sum(y @ shd.local(p["w_out"]), p["w_out"], 0, mesh)
 
 
+def _halo(xs: torch.Tensor, K: int, seq: "tf.SeqSplit") -> torch.Tensor:
+    """The K-1 conv inputs before this rank's block of positions (B, K-1,
+    C): each rank's last min(K-1, T_loc) inputs gathered along the split's
+    axis (its backward reduce-scatters them back), the ranks' before this
+    one taken, zeros before the sequence's start."""
+    n = min(K - 1, xs.shape[1])
+    tails = C.all_gather(xs[:, xs.shape[1] - n:], 1, seq.axis)
+    prev = tails[:, :seq.axis.rank * n]
+    if prev.shape[1] < K - 1:
+        prev = F.pad(prev, (0, 0, K - 1 - prev.shape[1], 0))
+    return prev[:, prev.shape[1] - (K - 1):]
+
+
+class _Tie(torch.autograd.Function):
+    """``x`` as it is, with ``others`` in its graph: their gradients are
+    zeros, which reach the collectives behind them, so that every rank of
+    an axis runs those collectives' backwards, the ranks that read nothing
+    from them too."""
+
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.like = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=v)
+                     for s, d, v in ctx.like))
+
+
+def _split_ssd(xh, dt, A, Bm, Cm, chunk: int, seq: "tf.SeqSplit"):
+    """The scan of this rank's block of a sequence split over ``seq.axis``
+    -> (y, the final state), as the whole sequence's scan gives them at
+    these positions.  Each rank scans its block from zero, which gives its
+    final state h_r and (from dt and A) its total log decay g_r; one
+    all-gather of both, packed; the incoming state h_in = sum_{j<r}
+    exp(sum_{j<k<r} g_k) h_j summed in fp32 under autograd; ranks past the
+    first scan their block again from it (``ops.ssd(h0=)``, whose backward
+    gives the state's gradient, reduce-scattered back to the ranks that
+    made it).  Rank 0's first scan is its result, and over an axis of one
+    rank (a forced one: one block at offset 0) the only scan, without an
+    exchange."""
+    y, h = ops.ssd(xh, dt, A, Bm, Cm, chunk=chunk)
+    if seq.axis.size == 1:    # one block: its incoming state is zeros
+        return y, h
+    decay = -(dt.float() * A.float()).sum(1)                 # (B, H)
+    # one collective, which every rank's backward reaches in the same
+    # order: (M, B, H, hd N + 1)
+    packs = C.all_gather(torch.cat([h.flatten(2), decay[..., None]],
+                                   -1)[None], 0, seq.axis)
+    r = seq.axis.rank
+    if r == 0:
+        if torch.is_grad_enabled():
+            y = _Tie.apply(y, packs)
+        return y, h
+    hs = packs[..., :-1].unflatten(-1, h.shape[2:])
+    gs = packs[..., -1]
+    h_in = hs[0]
+    for j in range(1, r):
+        h_in = torch.exp(gs[j])[..., None, None] * h_in + hs[j]
+    return ops.ssd(xh, dt, A, Bm, Cm, chunk=chunk, h0=h_in)
+
+
 def mamba_block_with_state(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                           mesh=None) -> Tuple[torch.Tensor, Dict]:
+                           mesh=None, seq: Optional["tf.SeqSplit"] = None
+                           ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence mamba2 block: x (B, T, D) -> (out (B, T, D),
     {"ssm": final state (B, H, hd, N) fp32, "conv": last K-1 inputs}).
     Over a ``mesh`` ``p`` is the layer as ``mixer_params`` gives it: on a
     split mixer this rank's heads (``ops.ssd`` on their block, B and C
     whole) and their d_inner columns, the states its heads', the output
-    summed over the heads' axes."""
+    summed over the heads' axes.  Over a sequence split ``seq`` x is this
+    rank's block of positions: the conv takes its halo (:func:`_halo`) and
+    the scan its incoming state (:func:`_split_ssd`); the states are those
+    at the block's end."""
     xn = L.apply_norm(cfg, p["norm"], x)
     z, xs, Bm, Cm, dt = _in_proj(p, xn)
-    xc = F.silu(_causal_conv(xs, shd.local(p["conv_w"])).float()).to(
+    K = cfg.ssm_conv_kernel
+    halo = None if seq is None else _halo(xs, K, seq)
+    xc = F.silu(_causal_conv(xs, shd.local(p["conv_w"]), halo).float()).to(
         x.dtype)
     xh = xc.reshape(x.shape[0], x.shape[1], -1, cfg.ssm_head_dim)
     A = torch.exp(shd.local(p["A_log"]))
-    y, h_fin = ops.ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    if seq is None:
+        y, h_fin = ops.ssd(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    else:
+        y, h_fin = _split_ssd(xh, dt, A, Bm, Cm, cfg.ssm_chunk, seq)
     y = y + xh * shd.local(p["D_skip"])[None, None, :, None].to(x.dtype)
     y = _gate(p, y.reshape(xc.shape), z, mesh)
     out = _out(p, x, y, mesh)
-    K = cfg.ssm_conv_kernel
-    return out, {"ssm": h_fin.float(), "conv": xs[:, -(K - 1):, :]}
+    # the conv's last K-1 inputs: a block shorter than K-1 takes the rest
+    # from its halo
+    tail = xs if halo is None else torch.cat(
+        [halo.to(xs.dtype), xs[:, -(K - 1):]], 1)
+    return out, {"ssm": h_fin.float(), "conv": tail[:, -(K - 1):, :]}
 
 
 def mamba_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                mesh=None) -> torch.Tensor:
-    """Full-sequence mamba2 block: x (B, T, D) -> (B, T, D)."""
-    return mamba_block_with_state(cfg, p, x, mesh)[0]
+                mesh=None, seq: Optional["tf.SeqSplit"] = None
+                ) -> torch.Tensor:
+    """Full-sequence mamba2 block: x (B, T, D) -> (B, T, D); over a
+    sequence split, this rank's block of positions."""
+    return mamba_block_with_state(cfg, p, x, mesh, seq)[0]
+
+
+def last_states(st: Dict, seq: Optional["tf.SeqSplit"]) -> Dict:
+    """A split prefill's states (no grad): the sequence's, which its last
+    rank computed, on every rank of the split's axis."""
+    if seq is None:
+        return st
+    return {k: C.broadcast(v, seq.axis, seq.axis.size - 1)
+            for k, v in st.items()}
 
 
 def mamba_block_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor,
@@ -356,36 +459,43 @@ def specs(cfg: ModelConfig) -> Dict:
 
 def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   patch_embeds: Optional[torch.Tensor], with_state: bool,
-                  mesh=None):
+                  mesh=None, whole: bool = True):
     tree = P.nest(params)
     x = tf.embed_tokens(cfg, tree, tokens, patch_embeds, mesh)
+    seq = tf.seq_split(cfg, mesh, x.shape[1])
+    x = tf.seq_block(x, seq)
     if not with_state:
         for i in range(cfg.num_layers):
             # the layer's weights gathered inside the recomputed body
             x = L.remat(cfg, lambda h, i=i: mamba_block(
-                cfg, mamba_layer(tree["blocks"], i, mesh), h, mesh), x)
-        return L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh),
-                            x), None
+                cfg, mamba_layer(tree["blocks"], i, mesh), h, mesh, seq), x)
+        hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh),
+                              x)
+        return tf.seq_whole(hidden, seq, whole), None
     states, lay = [], None
     for i in range(cfg.num_layers):
         p = mamba_layer(tree["blocks"], i, mesh)
         lay = lay or state_layouts(cfg, p, x.shape[0], mesh)
-        x, st = mamba_block_with_state(cfg, p, x, mesh)
-        states.append(to_cache(st, lay, mesh))
+        x, st = mamba_block_with_state(cfg, p, x, mesh, seq)
+        states.append(to_cache(last_states(st, seq), lay, mesh))
     hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)
-    return hidden, {k: torch.stack([st[k] for st in states])
-                    for k in ("ssm", "conv")}
+    return tf.seq_whole(hidden, seq, whole), {
+        k: torch.stack([st[k] for st in states]) for k in ("ssm", "conv")}
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             patch_embeds: Optional[torch.Tensor] = None,
-            mesh=None) -> torch.Tensor:
+            mesh=None, whole: bool = True) -> torch.Tensor:
     """tokens (B, T) -> final hidden states (B, T, D); differentiable
     (on a CUDA device through the ``ssd_scan_bwd`` kernel).  With a
     ``mesh`` the batch is this rank's rows, each mixer computes on the
     rank's heads where the policy splits them (``mixer_params``) and
-    storage dims are gathered at their use."""
-    return _forward_impl(cfg, params, tokens, patch_embeds, False, mesh)[0]
+    storage dims are gathered at their use; under ``fsdp_tp_seq`` or
+    ``seq_serve`` each rank computes its block of positions
+    (``transformer.seq_split``), the hidden states gathered after the
+    final norm, or left as this rank's with ``whole=False`` (the loss's)."""
+    return _forward_impl(cfg, params, tokens, patch_embeds, False, mesh,
+                         whole)[0]
 
 
 @torch.no_grad()

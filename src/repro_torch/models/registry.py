@@ -78,7 +78,8 @@ class Model:
                 whole: bool = True) -> torch.Tensor:
         """The final hidden states; ``whole=False`` leaves them as this
         rank's positions where the mesh splits the sequence
-        (``transformer.seq_split``: the dense, moe and vlm families)."""
+        (``transformer.seq_split``: every token family, an audio model's
+        decoder positions)."""
         mesh = _view(mesh)
         kw = {} if whole else {"whole": False}
         if self.cfg.family == "mlp":
@@ -99,8 +100,8 @@ class Model:
                 max_seq=None):
         """The forward and its caches; ``max_seq``: the length of the
         cache they fill, whose positions a mesh may split
-        (``transformer.cache_split``; the dense, moe, vlm and hybrid
-        families' attention caches)."""
+        (``transformer.cache_split``; the attention caches of every family
+        that has them)."""
         mesh = _view(mesh)
         fe = self._frontend(batch)
         if fe is None:

@@ -713,23 +713,51 @@ class SeqSplit(NamedTuple):
 SEQ_POLICIES = ("seq_serve", "fsdp_tp_seq")
 
 
+def splits_seq(policy: Optional[str], model: int, T: int) -> bool:
+    """Whether ``policy`` splits a ``T``-position sequence over a "model"
+    axis of ``model`` ranks: it splits the activations' sequence
+    (``SEQ_POLICIES``) and ``model`` divides ``T``."""
+    return policy in SEQ_POLICIES and T % model == 0
+
+
 def seq_split(cfg: ModelConfig, mesh, T: int) -> Optional[SeqSplit]:
-    """The split of a ``T``-position sequence (a VLM's patches included)
-    on ``mesh`` (a ``MeshView``): where its policy (the config's without
-    one) splits the activations' sequence over "model" (``seq_serve``,
-    ``fsdp_tp_seq``), the axis takes collectives (more than one rank, or
-    forced: one block at offset 0) and divides ``T``.  None otherwise,
-    and decode (T = 1) never splits."""
+    """The split of a ``T``-position sequence on ``mesh`` (a
+    ``MeshView``): a decoder's positions (a VLM's patches included), or
+    whisper's encoder frames.  It applies where the mesh's policy (the
+    config's without one) splits the activations' sequence over "model"
+    (``seq_serve``, ``fsdp_tp_seq``), the axis takes collectives (more
+    than one rank, or forced: one block at offset 0) and divides ``T``.
+    None otherwise (whisper's 1,500 frames stay whole over 16 ranks), and
+    decode (T = 1) never splits.  Every token family splits: the dense,
+    MoE and VLM decoders here, the Mamba2 blocks (``mamba2``), zamba2's
+    (``hybrid``) and whisper's encoder and decoder (``encdec``)."""
     if not isinstance(mesh, shd.MeshView) \
             or "model" not in mesh.mesh_dim_names:
         return None
-    policy = mesh.policy or cfg.sharding
-    if policy not in SEQ_POLICIES or not mesh.active("model"):
+    if not mesh.active("model"):
         return None
+    policy = mesh.policy or cfg.sharding
     ax = C.Axis.of(mesh, "model")
-    if T % ax.size:
+    if not splits_seq(policy, ax.size, T):
         return None
     return SeqSplit(ax, ax.rank * (T // ax.size), T, policy == "seq_serve")
+
+
+def seq_block(x: torch.Tensor, seq: Optional[SeqSplit]) -> torch.Tensor:
+    """This rank's block of the positions of x (B, T, ...) over a sequence
+    split (all of them without one)."""
+    return x if seq is None else x.narrow(1, seq.start,
+                                          seq.total // seq.axis.size)
+
+
+def seq_whole(hidden: torch.Tensor, seq: Optional[SeqSplit],
+              whole: bool = True) -> torch.Tensor:
+    """The ranks' blocks of positions gathered along the split's axis (an
+    all-gather, whose backward reduce-scatters), or this rank's block
+    where ``whole`` is False."""
+    if seq is None or not whole:
+        return hidden
+    return C.all_gather(hidden, 1, seq.axis)
 
 
 def _seq_attention(cfg: ModelConfig, q, kk, vv, seq: SeqSplit, window: int,
@@ -911,18 +939,14 @@ def _forward_impl(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     split = cache_split(mesh, max_seq or x.shape[1], cfg.num_kv_heads) \
         if with_cache else None
     seq = seq_split(cfg, mesh, x.shape[1])
-    if seq is None:
-        positions = torch.arange(x.shape[1], device=x.device)
-    else:   # this rank's positions of the sequence, RoPE offset to them
-        T_loc = seq.total // seq.axis.size
-        x = x.narrow(1, seq.start, T_loc)
-        positions = seq.start + torch.arange(T_loc, device=x.device)
+    x = seq_block(x, seq)
+    # this rank's positions of the sequence, RoPE offset to them
+    positions = (0 if seq is None else seq.start) + torch.arange(
+        x.shape[1], device=x.device)
     x, caches = _scan_blocks(cfg, tree, x, positions, with_cache, mesh, seq,
                              split)
     hidden = L.apply_norm(cfg, shd.whole_tree(tree["final_norm"], mesh), x)
-    if seq is not None and whole:
-        hidden = C.all_gather(hidden, 1, seq.axis)
-    return hidden, caches
+    return seq_whole(hidden, seq, whole), caches
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,

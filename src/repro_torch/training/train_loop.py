@@ -55,11 +55,12 @@ def loss_fn(model, params: Dict, batch: Dict, mesh=None) -> torch.Tensor:
     reference's vocabulary-parallel branch (:func:`_vocab_parallel_ce`:
     this rank's fp32 logits, the softmax's statistics merged over the
     axes), else the head gathered whole.  Over a sequence split
-    (``transformer.seq_split``) each rank takes the cross-entropy of its
-    own positions (:func:`_split_ce`)."""
+    (``transformer.seq_split``, every token family: a decoder's positions,
+    an SSM's or a hybrid's, whisper's decoder tokens) each rank takes the
+    cross-entropy of its own positions (:func:`_split_ce`)."""
     cfg = model.cfg
     seq = None
-    if cfg.family in tf.FAMILIES and not cfg.num_classes:
+    if not cfg.num_classes and "tokens" in batch:
         fe = batch.get("patch_embeds")
         T = batch["tokens"].shape[1] + (0 if fe is None else fe.shape[1])
         seq = tf.seq_split(cfg, mesh, T)

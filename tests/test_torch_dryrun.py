@@ -120,7 +120,8 @@ KEYS = {"arch", "shape", "mesh", "policy", "params", "flops",
 MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes",
                "generated_code_bytes"}
 
-SCRIPT = textwrap.dedent("""
+# every cell at its smoke config and a cut sequence length
+SMOKE = textwrap.dedent("""
     import json, sys
     import torch.distributed as dist
     import repro_torch.configs as C
@@ -137,6 +138,8 @@ SCRIPT = textwrap.dedent("""
         base.SHAPES_BY_NAME[name] = base.ShapeConfig(name, {seq},
                                                      s.global_batch, s.kind)
     from repro_torch.launch import dryrun
+""")
+SCRIPT = SMOKE + textwrap.dedent("""
     out = []
     for i, (arch, shape) in enumerate({cells}):
         keep = sys.argv[1] if i == 0 else None
@@ -227,6 +230,31 @@ def test_keep_ops_writes_each_dispatched_op(traced):
 
 def test_run_cell_refuses_an_initialized_group(traced):
     assert traced["refused"]
+
+
+def test_the_split_traces_each_rank_of_model():
+    """mamba2 ``train_4k`` under ``fsdp_tp_seq`` traced as rank 0 and as
+    rank 15, the last "model" rank: rank 0 scans its block once, rank 15
+    twice (from zero for the state exchange, then from its incoming
+    state), so rank 15 computes more; ``expected_train_flops`` counts the
+    busiest rank, within 20% of rank 15's trace."""
+    code = SMOKE.format(seq=SEQ) + textwrap.dedent("""
+        print(json.dumps([dryrun.run_cell("mamba2-1.3b", "train_4k", False,
+                                          policy="fsdp_tp_seq", rank=r)
+                          for r in (0, 15)]))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=ENV, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    first, last = json.loads(r.stdout.strip().splitlines()[-1])
+    assert first["policy"] == last["policy"] == "fsdp_tp_seq"
+    assert last["flops"] > first["flops"]
+    s = tcfg.SHAPES_BY_NAME["train_4k"]
+    cfg = _smoke("mamba2-1.3b").replace(sharding="fsdp_tp_seq")
+    split = td.expected_train_flops(
+        cfg, tcfg.base.ShapeConfig("train_4k", SEQ, s.global_batch, s.kind),
+        mesh_sizes("single"))
+    assert abs(last["flops"] - split) <= 0.2 * split, (last["flops"], split)
 
 
 def test_sweep_skips_a_cell_in_its_output_file(tmp_path):

@@ -1,11 +1,12 @@
-"""Tensor-parallel compute for the Mamba2 mixer, zamba2's Mamba layers and
-whisper's encoder-decoder against the reference's GSPMD runs.
+"""Tensor-parallel and sequence-split compute for the Mamba2 mixer,
+zamba2's Mamba layers and whisper's encoder-decoder against the
+reference's GSPMD runs.
 
 Four gloo ranks on ("data", "model") = (2, 2) and (1, 4), in one spawn,
-against the reference on four forced CPU devices, under ``tp`` and
-``fsdp_tp``, for fp32 variants of three smoke configs: mamba2's (8 SSM
-heads, split over 2 and 4), zamba2's, and whisper's with 4 heads (its 3
-do not split):
+against the reference on four forced CPU devices, under ``tp``,
+``fsdp_tp`` and ``fsdp_tp_seq``, for fp32 variants of three smoke configs:
+mamba2's (8 SSM heads, split over 2 and 4), zamba2's, and whisper's with 4
+heads (its 3 do not split):
 
 * the loss and every leaf's gradient (``step.grads`` of
   ``make_sharded_train_step``, gathered whole) meet the reference's
@@ -16,10 +17,25 @@ do not split):
   10% of ``dryrun.split_forward_flops`` (the mixer's projections and SSD
   on the rank's heads, B and C whole; whisper's heads, MLP columns and
   vocabulary over "model");
-* no all-gather runs over "model" in the loss and its gradients;
+* no all-gather runs over "model" in the loss and its gradients (under
+  ``tp`` and ``fsdp_tp``: ``fsdp_tp_seq`` stores every "model" dim);
 * each rank's ``ssm`` / ``conv`` / ``k`` / ``v`` / ``xk`` / ``xv`` cache
   has the reference's split shape (``sharding.cache_pspec`` of its
-  logical axes).
+  logical axes: under ``fsdp_tp_seq`` the SSM heads whole, the conv over
+  d_inner, the cross-attention's frames over "model").
+
+Under ``fsdp_tp_seq`` the sequence splits over "model"
+(``transformer.seq_split``): two ``make_sharded_train_step`` steps (their
+losses and gradient norms, and the loss at the params they leave, meet
+the reference's steps), the forward's hidden states meet the reference's,
+and each rank's Mamba2 blocks, shared attention block and whisper's
+encoder and decoder layers run on T / model positions (the frames too:
+16 divide over 2 and 4 ranks).  One forced rank runs two mamba2 ``fsdp_tp_seq``
+steps, the unmeshed steps to the bit.  Without ranks, the SSD scan's
+incoming state: ``ops.ssd(h0=)`` (the kernel's plain version on the CPU)
+meets the reference's ``ssd_chunked(h0=)``, blocks chained through ``h0``
+are the whole sequence, and ``h0``'s gradient through the plain version
+meets ``jax.grad``'s.
 
 The repair: a cache of 22 positions on (1, 4) under ``tp``, whose
 sequence does not divide "model", is split over kv heads instead (the
@@ -50,13 +66,18 @@ REPAIR = {"qwen2": ("qwen2-1.5b", dict(num_heads=4, num_kv_heads=4)),
           "mamba2_h2": ("mamba2-1.3b", dict(ssm_head_dim=64))}
 KV_REPAIR = ("qwen2", "zamba2", "whisper")
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
-POLICIES = ("tp", "fsdp_tp")
+POLICIES = ("tp", "fsdp_tp", "fsdp_tp_seq")
+# the policies that split the sequence over "model"
+SEQ = ("fsdp_tp_seq",)
 B, T = 8, 16            # the training batch
 SB, S, GEN = 4, 24, 3   # serving: rows, cache length, decode steps
 ODD = 22                # the repair's cache length: 22 % 4 != 0
 RTOL, ATOL = 1e-4, 1e-6
 CASES = list(itertools.product(MESHES, POLICIES, MODELS))
 IDS = [".".join(c) for c in CASES]
+SEQ_IDS = [i for i in IDS if i.split(".")[1] in SEQ]
+TP_IDS = [i for i in IDS if i.split(".")[1] not in SEQ]
+STEPS = 2               # the sequence split's steps before its gradients
 
 _REFERENCE = r"""
 import os, sys
@@ -68,9 +89,11 @@ from repro.configs.base import ShapeConfig, TrainConfig
 from repro.distributed import sharding as shd
 from repro.models.registry import get_model
 from repro.serving.engine import ServeEngine
-from repro.training.train_loop import loss_fn, state_pspecs
+from repro.training import optimizer as opt
+from repro.training.train_loop import (loss_fn, make_sharded_train_step,
+                                       state_pspecs)
 data = np.load(sys.argv[1])
-models, repair, meshes, policies, (B, T, SB, S, GEN, ODD) = %r
+models, repair, meshes, policies, seq, (B, T, SB, S, GEN, ODD, STEPS) = %r
 out = {}
 
 def flat(tree, prefix=""):
@@ -120,12 +143,36 @@ for name, (arch, kw) in models.items():
             _, ps = state_pspecs(model, TrainConfig(), mesh, policy)
             bp = input_pspecs(cfg, ShapeConfig("t", T, B, "train"), mesh,
                               policy)
+            shardings = (shd.tree_named(mesh, ps["params"]),
+                         {k: shd.named(mesh, v) for k, v in bp.items()})
+            if policy in seq:
+                # the split's steps (on a copy: the step donates its
+                # state) and the loss and gradients at the params they
+                # leave; the hidden states at the initial params
+                tc = TrainConfig(learning_rate=1e-2, schedule="constant")
+                state = {"params": jax.tree.map(jnp.copy, params),
+                         "step": jnp.zeros((), jnp.int32),
+                         "opt": opt.init_slots(jax.tree.leaves(params), tc)}
+                step, _, _ = make_sharded_train_step(model, tc, mesh, policy,
+                                                     bp)
+                for i in range(STEPS):
+                    state, m = step(state, batch)
+                    out[tag + ".loss%%d" %% i] = np.asarray(m["loss"])
+                    out[tag + ".gnorm%%d" %% i] = np.asarray(m["grad_norm"])
+                with mesh:
+                    loss, grads = jax.jit(jax.value_and_grad(
+                        lambda p, b: loss_fn(model, p, b, mesh=mesh)),
+                        in_shardings=shardings)(state["params"], batch)
+                    out[tag + ".loss_after"] = np.asarray(loss)
+                    for path, g in flat(grads):
+                        out[tag + ".grad_after." + path] = np.asarray(g)
+                    fwd = jax.jit(lambda p, b: model.forward(p, b, mesh=mesh),
+                                  in_shardings=shardings)
+                    out[tag + ".hidden"] = np.asarray(fwd(params, batch))
             with mesh:
                 fn = jax.jit(jax.value_and_grad(
                     lambda p, b: loss_fn(model, p, b, mesh=mesh)),
-                    in_shardings=(shd.tree_named(mesh, ps["params"]),
-                                  {k: shd.named(mesh, v)
-                                   for k, v in bp.items()}))
+                    in_shardings=shardings)
                 loss, grads = fn(params, batch)
                 out[tag + ".loss"] = np.asarray(loss)
                 for path, g in flat(grads):
@@ -142,7 +189,7 @@ for name, (arch, kw) in repair.items():
               ODD)
 np.savez(sys.argv[2], **out)
 """ % ((MODELS, REPAIR, {k: list(v) for k, v in MESHES.items()}, POLICIES,
-        (B, T, SB, S, GEN, ODD)),)
+        SEQ, (B, T, SB, S, GEN, ODD, STEPS)),)
 
 
 def _cfg(name, policy, table=MODELS):
@@ -205,19 +252,34 @@ def _serve(eng, data, name, cache_len=None):
     return logits.numpy(), dec, shapes
 
 
+def _recording(mod, name, seen):
+    """Wrap ``mod.<name>`` (a layer function taking x (B, T, D) third) so
+    that each call adds its T to ``seen``; returns the plain function."""
+    plain = getattr(mod, name)
+
+    def wrapped(cfg, p, x, *args, **kw):
+        seen.append(x.shape[1])
+        return plain(cfg, p, x, *args, **kw)
+    setattr(mod, name, wrapped)
+    return plain
+
+
 def _tp_rank(rank, world, data, params):
     """Every four-rank case: the sharded loss and gradients, the forward's
     FLOPs and all-gathers, the meshed engine's prefill, decode and cache,
-    and the repair's; results on rank 0 (the counts and shapes on every
-    rank)."""
+    and the repair's; under the sequence split also its steps, hidden
+    states and each layer's positions; results on rank 0 (the counts,
+    positions and shapes on every rank)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import input_pspecs
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch.dryrun import split_forward_flops
+    from repro_torch.launch.dryrun import seq_ways, split_forward_flops
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import encdec, mamba2
+    from repro_torch.models import transformer as tf
     from repro_torch.models.registry import get_model
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.training.train_loop import (batch_rows, init_train_state,
@@ -233,6 +295,10 @@ def _tp_rank(rank, world, data, params):
         gathers.append(axis.group)
         return plain_all_gather(x, dim, axis)
 
+    positions = []
+    layers = ((mamba2, "mamba_block_with_state"), (tf, "_block"),
+              (encdec, "_enc_layer"), (encdec, "_dec_layer"))
+
     for mname, policy, name in CASES:
         tag = f"{mname}.{policy}.{name}"
         mesh = meshes[mname]
@@ -246,6 +312,7 @@ def _tp_rank(rank, world, data, params):
         state = shd.shard_tree(init_train_state(model, tc, p), sh)
         rows = {k: v[shd.slices(v.shape, bp[k], mesh)]
                 for k, v in batch.items()}
+        view = shd.MeshView(mesh, rows=batch_rows(bp), policy=policy)
         model_group = mesh.get_group("model")
         gathers.clear()
         C.all_gather = counting_all_gather
@@ -260,12 +327,36 @@ def _tp_rank(rank, world, data, params):
         with torch.no_grad():
             whole = {k: shd.gather(g, specs[k], mesh)
                      for k, g in grads.items()}
-        view = shd.MeshView(mesh, rows=batch_rows(bp), policy=policy)
-        with torch.no_grad(), FlopCounterMode(display=False) as fc:
-            loss_fn(model, state["params"], rows, mesh=view)
-        layers, head = split_forward_flops(cfg, T, view.sizes())
+        positions.clear()
+        plain = [_recording(m, f, positions) for m, f in layers]
+        try:
+            with torch.no_grad(), FlopCounterMode(display=False) as fc:
+                loss_fn(model, state["params"], rows, mesh=view)
+        finally:
+            for (m, f), fn in zip(layers, plain):
+                setattr(m, f, fn)
+        out[tag + ".positions"] = sorted(set(positions))
+        per_token, head = split_forward_flops(cfg, T, view.sizes())
+        tokens = rows["tokens"].numel() // seq_ways(cfg, T, view.sizes())
         out[tag + ".flops"] = (fc.get_total_flops(),
-                               rows["tokens"].numel() * (layers + head))
+                               tokens * (per_token + head))
+        if policy in SEQ:
+            with torch.no_grad():
+                hidden = model.forward(state["params"], rows, mesh=view)
+                out[tag + ".hidden"] = shd.gather(
+                    hidden, (view.rows or None,), view).numpy()
+            losses = []
+            for _ in range(STEPS):
+                state, m = step(state, rows)
+                losses.append((float(m["loss"]), float(m["grad_norm"])))
+            out[tag + ".steps"] = losses
+            loss_after, after = step.grads(state, rows)
+            out[tag + ".loss_after"] = float(loss_after)
+            with torch.no_grad():
+                after = {k: shd.gather(g, specs[k], mesh).numpy()
+                         for k, g in after.items()}
+            if rank == 0:
+                out[tag + ".grads_after"] = after
         logits, dec, shapes = _serve(
             ServeEngine(model, p, S, SB, device="cpu", mesh=mesh,
                         policy=policy), data, name)
@@ -285,6 +376,34 @@ def _tp_rank(rank, world, data, params):
         if rank == 0:
             out[f"repair.{name}.prefill"] = logits
             out[f"repair.{name}.decode"] = dec
+    return out
+
+
+def _plain_steps(data, params):
+    """The unmeshed port's gradients after ``STEPS`` steps of the split's
+    training (the same params, batch and optimizer), per model: how far
+    the port's own arithmetic carries its gradients from the reference's
+    through two Adam steps, with no mesh."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.registry import get_model
+    from repro_torch.training.train_loop import (init_train_state, loss_fn,
+                                                 make_train_step)
+    tc = TrainConfig(learning_rate=1e-2, schedule="constant")
+    out = {}
+    for name in MODELS:
+        model = get_model(_cfg(name, SEQ[0]))
+        batch = _inputs(data, name, True)
+        state = init_train_state(model, tc, {k: v.float().clone()
+                                             for k, v in params[name].items()})
+        step = make_train_step(model, tc)
+        for _ in range(STEPS):
+            state, _ = step(state, batch)
+        p = {k: v.detach().requires_grad_(True)
+             for k, v in state["params"].items()}
+        gs = torch.autograd.grad(loss_fn(model, p, batch), list(p.values()))
+        out.update({f"plain.{name}.grad_after.{k}": g.numpy()
+                    for k, g in zip(p, gs)})
     return out
 
 
@@ -328,18 +447,57 @@ def ranks(tmp_path_factory):
                 np.asarray, jm.init(jax.random.key(0))), device="cpu")
         got = run_ranks(_tp_rank, 4, "cpu", args=(data, params), threads=1,
                         timeout=300)
+        plain = _plain_steps(data, params)
     finally:
         errs = [ref.communicate(timeout=300)[1] for ref in refs]
     want = {}
     for ref, err, name in zip(refs, errs, MODELS):
         assert ref.returncode == 0, err[-3000:]
         want.update(np.load(tmp / f"out.{name}.npz"))
+    # beside the reference's results, the unmeshed port's drift from them
+    want.update(plain)
     return got, want
+
+
+# the split's gradients after its steps may part from the reference's by
+# this many times the unmeshed port's own drift (on top of the gradients'
+# bound): Adam's first steps move an entry whose gradient is near zero by
+# the whole learning rate either way, so where rounding flips such a sign
+# the params, and the gradients at them, part by more than rounding
+DRIFT = 4
 
 
 @pytest.mark.parametrize("case", IDS)
 def test_loss_and_gradients_meet_the_reference(ranks, case):
+    """The loss and every leaf's gradient; under the sequence split also
+    two steps from the same params, whose losses and gradient norms, and
+    the loss and every leaf's gradient at the params they leave, meet the
+    reference's.  After the steps each leaf is held to the gradients'
+    bound plus ``DRIFT`` times the largest difference between the
+    unmeshed port's gradients after the same steps and the reference's,
+    since the port's arithmetic alone carries them apart."""
     got, want = ranks
+    for i, (loss, gnorm) in enumerate(got[0].get(case + ".steps", ())):
+        np.testing.assert_allclose(loss, want[f"{case}.loss{i}"], rtol=RTOL,
+                                   err_msg=f"step {i + 1} loss")
+        np.testing.assert_allclose(gnorm, want[f"{case}.gnorm{i}"],
+                                   rtol=RTOL, err_msg=f"step {i + 1} norm")
+    if case in SEQ_IDS:
+        assert len(got[0][case + ".steps"]) == STEPS
+        np.testing.assert_allclose(got[0][case + ".loss_after"],
+                                   want[case + ".loss_after"], rtol=RTOL,
+                                   err_msg="the loss after the steps")
+        name = case.split(".")[2]
+        after = got[0][case + ".grads_after"]
+        assert set(after) == {k[len(case) + 12:] for k in want
+                              if k.startswith(case + ".grad_after.")}
+        for k, g in after.items():
+            w = want[f"{case}.grad_after.{k}"]
+            drift = np.abs(want[f"plain.{name}.grad_after.{k}"] - w).max()
+            np.testing.assert_allclose(
+                g, w, rtol=RTOL,
+                atol=ATOL * max(np.abs(w).max(), 1.0) + DRIFT * drift,
+                err_msg=f"{k} after the steps")
     np.testing.assert_allclose(got[0][case + ".loss"], want[case + ".loss"],
                                rtol=RTOL)
     grads = got[0][case + ".grads"]
@@ -380,7 +538,28 @@ def test_forward_flops_are_split_over_model(ranks, case):
                                                            analytic)
 
 
+@pytest.mark.parametrize("case", SEQ_IDS)
+def test_hidden_states_meet_the_reference(ranks, case):
+    got, want = ranks
+    w = want[case + ".hidden"]
+    np.testing.assert_allclose(got[0][case + ".hidden"], w, rtol=RTOL,
+                               atol=ATOL * max(np.abs(w).max(), 1.0))
+
+
 @pytest.mark.parametrize("case", IDS)
+def test_each_rank_computes_its_block_of_positions(ranks, case):
+    """Every Mamba2 block, shared attention block and whisper encoder and
+    decoder layer of the loss's forward runs on T / model positions under
+    the sequence split (whisper's 16 frames divide "model" too), on all T
+    otherwise."""
+    got, _ = ranks
+    mname, policy, _ = case.split(".")
+    want = T // MESHES[mname][1] if policy in SEQ else T
+    for out in got:
+        assert out[case + ".positions"] == [want]
+
+
+@pytest.mark.parametrize("case", TP_IDS)
 def test_no_leaf_is_gathered_over_a_tensor_parallel_dim(ranks, case):
     got, _ = ranks
     for out in got:
@@ -389,31 +568,70 @@ def test_no_leaf_is_gathered_over_a_tensor_parallel_dim(ranks, case):
     assert (got[0][case + ".gathers"] > 0) == case.startswith("2x2.fsdp_tp")
 
 
-def _cache_shapes(cfg, data, model, seq_len):
-    """The reference's split of each cache leaf for ``SB`` rows over
-    (data, model) ranks: rows over "data", the sequence over "model"
-    (``seq_len`` divides it here), the SSM heads and the conv's d_inner
-    over "model", the cross-attention's kv heads over "model"."""
+# the reference's logical axes of each cache leaf (its models'
+# ``cache_specs``)
+_KV = ("layers", "cache_batch", "cache_seq", "kv", None)
+_SSM = {"ssm": ("layers", "cache_batch", "ssm_heads", None, "state"),
+        "conv": ("layers", "cache_batch", "conv", "mlp")}
+_LOGICAL = {
+    "ssm": _SSM,
+    "hybrid": {"attn.k": _KV, "attn.v": _KV,
+               **{"ssm." + k: v[:1] + (None,) + v[1:]
+                  for k, v in _SSM.items()}},
+    "audio": {"k": _KV, "v": _KV,
+              "xk": ("layers", "cache_batch", "seq", "kv", None),
+              "xv": ("layers", "cache_batch", "seq", "kv", None)}}
+
+
+def _cache_shapes(cfg, policy, data, model, seq_len):
+    """Each cache leaf's block for ``SB`` rows over (data, model) ranks as
+    ``sharding.cache_pspec`` splits it over the leaf's logical axes under
+    ``policy``: the rows over the policy's batch axes, every other dim by
+    the reference's greedy rule (the sequence over "model"; under ``tp``
+    and ``fsdp_tp`` the SSM heads and the cross-attention's kv heads over
+    "model", under ``fsdp_tp_seq`` the SSM heads whole and the
+    cross-attention's frames over "model"; the conv's d_inner over "model"
+    under all three)."""
+    import math
+    from repro_torch.distributed import sharding as shd
+
+    class Mesh:   # (data, model) ranks, seen from one of them
+        mesh_dim_names = ("data", "model")
+        shape = (data, model)
+
+        def get_local_rank(self, name):
+            return 0
+    sizes = dict(zip(Mesh.mesh_dim_names, Mesh.shape))
+    rows = shd._axes(shd.logical_to_pspec((SB,), ("batch",), sizes,
+                                          policy)[0])
+    view = shd.MeshView(Mesh(), rows=rows, policy=policy)
     L, hd, Hk = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
-    H, shd_, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
-    K, di, b = cfg.ssm_conv_kernel, cfg.ssm_d_inner, SB // data
-    ssm = {"ssm": (b, H // model, shd_, N), "conv": (b, K - 1, di // model)}
-    kv = (b, seq_len // model, Hk, hd)
-    if cfg.family == "ssm":
-        return {k: (L,) + v for k, v in ssm.items()}
-    if cfg.family == "hybrid":
-        na, per = L // cfg.shared_attn_every, cfg.shared_attn_every
-        return {"attn.k": (na,) + kv, "attn.v": (na,) + kv,
-                **{"ssm." + k: (na, per) + v for k, v in ssm.items()}}
-    xkv = (L, b, cfg.encoder_tokens, Hk // model, hd)
-    return {"k": (L,) + kv, "v": (L,) + kv, "xk": xkv, "xv": xkv}
+    H, N, K = cfg.ssm_num_heads, cfg.ssm_state, cfg.ssm_conv_kernel
+    na, per = (L // cfg.shared_attn_every, cfg.shared_attn_every) \
+        if cfg.family == "hybrid" else (L, 1)
+    whole = {"ssm": (L, SB, H, cfg.ssm_head_dim, N),
+             "conv": (L, SB, K - 1, cfg.ssm_d_inner),
+             "k": (L, SB, seq_len, Hk, hd), "v": (L, SB, seq_len, Hk, hd),
+             "xk": (L, SB, cfg.encoder_tokens, Hk, hd),
+             "xv": (L, SB, cfg.encoder_tokens, Hk, hd)}
+    whole.update({"attn.k": (na, SB, seq_len, Hk, hd),
+                  "attn.v": (na, SB, seq_len, Hk, hd),
+                  "ssm.ssm": (na, per) + whole["ssm"][1:],
+                  "ssm.conv": (na, per) + whole["conv"][1:]})
+    out = {}
+    for leaf, logical in _LOGICAL[cfg.family].items():
+        shape = whole[leaf]
+        spec = shd.cache_pspec(view, shape, logical)
+        out[leaf] = tuple(n // math.prod(sizes[a] for a in shd._axes(e))
+                          for n, e in zip(shape, spec))
+    return out
 
 
 @pytest.mark.parametrize("case", IDS)
 def test_each_rank_holds_the_reference_split_of_the_caches(ranks, case):
     got, _ = ranks
     mname, policy, name = case.split(".")
-    want = _cache_shapes(_cfg(name, policy), *MESHES[mname], S)
+    want = _cache_shapes(_cfg(name, policy), policy, *MESHES[mname], S)
     for out in got:
         assert out[case + ".cache"] == want
 
@@ -480,3 +698,173 @@ def test_cache_split_of_reads_the_layout_from_the_block():
     assert tf.cache_split(None, None, 4) is None
     with pytest.raises(ValueError, match="pass max_seq"):
         tf.cache_split(view, None, 4)
+
+
+# the SSD scan's incoming state: (B, T, H, hd, N, chunk, blocks)
+H0_CASES = [(2, 64, 3, 8, 4, 16, 4), (1, 48, 2, 16, 8, 16, 3),
+            (2, 40, 4, 8, 4, 8, 2)]
+
+
+def _close(got, want):
+    """Within 1e-4 relative and 1e-6 of the largest value, the bound of
+    the gradients above."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=RTOL,
+                               atol=ATOL * max(np.abs(want).max(), 1.0))
+
+
+def _ssd_inputs(case):
+    """The scan's inputs and an incoming state, fp32 numpy, from a seed."""
+    B_, T_, H, hd, N = case[:5]
+    rng = np.random.default_rng(sum(case))
+    f = np.float32
+    return (rng.standard_normal((B_, T_, H, hd)).astype(f),
+            (np.abs(rng.standard_normal((B_, T_, H))) * 0.5 + 0.01).astype(f),
+            (np.abs(rng.standard_normal(H)) * 0.5 + 0.1).astype(f),
+            rng.standard_normal((B_, T_, N)).astype(f),
+            rng.standard_normal((B_, T_, N)).astype(f),
+            rng.standard_normal((B_, H, hd, N)).astype(f))
+
+
+@pytest.mark.parametrize("case", H0_CASES,
+                         ids=["-".join(map(str, c)) for c in H0_CASES])
+def test_ssd_from_an_incoming_state_meets_the_reference(case):
+    """``ops.ssd(h0=)`` on the CPU (the kernel's plain version) against the
+    reference's ``ssd_chunked(h0=)`` on the same inputs: y and the final
+    state; and the sequence cut into chunk-aligned blocks, each scanned
+    from the last one's final state, gives the whole sequence's."""
+    import jax.numpy as jnp
+    import torch
+    from repro.models import mamba2 as jm
+    from repro_torch.kernels import ops
+    *ins, h0 = _ssd_inputs(case)
+    chunk, blocks = case[5], case[6]
+    wy, wh = jm.ssd_chunked(*(jnp.asarray(a) for a in ins), chunk,
+                            h0=jnp.asarray(h0))
+    t = [torch.as_tensor(a) for a in ins]
+    y, h = ops.ssd(*t, chunk=chunk, h0=torch.as_tensor(h0))
+    _close(y.numpy(), wy)
+    _close(h.numpy(), wh)
+    n = t[0].shape[1] // blocks
+    hb, ys = torch.as_tensor(h0), []
+    for r in range(blocks):
+        part = [a if a.ndim == 1 else a[:, r * n:(r + 1) * n] for a in t]
+        yb, hb = ops.ssd(*part, chunk=chunk, h0=hb)
+        ys.append(yb)
+    _close(torch.cat(ys, 1).numpy(), y.numpy())
+    _close(hb.numpy(), h.numpy())
+
+
+@pytest.mark.parametrize("case", H0_CASES,
+                         ids=["-".join(map(str, c)) for c in H0_CASES])
+def test_incoming_state_gradient_meets_jax_grad(case):
+    """The gradient of h0 (and of every input) through the plain version
+    against ``jax.grad`` of the reference's ``ssd_chunked`` for the same
+    cotangents of y and the final state; the kernel's split of the
+    backward (``ref.ssd_scan_bwd_passes_ref(with_dh0=True)``) gives the
+    same dh0."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.models import mamba2 as jm
+    from repro_torch.kernels import ops, ref
+    *ins, h0 = _ssd_inputs(case)
+    chunk = case[5]
+    rng = np.random.default_rng(7)
+    dy = rng.standard_normal(ins[0].shape).astype(np.float32)
+    dh = rng.standard_normal(h0.shape).astype(np.float32)
+
+    def loss(*a):
+        y, h = jm.ssd_chunked(*a[:5], chunk, h0=a[5])
+        return jnp.sum(y * dy) + jnp.sum(h * dh)
+    want = jax.grad(loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in ins + [h0]))
+    t = [torch.as_tensor(a).requires_grad_(True) for a in ins + [h0]]
+    y, h = ops.ssd(*t[:5], chunk=chunk, h0=t[5])
+    got = torch.autograd.grad((y * torch.as_tensor(dy)).sum()
+                              + (h * torch.as_tensor(dh)).sum(), t)
+    for name, g, w in zip(("xh", "dt", "A", "Bm", "Cm", "h0"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-5 * max(np.abs(w).max(), 1.0),
+                                   err_msg=name)
+    plain = [torch.as_tensor(a) for a in ins]
+    _, _, h_in = ref.ssd_scan_passes_ref(*plain, chunk=chunk,
+                                         h0=torch.as_tensor(h0))
+    split = ref.ssd_scan_bwd_passes_ref(*plain, h_in, torch.as_tensor(dy),
+                                        torch.as_tensor(dh), chunk=chunk,
+                                        with_dh0=True)
+    _close(split[5].numpy(), got[5].numpy())
+
+
+def _one_rank(rank, world):
+    """mamba2's smoke config under ``fsdp_tp_seq`` on a forced one-rank
+    mesh against the unmeshed step: two steps' losses and norms and the
+    final params, and the gathers of the conv's halo and of the state
+    exchange."""
+    import torch
+    from repro_torch.configs import get_smoke, input_pspecs
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_sharded_train_step,
+                                                 make_train_step)
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    model = get_model(get_smoke("mamba2-1.3b").replace(sharding="fsdp_tp_seq"))
+    params = model.init(0, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    b = {k: torch.randint(0, model.cfg.vocab_size, (B, T), generator=g)
+         for k in ("tokens", "labels")}
+    tc = TrainConfig(learning_rate=1e-2, schedule="constant")
+    out = {}
+    for name in ("plain", "forced"):
+        if name == "plain":
+            step = make_train_step(model, tc)
+            state = init_train_state(model, tc, params)
+        else:
+            bp = input_pspecs(model.cfg, ShapeConfig("t", T, B, "train"),
+                              mesh, "fsdp_tp_seq")
+            step, _, sh = make_sharded_train_step(model, tc, mesh,
+                                                  "fsdp_tp_seq", bp,
+                                                  force=True)
+            state = shd.shard_tree(init_train_state(model, tc, params), sh)
+        gathers = []
+        plain_all_gather = C.all_gather
+
+        def counting_all_gather(x, dim, axis):
+            gathers.append((x.ndim, dim))
+            return plain_all_gather(x, dim, axis)
+        C.all_gather = counting_all_gather
+        try:
+            for _ in range(STEPS):
+                state, m = step(state, b)
+                out.setdefault(name, []).append(
+                    (float(m["loss"]), float(m["grad_norm"])))
+        finally:
+            C.all_gather = plain_all_gather
+        # the halo (B, K-1, d_inner) along dim 1 and the packed states
+        # (1, B, H, hd N + 1) along dim 0
+        out[name + ".exchanges"] = (gathers.count((3, 1)),
+                                    gathers.count((4, 0)))
+        out[name + ".params"] = shd.full_tree(state["params"]) \
+            if name == "forced" else state["params"]
+    return out
+
+
+def test_one_forced_rank_splits_mamba2_as_the_unmeshed_step_to_the_bit():
+    """On one forced rank the split is one block at offset 0: its halo is
+    zeros (gathered at every layer) and it runs one scan from zero, with
+    no state to exchange, so two steps (the hidden states gathered, the
+    loss's shares summed) are the unmeshed steps to the bit."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    out, = run_ranks(_one_rank, 1, "cpu", threads=1, timeout=120)
+    assert out["forced"] == out["plain"]
+    for k, v in out["plain.params"].items():
+        assert torch.equal(out["forced.params"][k], v), k
+    layers = 4   # mamba2's smoke config
+    assert out["plain.exchanges"] == (0, 0)
+    assert out["forced.exchanges"] == (STEPS * layers, 0)
