@@ -23,8 +23,8 @@
    a float64 computation of the same distances: its error at most twice
    the plain fp32 version's.  ``flash_attention``'s backward kernel (run
    through ``ops.attention`` with grad) against ``torch.autograd.grad``
-   through the plain version, on its ``wgmma`` route (bf16 at hd 64 and
-   128) also against its arithmetic step by step
+   through the plain version, on its ``wgmma`` route (bf16 at hd 64, 80,
+   128 and 256) also against its arithmetic step by step
    (``ref.flash_attention_bwd_tiled_ref``, atol = rtol = 1e-2), and two
    calls on the same inputs bit-equal, on ``FLASH_BWD_GRID`` and at every
    shape the training paths gave it.  The pair in the mask's shifted frame
@@ -120,7 +120,8 @@
    host oracle ``score_pool_reference``, and the head cast's share; and
    gemma3-4b (34 layers, GQA 8:4 at hd 256, a 1,024-token window on five
    layers of six, a tied 262,144-row head; 16 tokens generated), whose
-   attention must run with both windows.  Then the rest of the zoo
+   attention must run with both windows, and then trained (below).  Then
+   the rest of the zoo
    through the same passes: mamba2-1.3b (48 Mamba2 layers, ``ssd_scan``
    at state N 128, vocab 50,280; full config) and its pool pass as
    qwen2's; dbrx-132b at full width (d_model 6,144, GQA 48:8 at hd 128,
@@ -144,12 +145,16 @@
    1e-4, no checkpoint: the losses finite and falling, each backward kernel
    once a step for each launch of its forward in a forward pass (the SSD
    scan's once a Mamba2 layer, attention's once a layer or a zamba2
-   shared-block application); and whisper-tiny on batches of tokens,
-   labels and 1,500 fp32 frames a row, 4 steps checkpointed every 2, then
-   a fresh ``Trainer`` resumed from step 4 to 6 on the same batch
-   generator: the
-   restored state bit-equal to the saved one and the resumed losses
-   bit-equal to an uninterrupted run's over the same batches.
+   shared-block application); gemma3-4b likewise at full width, its
+   served weights cut to ``GEMMA3_TRAIN_LAYERS`` = 12 of its 34 layers
+   (two whole 5:1 periods: ten local layers, two global), 3 steps, the
+   attention backward at hd 256 with both windows, 0 and 1,024, and the
+   loss alone timed for its share of a step; and whisper-tiny on batches
+   of tokens, labels and 1,500 fp32 frames a row, 4 steps checkpointed
+   every 2, then a fresh ``Trainer`` resumed from step 4 to 6 on the same
+   batch generator: the restored state bit-equal to the saved one and the
+   resumed losses bit-equal to an uninterrupted run's over the same
+   batches.
    The kernels' launch counts are zeroed just before each main-path pass
    (each campaign, the launcher campaign, the replay and noisy campaigns,
    the fleets, the chaos and instrumented campaigns, each selection run,
@@ -186,7 +191,8 @@
    whisper's and qwen2's training shapes, beside autograd's backward
    through the plain version and SDPA's backward, bound by 2.5 times the
    forward's operations or its bytes; at zamba2's (hd 80, on the wgmma
-   route at two padded panels) too.  The SSD backward at zamba2's and
+   route at two padded panels) and gemma3-4b's local and global layers'
+   (hd 256) too.  The SSD backward at zamba2's and
    mamba2's training shapes, beside autograd's backward through the plain
    scan (no library call computes it), bound by its products at the bf16
    peak or its bytes (the forward's per-chunk states included).
@@ -301,6 +307,15 @@ HBM_BYTES_PER_S = 3.35e12
 # (6.5 GB of bf16 weights a dbrx-132b layer, 0.8 GB an internvl2-26b one)
 DBRX_LAYERS = 1           # of 40
 INTERNVL2_LAYERS = 6      # of 48 (12 before the ssm and hybrid training)
+# gemma3-4b trained on two whole 5:1 periods of the served weights (ten
+# local layers at window 1,024, two global), 3 steps (4 took the script
+# past 1,100 s of the 1,200 allowed on one host).  Its tied head is
+# the embedding at the reference's init (std 1): logits in the thousands,
+# a loss near 2,530 that lr 1e-4 moves by less than the batches' spread
+# (about 2); Adam at 1e-2 shrinks the final norm's scale by 1% a step
+GEMMA3_TRAIN_LAYERS = 12  # of 34
+GEMMA3_TRAIN_STEPS = 3
+GEMMA3_TRAIN_LR = 1e-2
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 # the card's name and power limit (nvidia-smi), printed beside each rate
@@ -618,7 +633,9 @@ FLASH_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
 # that route too): T 127, 128 and 129 about its
 # 128-row blocks and 64-row tiles, whisper's encoder T 1,500 and its
 # cross-attention's 448 x 1,500, Tq != Tk at hd 128, causal H / Hk = 6 at
-# hd 64.
+# hd 64; and hd 256 on that route (its own kernels: 64-row blocks): T 130
+# above, and gemma3-4b's 8:4 at its training length on a local (window
+# 1,024) and a global layer, one sequence.
 FLASH_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                   (2, 12, 2, 1024, 1024, 128, True, 256),
                   (2, 6, 6, 150, 200, 64, False, 0),
@@ -633,13 +650,15 @@ FLASH_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                   (1, 6, 6, 1500, 1500, 64, False, 0),
                   (1, 6, 6, 448, 1500, 64, False, 0),
                   (1, 6, 2, 200, 330, 128, False, 0),
-                  (1, 12, 2, 129, 129, 64, True, 0)]
-# the wgmma route (bf16 at hd 64, 80 and 128) against its arithmetic step by
-# step (``ref.flash_attention_bwd_tiled_ref`` on the kernel's own forward
-# output and lse): atol = rtol = 1e-2, about two bf16 steps (both round P
-# and dS where they become operands and the gradients at the end; an fp32
-# sum taken in another order, or exp2 against exp, can move a rounding by
-# one step)
+                  (1, 12, 2, 129, 129, 64, True, 0),
+                  (1, 8, 4, 2048, 2048, 256, True, 1024),
+                  (1, 8, 4, 2048, 2048, 256, True, 0)]
+# the wgmma route (bf16 at hd 64, 80, 128 and 256) against its arithmetic
+# step by step (``ref.flash_attention_bwd_tiled_ref`` on the kernel's own
+# forward output and lse): atol = rtol = 1e-2, about two bf16 steps (both
+# round P and dS where they become operands and the gradients at the end;
+# an fp32 sum taken in another order, or exp2 against exp, can move a
+# rounding by one step)
 FLASH_BWD_TILED_TOL = 1e-2
 # the mask's shifted frame (a case's optional 9th and 10th entries,
 # q_offset and kv_start): qwen2-1.5b's training shape as 16 "model" ranks
@@ -2292,9 +2311,10 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     """``arch``'s full config, bf16, through ServeEngine; returns the
     serving path's launch counts.  ``seen`` collects kernel shapes.
     ``pool_pass``, ``extra`` and ``train``, where given, are called in
-    that order with (model, params) before the model is freed; the first
-    and the last each return their own launch counts (so a training phase
-    reuses the served weights), ``extra`` (a mesh check) keeps its own.
+    that order with (model, params) before the model is freed (the engine
+    already dropped); the first and the last each return their own launch
+    counts (so a training phase reuses the served weights, and may take
+    them over), ``extra`` (a mesh check) keeps its own.
     ``layers``, where given, cuts the depth (every width stays the
     config's).  A VLM's requests carry ``frontend_tokens`` random fp32
     patch embeddings each (seed 0), which its cache holds before the
@@ -2476,7 +2496,7 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
     profile_pass(torch, f"{arch} decode step",
                  lambda: engine.decode(cache, tok, pos))
-    del logits, cache, batch_t
+    del logits, cache, batch_t, engine, w_head, cast
     pooled_launches = trained_launches = None
     if pool_pass is not None:
         pooled_launches = pool_pass(model, params)
@@ -2484,7 +2504,7 @@ def run_serving(torch, np, mods, arch: str, batch: int, prompt_len: int,
         extra(model, params)
     if train is not None:
         trained_launches = train(model, params)
-    del params, engine, w_head, cast, stats, pooled, out, last, want_first
+    del params, stats, pooled, out, last, want_first
     gc.collect()
     torch.cuda.empty_cache()
     print(f"serve {arch} freed: {torch.cuda.memory_allocated()} bytes still "
@@ -2639,12 +2659,34 @@ def _zero(torch, mods):
         m.launches = 0
 
 
+def cut_layers(model, params, layers: int):
+    """``model`` cut to its first ``layers`` layers, and ``params`` cut to
+    them: every leaf the cut model's specs stack on a shorter leading axis
+    is a copy of its first ``layers`` entries, the others are kept whole.
+    ``params`` is emptied, so the layers past the cut are freed once the
+    caller holds them nowhere else."""
+    import dataclasses
+
+    from repro_torch.models import param as P
+    from repro_torch.models.registry import get_model
+    cut = get_model(dataclasses.replace(model.cfg, num_layers=layers))
+    shapes = {k: tuple(sp.shape) for k, sp in P.iter_specs(cut.specs)}
+    if sorted(shapes) != sorted(params):
+        fail(f"cut_layers {model.cfg.name}: the cut model's leaves differ")
+    kept = {k: v[:layers].clone() if tuple(v.shape) != shapes[k] else v
+            for k, v in params.items()}
+    params.clear()
+    return cut, kept
+
+
 def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
              seq: int = 2048, lr: float = 1e-4,
-             moment_dtype: str = "float32", step_secs: list = None):
+             moment_dtype: str = "float32", step_secs: list = None,
+             layers: int = 0, loss_share: bool = False):
     """A hook for ``run_serving``: train the served model (a token family at
     its full config or width, the served bf16 weights from ``Model.init(seed
-    0)``: qwen2-1.5b, mamba2-1.3b, zamba2-2.7b) for ``steps`` steps through
+    0)``: qwen2-1.5b, mamba2-1.3b, zamba2-2.7b; gemma3-4b cut to ``layers``
+    of its layers by :func:`cut_layers`) for ``steps`` steps through
     ``Trainer``: ``paper_steps`` over ``steps`` from ``lr`` (at 3e-4 and
     1e-3 the first steps' losses spiked on qwen2's random weights before
     falling back, on the card), ``batch`` sequences of ``seq`` tokens a step
@@ -2657,7 +2699,11 @@ def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
     for each launch of its forward in a served forward pass (attention's
     once a layer, or once a shared-block application in zamba2; the SSD
     scan's once a Mamba2 layer).  Each step's seconds are added to
-    ``step_secs`` where it is given.  Returns the launch counts."""
+    ``step_secs`` where it is given.  With ``loss_share`` the loss alone
+    (the chunked cross-entropy's forward and backward on random bf16 final
+    hidden states through the served head, at the step's tokens) is timed
+    once more after the steps, and its share of the steps' median printed.
+    Returns the launch counts."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.loader import ShardedLoader
     from repro_torch.data.synth import make_lm_tokens
@@ -2665,6 +2711,9 @@ def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
     def run(model, params):
+        depth = model.cfg.num_layers
+        if layers:
+            model, params = cut_layers(model, params, layers)
         cfg = model.cfg
         t0 = time.perf_counter()
         toks = make_lm_tokens(batch * steps, seq + 1, cfg.vocab_size, seed=0)
@@ -2710,7 +2759,8 @@ def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
               f"2-{steps} {batch * seq * (steps - 1) / sum(secs[1:]):.1f} "
               f"tokens/s; max_memory_allocated bytes "
               f"{torch.cuda.max_memory_allocated()}; {cfg.num_layers} "
-              f"layers, moments {moment_dtype}; launches {got} ({CARD})",
+              f"layers" + (f" (cut from {depth})" if layers else "")
+              + f", moments {moment_dtype}; launches {got} ({CARD})",
               flush=True)
         if len(losses) != steps or not all(np.isfinite(losses)) or \
                 not losses[-1] < losses[0]:
@@ -2728,9 +2778,37 @@ def train_lm(torch, np, mods, seen: dict, steps: int = 6, batch: int = 8,
         batch_1 = next(iter(loader.epoch()))
         profile_pass(torch, f"{cfg.name} train step",
                      lambda: step(trainer.state, batch_1))
+        if loss_share:
+            ms = loss_ms(torch, model, trainer.state["params"], batch_1)
+            print(f"train {cfg.name}: the loss alone (chunked "
+                  f"cross-entropy, forward and backward, {batch} x {seq} "
+                  f"tokens) {ms:.3f} ms, "
+                  f"{100 * ms / 1e3 / float(np.median(secs)):.2f}% of the "
+                  f"median step ({CARD})", flush=True)
         del trainer, loader, step, batch_1
         return got
     return run
+
+
+def loss_ms(torch, model, params, batch) -> float:
+    """One forward and backward of the train step's loss alone
+    (``training.train_loop._ce``: the chunked cross-entropy through the
+    model's head), on random bf16 hidden states (seed 0, on the card) of
+    the batch's shape, with the gradients of the hidden states and the
+    head; host ms up to a synchronize (the step ran it just before, so the
+    products are warm)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.train_loop import _ce
+    cfg = model.cfg
+    labels = batch["labels"]
+    h = normal(torch, (*labels.shape, cfg.d_model), card_generator(torch, 0)
+               ).to(torch.bfloat16).requires_grad_(True)
+    w = tf.lm_head_block(cfg, params).detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.autograd.grad(_ce(cfg, h, w, labels), (h, w))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def train_whisper_resume(torch, np, mods, seen: dict, steps: int = 4,
@@ -4166,6 +4244,7 @@ def main() -> None:
                          "serving_gemma3", "serving_mamba2",
                          "pool_pass_mamba2", "serving_dbrx",
                          "serving_internvl2", "training_qwen2",
+                         "training_gemma3",
                          "serving_whisper", "training_whisper",
                          "training_mamba2", "training_zamba2",
                          "mesh_compressed_dp", "sharded_train",
@@ -4246,8 +4325,7 @@ def main() -> None:
                        moment_dtype="bfloat16"))
     phase("serving and training zamba2-2.7b")
     # the dense LM labeler: qwen2-1.5b served, then its token-pool pass,
-    # then trained from the served weights; gemma3-4b (hd 256,
-    # local:global windows, tied 262k head) served
+    # then trained from the served weights
     served_qwen2, pooled, trained_qwen2 = run_serving(
         torch, np, mods, "qwen2-1.5b", args.serve_batch, args.prompt_len,
         args.gen, seen_by["serving_qwen2"],
@@ -4266,18 +4344,27 @@ def main() -> None:
                     launch_tools_train(torch, mods, launch_secs,
                                        launch_launches, qwen2_steps)))
     phase("serving, pool pass and training qwen2-1.5b")
-    served_gemma3, _ = run_serving(
+    # gemma3-4b (hd 256, local:global windows, tied 262k head) served at
+    # full depth, then trained from the served weights cut to
+    # GEMMA3_TRAIN_LAYERS (the attention backward at hd 256)
+    served_gemma3, _, trained_gemma3 = run_serving(
         torch, np, mods, "gemma3-4b", args.serve_batch, args.prompt_len,
-        args.gen // 2, seen_by["serving_gemma3"])
-    windows = {s[-1] for s in seen_by["serving_gemma3"]["flash_attention"]}
-    if windows != {0, 1024}:
-        fail(f"gemma3-4b's attention ran with windows {sorted(windows)}, "
-             f"want 0 (global layers) and 1024 (local layers)")
+        args.gen // 2, seen_by["serving_gemma3"],
+        train=train_lm(torch, np, mods, seen_by["training_gemma3"],
+                       steps=GEMMA3_TRAIN_STEPS, layers=GEMMA3_TRAIN_LAYERS,
+                       lr=GEMMA3_TRAIN_LR, loss_share=True))
+    for path, kernel in (("serving_gemma3", "flash_attention"),
+                         ("training_gemma3", "flash_attention_bwd")):
+        windows = {s[7] for s in seen_by[path][kernel]}
+        if windows != {0, 1024}:
+            fail(f"gemma3-4b's {kernel} ran with windows "
+                 f"{sorted(windows)} in {path}, want 0 (global layers) and "
+                 f"1024 (local layers)")
+    phase("serving and training gemma3-4b")
     # the rest of the zoo: mamba2-1.3b (ssd_scan at state N 128) and its
     # pool pass; dbrx-132b at full width, cut to DBRX_LAYERS of its 40
     # layers (the MoE block, GQA 48:8 at hd 128); internvl2-26b, cut to
     # INTERNVL2_LAYERS, with its 1,024 patch tokens before the prompt
-    phase("serving gemma3-4b")
     # mamba2-1.3b also trained and served on the mesh (sharded phases (d)
     # and (e)), its mixers on their heads' block over "model"
     served_mamba2, pooled_mamba2, trained_mamba2 = run_serving(
@@ -4376,6 +4463,7 @@ def main() -> None:
                    "serving_dbrx": served_dbrx[k],
                    "serving_internvl2": served_internvl2[k],
                    "training_qwen2": trained_qwen2[k],
+                   "training_gemma3": trained_gemma3[k],
                    "serving_whisper": served_whisper[k],
                    "training_whisper": trained_whisper[k],
                    "training_mamba2": trained_mamba2[k],
@@ -4439,8 +4527,9 @@ def main() -> None:
     # at zamba2's, qwen2's, the pool pass's, dbrx's, gemma3's local and
     # global layers', whisper's, the split's last rank block, the halo frame
     # and internvl2's, that last; its backward at each of whisper's training
-    # shapes (encoder, decoder, cross-attention), the split block and the
-    # halo frame, then zamba2's and qwen2's, that last; ssd_scan at the rank blocks of
+    # shapes (encoder, decoder, cross-attention), the split block, the
+    # halo frame, gemma3's local and global training layers, then zamba2's
+    # and qwen2's, that last; ssd_scan at the rank blocks of
     # mamba2's and zamba2's mixers (16 "model" ranks), zamba2's state N 64,
     # mamba2's pool pass's and mamba2's serving shape, N 128, that last;
     # its backward at the rank blocks, then zamba2's and mamba2's
@@ -4485,6 +4574,9 @@ def main() -> None:
         "flash_attention_bwd": sorted(
             seen_by["training_whisper"]["flash_attention_bwd"]) + [
             FLASH_SPLIT[-1], FLASH_HALO] + [
+            max((s for s in seen_by["training_gemma3"]["flash_attention_bwd"]
+                 if s[7] == w), key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
+            for w in (1024, 0)] + [
             max(seen_by[p]["flash_attention_bwd"],
                 key=lambda s: (s[0] * s[1] * s[3] * s[4], s))
             for p in ("training_zamba2", "training_qwen2")],

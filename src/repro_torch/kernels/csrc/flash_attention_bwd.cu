@@ -39,10 +39,11 @@
 // TFLOP against 0.16 GB: the operations bound it (0.26 ms at the bf16
 // tensor-core peak).
 //
-// Design, bf16 at hd 64, 80 and 128 (every shape training gives it: qwen2's
-// hd 128, whisper's 64, zamba2's 80): warp-specialized blocks on Hopper's
-// `wgmma` with tiles fed by TMA (csrc/sm90.cuh).  A block is two consumer
-// warpgroups of 64 rows each and one producer warpgroup, whose first thread
+// Design, bf16 at hd 64, 80, 128 and 256 (every shape training gives it:
+// qwen2's hd 128, whisper's 64, zamba2's 80, gemma3's 256):
+// warp-specialized blocks on Hopper's `wgmma` with tiles fed by TMA
+// (csrc/sm90.cuh).  A block is two consumer warpgroups of 64 rows each (hd
+// 256: below) and one producer warpgroup, whose first thread
 // keeps a ring of stages in flight (TMA boxes of 64 x 64 bf16 with 128-byte
 // swizzle, completed on mbarriers; setmaxnreg gives the consumers 240
 // registers and the producer 24).  hd 80 runs at the width of two whole
@@ -73,12 +74,41 @@
 // note from ptxas (tools/time_attention_bwd.py times a change against the
 // last build).
 //
+// bf16 at hd 256 (gemma3's), the same three launches on `wgmma` with the
+// work split otherwise (Wg256, fa_bwd_*_wgmma256_kernel).  A 64-row tile is
+// 32 KB there (four panels), and a consumer holding dK and dV of 64 keys
+// at the full width would need 256 fp32 accumulator registers a thread,
+// over setmaxnreg's 240.  So the dK/dV block owns 64 keys and gives each
+// consumer one gradient at the full width (n256, 128 registers): warpgroup
+// 0 computes S^T and P^T, hands P^T across in fp32 through shared memory
+// (an mbarrier pair), and accumulates dV += P^T dO; warpgroup 1 computes
+// dP^T, takes P^T, forms dS^T = P^T (dP^T - D) and accumulates dK += dS^T
+// qs.  Its shared memory: K and V (64 KB), two stages of (qs, dO, lse, D)
+// (129 KB), P (16 KB).  The dQ block owns 64 queries of each of two query
+// heads of one kv group, a warpgroup each at the full width, so the two
+// share every K and V tile, which come apart through a ring of three 32 KB
+// slots (V released after dP, K after dQ); its shared memory: qs and dO of
+// both heads (128 KB) and the ring (96 KB).  Where H / Hk is odd the last
+// pair has one head and its second warpgroup idles.  At hd^-0.5 = 1/16 the
+// passes read q itself (q * scale is exact in bf16, and a power of two
+// commutes with every fp32 rounding) and take S and dK times the scale, so
+// the prep launch writes no qs.  Measured slower on an H100 at gemma3's
+// global training layer (tools/time_attention_bwd.py, in turns; PERF.md
+// has the times): both consumers computing S^T and dP^T, each keeping half
+// of the columns (11 products of 64 x 64 x 256 a tile pair where the bound
+// counts 5); the two scores exchanged both ways behind named barriers (the
+// warpgroups then wait on each other every stage); dQ split over 32 keys
+// a warpgroup with two partials summed.  An mbarrier wait between two
+// wgmma groups of a warpgroup made ptxas serialize every wgmma (its note
+// C7520, 12% of the dQ pass), so K and V are both waited for before the
+// products.
+//
 // bf16 at hd 16 and 32: the FlashAttention-2 backward on `mma.sync`
 // (m16n8k16 bf16 -> fp32, fed by `ldmatrix` from bf16 tiles in shared
 // memory, rows padded by 16 B), 4 warps a block and 16 rows a warp, the
 // same products as above with P^T and dS^T in the warp's registers.
 //
-// fp32 inputs (and bf16 at hd 8 and 256) take the fp32-FMA kernels:
+// fp32 inputs (and bf16 at hd 8) take the fp32-FMA kernels:
 // tiles of 32 query rows and 32 keys (16 at hd 256) staged in shared
 // memory in fp32, 256 threads a block, each thread a 2 x 2 block of a
 // 32 x 32 score tile (rows r, r + 16, columns c, c + 16) read as 16-byte
@@ -88,6 +118,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 #include "attn_mask.cuh"
 #include "mma.cuh"
@@ -714,7 +746,8 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 64, 80 and 128: wgmma on TMA-fed tiles (sm90.cuh)
+// bf16 at hd 64, 80 and 128: wgmma on TMA-fed tiles (sm90.cuh); hd 256
+// below
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;         // threads of a warpgroup
@@ -801,9 +834,9 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[HD / 2],
 }
 
 // 1. D = rowsum(dO o) and lse * log2(e) into 64-row tiles (B H, nqt, 2,
-// 64) (zeros past Tq), and qs = q * scale rounded to bf16 into a
+// 64) (zeros past Tq), and with QS qs = q * scale rounded to bf16 into a
 // contiguous (B H, Tq, HD) scratch, as the forward scales q: one warp a row
-template <int HD>
+template <int HD, bool QS>
 __global__ void __launch_bounds__(NT)
 fa_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ o,
@@ -828,10 +861,12 @@ fa_bwd_prep_kernel(const __nv_bfloat16* __restrict__ q,
     for (int d = 2 * lane; d < HD; d += 64) {
       const float2 of = __bfloat1622float2(*(const bf2*)(orow + d));
       const float2 df = __bfloat1622float2(*(const bf2*)(drow + d));
-      const float2 qf = __bfloat1622float2(*(const bf2*)(qrow + d));
       dsum += of.x * df.x + of.y * df.y;
-      *reinterpret_cast<__nv_bfloat162*>(srow + d) =
-          __floats2bfloat162_rn(qf.x * scale, qf.y * scale);
+      if constexpr (QS) {
+        const float2 qf = __bfloat1622float2(*(const bf2*)(qrow + d));
+        *reinterpret_cast<__nv_bfloat162*>(srow + d) =
+            __floats2bfloat162_rn(qf.x * scale, qf.y * scale);
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -1212,6 +1247,403 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at hd 256: wgmma on TMA-fed tiles, the work split as the top says
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout (byte offsets) of the hd-256 passes: tiles as above,
+// four 64-column panels, 32 KB a 64-row tile.
+struct Wg256 {
+  static constexpr int HD = 256, P = 4, KK = 16, T64 = 64 * HD * 2;
+  // dK/dV: K and V of the block's 64 keys, a ring of two stages (a query
+  // tile's qs and dO, its lse and D), then P of a stage (64 x 64 fp32,
+  // accumulator fragments)
+  static constexpr int KV_STAGES = 2, KV_K = 0, KV_V = T64, KV_RING = 2 * T64;
+  static constexpr int KV_STAGE = 2 * T64 + 1024;
+  static constexpr int KV_X = KV_RING + KV_STAGES * KV_STAGE;
+  static constexpr int KV_BAR = KV_X + 64 * 64 * 4;
+  // + the barriers: kv, full and empty a stage, P's full and empty
+  static constexpr size_t KV_SMEM = KV_BAR + 8 * (3 + 2 * KV_STAGES) + 1024;
+  // dQ: qs and dO of the block's 64 queries of two heads, then a ring of
+  // three slots of a key tile's V or K (64 rows)
+  static constexpr int Q_SLOTS = 3, Q_QS = 0, Q_DO = 2 * T64;
+  static constexpr int Q_RING = 4 * T64;
+  static constexpr int Q_BAR = Q_RING + Q_SLOTS * T64;
+  // + the barriers: q, full and empty a slot
+  static constexpr size_t Q_SMEM = Q_BAR + 8 * (1 + 2 * Q_SLOTS) + 1024;
+  static_assert(KV_SMEM <= 232448 && Q_SMEM <= 232448, "227 KB a block");
+};
+
+// 2'. dK and dV of 64 keys of (b, kv head) at hd 256: warpgroup 0
+// accumulates dV and warpgroup 1 dK, each at the full width (n256, 128
+// fp32 registers a thread); warpgroup 2's first thread streams the query
+// tiles of every query head of the group as in the pass above.  A stage:
+// warpgroup 0 computes S^T = K qs^T and P^T and hands P^T across in fp32
+// (x_full, x_empty), then dV += P^T dO; warpgroup 1 computes dP^T = V
+// dO^T, takes P^T, dS^T = P^T (dP^T - D), then dK += dS^T qs.  With
+// `qscale` other than 1, tm_qs maps q itself: S and dK are taken times
+// qscale.  SHIFT: the mask's frame.
+template <bool SHIFT>
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+fa_bwd_dkdv_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_qs,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const float* __restrict__ rows,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, Strides sdk,
+                            Strides sdv, int H, int Hk, int Tq, int Tk,
+                            int nqt, float qscale, AttnMask mask) {
+  // as in the pass above
+  const int causal = mask.causal, window = mask.window;
+  const AttnMask mk = mask;
+  using TL = Wg256;
+  using bf = __nv_bfloat16;
+  constexpr int P = TL::P, STAGES = TL::KV_STAGES;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = align1k(wg_smem_raw);
+  bf* ks = reinterpret_cast<bf*>(smem + TL::KV_K);
+  bf* vs = reinterpret_cast<bf*>(smem + TL::KV_V);
+  float* xp = reinterpret_cast<float*>(smem + TL::KV_X);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + TL::KV_BAR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* x_full = empty + STAGES;
+  uint64_t* x_empty = x_full + 1;
+  const int b = blockIdx.x / Hk, hk = blockIdx.x % Hk, G = H / Hk;
+  const int k0 = blockIdx.y * 64;
+  // the queries some key of this block is visible to, in 64-row tiles
+  const int q_lo = SHIFT ? mk.row_lo(k0) / QT * QT : (causal ? k0 : 0);
+  const int q_hi = SHIFT ? mk.row_hi(k0 + 63, Tq)
+                         : (window > 0 ? min(Tq, k0 + 63 + window) : Tq);
+  const int n_q = q_hi > q_lo ? (q_hi - q_lo + QT - 1) / QT : 0;
+  const int n_it = G * n_q;  // stages: head g outer, query tiles inner
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2 * WG);
+    }
+    sm90::mbar_init(x_full, WG);
+    sm90::mbar_init(x_empty, WG);
+    sm90::fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {  // producer
+    sm90::regs_dec<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(kv_full, 2 * TL::T64);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        sm90::tma_load_4d(ks + p * 64 * 64, &tm_k, kv_full, 64 * p, k0, hk, b);
+        sm90::tma_load_4d(vs + p * 64 * 64, &tm_v, kv_full, 64 * p, k0, hk, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        const int g = it / n_q, q0 = q_lo + (it % n_q) * QT, h = hk * G + g;
+        sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        unsigned char* st = smem + TL::KV_RING + s * TL::KV_STAGE;
+        bf* qs_s = reinterpret_cast<bf*>(st);
+        bf* do_s = qs_s + 64 * TL::HD;
+        sm90::mbar_expect_tx(&full[s], 2 * TL::T64 + 2 * QT * 4);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          sm90::tma_load_4d(qs_s + p * 64 * 64, &tm_qs, &full[s], 64 * p, q0,
+                            h, b);
+          sm90::tma_load_4d(do_s + p * 64 * 64, &tm_do, &full[s], 64 * p, q0,
+                            h, b);
+        }
+        const long long tile = (long long)(b * H + h) * nqt + q0 / QT;
+        sm90::bulk_load(st + 2 * TL::T64, rows + tile * 2 * QT, 2 * QT * 4,
+                        &full[s]);
+      }
+    }
+  } else {  // consumers: warpgroup 0 dV, warpgroup 1 dK
+    sm90::regs_inc<240>();
+    const int t = threadIdx.x % WG, warp = t / 32, g8 = (t % 32) / 4,
+              q4 = t % 4;
+    const float s2 = LOG2E * qscale;  // S = qscale K q^T, in log2 units
+    float g[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) g[i] = 0.f;
+    sm90::mbar_wait(kv_full, 0);
+    int nx = 0;  // stages computed (both warpgroups skip the same ones)
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES;
+      const int q0 = q_lo + (it % n_q) * QT;
+      const unsigned char* st = smem + TL::KV_RING + s * TL::KV_STAGE;
+      const bf* qs_s = reinterpret_cast<const bf*>(st);
+      const bf* do_s = qs_s + 64 * TL::HD;
+      const float* lse_s = reinterpret_cast<const float*>(st + 2 * TL::T64);
+      const float* d_s = lse_s + QT;
+      sm90::mbar_wait(&full[s], (it / STAGES) & 1);
+      if (SHIFT ? !block_any(q0, k0, Tq, Tk, mk)
+                : !block_any(q0, k0, Tq, Tk, causal, window)) {
+        sm90::mbar_arrive(&empty[s]);
+        continue;
+      }
+      // S^T (warpgroup 0) or dP^T (1)
+      float acc[32];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TL::KK; ++kk)
+        sm90::wgmma_ss_n64(acc, sm90::desc_k(wg == 0 ? ks : vs, 64, kk),
+                           sm90::desc_k(wg == 0 ? qs_s : do_s, 64, kk), kk);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      uint32_t a[4][4];  // P^T (warpgroup 0) or dS^T (1) as A fragments
+      if (wg == 0) {
+        const bool edge = SHIFT ? block_edge(q0, k0, Tq, Tk, mk)
+                                : block_edge(q0, k0, Tq, Tk, causal, window);
+        // row: key k0 + 16 warp + g8 (+ 8); column: query q0 + 8 j + 2 q4
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i / 4) + 2 * q4 + (i & 1);
+          const int kp = k0 + 16 * warp + g8 + 8 * ((i / 2) & 1);
+          acc[i] = exp2f(fmaf(acc[i], s2, -lse_s[col]));
+          if (edge && !(SHIFT ? visible(q0 + col, kp, Tq, Tk, mk)
+                              : visible(q0 + col, kp, Tq, Tk, causal,
+                                        window)))
+            acc[i] = 0.f;
+        }
+        sm90::mbar_wait(x_empty, (nx & 1) ^ 1);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xp[i * WG + t] = acc[i];
+        sm90::mbar_arrive(x_full);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            a[kk][r] = sm90::pack2(acc[8 * kk + 2 * r],
+                                   acc[8 * kk + 2 * r + 1]);
+      } else {
+        sm90::mbar_wait(x_full, nx & 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kk + 2 * r, col = 8 * (i / 4) + 2 * q4;
+            a[kk][r] = sm90::pack2(
+                xp[i * WG + t] * (acc[i] - d_s[col]),
+                xp[(i + 1) * WG + t] * (acc[i + 1] - d_s[col + 1]));
+          }
+        sm90::mbar_arrive(x_empty);
+      }
+      ++nx;
+      // dV += P^T dO (warpgroup 0), dK += dS^T qs (1)
+      const bf* b_s = wg == 0 ? do_s : qs_s;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n256_t(g, a[kk], sm90::desc_mn(b_s, 64, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::mbar_arrive(&empty[s]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(g);
+    bf* out = wg == 0 ? dv : dk;
+    const Strides so = wg == 0 ? sdv : sdk;
+    const float mul = wg == 0 ? 1.f : qscale;  // dK = qscale dS^T q
+#pragma unroll
+    for (int i = 0; i < 128; i += 2) {
+      const int kp = k0 + 16 * warp + g8 + 8 * ((i / 2) & 1);
+      const int col = 8 * (i / 4) + 2 * q4;
+      if (kp >= Tk) continue;
+      *reinterpret_cast<__nv_bfloat162*>(out + b * so.b + hk * so.h +
+                                         (long long)kp * so.t + col) =
+          __floats2bfloat162_rn(g[i] * mul, g[i + 1] * mul);
+    }
+  }
+}
+
+// 3'. dQ at hd 256 of 64 queries of two query heads of one kv group
+// (blocks over (b, kv head hk, j), heads hk G + 2 j and + 1): warpgroup
+// w takes head hk G + 2 j + w (none where G is odd and that is past the
+// group), its 64 queries at the full width (n256, 128 fp32 registers a
+// thread), and the two share their kv head's key tiles, which warpgroup
+// 2's first thread streams V and K apart through a ring of three slots
+// (each V released after dP, each K after dQ).  Per key tile: S = qs K^T
+// and dP = dO V^T from shared memory, dS = P (dP - D) in registers, dQ +=
+// dS K; dQ * scale at the end.  qscale, SHIFT: as in 2'.
+template <bool SHIFT>
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+fa_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_qs,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ rows,
+                          __nv_bfloat16* __restrict__ dq, Strides sdq, int H,
+                          int Hk, int Tq, int Tk, int nqt, float scale,
+                          float qscale, AttnMask mask) {
+  // as in the pass above
+  const int causal = mask.causal, window = mask.window;
+  const AttnMask mk = mask;
+  using TL = Wg256;
+  using bf = __nv_bfloat16;
+  constexpr int P = TL::P, SLOTS = TL::Q_SLOTS;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = align1k(wg_smem_raw);
+  bf* qs = reinterpret_cast<bf*>(smem + TL::Q_QS);
+  bf* dos = reinterpret_cast<bf*>(smem + TL::Q_DO);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + TL::Q_BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + SLOTS;
+  const int G = H / Hk, npair = (G + 1) / 2;
+  const int j = blockIdx.x % npair, hk = blockIdx.x / npair % Hk,
+            b = blockIdx.x / npair / Hk;
+  const int nh = min(2, G - 2 * j);  // the block's query heads
+  // query tiles in order of launch: under a causal mask the high ones see
+  // the most keys and go first
+  const int n_qt = (Tq + 63) / 64;
+  const int q0 = 64 * (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y);
+  // the keys some query of this block sees, in 64-key tiles
+  const int k_hi = SHIFT ? mk.key_hi(min(q0 + 64, Tq) - 1, Tk)
+                         : (causal ? min(Tk, min(q0 + 64, Tq)) : Tk);
+  const int k_lo = SHIFT ? mk.key_lo(q0) / 64 * 64
+                         : (window > 0 ? max(0, q0 - window + 1) / 64 * 64
+                                       : 0);
+  const int n_it = k_hi > k_lo ? (k_hi - k_lo + 63) / 64 : 0;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < SLOTS; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], nh * WG);
+    }
+    sm90::fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {  // producer
+    sm90::regs_dec<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(q_full, nh * 2 * TL::T64);
+      for (int w = 0; w < nh; ++w) {
+        const int h = hk * G + 2 * j + w;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const int off = (w * 4 + p) * 64 * 64;
+          sm90::tma_load_4d(qs + off, &tm_qs, q_full, 64 * p, q0, h, b);
+          sm90::tma_load_4d(dos + off, &tm_do, q_full, 64 * p, q0, h, b);
+        }
+      }
+      // items 2 i and 2 i + 1: key tile i's V and K
+      for (int n = 0; n < 2 * n_it; ++n) {
+        const int s = n % SLOTS, kt0 = k_lo + 64 * (n / 2);
+        sm90::mbar_wait(&empty[s], ((n / SLOTS) & 1) ^ 1);
+        bf* slot = reinterpret_cast<bf*>(smem + TL::Q_RING + s * TL::T64);
+        sm90::mbar_expect_tx(&full[s], TL::T64);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          sm90::tma_load_4d(slot + p * 64 * 64, (n & 1) ? &tm_k : &tm_v,
+                            &full[s], 64 * p, kt0, hk, b);
+      }
+    }
+  } else if (wg < nh) {  // consumers: warpgroup w, head hk G + 2 j + w
+    sm90::regs_inc<240>();
+    const int t = threadIdx.x % WG, warp = t / 32, g8 = (t % 32) / 4,
+              q4 = t % 4;
+    const int h = hk * G + 2 * j + wg;
+    const bf* qw = qs + wg * 4 * 64 * 64;  // this head's tiles
+    const bf* dw = dos + wg * 4 * 64 * 64;
+    const float s2 = LOG2E * qscale;  // S = qscale q K^T, in log2 units
+    // this thread's rows: q0 + 16 warp + g8 and + 8
+    const int r0 = 16 * warp + g8;
+    float l0 = 0.f, l1 = 0.f, d0 = 0.f, d1 = 0.f;
+    if (q0 < Tq) {
+      const float* tile =
+          rows + ((long long)(b * H + h) * nqt + q0 / QT) * 2 * QT;
+      l0 = tile[r0];
+      l1 = tile[r0 + 8];
+      d0 = tile[QT + r0];
+      d1 = tile[QT + r0 + 8];
+    }
+    float gq[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) gq[i] = 0.f;
+    sm90::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int nv = 2 * it, nk = nv + 1, kt0 = k_lo + 64 * it;
+      const int sv = nv % SLOTS, sk = nk % SLOTS;
+      const bf* v_s =
+          reinterpret_cast<const bf*>(smem + TL::Q_RING + sv * TL::T64);
+      const bf* k_s =
+          reinterpret_cast<const bf*>(smem + TL::Q_RING + sk * TL::T64);
+      // both before the products (a wait between two wgmma groups made
+      // ptxas serialize every wgmma, its note C7520)
+      sm90::mbar_wait(&full[sv], (nv / SLOTS) & 1);
+      sm90::mbar_wait(&full[sk], (nk / SLOTS) & 1);
+      if (SHIFT ? !block_any(q0, kt0, Tq, Tk, mk)
+                : !block_any(q0, kt0, Tq, Tk, causal, window)) {
+        sm90::mbar_arrive(&empty[sv]);
+        sm90::mbar_arrive(&empty[sk]);
+        continue;
+      }
+      const bool edge = SHIFT ? block_edge(q0, kt0, Tq, Tk, mk)
+                              : block_edge(q0, kt0, Tq, Tk, causal, window);
+      float sc[32], dp[32];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TL::KK; ++kk)
+        sm90::wgmma_ss_n64(sc, sm90::desc_k(qw, 64, kk),
+                           sm90::desc_k(k_s, 64, kk), kk);
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < TL::KK; ++kk)
+        sm90::wgmma_ss_n64(dp, sm90::desc_k(dw, 64, kk),
+                           sm90::desc_k(v_s, 64, kk), kk);
+      sm90::wgmma_commit();
+      // S retired; P while dP runs
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sc);
+      // row: query q0 + r0 (+ 8); column: key kt0 + 8 j + 2 q4
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = (i / 2) & 1;
+        const int col = 8 * (i / 4) + 2 * q4 + (i & 1);
+        sc[i] = exp2f(fmaf(sc[i], s2, -(hi ? l1 : l0)));
+        const int qi = q0 + r0 + 8 * hi, kp = kt0 + col;
+        if (edge && !(SHIFT ? visible(qi, kp, Tq, Tk, mk)
+                            : visible(qi, kp, Tq, Tk, causal, window)))
+          sc[i] = 0.f;
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dp);
+      sm90::mbar_arrive(&empty[sv]);  // V done with
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const float d = ((i / 2) & 1) ? d1 : d0;
+          da[kk][r] =
+              sm90::pack2(sc[i] * (dp[i] - d), sc[i + 1] * (dp[i + 1] - d));
+        }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs_n256_t(gq, da[kk], sm90::desc_mn(k_s, 64, kk));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::mbar_arrive(&empty[sk]);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(gq);
+#pragma unroll
+    for (int i = 0; i < 128; i += 2) {
+      const int qi = q0 + r0 + 8 * ((i / 2) & 1);
+      const int col = 8 * (i / 4) + 2 * q4;
+      if (qi >= Tq) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dq + b * sdq.b + h * sdq.h +
+                                         (long long)qi * sdq.t + col) =
+          __floats2bfloat162_rn(gq[i] * scale, gq[i + 1] * scale);
+    }
+  }
+}
+
 // the dynamic shared-memory attribute, per kernel and per device, set once
 template <typename K>
 cudaError_t size_smem(K kernel, size_t bytes, bool* sized) {
@@ -1300,42 +1732,68 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// bf16 at hd 64, 80 and 128: the prep launch, then the dK/dV and dQ passes
-// on wgmma, instantiated for the mask's frame.  `work` holds qs (B H Tq HD
-// bf16, rows hd wide) and then the row tiles (B H, nqt, 2, 64) fp32.
+// bf16 at hd 64, 80, 128 and 256: the prep launch, then the dK/dV and dQ
+// passes on wgmma, instantiated for the mask's frame.  `work` holds qs (B
+// H Tq HD bf16, rows hd wide) and then the row tiles (B H, nqt, 2, 64)
+// fp32.
 template <int HD, bool SHIFT>
 int launch_wgmma_in(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, void* work, void* dq,
                  void* dk, void* dv, const long long* st, int B, int H,
                  int Hk, int Tq, int Tk, float scale, AttnMask mk,
                  cudaStream_t stream) {
-  using TL = WgTile<HD>;
   using bf = __nv_bfloat16;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]},
       sdo{st[12], st[13], st[14]}, sdq{st[15], st[16], st[17]},
       sdk{st[18], st[19], st[20]}, sdv{st[21], st[22], st[23]};
+  constexpr bool W256 = HD == 256;
   static bool sized_kv[MAX_DEVICES] = {}, sized_q[MAX_DEVICES] = {};
-  cudaError_t err = size_smem(fa_bwd_dkdv_wgmma_kernel<HD, SHIFT>,
-                              TL::KV_SMEM, sized_kv);
-  if (err != cudaSuccess) return (int)err;
-  err = size_smem(fa_bwd_dq_wgmma_kernel<HD, SHIFT>, TL::Q_SMEM, sized_q);
+  cudaError_t err;
+  if constexpr (W256) {
+    err = size_smem(fa_bwd_dkdv_wgmma256_kernel<SHIFT>, Wg256::KV_SMEM,
+                    sized_kv);
+    if (err != cudaSuccess) return (int)err;
+    err = size_smem(fa_bwd_dq_wgmma256_kernel<SHIFT>, Wg256::Q_SMEM,
+                    sized_q);
+  } else {
+    using TL = WgTile<HD>;
+    err = size_smem(fa_bwd_dkdv_wgmma_kernel<HD, SHIFT>, TL::KV_SMEM,
+                    sized_kv);
+    if (err != cudaSuccess) return (int)err;
+    err = size_smem(fa_bwd_dq_wgmma_kernel<HD, SHIFT>, TL::Q_SMEM, sized_q);
+  }
   if (err != cudaSuccess) return (int)err;
 
   const int nqt = (Tq + QT - 1) / QT;
   bf* qs = (bf*)work;
   float* rows = (float*)(qs + (size_t)B * H * Tq * HD);
+  // hd 256 at a power-of-two scale (hd^-0.5 = 1/16): q * scale is exact in
+  // bf16 and the scale commutes with every fp32 rounding, so the passes
+  // read q itself and take S and dK times `qscale` (the same bits, for |q|
+  // >= 2^-122); otherwise the prep writes qs and `qscale` is 1
+  int ex;
+  const bool raw = W256 && std::frexp(scale, &ex) == 0.5f;
+  const float qscale = raw ? scale : 1.f;
   const dim3 grid_p((nqt * QT + NT / 32 - 1) / (NT / 32), B * H);
-  fa_bwd_prep_kernel<HD><<<grid_p, NT, 0, stream>>>(
-      (const bf*)q, (const bf*)o, (const bf*)dout, lse, qs, rows, sq, so,
-      sdo, H, Tq, nqt, scale);
+  if (raw)
+    fa_bwd_prep_kernel<HD, false><<<grid_p, NT, 0, stream>>>(
+        (const bf*)q, (const bf*)o, (const bf*)dout, lse, qs, rows, sq, so,
+        sdo, H, Tq, nqt, scale);
+  else
+    fa_bwd_prep_kernel<HD, true><<<grid_p, NT, 0, stream>>>(
+        (const bf*)q, (const bf*)o, (const bf*)dout, lse, qs, rows, sq, so,
+        sdo, H, Tq, nqt, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // byte strides of (t, head, b); qs is contiguous
   CUtensorMap m_qs, m_do, m_k, m_v;
   const long long e = sizeof(bf);
-  if ((err = sm90::tile_map(&m_qs, qs, HD, Tq, H, B, HD * e, Tq * HD * e,
-                            (long long)H * Tq * HD * e, 64)) != cudaSuccess ||
+  if ((err = raw ? sm90::tile_map(&m_qs, q, HD, Tq, H, B, sq.t * e, sq.h * e,
+                                  sq.b * e, 64)
+                 : sm90::tile_map(&m_qs, qs, HD, Tq, H, B, HD * e,
+                                  Tq * HD * e, (long long)H * Tq * HD * e,
+                                  64)) != cudaSuccess ||
       (err = sm90::tile_map(&m_do, dout, HD, Tq, H, B, sdo.t * e, sdo.h * e,
                             sdo.b * e, 64)) != cudaSuccess ||
       (err = sm90::tile_map(&m_k, k, HD, Tk, Hk, B, sk.t * e, sk.h * e,
@@ -1343,17 +1801,35 @@ int launch_wgmma_in(const void* q, const void* k, const void* v, const void* o,
       (err = sm90::tile_map(&m_v, v, HD, Tk, Hk, B, sv.t * e, sv.h * e,
                             sv.b * e, 64)) != cudaSuccess)
     return (int)err;
-  const dim3 grid_kv(B * Hk, (Tk + 127) / 128);
-  fa_bwd_dkdv_wgmma_kernel<HD, SHIFT>
-      <<<grid_kv, WG_BLOCK, TL::KV_SMEM, stream>>>(
-      m_qs, m_do, m_k, m_v, rows, (bf*)dk, (bf*)dv, sdk, sdv, H, Hk, Tq, Tk,
-      nqt, mk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q(B * H, (Tq + 127) / 128);
-  fa_bwd_dq_wgmma_kernel<HD, SHIFT><<<grid_q, WG_BLOCK, TL::Q_SMEM, stream>>>(
-      m_qs, m_do, m_k, m_v, rows, (bf*)dq, sdq, H, Hk, Tq, Tk, nqt, scale,
-      mk);
+  if constexpr (W256) {
+    const dim3 grid_kv(B * Hk, (Tk + 63) / 64);
+    fa_bwd_dkdv_wgmma256_kernel<SHIFT>
+        <<<grid_kv, WG_BLOCK, Wg256::KV_SMEM, stream>>>(
+        m_qs, m_do, m_k, m_v, rows, (bf*)dk, (bf*)dv, sdk, sdv, H, Hk, Tq,
+        Tk, nqt, qscale, mk);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    // blocks over (b, kv head, pair of query heads), 64 queries each
+    const dim3 grid_q(B * Hk * ((H / Hk + 1) / 2), (Tq + 63) / 64);
+    fa_bwd_dq_wgmma256_kernel<SHIFT>
+        <<<grid_q, WG_BLOCK, Wg256::Q_SMEM, stream>>>(
+        m_qs, m_do, m_k, m_v, rows, (bf*)dq, sdq, H, Hk, Tq, Tk, nqt, scale,
+        qscale, mk);
+  } else {
+    using TL = WgTile<HD>;
+    const dim3 grid_kv(B * Hk, (Tk + 127) / 128);
+    fa_bwd_dkdv_wgmma_kernel<HD, SHIFT>
+        <<<grid_kv, WG_BLOCK, TL::KV_SMEM, stream>>>(
+        m_qs, m_do, m_k, m_v, rows, (bf*)dk, (bf*)dv, sdk, sdv, H, Hk, Tq,
+        Tk, nqt, mk);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid_q(B * H, (Tq + 127) / 128);
+    fa_bwd_dq_wgmma_kernel<HD, SHIFT>
+        <<<grid_q, WG_BLOCK, TL::Q_SMEM, stream>>>(
+        m_qs, m_do, m_k, m_v, rows, (bf*)dq, sdq, H, Hk, Tq, Tk, nqt, scale,
+        mk);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1414,11 +1890,11 @@ extern "C" int flash_attention_bwd_f32(
                          Hk, Tq, Tk, hd, scale, mk, stream);
 }
 
-// bf16: the wgmma kernels at hd 64, 80 and 128 (`delta` then points at
-// their workspace: qs, B H Tq hd bf16, then B H ceil(Tq / 64) 128 fp32),
+// bf16: the wgmma kernels at hd 64, 80, 128 and 256 (`delta` then points
+// at their workspace: qs, B H Tq hd bf16, then B H ceil(Tq / 64) 128 fp32),
 // the mma.sync ones at hd 16 and 32 (pointers of q, k, v, o and dO 16-byte
 // aligned and their strides multiples of 8 elements, in both), the
-// fp32-FMA ones at hd 8 and 256
+// fp32-FMA one at hd 8
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -1442,6 +1918,9 @@ extern "C" int flash_attention_bwd_bf16(
                               B, H, Hk, Tq, Tk, scale, mk, s);
     case 128:
       return launch_wgmma<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
+                               B, H, Hk, Tq, Tk, scale, mk, s);
+    case 256:
+      return launch_wgmma<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, st,
                                B, H, Hk, Tq, Tk, scale, mk, s);
     default:
       return dispatch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,

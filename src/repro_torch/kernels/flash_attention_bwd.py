@@ -7,13 +7,19 @@ the TPU: the reference differentiates its jnp attention instead).
 tensors and raises on anything it does not take (the forward's dtypes,
 head dims and masks); ``lse`` is the forward's per-row log-sum-exp
 (``flash_attention(..., return_lse=True)``).  It runs three launches on one
-stream: D = rowsum(dO o) (and, on the wgmma route, qs = q * scale in bf16),
-then dK and dV a key tile a block, then dQ a query tile a block, with no
+stream: D = rowsum(dO o) (and, on the wgmma route, qs = q * scale in bf16,
+but at hd 256 with a power-of-two scale, which it reads as q), then dK and
+dV a key tile a block, then dQ a query tile a block, with no
 atomics, so its result does not depend on the order blocks run in.  bf16
-inputs at hd 64, 80 and 128 (every shape training gives it; hd 80 at the
-width of two whole 64-column panels, zero past hd) run on Hopper's
-``wgmma`` with TMA-fed tiles (``csrc/sm90.cuh``), at hd 16 and 32 on
-``mma.sync``; fp32 inputs, and bf16 at hd 8 and 256, on fp32 FMAs.
+inputs at hd 64, 80, 128 and 256 (every shape training gives it; hd 80 at
+the width of two whole 64-column panels, zero past hd) run on Hopper's
+``wgmma`` with TMA-fed tiles (``csrc/sm90.cuh``): blocks of 128 keys (dK,
+dV) or queries (dQ), each of two consumer warpgroups 64 of them at the full
+width; at hd 256 dK/dV blocks of 64 keys, one consumer accumulating dV and
+the other dK at the full width, and dQ blocks of 64 queries of two query
+heads of a kv group, a consumer each (128 fp32 accumulators a thread
+throughout).  At hd 16 and 32 they run on ``mma.sync``; fp32 inputs, and
+bf16 at hd 8, on fp32 FMAs.
 ``torch.autograd.grad`` through
 :func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version,
 :func:`repro_torch.kernels.ref.flash_attention_bwd_tiled_ref` the wgmma
@@ -38,7 +44,7 @@ _SYMBOLS = {torch.float32: "flash_attention_bwd_f32",
 # bf16 head dims of the wgmma route, whose kernels take a workspace of qs
 # (B H Tq hd bf16) and 64-row tiles of lse and D (B H ceil(Tq / 64) 128
 # fp32); every other route takes D alone (B H Tq fp32)
-WGMMA_HEAD_DIMS = (64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 _fns = {}
 
 

@@ -158,9 +158,14 @@ def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
                                   scale: Optional[float] = None,
                                   q_offset: int = 0, kv_start: int = 0):
     """The backward kernel's arithmetic on its wgmma route (bf16 at hd 64,
-    80 and 128), step by step, on head-major tensors as
+    80, 128 and 256), step by step, on head-major tensors as
     ``flash_attention_bwd`` takes them (``lse`` the forward's (B, H, Tq);
-    the mask with ``q_offset`` and ``kv_start`` as the forward's).
+    the mask with ``q_offset`` and ``kv_start`` as the forward's).  The
+    kernel's blocks change which warpgroup sums an entry, not the order of
+    its sums: 128 keys (dK/dV) or queries (dQ), two warpgroups of 64 rows
+    at the full width; at hd 256 64 keys with one warpgroup summing dV and
+    the other dK at the full width, and 64 queries of two query heads of a
+    kv group, a warpgroup each.
 
     qs = q * scale rounded to q's dtype (fp32 rounds nothing), D =
     rowsum(dO o) in fp32.  dK and dV: fp32 sums over query tiles of 64

@@ -8,16 +8,18 @@ Tolerances, each with its reason:
 - fp32 operands (nothing rounded): atol = rtol = 1e-5, as the attention
   gradients of ``test_torch_train.py`` (the same softmax; fp32 sums in
   another order);
-- bf16 operands (the kernel's route at hd 64 and 128): the inputs rounded
-  to bf16 on both sides, then the tiled version rounds qs, P and dS to
-  bf16 and its gradients to bf16 at the end, while JAX keeps fp32
-  throughout: atol = rtol = 3e-2, the forward's bf16 tolerance.
+- bf16 operands (the kernel's route at hd 64, 80, 128 and 256): the
+  inputs rounded to bf16 on both sides, then the tiled version rounds qs,
+  P and dS to bf16 and its gradients to bf16 at the end, while JAX keeps
+  fp32 throughout: atol = rtol = 3e-2, the forward's bf16 tolerance.
 
 The shapes: qwen2-1.5b's causal GQA 12:2 at hd 128 with T off the
 kernel's 128-row blocks and more 64-row query tiles than its ring has
 stages (3); a causal window; whisper-tiny's non-causal hd 64 with
-Tq != Tk both ways; T one past a block.  (The reference applies a window
-only under a causal mask, as every model calls it.)
+Tq != Tk both ways; T one past a block; gemma3-4b's 8:4 at hd 256 with a
+causal window off the tiles, and T one past two of its 64-row blocks.  (The
+reference applies a window only under a causal mask, as every model calls
+it.)
 """
 import jax
 import jax.numpy as jnp
@@ -36,7 +38,11 @@ CASES = [(1, 12, 2, 200, 200, 128, True, 0),
          (1, 6, 6, 129, 129, 128, True, 0),
          # hd 80 (zamba2's), padded to two 64-column panels on the card
          (1, 4, 4, 200, 200, 80, True, 0),
-         (2, 4, 2, 150, 130, 80, False, 0)]
+         (2, 4, 2, 150, 130, 80, False, 0),
+         # hd 256 (gemma3-4b's 8:4): a causal window off the 64-row tiles,
+         # and T one past two 64-row blocks
+         (1, 8, 4, 200, 200, 256, True, 70),
+         (1, 4, 2, 129, 129, 256, True, 0)]
 
 
 def _mask(Tq, Tk, causal, window):

@@ -181,13 +181,15 @@ FA_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
            (2, 6, 6, 100, 37, 64, False, 0)]
 # the backward kernel: qwen2-1.5b's training attention (GQA 12:2 at hd 128,
 # causal) and a windowed GQA one, whisper-tiny's non-causal ragged hd 64
-# (Tq != Tk both ways), and the other head dims' tiles (the fp32-FMA
-# kernel's hd 256 at 16-row tiles, 80 and 8; the mma.sync kernel's 32
-# with a window and no causal mask, and 16 off its 64-row tiles); then the
-# wgmma route's tile edges at hd 64 and 128 (T 127, 128 and 129 about its
-# 128-row blocks and 64-row tiles, whisper's encoder T 1,500 and its
+# (Tq != Tk both ways), and the other head dims' tiles (hd 256, 80 and 8,
+# in fp32 on the FMA kernel's 16- and 32-row tiles; the mma.sync kernel's
+# 32 with a window and no causal mask, and 16 off its 64-row tiles); then
+# the wgmma route's tile edges at hd 64 and 128 (T 127, 128 and 129 about
+# its 128-row blocks and 64-row tiles, whisper's encoder T 1,500 and its
 # cross-attention's 448 x 1,500, Tq != Tk at hd 128, causal H / Hk = 6);
-# hd 80 is on the wgmma route too (two panels, zero past hd)
+# hd 80 is on the wgmma route too (two panels, zero past hd), and hd 256
+# (kernels of its own, 64-row blocks): gemma3-4b's 8:4 with a causal
+# window off the tiles, T 130 past two blocks above
 FA_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                (2, 12, 2, 300, 300, 128, True, 100),
                (2, 6, 6, 200, 150, 64, False, 0),
@@ -205,12 +207,16 @@ FA_BWD_GRID = [(1, 12, 2, 512, 512, 128, True, 0),
                (1, 6, 6, 448, 1500, 64, False, 0),
                (1, 6, 2, 200, 330, 128, False, 0),
                (1, 12, 2, 300, 200, 128, False, 0),
-               (1, 12, 2, 129, 129, 64, True, 0)]
+               (1, 12, 2, 129, 129, 64, True, 0),
+               (1, 8, 4, 200, 200, 256, True, 70)]
 # the training paths' shapes: qwen2-1.5b's, whisper-tiny's encoder,
-# zamba2-2.7b's shared attention (hd 80)
+# zamba2-2.7b's shared attention (hd 80), gemma3-4b's local and global
+# layers (hd 256)
 FA_BWD_TRAIN = [(8, 12, 2, 2048, 2048, 128, True, 0),
                 (8, 6, 6, 1500, 1500, 64, False, 0),
-                (8, 32, 32, 2048, 2048, 80, True, 0)]
+                (8, 32, 32, 2048, 2048, 80, True, 0),
+                (8, 8, 4, 2048, 2048, 256, True, 1024),
+                (8, 8, 4, 2048, 2048, 256, True, 0)]
 # likewise, then T off the chunk, one chunk (C = T = 100), H off the
 # kernel's group of 8 heads
 SSD_GRID = [(2, 128, 4, 16, 32, 64), (1, 96, 2, 8, 16, 32),
@@ -295,12 +301,12 @@ def _bwd_inputs(B, H, Hk, Tq, Tk, hd, causal, window):
                           if c[5] in fab.WGMMA_HEAD_DIMS])
 def test_flash_attention_backward_wgmma_matches_tiled_plain_on_card(
         B, H, Hk, Tq, Tk, hd, causal, window):
-    """The wgmma route (bf16 at hd 64, 80 and 128) against its arithmetic step
-    by step (``ref.flash_attention_bwd_tiled_ref``: qs, P and dS rounded to
-    bf16 where the kernel rounds them, fp32 sums over its tiles) on the
-    same forward output and lse: atol = rtol = 1e-2, about two bf16 steps
-    (an fp32 sum in another order, or exp2 against exp, can move one
-    rounding by a step)."""
+    """The wgmma route (bf16 at hd 64, 80, 128 and 256) against its
+    arithmetic step by step (``ref.flash_attention_bwd_tiled_ref``: qs, P
+    and dS rounded to bf16 where the kernel rounds them, fp32 sums over its
+    tiles) on the same forward output and lse: atol = rtol = 1e-2, about
+    two bf16 steps (an fp32 sum in another order, or exp2 against exp, can
+    move one rounding by a step)."""
     _need_card()
     q, k, v, out, do, lse = _bwd_inputs(B, H, Hk, Tq, Tk, hd, causal, window)
     got = fab.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
@@ -314,11 +320,14 @@ def test_flash_attention_backward_wgmma_matches_tiled_plain_on_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window", FA_BWD_TRAIN)
+@pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window",
+                         FA_BWD_TRAIN + [c for c in FA_BWD_GRID
+                                         if c[5] == 256])
 def test_flash_attention_backward_is_deterministic_on_card(
         B, H, Hk, Tq, Tk, hd, causal, window):
     """Two backward calls on the same inputs give the same bits (no float
-    atomics; every sum in a fixed order), at the training shapes."""
+    atomics; every sum in a fixed order), at the training shapes and the
+    grid's hd-256 cases."""
     _need_card()
     q, k, v, out, do, lse = _bwd_inputs(B, H, Hk, Tq, Tk, hd, causal, window)
     first, second = (fab.flash_attention_bwd(q, k, v, out, do, lse,

@@ -134,8 +134,12 @@ def test_chunked_cross_entropy_matches_jax(masked):
                                rtol=1e-6)
 
 
+# gemma3-4b: the only shipped config with a sliding window (local layers at
+# window 8 over 12 tokens, the sixth layer global) and a tied head (its
+# embedding's gradient sums the lookup's and the head's)
 LOSS_ARCHS = [("qwen2-1.5b", 0), ("qwen2-1.5b", 64), ("internvl2-26b", 0),
-              ("mamba2-1.3b", 0), ("whisper-tiny", 0), ("zamba2-2.7b", 0)]
+              ("mamba2-1.3b", 0), ("whisper-tiny", 0), ("zamba2-2.7b", 0),
+              ("gemma3-4b", 0), ("gemma3-4b", 64)]
 
 
 def _batch(cfg, seed, n=2, t=12):

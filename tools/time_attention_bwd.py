@@ -7,13 +7,16 @@ on one card.
                                         [--reps 20] [--turns 2]
 
 At each shape (bf16, inputs from a seed, the forward kernel's output and
-log-sum-exp): ``flash_attention_bwd`` as built from ``csrc/``, each
+log-sum-exp; the training paths' shapes, and gemma3-4b's halo frame, whose
+2,048 queries sit at offset 1,024 over 3,072 keys with the first 1,024
+hidden): ``flash_attention_bwd`` as built from ``csrc/``, each
 ``--variant`` source (a ``flash_attention_bwd.cu`` of the same C
 interface, e.g. an earlier commit's, compiled with the same nvcc flags and
 ``csrc/`` on the include path), and the backward of
-``scaled_dot_product_attention`` (``enable_gqa``).  A variant from before
+``scaled_dot_product_attention`` (``enable_gqa``; an explicit boolean mask
+for a window or a shifted frame).  A variant from before
 the mask's ``q_offset`` / ``kv_start`` (two mask ints in its C interface)
-is called with the two dropped; every shape here has neither.  Device ms:
+is called with the two dropped (give it no shifted shape).  Device ms:
 ``--reps``
 calls queued back to back between two CUDA events (``chip_smoke.device_ms``),
 taken in turns: the kernel, the variants in order, again in reverse, the
@@ -38,12 +41,17 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-# (B, H, Hk, Tq, Tk, hd, causal, window): the training paths' shapes
+# (B, H, Hk, Tq, Tk, hd, causal, window[, q_offset, kv_start]): the
+# training paths' shapes (gemma3-4b's local and global layers at hd 256),
+# and gemma3-4b's halo frame (chip_smoke.FLASH_HALO)
 SHAPES = {"qwen2": (8, 12, 2, 2048, 2048, 128, True, 0),
           "whisper_enc": (8, 6, 6, 1500, 1500, 64, False, 0),
           "whisper_dec": (8, 6, 6, 448, 448, 64, True, 0),
           "whisper_cross": (8, 6, 6, 448, 1500, 64, False, 0),
-          "zamba2": (8, 32, 32, 2048, 2048, 80, True, 0)}
+          "zamba2": (8, 32, 32, 2048, 2048, 80, True, 0),
+          "gemma3_local": (8, 8, 4, 2048, 2048, 256, True, 1024),
+          "gemma3_global": (8, 8, 4, 2048, 2048, 256, True, 0),
+          "gemma3_halo": (8, 8, 4, 2048, 3072, 256, True, 1024, 1024, 1024)}
 
 
 def load_variant(path: Path, symbol: str = "flash_attention_bwd_bf16",
@@ -98,15 +106,14 @@ def main() -> int:
     rows = []
     for name in args.shapes:
         case = SHAPES[name]
-        B, H, Hk, Tq, Tk, hd, causal, window = case
+        B, H, Hk, Tq, Tk, hd, causal = case[:7]
+        mask = cs.mask_of(case)
         q, k, v = cs.flash_inputs(torch, np, case, torch.bfloat16)
         dout = cs.flash_inputs(torch, np, case, torch.bfloat16, seed=5)[0]
-        out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                      return_lse=True)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **mask)
 
         def kern():
-            return fab.flash_attention_bwd(q, k, v, out, dout, lse,
-                                           causal=causal, window=window)
+            return fab.flash_attention_bwd(q, k, v, out, dout, lse, **mask)
 
         def other(fn):
             def call():
@@ -116,16 +123,13 @@ def main() -> int:
                 finally:
                     fab._fns[torch.bfloat16] = own
             return call
+        vis = cs.sdpa_mask(np, case)
+        lib_mask = torch.as_tensor(vis, device="cuda") \
+            if cs.shifted(case) else None
         lib_in = [t.clone().requires_grad_(True) for t in (q, k, v)]
         lib_out = torch.nn.functional.scaled_dot_product_attention(
-            *lib_in, is_causal=causal, enable_gqa=H != Hk)
-        qp = np.arange(Tq)[:, None]
-        kp = np.arange(Tk)[None, :]
-        vis = np.ones((Tq, Tk), bool)
-        if causal:
-            vis &= qp >= kp
-        if window > 0:
-            vis &= (qp - kp) < window
+            *lib_in, is_causal=causal and lib_mask is None,
+            attn_mask=lib_mask, enable_gqa=H != Hk)
         b_ms, b_by = cs.bound(
             2 * (4 * B * H * Tq * hd + 4 * B * Hk * Tk * hd) + 4 * B * H * Tq,
             2.5 * 4 * hd * B * H * int(vis.sum()), cs.BF16_FLOPS_PER_S)
@@ -157,7 +161,7 @@ def main() -> int:
         for key, ms in row["device_ms_by_launch"].items():
             print(f"time {name} by launch: {ms} {key[:100]}", flush=True)
         rows.append(row)
-        del q, k, v, dout, out, lse, lib_in, lib_out
+        del q, k, v, dout, out, lse, lib_in, lib_out, lib_mask
         torch.cuda.empty_cache()
     print(cs.card_line(), flush=True)
     print(json.dumps({"flash_attention_bwd_variants": rows}))
