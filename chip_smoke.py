@@ -10,8 +10,9 @@
    (HMMA) instructions of ``flash_attention`` (forward and backward),
    ``ssd_scan`` (forward and backward) and ``pairwise_dist`` in their
    SASS, prints the shared memory of each of the SSD backward's launches,
-   and counts the two backwards' ``wgmma`` (HGMMA) and TMA tensor-load
-   (UTMALDG) instructions: none of any fails the run.
+   and counts the attention forward's and the two backwards' ``wgmma``
+   (HGMMA) and TMA tensor-load (UTMALDG) instructions: none of any fails
+   the run.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes, the JAX package's test grids and the tile edges of
    the kernels, and after the main paths again at every shape they gave
@@ -21,7 +22,10 @@
    the first copy, margin exactly 0).  ``pairwise_sqdist`` is held at the
    JAX package's atol 1e-5 on that package's grid, and elsewhere against
    a float64 computation of the same distances: its error at most twice
-   the plain fp32 version's.  ``flash_attention``'s backward kernel (run
+   the plain fp32 version's.  ``flash_attention`` on its ``wgmma`` route
+   (bf16 at hd 64, 80 and 128) also its log-sum-exp against the plain one
+   (``ref.flash_attention_lse_ref``, atol 1e-3), and two calls on the
+   same inputs bit-equal.  ``flash_attention``'s backward kernel (run
    through ``ops.attention`` with grad) against ``torch.autograd.grad``
    through the plain version, on its ``wgmma`` route (bf16 at hd 64, 80,
    128 and 256) also against its arithmetic step by step
@@ -280,9 +284,11 @@
    under the card's memory; then qwen1.5-4b ``decode_32k`` the same way
    (a decode step against a 32k cache split along the sequence), its
    arguments and temporaries within 0.9 of the card's memory.
-11. Prints one ``{"kernels": [...]}`` line, the card's line again, and last
-   ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-   before a result is printed.
+11. Prints one ``{"kernels": [...]}`` line (each kernel with the launch
+   names the profiled passes saw under its prefix; where the profiler kept
+   ``flash_attention``'s, one must be ``flash_attention_wgmma_kernel``),
+   the card's line again, and last ``{"ok": true, "device": {...}}``.  Any
+   failed check exits non-zero before a result is printed.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -620,7 +626,17 @@ FLASH_GRID = [(2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 96, 96, 16, True, 0),
               # 1,500 frames, and a ragged small one
               (8, 6, 6, 1500, 1500, 64, False, 0),
               (8, 6, 6, 2048, 1500, 64, False, 0),
-              (2, 6, 6, 100, 37, 64, False, 0)]
+              (2, 6, 6, 100, 37, 64, False, 0),
+              # the wgmma route's edges (bf16 at hd 64, 80 and 128: 128-row
+              # blocks, 128-key tiles): T 127 and 128, a window across a
+              # key tile with and without causal, and the shifted frame
+              # (q_offset, kv_start) at hd 128 and 80
+              (1, 6, 6, 127, 127, 64, True, 0),
+              (1, 6, 6, 128, 128, 128, True, 0),
+              (1, 4, 2, 300, 300, 128, True, 100),
+              (1, 4, 2, 190, 190, 128, False, 70),
+              (1, 4, 2, 200, 330, 128, True, 0, 64, 40),
+              (1, 4, 4, 150, 250, 80, True, 0, 100, 30)]
 # the backward kernel against autograd through the plain version, before
 # the main paths (which give it qwen2's and whisper's training shapes, held
 # again after them): causal GQA 12:2 at hd 128 (qwen2's heads), windowed
@@ -689,12 +705,18 @@ def flash_inputs(torch, np, case, dtype, seed=3):
 
 # the JAX package's attention tolerances (atol = rtol) by dtype
 FLASH_TOLS = (("float32", 5e-4), ("bfloat16", 3e-2))
+# the forward's log-sum-exp against ``ref.flash_attention_lse_ref`` (atol:
+# the same bf16 qs and k, fp32 sums taken in another order)
+FLASH_LSE_TOL = 1e-3
 
 
 def check_flash(torch, np, fa, ref, cases, dtypes=("float32", "bfloat16")):
     """Kernel vs plain at each case, fp32 (atol = rtol = 5e-4) and bf16
-    (3e-2), the JAX package's tolerances; returns the max abs error in
-    bf16, the serving dtype."""
+    (3e-2), the JAX package's tolerances; on the wgmma route (bf16 at
+    ``fa.WGMMA_HEAD_DIMS``) also the log-sum-exp against the plain one at
+    atol ``FLASH_LSE_TOL``, the output with the log-sum-exp bit-equal to
+    the one without, and a second call bit-equal to the first.  Returns
+    the max abs error in bf16, the serving dtype."""
     worst = 0.0
     for case in cases:
         mask = mask_of(case)
@@ -712,8 +734,23 @@ def check_flash(torch, np, fa, ref, cases, dtypes=("float32", "bfloat16")):
                      f"atol = rtol = {tol}")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
+            note = ""
+            if dtype == torch.bfloat16 and case[5] in fa.WGMMA_HEAD_DIMS:
+                again, lse = fa.flash_attention(q, k, v, return_lse=True,
+                                                **mask)
+                plain = ref.flash_attention_lse_ref(q, k, **mask)
+                lerr = float((lse - plain).abs().max())
+                if not torch.equal(again, got) or not torch.equal(
+                        fa.flash_attention(q, k, v, **mask), got):
+                    fail(f"flash_attention at {case} {dtype}: two calls on "
+                         f"the same inputs differ")
+                if lse.shape != plain.shape or not lerr <= FLASH_LSE_TOL:
+                    fail(f"flash_attention lse at {case} {dtype}: err "
+                         f"{lerr} beyond atol {FLASH_LSE_TOL}")
+                note = f", lse max abs err {lerr:.3g}, two calls bit-equal"
+                del again, lse, plain
             print(f"flash_attention {case} {str(dtype)[6:]}: max abs err "
-                  f"{err:.3g} ok", flush=True)
+                  f"{err:.3g}{note} ok", flush=True)
             del q, k, v, got, want, g, r
     return worst
 
@@ -2916,9 +2953,12 @@ def train_whisper_resume(torch, np, mods, seen: dict, steps: int = 4,
     return run
 
 
-# launch names of the port's kernels (csrc/*.cu)
+# launch names of the port's kernels (csrc/*.cu), and those that the
+# profiled passes saw under each (``profile_pass``; the kernels line
+# carries them)
 KERNEL_PREFIXES = ("margin_head_", "pairwise_sqdist_", "flash_attention_",
                    "fa_bwd_", "ssd_scan_", "ssd_bwd_")
+LAUNCH_NAMES = {prefix: set() for prefix in KERNEL_PREFIXES}
 
 
 # the MoE's routes of the mesh phase (b): the replicate + psum route with
@@ -3895,6 +3935,8 @@ def profile_pass(torch, label: str, fn, top: int = 10):
     # the port's own kernels, in or out of the top rows
     for prefix in KERNEL_PREFIXES:
         mine = [r for r in rows if prefix in r[2]]
+        LAUNCH_NAMES[prefix].update(
+            r[2][r[2].index(prefix):].split("(")[0] for r in mine)
         if mine:
             ms = sum(r[0] for r in mine)
             print(f"serve {label} profile: {prefix}* {ms:.3f} ms "
@@ -4196,9 +4238,9 @@ def main() -> None:
                 short = entry[at + 4:at + 80] if at >= 0 else entry[:76]
                 print(f"ptxas {name} {short}: {line.strip()}", flush=True)
     # the redesigned kernels run on tensor cores: their SASS holds HMMA
-    # (mma.sync); the two backwards' also wgmma (HGMMA) fed by TMA tensor
-    # loads (UTMALDG)
-    for name, ops in (("flash_attention", ("HMMA",)),
+    # (mma.sync); the attention forward's and the two backwards' also wgmma
+    # (HGMMA) fed by TMA tensor loads (UTMALDG)
+    for name, ops in (("flash_attention", ("HMMA", "HGMMA", "UTMALDG")),
                       ("flash_attention_bwd", ("HMMA", "HGMMA", "UTMALDG")),
                       ("ssd_scan", ("HMMA",)),
                       ("ssd_scan_bwd", ("HMMA", "HGMMA", "UTMALDG")),
@@ -4606,6 +4648,21 @@ def main() -> None:
         "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                          "src/repro/kernels/ssd_scan.py:86"),
     }
+    prefixes = {"margin_head": "margin_head_",
+                "pairwise_sqdist": "pairwise_sqdist_",
+                "flash_attention": "flash_attention_",
+                "flash_attention_bwd": "fa_bwd_", "ssd_scan": "ssd_scan_",
+                "ssd_scan_bwd": "ssd_bwd_"}
+    # bf16 at hd 64, 80 and 128 runs on the wgmma route: where the
+    # profiler kept the forward's launches, one of them is that kernel
+    names = sorted(LAUNCH_NAMES["flash_attention_"])
+    print(f"flash_attention launch names in the profiled passes: "
+          f"{names or 'none kept by the profiler (not measured)'}",
+          flush=True)
+    if names and not any(n.startswith("flash_attention_wgmma_kernel")
+                         for n in names):
+        fail(f"no profiled pass launched flash_attention_wgmma_kernel: "
+             f"{names}")
     kernels = []
     for name, (source, replaces) in meta.items():
         mine = [r for r in rows if r["name"] == name]
@@ -4615,6 +4672,7 @@ def main() -> None:
             "replaces": replaces,
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
+            "launch_names": sorted(LAUNCH_NAMES[prefixes[name]]),
             "max_abs_err": errs[name], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

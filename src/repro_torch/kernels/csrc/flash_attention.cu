@@ -22,21 +22,60 @@
 // (window 1,024).
 //
 // Head dims built: 8, 16, 32 (the JAX package's test grid), 64
-// (whisper-tiny), 80 (zamba2), 128 (qwen2, qwen1.5, phi3) and 256
-// (gemma3).  Per head dim the bf16 kernel takes 128 query rows a block
-// and 64-key tiles up to hd 80, 64 rows and 64 keys at hd 128, 64 rows
-// and 32 keys at hd 256 (`Tile`); the fp32 kernel one thread a row and
-// 64-key tiles up to hd 80, hd / 32 threads a row and 4096 / hd keys a
-// tile from hd 128 (`F32Tile`).  Whisper's T 1,500 is off every tile: the
-// last query tile's rows past Tq are loaded as zeros and never written,
-// and the last key tile's keys past Tk are zero-filled and masked.
+// (whisper-tiny), 80 (zamba2), 128 (qwen2, qwen1.5, phi3, dbrx, internvl2)
+// and 256 (gemma3).  The dtype and the head dim pick the kernel: bf16 at
+// hd 64, 80 and 128 `flash_attention_wgmma_kernel`, bf16 at hd 8, 16, 32
+// and 256 `flash_attention_mma_kernel`, fp32 `flash_attention_kernel`.
+// Whisper's T 1,500 is off every tile: rows past Tq are loaded as zeros
+// and never written, keys past Tk are zero-filled and masked.
 //
-// Design of the bf16 kernel (`flash_attention_mma_kernel`), the serving
-// path's: the FlashAttention-2 shape on tensor cores.  A block owns 128
-// query rows of one (b, h) (64 from hd 128): 4 warps of 32 rows, each as
-// two 16-row tiles (one from hd 128, where the O accumulator alone is 64
-// or 128 registers a thread), and walks the key tiles of BK = 64 keys (32
-// at hd 256) inside the block, carrying (m, l, o) in registers.
+// Design of the bf16 kernel at hd 64, 80 and 128 (`flash_attention_wgmma_
+// kernel`, every served and trained LM's but gemma3's): warp-specialized
+// blocks on Hopper's `wgmma` with tiles fed by TMA (csrc/sm90.cuh), the
+// backward's layout (csrc/flash_attention_bwd.cu).  A block owns 128 query
+// rows of one (b, h) as two consumer warpgroups of 64 rows; the first
+// thread of a third, producer warpgroup loads Q once (boxes of 64 x 64
+// bf16, 128-byte swizzle) and streams the key tiles of 128 keys through a
+// ring of two stages, K and V on mbarriers of their own, so that S of a
+// tile starts before its V has landed (setmaxnreg: 240 registers a
+// consumer thread, 24 a producer one).  Each consumer scales its Q rows
+// in shared memory to q * scale rounded to bf16 (no prep launch, which
+// would read and write Q once more) and fences them for wgmma.  Per tile:
+// S = qs K^T by `wgmma` m64n128 from shared memory (ceil(hd / 16) k16
+// slices, both operands K-major) into 64 fp32 registers; the mask only on
+// tiles that cross its edge; the online softmax with a row's max and sum
+// over the quad of threads that holds it, p = 2^(s log2 e - m log2 e) by
+// one FFMA and one EX2, l from the unrounded fp32 p; then O = O * exp(m_old
+// - m_new) + P V by `wgmma` with P as the bf16 A operand straight from S's
+// accumulators and V read through the transpose bit (n64 at hd 64, n128 at
+// hd 80 and 128).  The tiles are software-pipelined: S of tile j and PV of
+// tile j - 1 are issued together, the softmax of tile j runs while PV of
+// j - 1 does, and O is rescaled after it, the plain online softmax's order
+// (O + P_{j-1} V_{j-1}) c_j.  P's registers are written only once no
+// product is in flight (written earlier, ptxas serialized every wgmma:
+// its note C7513).  The two consumers take turns on the tensor cores
+// (named barriers): one issues its products while the other's softmax
+// runs.  hd 80 runs at the width of two panels: the tensor maps zero-fill
+// the columns past hd, which add exact zeros to S, and the output's padded
+// columns are never stored.  Key tiles sit on multiples of 128 keys and
+// are walked in one order, with no split of the keys across blocks and no
+// atomics, so a row's output depends only on its q, the keys and the mask
+// settings: paged equals unpaged, a sequence split equals the whole
+// sequence bit for bit.  Every tile of a block's range is visited by both
+// consumers (bit-neutral for a row the mask hides it from: p is 0 after a
+// visible key, and before one a row still at m = -1e30 takes p = 0).
+// What still separates it from its bound: the exp and the rescale on the
+// CUDA cores (at hd 64 as long as the products), the waits at each turn,
+// the tail of a grid of one block an SM, and at hd 80 PV's padded columns
+// (128 of 80).
+//
+// Design of the bf16 kernel at hd 8, 16, 32 and 256
+// (`flash_attention_mma_kernel`): the FlashAttention-2 shape on tensor
+// cores.  A block owns 128 query rows of one (b, h) (64 at hd 256): 4
+// warps of 32 rows, each as two 16-row tiles (one at hd 256, where the O
+// accumulator alone is 128 registers a thread), and walks the key tiles of
+// BK = 64 keys (32 at hd 256) inside the block, carrying (m, l, o) in
+// registers.
 // S = Q K^T and O += P V are `mma.sync.m16n8k16` bf16 -> fp32, fed by
 // `ldmatrix` from bf16 tiles in shared memory (rows padded by 16 B, so
 // the eight rows an `ldmatrix` reads fall in distinct banks); each K and V
@@ -53,11 +92,12 @@
 // zero-padded to the mma's k = 16 in shared memory, which is exact.
 // Tiles that the causal or window mask hides from the whole block are
 // never visited, and the mask is evaluated only on tiles that cross its
-// edge.  The grid puts the query tile in its slow dimension and launches
-// the causal tiles with the most keys first, so the short ones fill the
-// tail across the 132 SMs.  What still separates it from the bound: the
-// softmax's exp, max and rescale on the CUDA cores between the two
-// products of each tile, and mma.sync in place of Hopper's wgmma.
+// edge.  Both tensor-core kernels put the query tile in the grid's slow
+// dimension and launch the causal tiles with the most keys first, so the
+// short ones fill the tail across the 132 SMs.  What still separates this
+// one from the bound: the softmax's exp, max and rescale on the CUDA cores
+// between the two products of each tile, and mma.sync in place of
+// Hopper's wgmma (hd 256 is queued for the wgmma route).
 //
 // fp32 inputs keep the exact kernel (`flash_attention_kernel`): one thread
 // per query row (hd / 32 neighbouring lanes from hd 128, each holding 32
@@ -70,24 +110,26 @@
 // The mask (csrc/attn_mask.cuh) is the reference's: query row i at
 // position q_offset + i, keys below kv_start hidden, so a rank of a
 // sequence split attends from its positions over the gathered keys and
-// halo attention masks a missing halo; both kernels walk only the key
-// tiles that some row of a block can see in that shifted frame.  The bf16
-// kernel is instantiated for the shifted and the unshifted frame (SHIFT),
-// the latter with its tests on scalar settings as they were before the
-// shift existed (csrc/attn_mask.cuh), and each launch takes the one its
-// settings need.
+// halo attention masks a missing halo; every kernel walks only the key
+// tiles that some row of a block can see in that shifted frame.  The two
+// bf16 kernels are instantiated for the shifted and the unshifted frame
+// (SHIFT), the latter with its tests on scalar settings as they were
+// before the shift existed (csrc/attn_mask.cuh), and each launch takes the
+// one its settings need.
 //
 // A row with no visible key at all (possible only with a window and no
 // causal mask, or with keys hidden by kv_start) is not defined alike by the
 // two reference functions: each averages the values of the masked keys it
-// happens to visit, as both kernels do over the tiles they visit (none:
-// zeros, and an lse of about -1e30).
+// happens to visit, as the fp32 and mma.sync kernels do over the tiles
+// they visit (none: zeros, and an lse of about -1e30); the wgmma kernel
+// gives such a row zeros and an lse of about -1e30 whatever it visits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attn_mask.cuh"
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -238,28 +280,29 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16), cp.async K/V ring
+// bf16 at hd 8, 16, 32 and 256: tensor cores (mma.sync m16n8k16),
+// cp.async K/V ring
 // ---------------------------------------------------------------------------
 
 constexpr int STAGES = 2;   // K/V tiles in flight
 constexpr int WARPS = 4;    // warps a block
 
-// Per head dim: the head dim padded to the mma's k = 16, the shared-memory
-// row (16 B more, against bank conflicts in ldmatrix), and the tiles.  A
+// Per head dim (8, 16, 32 and 256; 64, 80 and 128 take the wgmma kernel
+// below): the head dim padded to the mma's k = 16, the shared-memory row
+// (16 B more, against bank conflicts in ldmatrix), and the tiles.  A
 // warp's O accumulator is MT x hd/8 x 4 fp32 registers a thread and its S
 // tile MT x BKV/8 x 4, under the 255-register cap of two blocks an SM:
-// up to hd 80 a warp holds MT = 2 query tiles (128 rows a block) over
-// 64-key tiles; at hd 128 one tile (64 rows a block; O 64 and S 32
-// registers); at hd 256 one tile over 32-key tiles (O 128 and S 16
-// registers), so that Q and two K/V stages stay at 99 KB of shared memory
-// and two blocks still fit on an SM (85 KB at hd 128).
+// up to hd 32 a warp holds MT = 2 query tiles (128 rows a block) over
+// 64-key tiles; at hd 256 one tile (64 rows a block) over 32-key tiles (O
+// 128 and S 16 registers), so that Q and two K/V stages stay at 99 KB of
+// shared memory and two blocks still fit on an SM.
 template <int HD>
 struct Tile {
   static constexpr int HDP = (HD + 15) / 16 * 16;
   static constexpr int ROW = HDP + 8;    // bf16 elements per smem row
   static constexpr int CHUNKS = HD / 8;  // 16-byte pieces of a global row
-  static constexpr int MT = HD <= 80 ? 2 : 1;        // 16-row tiles a warp
-  static constexpr int BKV = HD <= 128 ? 64 : 32;    // keys per tile
+  static constexpr int MT = HD <= 32 ? 2 : 1;        // 16-row tiles a warp
+  static constexpr int BKV = HD <= 32 ? 64 : 32;     // keys per tile
   static constexpr int MBQ = 16 * WARPS * MT;        // query rows a block
   static_assert(BKV % 16 == 0, "a key tile is whole mma k-steps");
 };
@@ -528,6 +571,372 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at hd 64, 80 and 128: wgmma on TMA-fed tiles (sm90.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int WG = 128;           // threads of a warpgroup
+constexpr int WG_BLOCK = 3 * WG;  // two consumer warpgroups, one producer
+
+// Per head dim: the width padded to whole 64-column panels (hd 80 -> 128,
+// the columns past hd zero-filled by the tensor maps), the k16 slices of
+// S's depth hd, and the shared-memory layout (byte offsets; every tile on
+// 1024 bytes): Q of the block's 128 rows (each warpgroup's 64 rows as P
+// panels of 64 x 64), then a ring of STAGES K tiles and one of V tiles
+// (BK rows, P panels of BK x 64), then the barriers.
+template <int HD>
+struct WgTile {
+  static constexpr int HDP = (HD + 63) / 64 * 64;
+  static constexpr int P = HDP / 64;
+  static constexpr int KK = (HD + 15) / 16;
+  static constexpr int BM = 128;  // query rows a block
+  static constexpr int BK = 128;  // keys a tile
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = BM * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;  // a K or a V tile
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  // + q_full, full and empty of K and of V a stage, + slack to align
+  static constexpr size_t SMEM = OFF_BAR + 8 * (1 + 4 * STAGES) + 1024;
+  static_assert(HD % 16 == 0 && HDP <= 128, "k16 slices, n128 at most");
+};
+
+// 2^x on the SFU (relative error about 2^-22, subnormals flushed)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A block owns 128 query rows of one (b, h): warpgroups 0 and 1 own 64
+// rows each, warpgroup 2's first thread loads Q once and streams the key
+// tiles of kv head h / (H / Hk) (BK keys, on multiples of BK) through a
+// ring of STAGES stages, K and V on barriers of their own.  Per tile each
+// consumer computes S = qs K^T (both operands from shared memory), the
+// online softmax in registers, and O = O * exp(m_old - m_new) + P V with P
+// the bf16 A operand from registers and V read through the transpose bit,
+// pipelined and in turns as the top says.  SHIFT: the mask's frame
+// (csrc/attn_mask.cuh).
+template <int HD, bool SHIFT>
+__global__ void __launch_bounds__(WG_BLOCK, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, Strides so, int H,
+                             int Hk, int Tq, int Tk, float scale,
+                             AttnMask mask) {
+  // the unshifted frame's settings as scalars; the shifted frame's as a
+  // local copy (a reference to a kernel parameter would put it in local
+  // memory)
+  const int causal = mask.causal, window = mask.window;
+  const AttnMask mk = mask;
+  using TL = WgTile<HD>;
+  using bf = __nv_bfloat16;
+  constexpr int HDP = TL::HDP, P = TL::P, BK = TL::BK, STAGES = TL::STAGES;
+  extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
+  unsigned char* smem = sm90::align1k(wg_smem_raw);
+  bf* qs = reinterpret_cast<bf*>(smem);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + TL::OFF_BAR);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + STAGES;
+  uint64_t* v_full = k_empty + STAGES;
+  uint64_t* v_empty = v_full + STAGES;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hk);
+  // causal: the tiles with the most keys first (the last rows see the
+  // most keys at any q_offset)
+  const int nqt = gridDim.y;
+  const int q0 =
+      TL::BM * (causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y);
+  // the keys some row of this block can see, in tiles on multiples of BK
+  // (so a row meets the same tiles whatever block it falls in)
+  const int q_last = min(q0 + TL::BM, Tq) - 1;
+  const int k_hi = SHIFT ? mk.key_hi(q_last, Tk)
+                         : (causal ? min(Tk, q_last + 1) : Tk);
+  const int k_lo = SHIFT ? mk.key_lo(q0)
+                         : (window > 0 ? max(0, q0 - window + 1) : 0);
+  const int kt0 = k_lo / BK;
+  const int n_it = k_hi > k_lo ? (k_hi + BK - 1) / BK - kt0 : 0;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&k_empty[s], 2 * WG);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&v_empty[s], 2 * WG);
+    }
+    sm90::fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {  // producer
+    sm90::regs_dec<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(q_full, TL::Q_BYTES);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          sm90::tma_load_4d(qs + (w * P + p) * 64 * 64, &tm_q, q_full,
+                            64 * p, q0 + 64 * w, h, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES, t0 = (kt0 + it) * BK;
+        const uint32_t ph = ((it / STAGES) & 1) ^ 1;
+        bf* k_s = reinterpret_cast<bf*>(smem + TL::OFF_K + s * TL::KV_BYTES);
+        bf* v_s = reinterpret_cast<bf*>(smem + TL::OFF_V + s * TL::KV_BYTES);
+        sm90::mbar_wait(&k_empty[s], ph);
+        sm90::mbar_expect_tx(&k_full[s], TL::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          sm90::tma_load_4d(k_s + p * BK * 64, &tm_k, &k_full[s], 64 * p, t0,
+                            hk, b);
+        sm90::mbar_wait(&v_empty[s], ph);
+        sm90::mbar_expect_tx(&v_full[s], TL::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          sm90::tma_load_4d(v_s + p * BK * 64, &tm_v, &v_full[s], 64 * p, t0,
+                            hk, b);
+      }
+    }
+  } else {  // consumers
+    sm90::regs_inc<240>();
+    const int t = threadIdx.x % WG, warp = t / 32, g8 = (t % 32) / 4,
+              q4 = t % 4;
+    const int qw0 = q0 + 64 * wg;  // this warpgroup's first row
+    bf* qw = qs + wg * P * 64 * 64;
+    // this thread's rows: r0 and r0 + 8
+    const int r0 = qw0 + 16 * warp + g8;
+    sm90::mbar_wait(q_full, 0);
+    // q * scale rounded to bf16 in place, as the reference scales in the
+    // input dtype (elementwise: the swizzle does not matter), made visible
+    // to wgmma before the warpgroup's first product
+    {
+      uint4* q16 = reinterpret_cast<uint4*>(qw);
+      for (int i = t; i < P * 64 * 64 / 8; i += WG) {
+        uint4 x = q16[i];
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(e[j]);
+          e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+        }
+        q16[i] = x;
+      }
+      sm90::fence_proxy_async();
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG) : "memory");
+    }
+    float oacc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) oacc[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+    // S of a tile (BK / 2 fp32 a thread: sc[4 j + e] is row r0 + 8 (e /
+    // 2), key t0 + 8 j + 2 q4 + e % 2), P of the previous one as the bf16
+    // A operand of its PV product (sm90.cuh)
+    float sc[BK / 2];
+    uint32_t pa[BK / 16][4];
+    // S = qs K^T of tile `it` issued (ceil(hd / 16) slices); the slice-0
+    // descriptors are made opaque to the compiler each tile, so that it
+    // adds each slice's offset instead of holding every slice's descriptor
+    // in registers across the loop
+    auto issue_s = [&](int it) {
+      const int st = it % STAGES;
+      uint64_t dq = sm90::desc_k(qw, 64, 0);
+      uint64_t dk = sm90::desc_k(
+          reinterpret_cast<const bf*>(smem + TL::OFF_K + st * TL::KV_BYTES),
+          BK, 0);
+      asm volatile("" : "+l"(dq), "+l"(dk));
+#pragma unroll
+      for (int kk = 0; kk < TL::KK; ++kk)
+        sm90::wgmma_ss_n128(sc, dq + sm90::k_offset(64, kk),
+                            dk + sm90::k_offset(BK, kk), kk);
+      sm90::wgmma_commit();
+    };
+    // O += P V of tile `it` issued (V of its stage read MN-major)
+    auto issue_pv = [&](int it) {
+      const int st = it % STAGES;
+      uint64_t dv = sm90::desc_mn(
+          reinterpret_cast<const bf*>(smem + TL::OFF_V + st * TL::KV_BYTES),
+          BK, 0);
+      asm volatile("" : "+l"(dv));
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::wgmma_rs_t<HDP>(oacc, pa[kk], dv + sm90::mn_offset(kk));
+      sm90::wgmma_commit();
+    };
+    // the mask on tile `it` where it crosses the mask's edge, the online
+    // softmax of the thread's two rows (a row's maxima over the quad of
+    // threads that holds it; l from the fp32 p), and the rescale factors
+    // of the rows' O
+    auto softmax = [&](int it, float& c0, float& c1) {
+      const int t0 = (kt0 + it) * BK;
+      const bool edge =
+          t0 + BK > Tk ||
+          (SHIFT ? mk.cuts(qw0, 64, t0, BK)
+                 : (causal && qw0 < t0 + BK - 1) ||
+                       (window > 0 && qw0 + 63 - t0 >= window));
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int qi = r0 + 8 * ((i / 2) & 1);
+          const int kp = t0 + 8 * (i / 4) + 2 * q4 + (i & 1);
+          bool vis = kp < Tk;
+          if constexpr (SHIFT) {
+            vis = mk.visible(qi, kp, vis);
+          } else {
+            if (causal) vis = vis && qi >= kp;
+            if (window > 0) vis = vis && (qi - kp) < window;
+          }
+          if (!vis) sc[i] = NEG_INF;
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      c0 = __expf(m0 - mx0);
+      c1 = __expf(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float ps0 = 0.f, ps1 = 0.f;
+      // p = 2^(s log2 e - m log2 e), one FFMA and one EX2 an entry; a row
+      // with no visible key yet takes m log2 e = 0, so its masked entries
+      // give p = 0
+      const float ml0 = mx0 == NEG_INF ? 0.f : mx0 * 1.4426950408889634f;
+      const float ml1 = mx1 == NEG_INF ? 0.f : mx1 * 1.4426950408889634f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        sc[4 * j] = ex2(fmaf(sc[4 * j], 1.4426950408889634f, -ml0));
+        sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], 1.4426950408889634f, -ml0));
+        sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], 1.4426950408889634f, -ml1));
+        sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], 1.4426950408889634f, -ml1));
+        ps0 += sc[4 * j] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+    };
+    // P's A fragments: S's accumulators rounded to bf16
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = sm90::pack2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    };
+    // The two consumers take turns on the tensor cores (named barriers 3
+    // and 4, one a warpgroup): a warpgroup issues a turn's products once
+    // the other has issued its own, so that one's softmax runs while the
+    // other's products do.  Warpgroup 0 takes the first turn; each turn
+    // hands the next to the other warpgroup, but warpgroup 1's last (no
+    // turn of warpgroup 0 is left).  A tile's turn: S of the tile and PV
+    // of the one before; one more turn for the last PV.
+    auto turn_begin = [&]() {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(3 + wg), "n"(2 * WG)
+                   : "memory");
+    };
+    auto turn_end = [&](bool last) {
+      if (!(last && wg == 1))
+        asm volatile("bar.arrive %0, %1;\n" ::"r"(4 - wg), "n"(2 * WG)
+                     : "memory");
+    };
+    if (n_it > 0 && wg == 1) turn_end(false);
+    if (qw0 >= Tq) {  // no row of this warpgroup: release every stage
+      for (int it = 0; it <= n_it; ++it) {
+        if (it < n_it) {
+          const int st = it % STAGES;
+          const uint32_t ph = (it / STAGES) & 1;
+          sm90::mbar_wait(&k_full[st], ph);
+          sm90::mbar_arrive(&k_empty[st]);
+          sm90::mbar_wait(&v_full[st], ph);
+          sm90::mbar_arrive(&v_empty[st]);
+        }
+        if (n_it > 0) {
+          turn_begin();
+          turn_end(it == n_it);
+        }
+      }
+    } else if (n_it > 0) {
+      // Software-pipelined over the tiles: the softmax of tile it runs
+      // while the tensor cores compute PV of tile it - 1, and O is
+      // rescaled after that product (O = (O + P_{it-1} V_{it-1}) c_it,
+      // the order of the plain online softmax).  Every tile of the
+      // block's range is visited (one the mask hides from all of this
+      // warpgroup's rows changes no bit: its p is 0 whatever the row's m).
+      float c0, c1;
+      sm90::mbar_wait(&k_full[0], 0);
+      turn_begin();
+      sm90::wgmma_fence();
+      issue_s(0);
+      turn_end(false);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::mbar_arrive(&k_empty[0]);
+      softmax(0, c0, c1);
+      pack();
+      for (int it = 1; it < n_it; ++it) {
+        const int st = it % STAGES, pst = (it - 1) % STAGES;
+        sm90::mbar_wait(&k_full[st], (it / STAGES) & 1);
+        sm90::mbar_wait(&v_full[pst], ((it - 1) / STAGES) & 1);
+        turn_begin();
+        sm90::wgmma_fence();
+        issue_s(it);
+        issue_pv(it - 1);
+        turn_end(false);
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(sc);
+        sm90::mbar_arrive(&k_empty[st]);
+        softmax(it, c0, c1);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(oacc);
+        sm90::mbar_arrive(&v_empty[pst]);
+#pragma unroll
+        for (int i = 0; i < HDP / 2; ++i) oacc[i] *= ((i / 2) & 1) ? c1 : c0;
+        // P's registers are written only once no product is in flight (a
+        // write while one runs made ptxas serialize every wgmma, C7513)
+        pack();
+      }
+      const int pst = (n_it - 1) % STAGES;
+      sm90::mbar_wait(&v_full[pst], ((n_it - 1) / STAGES) & 1);
+      turn_begin();
+      sm90::wgmma_fence();
+      issue_pv(n_it - 1);
+      turn_end(true);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(oacc);
+      sm90::mbar_arrive(&v_empty[pst]);
+    }
+    // a row's sum over its quad; a row that saw no visible key (m still
+    // -1e30) gives zeros and an lse of about -1e30
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int qi = r0 + 8 * hi;
+      if (qi >= Tq) continue;
+      const float mi = hi ? m1 : m0, li = fmaxf(hi ? l1 : l0, 1e-30f);
+      const float inv = mi > NEG_INF ? 1.0f / li : 0.f;
+      if (lse != nullptr && q4 == 0)
+        lse[((long long)b * H + h) * Tq + qi] = mi + logf(li);
+      __nv_bfloat16* orow = o + b * so.b + h * so.h + (long long)qi * so.t;
+      // columns 8 j + 2 q4 (+ 1) below hd; hd 80's padded ones never stored
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * q4) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * hi] * inv,
+                                  oacc[4 * j + 2 * hi + 1] * inv);
+    }
+  }
+}
+
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, Strides sq, Strides sk, Strides sv, Strides so,
@@ -580,6 +989,56 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                                              stream);
 }
 
+template <int HD, bool SHIFT>
+int launch_wgmma_in(const void* q, const void* k, const void* v, void* o,
+                    float* lse, Strides sq, Strides sk, Strides sv,
+                    Strides so, int B, int H, int Hk, int Tq, int Tk,
+                    float scale, AttnMask mk, cudaStream_t stream) {
+  using TL = WgTile<HD>;
+  // the attribute is per kernel and per device: set once on each device
+  static bool sized[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD, SHIFT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)TL::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized[dev] = true;
+  }
+  // byte strides of (t, head, b); a map needs T >= 1 (no key is loaded
+  // where Tk is 0)
+  CUtensorMap m_q, m_k, m_v;
+  const long long e = sizeof(__nv_bfloat16), tk = Tk > 0 ? Tk : 1;
+  if ((err = sm90::tile_map(&m_q, q, HD, Tq, H, B, sq.t * e, sq.h * e,
+                            sq.b * e, 64)) != cudaSuccess ||
+      (err = sm90::tile_map(&m_k, k, HD, tk, Hk, B, sk.t * e, sk.h * e,
+                            sk.b * e, TL::BK)) != cudaSuccess ||
+      (err = sm90::tile_map(&m_v, v, HD, tk, Hk, B, sv.t * e, sv.h * e,
+                            sv.b * e, TL::BK)) != cudaSuccess)
+    return (int)err;
+  const dim3 grid(B * H, (Tq + TL::BM - 1) / TL::BM);
+  flash_attention_wgmma_kernel<HD, SHIFT>
+      <<<grid, WG_BLOCK, TL::SMEM, stream>>>(m_q, m_k, m_v,
+                                             (__nv_bfloat16*)o, lse, so, H,
+                                             Hk, Tq, Tk, scale, mk);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+                 int B, int H, int Hk, int Tq, int Tk, float scale,
+                 AttnMask mk, cudaStream_t stream) {
+  return shifted(mk)
+             ? launch_wgmma_in<HD, true>(q, k, v, o, lse, sq, sk, sv, so, B,
+                                         H, Hk, Tq, Tk, scale, mk, stream)
+             : launch_wgmma_in<HD, false>(q, k, v, o, lse, sq, sk, sv, so, B,
+                                          H, Hk, Tq, Tk, scale, mk, stream);
+}
+
 }  // namespace
 
 // strides: 12 element strides, (b, h, t) of q, k, v and o in that order.
@@ -628,18 +1087,18 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   const cudaStream_t s = (cudaStream_t)stream;
   const AttnMask mk{causal, window, q_offset, kv_start};
-#define FA_CASE(HD)                                                          \
+#define FA_CASE(HD, ROUTE)                                                   \
   case HD:                                                                   \
-    return launch_bf16<HD>(q, k, v, o, lse, sq, sk, sv, so, B, H, Hk, Tq,    \
-                           Tk, scale, mk, s);
+    return ROUTE<HD>(q, k, v, o, lse, sq, sk, sv, so, B, H, Hk, Tq, Tk,      \
+                     scale, mk, s);
   switch (hd) {
-    FA_CASE(8)
-    FA_CASE(16)
-    FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(80)
-    FA_CASE(128)
-    FA_CASE(256)
+    FA_CASE(8, launch_bf16)
+    FA_CASE(16, launch_bf16)
+    FA_CASE(32, launch_bf16)
+    FA_CASE(64, launch_wgmma)
+    FA_CASE(80, launch_wgmma)
+    FA_CASE(128, launch_wgmma)
+    FA_CASE(256, launch_bf16)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -781,10 +781,6 @@ struct WgTile {
   static_assert(HD % 16 == 0 && HDP <= 128, "k16 slices, n128 at most");
 };
 
-__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
-  return (unsigned char*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
-}
-
 // The wgmma passes' tests, in the unshifted frame on scalar mask settings,
 // in the form they had before the shifted frame existed, and in the
 // shifted frame through AttnMask (csrc/attn_mask.cuh: these loops' code
@@ -820,17 +816,6 @@ __device__ __forceinline__ bool block_edge(int q0, int k0, int Tq, int Tk,
 __device__ __forceinline__ bool block_edge(int q0, int k0, int Tq, int Tk,
                                            const AttnMask& mk) {
   return q0 + 64 > Tq || k0 + 64 > Tk || mk.cuts(q0, 64, k0, 64);
-}
-
-// d (64 x HD) += A (64 x 16 registers) B (16 x HD, MN-major)
-template <int HD>
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[HD / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (HD == 64)
-    sm90::wgmma_rs_n64_t(d, a, db);
-  else
-    sm90::wgmma_rs_n128_t(d, a, db);
 }
 
 // 1. D = rowsum(dO o) and lse * log2(e) into 64-row tiles (B H, nqt, 2,
@@ -908,7 +893,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
   using bf = __nv_bfloat16;
   constexpr int HDP = TL::HDP, P = HDP / 64, STAGES = TL::STAGES;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
-  unsigned char* smem = align1k(wg_smem_raw);
+  unsigned char* smem = sm90::align1k(wg_smem_raw);
   bf* ks = reinterpret_cast<bf*>(smem + TL::KV_K);
   bf* vs = reinterpret_cast<bf*>(smem + TL::KV_V);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + TL::KV_BAR);
@@ -1032,7 +1017,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t<HDP>(gv, pa[kk], sm90::desc_mn(do_s, 64, kk));
+        sm90::wgmma_rs_t<HDP>(gv, pa[kk], sm90::desc_mn(do_s, 64, kk));
       sm90::wgmma_commit();
       // dP^T retired; dS^T while dV runs
       sm90::wgmma_wait<1>();
@@ -1049,7 +1034,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t<HDP>(gk, da[kk], sm90::desc_mn(qs_s, 64, kk));
+        sm90::wgmma_rs_t<HDP>(gk, da[kk], sm90::desc_mn(qs_s, 64, kk));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::mbar_arrive(&empty[s]);
@@ -1095,7 +1080,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
   using bf = __nv_bfloat16;
   constexpr int HDP = TL::HDP, P = HDP / 64, STAGES = TL::STAGES;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
-  unsigned char* smem = align1k(wg_smem_raw);
+  unsigned char* smem = sm90::align1k(wg_smem_raw);
   bf* qs = reinterpret_cast<bf*>(smem + TL::Q_QS);
   bf* dos = reinterpret_cast<bf*>(smem + TL::Q_DO);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + TL::Q_BAR);
@@ -1228,7 +1213,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_qs,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t<HDP>(gq, da[kk], sm90::desc_mn(k_s, 64, kk));
+        sm90::wgmma_rs_t<HDP>(gq, da[kk], sm90::desc_mn(k_s, 64, kk));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::mbar_arrive(&empty[s]);
@@ -1301,7 +1286,7 @@ fa_bwd_dkdv_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_qs,
   using bf = __nv_bfloat16;
   constexpr int P = TL::P, STAGES = TL::KV_STAGES;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
-  unsigned char* smem = align1k(wg_smem_raw);
+  unsigned char* smem = sm90::align1k(wg_smem_raw);
   bf* ks = reinterpret_cast<bf*>(smem + TL::KV_K);
   bf* vs = reinterpret_cast<bf*>(smem + TL::KV_V);
   float* xp = reinterpret_cast<float*>(smem + TL::KV_X);
@@ -1485,7 +1470,7 @@ fa_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap tm_qs,
   using bf = __nv_bfloat16;
   constexpr int P = TL::P, SLOTS = TL::Q_SLOTS;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
-  unsigned char* smem = align1k(wg_smem_raw);
+  unsigned char* smem = sm90::align1k(wg_smem_raw);
   bf* qs = reinterpret_cast<bf*>(smem + TL::Q_QS);
   bf* dos = reinterpret_cast<bf*>(smem + TL::Q_DO);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + TL::Q_BAR);

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks: TMA tensor maps and loads, mbarriers,
 // wgmma on 128-byte-swizzled shared-memory tiles, and setmaxnreg.  Shared by
-// the kernels that use them (flash_attention_bwd.cu, ssd_scan_bwd.cu).
+// the kernels that use them (flash_attention.cu, flash_attention_bwd.cu,
+// ssd_scan_bwd.cu).
 //
 // The tile layout everything here assumes: a bf16 tile of R rows and 64
 // columns (128 bytes a row), written by one TMA load of a box {64, R} with
@@ -84,6 +85,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
+// the first 1024-byte boundary at or after p (a 128-byte-swizzled tile's
+// alignment)
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return (unsigned char*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
+}
+
 // mbarriers: init by one thread, then fence_init and a block barrier
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -163,16 +170,21 @@ __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
 // K-major: slice kk (16 deep) of a tile of 64-column panels of `rows`
 // rows, as the descriptor of slice 0 plus the slice's offset (the address
 // field, in 16-byte units, is the low 14 bits: the sum stays in it)
+__device__ __forceinline__ constexpr uint64_t k_offset(int rows, int kk) {
+  return (uint64_t)(((kk >> 2) * rows * 64 + (kk & 3) * 16) * 2 / 16);
+}
 __device__ __forceinline__ uint64_t desc_k(const __nv_bfloat16* tile,
                                            int rows, int kk) {
-  return desc(tile, 16, 1024) +
-         (uint64_t)(((kk >> 2) * rows * 64 + (kk & 3) * 16) * 2 / 16);
+  return desc(tile, 16, 1024) + k_offset(rows, kk);
 }
 // MN-major: rows [16 kk, 16 kk + 16) of a tile of 64-column panels of
 // `rows` rows, all its columns (panels `rows` x 128 bytes apart)
+__device__ __forceinline__ constexpr uint64_t mn_offset(int kk) {
+  return (uint64_t)(kk * 16 * 64 * 2 / 16);
+}
 __device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* tile,
                                             int rows, int kk) {
-  return desc(tile, rows * 128, 1024) + (uint64_t)(kk * 16 * 64 * 2 / 16);
+  return desc(tile, rows * 128, 1024) + mn_offset(kk);
 }
 
 // this thread's generic-proxy writes to shared memory made visible to the
@@ -262,6 +274,36 @@ __device__ __forceinline__ void wgmma_ss_n64_t(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (64 x 128) (+)= A (64 x 16) B (16 x 128), both from shared memory and
+// K-major, bf16 -> fp32; `acc` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d (64 x 64) += A (64 x 16, bf16 pairs in registers) B (16 x 64, shared
 // memory, MN-major: read through the transpose bit) -> fp32
 __device__ __forceinline__ void wgmma_rs_n64_t(float (&d)[32],
@@ -313,6 +355,18 @@ __device__ __forceinline__ void wgmma_rs_n128_t(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x N) += A (64 x 16, registers) B (16 x N, MN-major), N 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  static_assert(N == 64 || N == 128, "n64 or n128");
+  if constexpr (N == 64)
+    wgmma_rs_n64_t(d, a, db);
+  else
+    wgmma_rs_n128_t(d, a, db);
 }
 
 // d (64 x 256) += A (64 x 16, bf16 pairs in registers) B (16 x 256, shared

@@ -992,10 +992,6 @@ struct DxSmem {
   static constexpr size_t BYTES = BAR + 8 * 5 + 1024;
 };
 
-__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
-  return (unsigned char*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
-}
-
 // the byte offset of (row r, column col) in a 64-column swizzled panel
 __device__ __forceinline__ int swz(int r, int col) {
   return r * 128 + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) << 1));
@@ -1143,7 +1139,7 @@ ssd_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   using L = DxSmem<NP>;
   using bf = __nv_bfloat16;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
-  unsigned char* smem = align1k(wg_smem_raw);
+  unsigned char* smem = sm90::align1k(wg_smem_raw);
   uint64_t* bc_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* full = bc_full + 1;
   uint64_t* empty = full + 2;
@@ -1316,7 +1312,7 @@ ssd_bwd_dcdb_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   using L = DcdbSmem;
   using bf = __nv_bfloat16;
   extern __shared__ __align__(1024) unsigned char wg_smem_raw[];
-  unsigned char* smem = align1k(wg_smem_raw);
+  unsigned char* smem = sm90::align1k(wg_smem_raw);
   uint64_t* bc_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* full = bc_full + 1;
   uint64_t* empty = full + 2;

@@ -3,14 +3,19 @@ kernel ``csrc/flash_attention.cu`` (the port of
 ``repro.kernels.flash_attention``).
 
 ``flash_attention(q, k, v)`` launches the kernel on CUDA tensors and raises
-on anything it does not take: bf16 inputs go to the tensor-core kernel,
-fp32 inputs to the exact fp32-FMA kernel (the dtype selects);
-head dims 8, 16, 32, 64, 80, 128 and 256 (:data:`HEAD_DIMS`).  Tiles per head
-dim: the bf16 kernel takes 128 query rows a block over 64-key tiles up to
-hd 80, 64 rows over 64 keys at hd 128 and 64 rows over 32 keys at hd 256;
-the fp32 kernel one thread a query row over 64-key tiles up to hd 80, and
-hd / 32 threads a row over 4096 / hd keys a tile from hd 128;
-:func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version.
+on anything it does not take; head dims 8, 16, 32, 64, 80, 128 and 256
+(:data:`HEAD_DIMS`).  The dtype and the head dim select the route: bf16 at
+hd 64, 80 and 128 (:data:`WGMMA_HEAD_DIMS`: whisper-tiny's, zamba2's and
+the dense LMs') runs on Hopper's ``wgmma`` with TMA-fed tiles (128 query
+rows a block as two consumer warpgroups, 128-key tiles; hd 80 at the
+width of two 64-column panels, zero past hd); bf16 at hd 8, 16, 32 and 256
+on ``mma.sync`` (128 rows over 64-key tiles up to hd 32, 64 rows over 32
+keys at hd 256); fp32 on the exact fp32-FMA kernel (one thread a query
+row over 64-key tiles up to hd 80, hd / 32 threads a row over 4096 / hd
+keys a tile from hd 128).
+:func:`repro_torch.kernels.ref.flash_attention_ref` is its plain version,
+:func:`repro_torch.kernels.ref.flash_attention_lse_ref` that of the
+log-sum-exp.
 With ``return_lse`` the kernel also writes each query row's log-sum-exp
 (B, H, Tq) fp32, which the backward kernel
 (:mod:`repro_torch.kernels.flash_attention_bwd`) recomputes the softmax
@@ -38,6 +43,9 @@ _SYMBOLS = {torch.float32: "flash_attention_f32",
 # JAX package's test grid (8, 16, 32), whisper-tiny's 64, zamba2's 80,
 # qwen2's, qwen1.5's and phi3's 128, and gemma3's 256
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
+# bf16 head dims of the wgmma route (csrc/flash_attention.cu,
+# ``flash_attention_wgmma_kernel``)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 _fns = {}
 
 
@@ -113,7 +121,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, Tq, hd = q.shape
     _, Hk, Tk, _ = k.shape
     if q.dtype == torch.bfloat16:
-        # the tensor-core kernel copies 16-byte pieces of each row
+        # the tensor-core kernels copy 16-byte pieces of each row (the
+        # wgmma route's tensor maps need the same alignment)
         q, k, v = (t if t.data_ptr() % 16 == 0
                    and all(s % 8 == 0 for s in t.stride()[:3])
                    else t.clone(memory_format=torch.contiguous_format)

@@ -151,6 +151,36 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            scale: Optional[float] = None, q_offset: int = 0,
+                            kv_start: int = 0) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scores, (B, H, Tq) fp32, for
+    head-major q (B, H, Tq, hd) and k (B, Hk, Tk, hd) with the mask of
+    :func:`flash_attention_ref`: qs = q * scale rounded to q's dtype, the
+    scores qs k^T in fp32, -1e30 where the mask hides a key (a row that
+    sees none gives about -1e30).  What ``flash_attention(...,
+    return_lse=True)`` writes beside its output; the scores of about 2^26
+    (query, key) pairs at a time."""
+    B, H, Tq, hd = q.shape
+    Hk, Tk = k.shape[1], k.shape[2]
+    scale = hd ** -0.5 if scale is None else float(scale)
+    qs = (q * scale).float().reshape(B, Hk, H // Hk, Tq, hd)
+    kf = k.float()
+    visible = attention_mask(Tk, causal=causal, window=window,
+                             kv_start=kv_start, window_alone=True)
+    k_pos = torch.arange(Tk, device=q.device)
+    rows = max(1, 2 ** 26 // max(1, B * H * Tk))
+    out = []
+    for r in range(0, Tq, rows):
+        s = torch.einsum("bkgtd,bksd->bkgts", qs[:, :, :, r:r + rows], kf)
+        ok = visible(q_offset + torch.arange(r, min(r + rows, Tq),
+                                             device=q.device), k_pos)
+        out.append(torch.logsumexp(torch.where(ok, s, NEG_INF), dim=-1)
+                   .reshape(B, H, -1))
+    return torch.cat(out, dim=-1)
+
+
 def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, out: torch.Tensor,
                                   dout: torch.Tensor, lse: torch.Tensor, *,

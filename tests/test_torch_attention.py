@@ -52,6 +52,55 @@ def test_plain_flash_attention_matches_pallas_and_oracle(
     np.testing.assert_allclose(_f32(got), _f32(oracle), atol=tol, rtol=tol)
 
 
+# the head dims of the CUDA kernel's wgmma route (whisper-tiny's 64,
+# zamba2's 80, the dense LMs' 128) at small sizes: Tq off and Tk past its
+# 128-row blocks and 128-key tiles, causal and not, and a window without
+# causal (the TPU kernel's rule) at hd 80
+WGMMA_GRID = [(1, 4, 2, 129, 200, hd, True, 0) for hd in (64, 80, 128)] + [
+    (1, 2, 1, 190, 130, hd, False, 0) for hd in (64, 80, 128)] + [
+    (1, 2, 1, 190, 190, 80, False, 70)]
+
+
+@pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window", WGMMA_GRID)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_flash_attention_matches_pallas_at_wgmma_head_dims(
+        B, H, Hk, Tq, Tk, hd, causal, window, dtype):
+    """The plain version (the kernel's CPU path and the card's yardstick)
+    against the Pallas kernel in interpret mode, and against the
+    reference's oracle where it applies the same mask (it drops a window
+    without causal)."""
+    q, k, v = _qkv(B, H, Hk, Tq, Tk, hd, Tq * 5 + Tk + hd)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    pallas = jflash(jq, jk, jv, causal=causal, window=window, bq=64, bk=64,
+                    interpret=True)
+    got = ref.flash_attention_ref(*(torch.as_tensor(a).to(td)
+                                    for a in (q, k, v)),
+                                  causal=causal, window=window)
+    assert got.shape == (B, H, Tq, hd) and got.dtype == td
+    tol = 5e-4 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_f32(got), _f32(pallas), atol=tol, rtol=tol)
+    if causal or not window:
+        oracle = jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                          window=window)
+        np.testing.assert_allclose(_f32(got), _f32(oracle), atol=tol,
+                                   rtol=tol)
+    # the log-sum-exp the kernel writes beside its output, against the
+    # softmax's normalizer: exp(s - lse) sums to 1 over the visible keys
+    lse = ref.flash_attention_lse_ref(torch.as_tensor(q).to(td),
+                                      torch.as_tensor(k).to(td),
+                                      causal=causal, window=window)
+    qs = (torch.as_tensor(q).to(td) * hd ** -0.5).double()
+    s = qs @ torch.as_tensor(k).to(td).double().repeat_interleave(
+        H // Hk, dim=1).transpose(-1, -2)
+    i, j = np.arange(Tq)[:, None], np.arange(Tk)[None, :]
+    vis = torch.as_tensor(((i >= j) | (not causal))
+                          & ((i - j < window) | (window == 0)))
+    want = torch.logsumexp(s.masked_fill(~vis, float("-inf")), dim=-1)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-5)
+
+
 def test_window_without_causal_follows_the_tpu_kernel():
     """The Pallas kernel applies ``window`` with or without ``causal``; the
     reference's jnp oracle applies it only under ``causal``.  The port's

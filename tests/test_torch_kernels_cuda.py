@@ -249,6 +249,56 @@ def test_flash_attention_kernel_matches_plain_on_card(B, H, Hk, Tq, Tk, hd,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# the forward's wgmma route (bf16 at hd 64, 80 and 128: 128-row blocks of
+# two 64-row warpgroups, 128-key tiles on multiples of 128): T 127, 128
+# and 129 about them, whisper's encoder and cross-attention, a window
+# across a key tile with and without causal, the shifted frame at hd 128
+# and 80, and qwen2-1.5b's serving and pool-pass shapes: (B, H, Hk, Tq,
+# Tk, hd, causal, window, q_offset, kv_start)
+FA_WGMMA_GRID = [(1, 6, 6, 127, 127, 64, True, 0, 0, 0),
+                 (1, 6, 6, 128, 128, 128, True, 0, 0, 0),
+                 (1, 4, 1, 129, 129, 80, True, 0, 0, 0),
+                 (2, 6, 6, 1500, 1500, 64, False, 0, 0, 0),
+                 (1, 6, 6, 448, 1500, 64, False, 0, 0, 0),
+                 (1, 4, 2, 300, 300, 128, True, 100, 0, 0),
+                 (1, 4, 2, 190, 190, 128, False, 70, 0, 0),
+                 (1, 2, 1, 190, 190, 80, False, 70, 0, 0),
+                 (1, 4, 2, 200, 330, 128, True, 0, 64, 40),
+                 (1, 4, 4, 150, 250, 80, True, 0, 100, 30),
+                 (2, 12, 2, 2048, 2048, 128, True, 0, 0, 0),
+                 (64, 12, 2, 256, 256, 128, True, 0, 0, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window,q_offset,kv_start",
+                         FA_WGMMA_GRID)
+def test_flash_attention_wgmma_route_matches_plain_on_card(
+        B, H, Hk, Tq, Tk, hd, causal, window, q_offset, kv_start):
+    """The wgmma route against the plain version (bf16 3e-2), its
+    log-sum-exp against the plain one (atol 1e-3), one launch a call, and
+    two calls bit-equal."""
+    _need_card()
+    assert hd in fa.WGMMA_HEAD_DIMS
+    rng = np.random.default_rng(Tq * 3 + Tk + hd)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                               device="cuda").to(torch.bfloat16)
+               for s in ((B, H, Tq, hd), (B, Hk, Tk, hd), (B, Hk, Tk, hd)))
+    mask = dict(causal=causal, window=window, q_offset=q_offset,
+                kv_start=kv_start)
+    before = fa.launches
+    got, lse = fa.flash_attention(q, k, v, return_lse=True, **mask)
+    again = fa.flash_attention(q, k, v, **mask)
+    assert fa.launches == before + 2
+    want = ref.flash_attention_ref(q, k, v, **mask)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+    plain = ref.flash_attention_lse_ref(q, k, **mask)
+    assert lse.shape == (B, H, Tq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, plain, atol=1e-3, rtol=0)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hk,Tq,Tk,hd,causal,window", FA_BWD_GRID)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
